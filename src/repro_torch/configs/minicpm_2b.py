@@ -1,0 +1,22 @@
+"""minicpm-2b — dense llama-like, WSD schedule.  [arXiv:2404.06395; hf]
+
+40L d_model=2304 36H (MHA kv=36) d_ff=5760 vocab=122753, tied embeddings.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="minicpm-2b",
+    family="dense",
+    n_layers=40,
+    d_model=2304,
+    n_heads=36,
+    n_kv_heads=36,
+    d_head=64,
+    d_ff=5760,
+    vocab_size=122753,
+    rope="standard",
+    norm="rmsnorm",
+    mlp="swiglu",
+    tie_embeddings=True,
+    lr_schedule="wsd",
+)

@@ -1,0 +1,169 @@
+"""Build and load the port's CUDA kernels.
+
+Every source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a``
+(one ``nvcc`` process per source, all started together), linked into one
+shared library with a plain C interface, and loaded with ``ctypes``.
+The library lands in ``kernels/_build/<hash>/``, where the hash covers
+the sources and the flags, so a changed source rebuilds and an
+unchanged one is reused.
+
+Nothing falls back: a missing ``nvcc``, a compile error or a non-zero
+CUDA error code after a launch raises, with nvcc's stderr or the CUDA
+error string.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Optional, Sequence
+
+HERE = Path(__file__).resolve().parent
+CSRC = HERE / "csrc"
+BUILD_ROOT = HERE / "_build"
+CUDA_HOME_DEFAULT = "/usr/local/cuda"
+LIB_NAME = "librepro_torch_kernels.so"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+#: ``argtypes`` of every exported function: pointers and the stream as
+#: ``c_void_p`` (a bare Python int would be cut to 32 bits).
+SIGNATURES = {
+    # x, scale, out, rows, d, eps, dtype, stream
+    "rt_rmsnorm": (_P, _P, _P, _L, _I, _F, _I, _P),
+    # q, k, v, out, B, S, T, Hq, Hkv, D, causal, window, dtype, stream
+    "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _P),
+    # q, k, v, mask, o_part, m_part, l_part, out, B, W, Hkv, G, D, dtype,
+    # stream
+    "rt_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _P),
+}
+
+#: dtype codes shared with ``csrc/common.cuh``.
+DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
+
+
+def sources() -> Sequence[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(srcs: Sequence[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(srcs) + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from ``PATH``, else ``$CUDA_HOME/bin``, else the toolkit's
+    default prefix. Raises when none exists."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or CUDA_HOME_DEFAULT
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError(
+        f"nvcc not found on PATH or under {home}/bin: the CUDA kernels "
+        f"of repro_torch need the CUDA toolkit to build")
+
+
+def build_library(out_root: Path = BUILD_ROOT,
+                  nvcc: Optional[str] = None) -> Path:
+    """Compile every ``csrc/*.cu`` and link the shared library; returns
+    its path. Reuses a library built from the same sources and flags."""
+    srcs = sources()
+    out_dir = Path(out_root) / _digest(srcs)
+    lib = out_dir / LIB_NAME
+    if lib.is_file():
+        return lib
+    nvcc = nvcc or find_nvcc()
+    Path(out_root).mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="build-", dir=out_root))
+    try:
+        procs = []
+        for src in srcs:
+            obj = tmp / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
+                   "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        log, failed = [], []
+        for src, obj, proc in procs:
+            out, err = proc.communicate()
+            log.append(f"== {src.name} (rc {proc.returncode})\n{out}{err}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n"
+                               + "\n".join(log))
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp / LIB_NAME),
+             *(str(obj) for _, obj, _ in procs)],
+            capture_output=True, text=True)
+        log.append(f"== link (rc {link.returncode})\n{link.stdout}"
+                   f"{link.stderr}")
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + "\n".join(log))
+        (tmp / "build.log").write_text("\n".join(log))
+        try:
+            os.replace(tmp, out_dir)     # atomic publish of the whole dir
+        except OSError:
+            if not lib.is_file():        # lost a race only if it exists
+                raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use in this process)."""
+    lib = ctypes.CDLL(str(build_library()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.rt_error_string.argtypes = [ctypes.c_int]
+    lib.rt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_launch(code: int, what: str) -> None:
+    """Raise when a launch returned a CUDA error code."""
+    if code != 0:
+        msg = library().rt_error_string(code).decode()
+        raise RuntimeError(f"CUDA launch of {what} failed: error {code} "
+                           f"({msg})")
+
+
+def dtype_code(t) -> int:
+    try:
+        return DTYPE_CODES[str(t.dtype)]
+    except KeyError:
+        raise TypeError(f"dtype {t.dtype} is not supported by the kernels "
+                        f"(float32, bfloat16)") from None
+
+
+def stream_handle():
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())

@@ -1,0 +1,211 @@
+"""Kernel dispatch: the seam between the models and the kernels.
+
+Mirror of the reference ``repro.kernels.dispatch``: each compute hot
+spot is a registered op (same names as the reference ``KERNEL_OPS``)
+with pluggable implementations,
+
+* ``torch`` — the plain PyTorch version (the counterpart of ``xla``);
+* ``cuda`` — the hand-written Hopper kernel (the counterpart of
+  ``pallas``). Its wrapper runs the plain version for CPU tensors only;
+  for CUDA tensors it launches the kernel or raises.
+
+A :class:`KernelPolicy` names the implementation per op. The port's
+default is ``cuda`` (the reference defaults to ``xla``), so the card runs
+the kernels unless a caller asks for ``KernelPolicy.torch()``.
+
+Gradients: the kernels are forward-only, so when a gradient is needed a
+non-``torch`` implementation runs inside a ``torch.autograd.Function``
+whose backward is the autograd of the op's ``torch`` implementation
+(kernel forward, reference backward), as the reference's
+``_ref_backward`` does. Without one (serving) it is called directly.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+#: Op names, in dispatch-table order (identical to the reference).
+KERNEL_OPS = ("prefill_attention", "decode_attention",
+              "paged_decode_attention", "rmsnorm", "ssd_scan", "moe_gemm",
+              "quant_matmul", "quant_decode_attention",
+              "quant_paged_decode_attention")
+
+#: One default eps for every RMSNorm implementation; the call-site value
+#: threads through dispatch into whichever implementation runs.
+RMSNORM_EPS = 1e-6
+
+#: Ops without an implementation in the port yet, and where ROADMAP.md
+#: queues them.
+PENDING = {
+    "paged_decode_attention":
+        "ROADMAP.md Queue 1 item 4 / Queue 2 paged_decode_attention_splitkv",
+    "ssd_scan": "ROADMAP.md Queue 1 item 8 / Queue 2 ssd_scan_pallas",
+    "moe_gemm": "ROADMAP.md Queue 1 item 7 / Queue 2 grouped_gemm_padded",
+    "quant_matmul": "ROADMAP.md Queue 1 item 6 / Queue 2 quant_matmul_pallas",
+    "quant_decode_attention":
+        "ROADMAP.md Queue 1 item 6 / Queue 2 quant_decode_attention_splitkv",
+    "quant_paged_decode_attention":
+        "ROADMAP.md Queue 1 item 6 / Queue 2 "
+        "quant_paged_decode_attention_splitkv",
+}
+
+
+@dataclass(frozen=True)
+class KernelPolicy:
+    """Per-op implementation choice (``torch`` or ``cuda``)."""
+
+    prefill_attention: str = "cuda"
+    decode_attention: str = "cuda"
+    paged_decode_attention: str = "cuda"
+    rmsnorm: str = "cuda"
+    ssd_scan: str = "cuda"
+    moe_gemm: str = "cuda"
+    quant_matmul: str = "cuda"
+    quant_decode_attention: str = "cuda"
+    quant_paged_decode_attention: str = "cuda"
+
+    @classmethod
+    def cuda(cls) -> "KernelPolicy":
+        return cls()
+
+    @classmethod
+    def torch(cls) -> "KernelPolicy":
+        return cls(**{op: "torch" for op in KERNEL_OPS})
+
+    @classmethod
+    def from_flag(cls, use_kernels: bool) -> "KernelPolicy":
+        """The ``ModelRuntime.use_kernels`` bool, mapped onto a policy."""
+        return cls.cuda() if use_kernels else cls.torch()
+
+    def impl_for(self, op: str) -> str:
+        if op not in KERNEL_OPS:
+            raise KeyError(f"unknown kernel op {op!r}; "
+                           f"registered: {KERNEL_OPS}")
+        return getattr(self, op)
+
+
+CUDA_POLICY = KernelPolicy.cuda()
+TORCH_POLICY = KernelPolicy.torch()
+
+
+def resolve_policy(policy: Optional[KernelPolicy]) -> KernelPolicy:
+    return CUDA_POLICY if policy is None else policy
+
+
+# ===========================================================================
+# Dispatch table
+# ===========================================================================
+_TABLE: Dict[str, Dict[str, Callable]] = {op: {} for op in KERNEL_OPS}
+
+
+def register_impl(op: str, impl: str) -> Callable[[Callable], Callable]:
+    """Decorator: register ``fn`` as implementation ``impl`` of ``op``."""
+    if op not in _TABLE:
+        raise KeyError(f"unknown kernel op {op!r}; registered: {KERNEL_OPS}")
+
+    def deco(fn: Callable) -> Callable:
+        _TABLE[op][impl] = fn
+        return fn
+
+    return deco
+
+
+def implementations(op: str) -> Dict[str, Callable]:
+    """The live implementation mapping for one op (tests may wrap an
+    entry to prove a path is taken)."""
+    if op not in _TABLE:
+        raise KeyError(f"unknown kernel op {op!r}; registered: {KERNEL_OPS}")
+    return _TABLE[op]
+
+
+class _RefBackward(torch.autograd.Function):
+    """Forward: the kernel. Backward: autograd of the ``torch`` impl at
+    the same inputs and keyword arguments."""
+
+    @staticmethod
+    def forward(ctx, fn, ref, kwargs, *arrays):
+        ctx.ref, ctx.kwargs = ref, kwargs
+        ctx.save_for_backward(*arrays)
+        return fn(*arrays, **kwargs)
+
+    @staticmethod
+    def backward(ctx, ct):
+        arrays = [a.detach().requires_grad_(a.is_floating_point())
+                  for a in ctx.saved_tensors]
+        diff = [a for a in arrays if a.requires_grad]
+        with torch.enable_grad():
+            out = ctx.ref(*arrays, **ctx.kwargs)
+            grads = iter(torch.autograd.grad(out, diff, ct,
+                                             allow_unused=True))
+        return (None, None, None) + tuple(
+            next(grads) if a.requires_grad else None for a in arrays)
+
+
+def dispatch(op: str, policy: Optional[KernelPolicy], *arrays: Any,
+             **kwargs: Any) -> Any:
+    """Route one hot-spot call through the policy's implementation.
+
+    ``kwargs`` are call-site parameters (eps, causal, window, chunk);
+    implementations accept ``**_`` so a parameter meaningful only to the
+    other implementation is ignored rather than rejected.
+    """
+    impl = resolve_policy(policy).impl_for(op)
+    if op in PENDING:
+        raise NotImplementedError(
+            f"kernel op {op!r} is not ported to repro_torch yet "
+            f"({PENDING[op]})")
+    table = implementations(op)
+    if impl not in table:
+        raise KeyError(f"kernel op {op!r} has no implementation {impl!r}; "
+                       f"registered: {sorted(table)}")
+    fn = table[impl]
+    if impl != "torch" and torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in arrays):
+        return _RefBackward.apply(fn, table["torch"], kwargs, *arrays)
+    return fn(*arrays, **kwargs)
+
+
+# ===========================================================================
+# Implementations (kernel modules are imported at call time: they import
+# RMSNORM_EPS from here)
+# ===========================================================================
+@register_impl("prefill_attention", "torch")
+def _prefill_attention_torch(q, k, v, *, causal: bool = True,
+                             window: int = 0, chunk: int = 512, **_):
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 chunk=chunk)
+
+
+@register_impl("prefill_attention", "cuda")
+def _prefill_attention_cuda(q, k, v, *, causal: bool = True,
+                            window: int = 0, chunk: int = 512, **_):
+    from repro_torch.kernels.flash_attention import flash_attention
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           chunk=chunk)
+
+
+@register_impl("decode_attention", "torch")
+def _decode_attention_torch(q, k_cache, v_cache, kv_mask, **_):
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    return decode_attention_plain(q, k_cache, v_cache, kv_mask)
+
+
+@register_impl("decode_attention", "cuda")
+def _decode_attention_cuda(q, k_cache, v_cache, kv_mask, **_):
+    from repro_torch.kernels.decode_attention import decode_attention
+    return decode_attention(q, k_cache, v_cache, kv_mask)
+
+
+@register_impl("rmsnorm", "torch")
+def _rmsnorm_torch(x, scale, *, eps: float = RMSNORM_EPS, **_):
+    from repro_torch.kernels.rmsnorm import rmsnorm_plain
+    return rmsnorm_plain(x, scale, eps=eps)
+
+
+@register_impl("rmsnorm", "cuda")
+def _rmsnorm_cuda(x, scale, *, eps: float = RMSNORM_EPS, **_):
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    return rmsnorm(x, scale, eps=eps)

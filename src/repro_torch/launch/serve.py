@@ -1,0 +1,134 @@
+"""Serving launcher of the port:
+``python -m repro_torch.launch.serve --arch minicpm-2b [--smoke] [--device cpu]``
+
+Scheduled continuous batching over the contiguous cache of
+:class:`~repro_torch.serve.engine.ServeEngine`: bucketed/chunked
+prefill, seeded sampling (greedy / temperature / top-k) and cache-budget
+admission. Runs on the CUDA card (bf16, the hand-written kernels) unless
+``--device cpu`` is given (f32, the kernels' plain versions, as the
+reference launcher's f32 runtime). Prints tok/s, per-step latency
+percentiles, slot occupancy, the prefill shape count and any rejected
+requests, as the reference launcher does.
+
+The paged engine, int8 KV, meshes, the preflight and scenarios come with
+their slices (ROADMAP.md Queue 1 item 13).
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_arch, smoke_config
+from repro_torch.models import ModelRuntime, init_params
+from repro_torch.serve import Request, Sampler, Scheduler, ServeEngine
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (CPU-sized)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="cuda (default) needs a card; cpu runs the "
+                         "kernels' plain versions")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--buckets", default=None,
+                    help="comma-separated prefill bucket lengths "
+                         "(default: powers of two up to max-len; "
+                         "'exact' disables bucketing)")
+    ap.add_argument("--admit-width", type=int, default=1,
+                    help="fixed batch width of every prefill call")
+    ap.add_argument("--sampler", choices=("greedy", "temperature"),
+                    default="greedy")
+    ap.add_argument("--temperature", type=float, default=1.0)
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--eos", type=int, default=None,
+                    help="token id terminating a request early")
+    ap.add_argument("--overflow", choices=("reject", "truncate", "error"),
+                    default="reject",
+                    help="policy for prompt+max-new > max-len requests")
+    args = ap.parse_args(argv)
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device available: repro_torch serves on "
+                         "the card; pass --device cpu to run on the CPU")
+    logging.basicConfig(level=logging.INFO)
+    try:
+        cfg = get_arch(args.arch)
+    except KeyError as e:
+        raise SystemExit(str(e)) from None
+    if args.smoke:
+        cfg = smoke_config(cfg)
+
+    if args.buckets == "exact":
+        buckets = ()
+    elif args.buckets:
+        buckets = tuple(int(b) for b in args.buckets.split(","))
+    else:
+        buckets = None
+
+    rt = ModelRuntime(dtype="bfloat16" if args.device == "cuda"
+                      else "float32", attn_chunk=128, device=args.device)
+    params = init_params(cfg, args.seed, device=args.device)
+    sched = Scheduler(cfg=cfg, max_len=args.max_len, buckets=buckets,
+                      admit_width=args.admit_width)
+    sampler = Sampler(kind=args.sampler, temperature=args.temperature,
+                      top_k=args.top_k, seed=args.seed)
+    eng = ServeEngine(params, cfg, rt, n_slots=args.slots,
+                      max_len=args.max_len, sampler=sampler,
+                      scheduler=sched, overflow=args.overflow,
+                      eos_id=args.eos)
+    del params
+
+    rng = np.random.default_rng(args.seed)
+    for i in range(args.requests):
+        plen = int(rng.integers(4, max(5, min(32, args.max_len // 2))))
+        prompt = rng.integers(0, cfg.vocab_size, plen).astype(np.int32)
+        eng.submit(Request(rid=i, prompt=prompt,
+                           max_new_tokens=args.max_new))
+
+    sync = torch.cuda.synchronize if args.device == "cuda" else (lambda: None)
+    t0 = time.time()
+    step_s = []
+    while eng.queue or any(s is not None for s in eng.slots):
+        t1 = time.time()
+        eng.step()
+        sync()
+        step_s.append(time.time() - t1)
+    dt = time.time() - t0
+    done = eng.finished
+
+    toks = sum(len(r.out_tokens) for r in done)
+    st = eng.stats
+    p50, p99 = (np.percentile(step_s, (50, 99)) * 1e3
+                if step_s else (float("nan"),) * 2)
+    where = (torch.cuda.get_device_name(0) if args.device == "cuda"
+             else "cpu")
+    print(f"served {len(done)}/{args.requests} requests, {toks} tokens "
+          f"in {dt:.1f}s ({toks / dt:.1f} tok/s on {where})")
+    print(f"  step latency p50/p99 {p50:.1f}/{p99:.1f} ms; slot "
+          f"occupancy {st.occupancy(args.slots):.2f}; prefill compiles "
+          f"{st.prefill_compiles} (bound "
+          f"{sched.max_prefill_compiles() or 'unbounded'}); "
+          f"forced prompt tokens {st.forced_tokens}")
+    print(f"  kv cache {eng.kv_cache_bytes() / 2**20:.1f} MiB, "
+          f"utilization {st.kv_utilization:.2f}, max in-flight "
+          f"{st.max_active}")
+    if eng.rejected:
+        print(f"  rejected {len(eng.rejected)}: "
+              f"{[(r.rid, r.finish_reason) for r in eng.rejected]}")
+    for r in done[:4]:
+        print(f"  rid={r.rid} finish={r.finish_reason} "
+              f"out={r.out_tokens}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,146 @@
+"""Shared model primitives of the port: parameter definitions, RMSNorm,
+standard RoPE and SwiGLU (counterpart of ``repro.models.layers``).
+
+Parameter *definitions* (shape + initializer) are data, so ``init`` and
+the shape checks of the weight bridge derive from one source.
+"""
+from __future__ import annotations
+
+import math
+import zlib
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.dispatch import RMSNORM_EPS, KernelPolicy, dispatch
+
+
+# ===========================================================================
+# Parameter definition table
+# ===========================================================================
+@dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    init: str = "fan_in"                # fan_in | embed | zeros | ones
+
+
+DefTree = Union[ParamDef, Dict[str, "DefTree"]]
+
+
+def _leaf_seed(seed: int, path: str) -> int:
+    """Per-leaf seed from the leaf's tree path: stable across processes
+    (``hash()`` is salted per interpreter run)."""
+    return (int(seed) * 1_000_003 + zlib.crc32(path.encode())) % (2 ** 63)
+
+
+def init_from_defs(defs: DefTree, seed: int, device, path: str = ""):
+    """f32 master weights with the reference's distributions: ``embed``
+    is N(0, 0.02^2), ``fan_in`` a normal truncated at two standard
+    deviations with std ``1 / sqrt(fan_in)``. Each leaf draws from
+    its own ``torch.Generator`` seeded from ``(seed, path)``; the values
+    differ from ``jax.random``'s, which the weight bridge
+    (``models.convert``) exists for."""
+    if isinstance(defs, dict):
+        return {k: init_from_defs(v, seed, device, f"{path}['{k}']")
+                for k, v in defs.items()}
+    d = defs
+    if d.init == "zeros":
+        return torch.zeros(d.shape, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(_leaf_seed(seed, path))
+    out = torch.empty(d.shape, device=device)
+    if d.init == "embed":
+        return out.normal_(0.0, 0.02, generator=gen)
+    fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+    std = 1.0 / math.sqrt(max(1, fan_in))
+    return torch.nn.init.trunc_normal_(out, 0.0, std, -2.0 * std, 2.0 * std,
+                                       generator=gen)
+
+
+# ===========================================================================
+# Norms (compute in f32, cast back)
+# ===========================================================================
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = RMSNORM_EPS,
+            policy: Optional[KernelPolicy] = None) -> torch.Tensor:
+    """RMSNorm through the kernel dispatch layer; ``eps`` threads into
+    whichever implementation runs."""
+    return dispatch("rmsnorm", policy, x, scale, eps=eps)
+
+
+def norm(x: torch.Tensor, p: Dict[str, torch.Tensor], kind: str,
+         policy: Optional[KernelPolicy] = None) -> torch.Tensor:
+    if kind != "rmsnorm":
+        raise NotImplementedError(
+            f"norm {kind!r} is not ported yet (ROADMAP.md Queue 1 item 9)")
+    return rmsnorm(x, p["scale"], policy=policy)
+
+
+def norm_defs(d_model: int, kind: str) -> Dict[str, ParamDef]:
+    if kind != "rmsnorm":
+        raise NotImplementedError(
+            f"norm {kind!r} is not ported yet (ROADMAP.md Queue 1 item 9)")
+    return {"scale": ParamDef((d_model,), "ones")}
+
+
+# ===========================================================================
+# RoPE (standard only in this slice)
+# ===========================================================================
+def rotary_dims(cfg: ModelConfig) -> int:
+    rot = int(cfg.head_dim * cfg.partial_rotary)
+    return rot - (rot % 2)
+
+
+def _rope_cos_sin(positions: torch.Tensor, rot: int, theta: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables (B, S, rot/2) in f32 for (B, S) positions."""
+    half = rot // 2
+    expo = torch.arange(0, half, dtype=torch.float32,
+                        device=positions.device) / half
+    inv_freq = 1.0 / (theta ** expo)
+    freqs = positions[..., None].float() * inv_freq
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def rope_tables(positions: torch.Tensor, cfg: ModelConfig
+                ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """cos/sin for ``positions``, shaped to broadcast over heads; computed
+    once per forward or decode step and shared by every layer."""
+    if cfg.rope == "none":
+        return None
+    if cfg.rope != "standard":
+        raise NotImplementedError(
+            f"rope {cfg.rope!r} is not ported yet (ROADMAP.md Queue 1 "
+            f"item 9)")
+    cos, sin = _rope_cos_sin(positions, rotary_dims(cfg), cfg.rope_theta)
+    return cos[:, :, None, :], sin[:, :, None, :]
+
+
+def apply_rope(q: torch.Tensor, k: torch.Tensor, tables, cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q: (B, S, Hq, hd), k: (B, S, Hkv, hd); ``tables`` from
+    :func:`rope_tables`. The rotation runs in f32, cast back per half."""
+    if tables is None:
+        return q, k
+    cos, sin = tables
+    rot = rotary_dims(cfg)
+
+    def rotate(x):
+        xr, xp = x[..., :rot], x[..., rot:]
+        x1, x2 = xr.chunk(2, dim=-1)
+        out1 = x1 * cos - x2 * sin
+        out2 = x2 * cos + x1 * sin
+        return torch.cat([out1.to(x.dtype), out2.to(x.dtype), xp], dim=-1)
+
+    return rotate(q), rotate(k)
+
+
+# ===========================================================================
+# Activations
+# ===========================================================================
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return F.silu(gate) * up

@@ -1,0 +1,371 @@
+"""Model assembly of the port: the dense decoder family (counterpart of
+``repro.models.model``).
+
+Parameters are a nested dict of tensors with the reference's tree: f32
+master weights, per-layer weights stacked on a leading ``layers`` axis,
+projections stored ``(in, out)``. :func:`cast_params` casts the matmul
+weights and the embedding to ``rt.dtype`` once, when a runtime is set up
+(the reference casts before every matmul; the numbers are the same).
+Norm scales stay f32, as the reference multiplies by the f32 master
+scale. Activations run in ``rt.dtype``.
+
+The decode cache is updated in place where the reference returns a new
+array from ``.at[].set``: that keeps one copy of the cache instead of
+two. :func:`prefill` returns a fresh cache; :func:`decode_step` writes
+into the cache it is given and returns it.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.dispatch import KernelPolicy, dispatch
+from repro_torch.models import layers as L
+from repro_torch.models.layers import ParamDef, norm, norm_defs, swiglu
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    try:
+        return _DTYPES[name]
+    except KeyError:
+        raise ValueError(f"dtype {name!r} not supported; "
+                         f"available: {sorted(_DTYPES)}") from None
+
+
+@dataclass(frozen=True)
+class ModelRuntime:
+    """Serving-time knobs (not part of the architecture).
+
+    ``use_kernels`` defaults to True here (the reference defaults to
+    False): the port's entry points run the hand-written kernels on the
+    card. ``kernels`` overrides the bool with an explicit policy.
+    """
+
+    dtype: str = "bfloat16"
+    attn_chunk: int = 512
+    use_kernels: bool = True
+    kernels: Optional[KernelPolicy] = None
+    device: str = "cuda"
+
+    def kernel_policy(self) -> KernelPolicy:
+        if self.kernels is not None:
+            return self.kernels
+        return KernelPolicy.from_flag(self.use_kernels)
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.moe is not None:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet "
+            f"(ROADMAP.md Queue 1 items 7-9)")
+
+
+def check_device(device) -> torch.device:
+    """The runtime's device; a CUDA device must exist (no CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but no CUDA device is "
+            f"available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+# ===========================================================================
+# Parameter definitions
+# ===========================================================================
+def _attn_defs(cfg: ModelConfig, n: int) -> Dict[str, Any]:
+    d, hd = cfg.d_model, cfg.head_dim
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    s = (n,)
+
+    def stacked(defs):
+        return {k: ParamDef(s + v.shape, v.init) for k, v in defs.items()}
+
+    defs: Dict[str, Any] = {
+        "ln1": stacked(norm_defs(d, cfg.norm)),
+        "wq": ParamDef(s + (d, nq * hd)),
+        "wk": ParamDef(s + (d, nkv * hd)),
+        "wv": ParamDef(s + (d, nkv * hd)),
+        "wo": ParamDef(s + (nq * hd, d)),
+        "ln2": stacked(norm_defs(d, cfg.norm)),
+    }
+    if cfg.qk_norm:
+        defs["q_norm"] = ParamDef(s + (hd,), "ones")
+        defs["k_norm"] = ParamDef(s + (hd,), "ones")
+    if cfg.mlp == "swiglu":
+        defs["wg"] = ParamDef(s + (d, cfg.d_ff))
+    defs["wi"] = ParamDef(s + (d, cfg.d_ff))
+    defs["wo2"] = ParamDef(s + (cfg.d_ff, d))
+    return defs
+
+
+def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
+    _require_dense(cfg)
+    d, v = cfg.d_model, cfg.vocab_size
+    defs: Dict[str, Any] = {
+        "embed": ParamDef((v, d), "embed"),
+        "final_norm": norm_defs(d, cfg.norm),
+        "blocks": _attn_defs(cfg, cfg.n_layers),
+    }
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ParamDef((d, v))
+    return defs
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
+    """Seeded f32 master weights on ``device`` (CUDA unless asked)."""
+    return L.init_from_defs(param_defs(cfg), seed, check_device(device))
+
+
+def cast_params(params, rt: ModelRuntime):
+    """Matmul weights and the embedding in ``rt.dtype`` on ``rt.device``;
+    norm scales stay f32. A leaf already in place is not copied."""
+    dev = check_device(rt.device)
+    dt = rt.torch_dtype
+
+    def walk(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        is_norm = any(p in ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+                      for p in path)
+        return tree.to(device=dev, dtype=torch.float32 if is_norm else dt)
+
+    return walk(params)
+
+
+def _layer(blocks: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer ``i``'s weights as views into the stacked tensors."""
+    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
+            for k, v in blocks.items()}
+
+
+# ===========================================================================
+# Blocks
+# ===========================================================================
+def _mlp(p: Dict[str, torch.Tensor], h: torch.Tensor,
+         cfg: ModelConfig) -> torch.Tensor:
+    if cfg.mlp != "swiglu":
+        raise NotImplementedError(
+            f"mlp {cfg.mlp!r} is not ported yet (ROADMAP.md Queue 1 item 9)")
+    z = swiglu(h @ p["wg"].to(h.dtype), h @ p["wi"].to(h.dtype))
+    return z @ p["wo2"].to(h.dtype)
+
+
+def _attn_proj(p, h, cfg: ModelConfig, policy=None):
+    B, S, _ = h.shape
+    hd = cfg.head_dim
+    q = (h @ p["wq"].to(h.dtype)).reshape(B, S, cfg.n_heads, hd)
+    k = (h @ p["wk"].to(h.dtype)).reshape(B, S, cfg.n_kv_heads, hd)
+    v = (h @ p["wv"].to(h.dtype)).reshape(B, S, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = L.rmsnorm(q, p["q_norm"], policy=policy)
+        k = L.rmsnorm(k, p["k_norm"], policy=policy)
+    return q, k, v
+
+
+def attn_block(p: Dict[str, Any], x: torch.Tensor, rope,
+               cfg: ModelConfig, rt: ModelRuntime
+               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Pre-norm attention + FFN block. Returns (x, (k, v)); k/v are
+    post-RoPE, exactly what the decode cache stores."""
+    pol = rt.kernel_policy()
+    h = norm(x, p["ln1"], cfg.norm, policy=pol)
+    q, k, v = _attn_proj(p, h, cfg, policy=pol)
+    q, k = L.apply_rope(q, k, rope, cfg)
+    o = dispatch("prefill_attention", pol, q, k, v, causal=cfg.causal,
+                 window=cfg.sliding_window, chunk=rt.attn_chunk)
+    o = o.reshape(x.shape[0], x.shape[1], -1)
+    x = x + o @ p["wo"].to(x.dtype)
+    h2 = norm(x, p["ln2"], cfg.norm, policy=pol)
+    return x + _mlp(p, h2, cfg), (k, v)
+
+
+# ===========================================================================
+# Forward
+# ===========================================================================
+def _default_positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32,
+                        device=device)[None, :].expand(B, S)
+
+
+def _embed_in(params, batch: Dict[str, torch.Tensor],
+              rt: ModelRuntime) -> torch.Tensor:
+    return params["embed"].to(rt.torch_dtype)[batch["tokens"].long()]
+
+
+def _unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return x @ params["embed"].to(x.dtype).t()
+    return x @ params["lm_head"].to(x.dtype)
+
+
+def _run_blocks(params, cfg: ModelConfig, x, positions, rt: ModelRuntime,
+                on_kv=None):
+    rope = L.rope_tables(positions, cfg)
+    for i in range(cfg.n_layers):
+        x, (k, v) = attn_block(_layer(params["blocks"], i), x, rope, cfg, rt)
+        if on_kv is not None:
+            on_kv(i, k, v)
+    return x
+
+
+def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            rt: ModelRuntime = ModelRuntime()
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (logits (B, S, V) in rt.dtype, aux_loss scalar f32 (0 for the
+    dense family))."""
+    _require_dense(cfg)
+    x = _embed_in(params, batch, rt)
+    B, S, _ = x.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = _default_positions(B, S, x.device)
+    x = _run_blocks(params, cfg, x, positions, rt)
+    x = norm(x, params["final_norm"], cfg.norm, policy=rt.kernel_policy())
+    return _unembed(params, cfg, x), torch.zeros((), device=x.device)
+
+
+def _fill_kv_window(out: torch.Tensor, k_full: torch.Tensor) -> None:
+    """Place (B, S, Hkv, hd) prefill keys into the zeroed W-slot circular
+    cache ``out`` (B, W, Hkv, hd), in place: the key at absolute position
+    p lives in slot p % W (the last W are kept)."""
+    W = out.shape[1]
+    S = k_full.shape[1]
+    if S <= W:
+        out[:, :S] = k_full
+        return
+    idx = torch.arange(S - W, S, device=out.device) % W
+    out[:, idx] = k_full[:, -W:]
+
+
+def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            max_len: int, rt: ModelRuntime = ModelRuntime(),
+            lengths: Optional[torch.Tensor] = None,
+            ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """One-pass prefill: returns (primed cache, last-token logits (B, V)).
+
+    ``lengths`` (B,) marks each row's real prompt length when
+    ``batch['tokens']`` is right-padded to a bucketed length: the cache
+    position is set to the real length and the logits are gathered at
+    ``lengths - 1``. The pad keys land at cache rows ``>= length``,
+    where the decode mask hides them until they are overwritten.
+    """
+    _require_dense(cfg)
+    x = _embed_in(params, batch, rt)
+    B, S, _ = x.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = _default_positions(B, S, x.device)
+    cache = init_cache(cfg, B, max_len, rt.dtype, device=x.device)
+
+    def on_kv(i, k, v):
+        _fill_kv_window(cache["k"][i], k)
+        _fill_kv_window(cache["v"][i], v)
+
+    x = _run_blocks(params, cfg, x, positions, rt, on_kv)
+    if lengths is None:
+        cache["pos"].fill_(S)
+    else:
+        cache["pos"].copy_(torch.as_tensor(lengths, dtype=torch.int32))
+    # a gather, not a slice: the kernels take contiguous rows only
+    idx = torch.clamp(cache["pos"].long() - 1, 0, S - 1)
+    x_last = x[torch.arange(B, device=x.device), idx][:, None, :]
+    x = norm(x_last, params["final_norm"], cfg.norm,
+             policy=rt.kernel_policy())
+    return cache, _unembed(params, cfg, x)[:, 0]
+
+
+# ===========================================================================
+# Decode (KV caches)
+# ===========================================================================
+def _cache_window(cfg: ModelConfig, max_len: int) -> int:
+    if cfg.sliding_window:
+        return min(cfg.sliding_window, max_len)
+    return max_len
+
+
+def cache_token_budget(cfg: ModelConfig, max_len: int,
+                       prompt_len: int) -> int:
+    """How many *new* tokens a sequence of ``prompt_len`` may decode
+    before its cache positions exceed ``max_len``; a non-positive return
+    means the prompt itself cannot be admitted. :func:`decode_step`
+    writes at ``pos % W``, so a write past ``max_len`` would wrap onto
+    live context: serving callers must never decode past this budget."""
+    return max_len - prompt_len
+
+
+def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
+               dtype: str = "bfloat16"
+               ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """{name: (shape, dtype)} of the contiguous decode cache."""
+    _require_dense(cfg)
+    W = _cache_window(cfg, max_len)
+    kv = (cfg.n_layers, batch, W, cfg.n_kv_heads, cfg.head_dim)
+    return {"pos": ((batch,), torch.int32),
+            "k": (kv, torch_dtype(dtype)),
+            "v": (kv, torch_dtype(dtype))}
+
+
+#: Declared logical axes of every cache leaf; the serving engine splices
+#: by the ``batch`` axis named here, never by shape.
+CACHE_AXES = {
+    "pos": ("batch",),
+    "k": (None, "batch", "kv_seq", "kv_heads", None),
+    "v": (None, "batch", "kv_seq", "kv_heads", None),
+}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype: str = "bfloat16", device="cuda"):
+    dev = check_device(device)
+    return {k: torch.zeros(s, dtype=d, device=dev)
+            for k, (s, d) in cache_spec(cfg, batch, max_len, dtype).items()}
+
+
+def _attn_decode_one(p, x, k_cache, v_cache, slot, mask, rope,
+                     cfg: ModelConfig, rt: ModelRuntime):
+    """One-layer attention for one token. x: (B, d); the new K/V row is
+    written in place at ``slot`` (= pos % W) *before* attention, and
+    ``mask`` (B, W) includes it."""
+    B = x.shape[0]
+    pol = rt.kernel_policy()
+    h = norm(x, p["ln1"], cfg.norm, policy=pol)[:, None, :]   # (B,1,d)
+    q, k, v = _attn_proj(p, h, cfg, policy=pol)
+    q, k = L.apply_rope(q, k, rope, cfg)
+    bidx = torch.arange(B, device=x.device)
+    k_cache[bidx, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[bidx, slot] = v[:, 0].to(v_cache.dtype)
+    o = dispatch("decode_attention", pol, q[:, 0], k_cache, v_cache, mask)
+    x = x + o.reshape(B, -1) @ p["wo"].to(x.dtype)
+    h2 = norm(x, p["ln2"], cfg.norm, policy=pol)
+    return x + _mlp(p, h2[:, None, :], cfg)[:, 0]
+
+
+def decode_step(params, cfg: ModelConfig, cache: Dict[str, torch.Tensor],
+                tokens: torch.Tensor, rt: ModelRuntime = ModelRuntime(),
+                ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """tokens: (B,) -> (cache, logits (B, V)). The cache is updated in
+    place (K/V rows and ``pos + 1``) and returned."""
+    _require_dense(cfg)
+    pos = cache["pos"]
+    x = params["embed"].to(rt.torch_dtype)[tokens.long()]      # (B, d)
+    W = cache["k"].shape[2]
+    slot = (pos % W).long()
+    mask = torch.arange(W, device=pos.device)[None, :] <= pos[:, None]
+    rope = L.rope_tables(pos[:, None], cfg)
+    for i in range(cfg.n_layers):
+        x = _attn_decode_one(_layer(params["blocks"], i), x, cache["k"][i],
+                             cache["v"][i], slot, mask, rope, cfg, rt)
+    pos += 1
+    x = norm(x[:, None, :], params["final_norm"], cfg.norm,
+             policy=rt.kernel_policy())
+    return cache, _unembed(params, cfg, x)[:, 0]

@@ -76,3 +76,10 @@ except ImportError:
 
     sys.modules["hypothesis"] = _hyp
     sys.modules["hypothesis.strategies"] = _st
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs a hand-written CUDA kernel on an NVIDIA GPU; skips "
+        "with a reason on a host without one")
