@@ -49,6 +49,19 @@ SIGNATURES = {
     # stream
     "rt_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _P),
+    # q, k_pages, v_pages, page_table, mask, o_part, m_part, l_part, out,
+    # B, NP, ps, Hkv, G, D, dtype, stream
+    "rt_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                  _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, ks, vs, mask, o_part, m_part, l_part, out, B, W, Hkv, G, D,
+    # dtype, stream
+    "rt_quant_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _P),
+    # q, k_pages, v_pages, ks, vs, page_table, mask, o_part, m_part,
+    # l_part, out, B, NP, ps, Hkv, G, D, dtype, stream
+    "rt_quant_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                        _P),
 }
 
 #: dtype codes shared with ``csrc/common.cuh``.

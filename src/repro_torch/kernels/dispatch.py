@@ -39,16 +39,9 @@ RMSNORM_EPS = 1e-6
 #: Ops without an implementation in the port yet, and where ROADMAP.md
 #: queues them.
 PENDING = {
-    "paged_decode_attention":
-        "ROADMAP.md Queue 1 item 4 / Queue 2 paged_decode_attention_splitkv",
     "ssd_scan": "ROADMAP.md Queue 1 item 8 / Queue 2 ssd_scan_pallas",
     "moe_gemm": "ROADMAP.md Queue 1 item 7 / Queue 2 grouped_gemm_padded",
-    "quant_matmul": "ROADMAP.md Queue 1 item 6 / Queue 2 quant_matmul_pallas",
-    "quant_decode_attention":
-        "ROADMAP.md Queue 1 item 6 / Queue 2 quant_decode_attention_splitkv",
-    "quant_paged_decode_attention":
-        "ROADMAP.md Queue 1 item 6 / Queue 2 "
-        "quant_paged_decode_attention_splitkv",
+    "quant_matmul": "ROADMAP.md Queue 1 item 11 / Queue 2 quant_matmul_pallas",
 }
 
 
@@ -147,7 +140,8 @@ def dispatch(op: str, policy: Optional[KernelPolicy], *arrays: Any,
              **kwargs: Any) -> Any:
     """Route one hot-spot call through the policy's implementation.
 
-    ``kwargs`` are call-site parameters (eps, causal, window, chunk);
+    ``kwargs`` are call-site parameters (eps, causal, window, chunk, and
+    the reference's tile sizes ``block_k``/``pages_per_block``);
     implementations accept ``**_`` so a parameter meaningful only to the
     other implementation is ignored rather than rejected.
     """
@@ -209,3 +203,50 @@ def _rmsnorm_torch(x, scale, *, eps: float = RMSNORM_EPS, **_):
 def _rmsnorm_cuda(x, scale, *, eps: float = RMSNORM_EPS, **_):
     from repro_torch.kernels.rmsnorm import rmsnorm
     return rmsnorm(x, scale, eps=eps)
+
+
+@register_impl("paged_decode_attention", "torch")
+def _paged_decode_attention_torch(q, k_pages, v_pages, page_table, kv_mask,
+                                  **_):
+    from repro_torch.kernels.paged_attention import \
+        paged_decode_attention_plain
+    return paged_decode_attention_plain(q, k_pages, v_pages, page_table,
+                                        kv_mask)
+
+
+@register_impl("paged_decode_attention", "cuda")
+def _paged_decode_attention_cuda(q, k_pages, v_pages, page_table, kv_mask,
+                                 **_):
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    return paged_decode_attention(q, k_pages, v_pages, page_table, kv_mask)
+
+
+@register_impl("quant_decode_attention", "torch")
+def _quant_decode_attention_torch(q, k_q, v_q, k_scale, v_scale, kv_mask,
+                                  **_):
+    from repro_torch.kernels.quant import quant_decode_attention_plain
+    return quant_decode_attention_plain(q, k_q, v_q, k_scale, v_scale,
+                                        kv_mask)
+
+
+@register_impl("quant_decode_attention", "cuda")
+def _quant_decode_attention_cuda(q, k_q, v_q, k_scale, v_scale, kv_mask,
+                                 **_):
+    from repro_torch.kernels.quant import quant_decode_attention
+    return quant_decode_attention(q, k_q, v_q, k_scale, v_scale, kv_mask)
+
+
+@register_impl("quant_paged_decode_attention", "torch")
+def _quant_paged_decode_attention_torch(q, k_pages, v_pages, k_scales,
+                                        v_scales, page_table, kv_mask, **_):
+    from repro_torch.kernels.quant import quant_paged_decode_attention_plain
+    return quant_paged_decode_attention_plain(
+        q, k_pages, v_pages, k_scales, v_scales, page_table, kv_mask)
+
+
+@register_impl("quant_paged_decode_attention", "cuda")
+def _quant_paged_decode_attention_cuda(q, k_pages, v_pages, k_scales,
+                                       v_scales, page_table, kv_mask, **_):
+    from repro_torch.kernels.quant import quant_paged_decode_attention
+    return quant_paged_decode_attention(q, k_pages, v_pages, k_scales,
+                                        v_scales, page_table, kv_mask)

@@ -1,17 +1,20 @@
 """Serving launcher of the port:
 ``python -m repro_torch.launch.serve --arch minicpm-2b [--smoke] [--device cpu]``
 
-Scheduled continuous batching over the contiguous cache of
-:class:`~repro_torch.serve.engine.ServeEngine`: bucketed/chunked
-prefill, seeded sampling (greedy / temperature / top-k) and cache-budget
-admission. Runs on the CUDA card (bf16, the hand-written kernels) unless
-``--device cpu`` is given (f32, the kernels' plain versions, as the
-reference launcher's f32 runtime). Prints tok/s, per-step latency
-percentiles, slot occupancy, the prefill shape count and any rejected
-requests, as the reference launcher does.
+Scheduled continuous batching: bucketed/chunked prefill, seeded
+sampling (greedy / temperature / top-k) and cache-budget admission, over
+the contiguous cache of :class:`~repro_torch.serve.engine.ServeEngine`
+or, with ``--page-size N``, the page pool of
+:class:`~repro_torch.serve.paged.PagedServeEngine` (``--page-budget``,
+``--prefix-cache``). ``--kv-dtype int8`` quantizes the KV cache under
+either engine. Runs on the CUDA card (bf16, the hand-written kernels)
+unless ``--device cpu`` is given (f32, the kernels' plain versions, as
+the reference launcher's f32 runtime). Prints tok/s, per-step latency
+percentiles, slot occupancy, the prefill shape count, the KV cache and
+any rejected requests, as the reference launcher does.
 
-The paged engine, int8 KV, meshes, the preflight and scenarios come with
-their slices (ROADMAP.md Queue 1 item 13).
+Meshes, the preflight and scenarios come with their slices (ROADMAP.md
+Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ import torch
 
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.models import ModelRuntime, init_params
-from repro_torch.serve import Request, Sampler, Scheduler, ServeEngine
+from repro_torch.serve import (PagedServeEngine, Request, Sampler,
+                               Scheduler, ServeEngine)
 
 
 def main(argv=None):
@@ -55,6 +59,24 @@ def main(argv=None):
     ap.add_argument("--overflow", choices=("reject", "truncate", "error"),
                     default="reject",
                     help="policy for prompt+max-new > max-len requests")
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="KV page size in tokens; > 0 selects the paged "
+                         "engine (pooled pages + page tables instead of "
+                         "per-slot contiguous caches)")
+    ap.add_argument("--page-budget", type=int, default=None,
+                    help="total pages in the pool incl. the null page "
+                         "(default: the contiguous engine's KV bytes)")
+    ap.add_argument("--kv-dtype", choices=("bfloat16", "int8"),
+                    default=None,
+                    help="KV-cache storage precision (default: the "
+                         "runtime compute dtype). 'int8' quantizes "
+                         "per-(token, head) with bf16 scale side-bands; "
+                         "the paged engine re-denominates the same byte "
+                         "budget into ~2x pages")
+    ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="share prompt-prefix pages across requests "
+                         "(paged engine only)")
     args = ap.parse_args(argv)
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -76,16 +98,21 @@ def main(argv=None):
         buckets = None
 
     rt = ModelRuntime(dtype="bfloat16" if args.device == "cuda"
-                      else "float32", attn_chunk=128, device=args.device)
+                      else "float32", attn_chunk=128, device=args.device,
+                      kv_dtype=args.kv_dtype)
     params = init_params(cfg, args.seed, device=args.device)
     sched = Scheduler(cfg=cfg, max_len=args.max_len, buckets=buckets,
                       admit_width=args.admit_width)
     sampler = Sampler(kind=args.sampler, temperature=args.temperature,
                       top_k=args.top_k, seed=args.seed)
-    eng = ServeEngine(params, cfg, rt, n_slots=args.slots,
-                      max_len=args.max_len, sampler=sampler,
-                      scheduler=sched, overflow=args.overflow,
-                      eos_id=args.eos)
+    kw = dict(n_slots=args.slots, max_len=args.max_len, sampler=sampler,
+              scheduler=sched, overflow=args.overflow, eos_id=args.eos)
+    if args.page_size > 0:
+        eng = PagedServeEngine(params, cfg, rt, page_size=args.page_size,
+                               page_budget=args.page_budget,
+                               prefix_cache=args.prefix_cache, **kw)
+    else:
+        eng = ServeEngine(params, cfg, rt, **kw)
     del params
 
     rng = np.random.default_rng(args.seed)
@@ -119,9 +146,15 @@ def main(argv=None):
           f"{st.prefill_compiles} (bound "
           f"{sched.max_prefill_compiles() or 'unbounded'}); "
           f"forced prompt tokens {st.forced_tokens}")
-    print(f"  kv cache {eng.kv_cache_bytes() / 2**20:.1f} MiB, "
-          f"utilization {st.kv_utilization:.2f}, max in-flight "
-          f"{st.max_active}")
+    print(f"  kv cache {eng.kv_cache_bytes() / 2**20:.1f} MiB "
+          f"({rt.kv_dtype or rt.dtype}), utilization "
+          f"{st.kv_utilization:.2f}, max in-flight {st.max_active}")
+    if args.page_size > 0:
+        print(f"  paged: {eng.n_pages} pages of {args.page_size} tokens, "
+              f"{eng.pages.live_pages} live / {eng.pages.free_pages} free; "
+              f"prefix hits {st.prefix_hits} ({st.prefix_hit_tokens} "
+              f"tokens, hit rate {eng.prefix_hit_rate:.2f}), evictions "
+              f"{eng.pages.evictions}")
     if eng.rejected:
         print(f"  rejected {len(eng.rejected)}: "
               f"{[(r.rid, r.finish_reason) for r in eng.rejected]}")

@@ -11,8 +11,12 @@ scale. Activations run in ``rt.dtype``.
 
 The decode cache is updated in place where the reference returns a new
 array from ``.at[].set``: that keeps one copy of the cache instead of
-two. :func:`prefill` returns a fresh cache; :func:`decode_step` writes
-into the cache it is given and returns it.
+two. :func:`prefill` returns a fresh cache; :func:`decode_step` and
+:func:`decode_step_paged` write into the cache they are given and return
+it. The paged cache (a pool of pages per layer plus per-slot page
+tables, ``paged_cache_spec``) serves :class:`~repro_torch.serve.paged.
+PagedServeEngine`. ``ModelRuntime.kv_dtype='int8'`` stores either cache
+quantized per (token, kv head), with bf16 scale side-bands ``ks``/``vs``.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.dispatch import KernelPolicy, dispatch
+from repro_torch.kernels.quant import quantize_rows
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamDef, norm, norm_defs, swiglu
 
@@ -37,6 +42,11 @@ def torch_dtype(name: str) -> torch.dtype:
                          f"available: {sorted(_DTYPES)}") from None
 
 
+def kv_torch_dtype(name: str) -> torch.dtype:
+    """Storage dtype of a KV cache: an activation dtype or ``int8``."""
+    return torch.int8 if name == "int8" else torch_dtype(name)
+
+
 @dataclass(frozen=True)
 class ModelRuntime:
     """Serving-time knobs (not part of the architecture).
@@ -44,6 +54,9 @@ class ModelRuntime:
     ``use_kernels`` defaults to True here (the reference defaults to
     False): the port's entry points run the hand-written kernels on the
     card. ``kernels`` overrides the bool with an explicit policy.
+    ``kv_dtype`` is the KV cache's storage precision: None stores it at
+    ``dtype``, a float dtype casts, ``int8`` quantizes each (token, kv
+    head) row at write time with a bf16 scale side-band.
     """
 
     dtype: str = "bfloat16"
@@ -51,6 +64,7 @@ class ModelRuntime:
     use_kernels: bool = True
     kernels: Optional[KernelPolicy] = None
     device: str = "cuda"
+    kv_dtype: Optional[str] = None
 
     def kernel_policy(self) -> KernelPolicy:
         if self.kernels is not None:
@@ -265,9 +279,16 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     positions = batch.get("positions")
     if positions is None:
         positions = _default_positions(B, S, x.device)
-    cache = init_cache(cfg, B, max_len, rt.dtype, device=x.device)
+    cache = init_cache(cfg, B, max_len, rt.dtype, rt.kv_dtype,
+                       device=x.device)
+    quant = "ks" in cache
 
     def on_kv(i, k, v):
+        if quant:        # quantize at write time, as the reference does
+            k, ks = quantize_rows(k)
+            v, vs = quantize_rows(v)
+            _fill_kv_window(cache["ks"][i], ks)
+            _fill_kv_window(cache["vs"][i], vs)
         _fill_kv_window(cache["k"][i], k)
         _fill_kv_window(cache["v"][i], v)
 
@@ -303,16 +324,27 @@ def cache_token_budget(cfg: ModelConfig, max_len: int,
     return max_len - prompt_len
 
 
+def _kv_spec(shape: Tuple[int, ...], kvd: str):
+    """K/V leaves of ``shape`` stored as ``kvd``, plus the bf16 scale
+    side-bands (the shape without head_dim) under int8."""
+    spec = {"k": (shape, kv_torch_dtype(kvd)),
+            "v": (shape, kv_torch_dtype(kvd))}
+    if kvd == "int8":
+        spec["ks"] = (shape[:-1], torch.bfloat16)
+        spec["vs"] = (shape[:-1], torch.bfloat16)
+    return spec
+
+
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
-               dtype: str = "bfloat16"
+               dtype: str = "bfloat16", kv_dtype: Optional[str] = None
                ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """{name: (shape, dtype)} of the contiguous decode cache."""
+    """{name: (shape, dtype)} of the contiguous decode cache;
+    ``kv_dtype`` overrides the KV storage dtype (default ``dtype``)."""
     _require_dense(cfg)
     W = _cache_window(cfg, max_len)
     kv = (cfg.n_layers, batch, W, cfg.n_kv_heads, cfg.head_dim)
     return {"pos": ((batch,), torch.int32),
-            "k": (kv, torch_dtype(dtype)),
-            "v": (kv, torch_dtype(dtype))}
+            **_kv_spec(kv, kv_dtype or dtype)}
 
 
 #: Declared logical axes of every cache leaf; the serving engine splices
@@ -321,33 +353,71 @@ CACHE_AXES = {
     "pos": ("batch",),
     "k": (None, "batch", "kv_seq", "kv_heads", None),
     "v": (None, "batch", "kv_seq", "kv_heads", None),
+    "ks": (None, "batch", "kv_seq", "kv_heads"),
+    "vs": (None, "batch", "kv_seq", "kv_heads"),
 }
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype: str = "bfloat16", device="cuda"):
+               dtype: str = "bfloat16", kv_dtype: Optional[str] = None,
+               device="cuda"):
     dev = check_device(device)
     return {k: torch.zeros(s, dtype=d, device=dev)
-            for k, (s, d) in cache_spec(cfg, batch, max_len, dtype).items()}
+            for k, (s, d) in cache_spec(cfg, batch, max_len, dtype,
+                                        kv_dtype).items()}
 
 
-def _attn_decode_one(p, x, k_cache, v_cache, slot, mask, rope,
-                     cfg: ModelConfig, rt: ModelRuntime):
-    """One-layer attention for one token. x: (B, d); the new K/V row is
-    written in place at ``slot`` (= pos % W) *before* attention, and
-    ``mask`` (B, W) includes it."""
+def _store_kv(kv, idx, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write each sequence's new K/V row at ``idx`` (a tuple of index
+    tensors) of one layer's cache ``kv = (k, v, ks, vs)``, in place. An
+    int8 cache (``ks`` not None) quantizes the rows here, once."""
+    kc, vc, ksc, vsc = kv
+    if ksc is None:
+        kc[idx] = k.to(kc.dtype)
+        vc[idx] = v.to(vc.dtype)
+        return
+    kq, ks = quantize_rows(k)
+    vq, vs = quantize_rows(v)
+    kc[idx], vc[idx] = kq, vq
+    ksc[idx], vsc[idx] = ks.to(ksc.dtype), vs.to(vsc.dtype)
+
+
+def _attn_decode_one(p, x, kv, idx, attend, rope, cfg: ModelConfig,
+                     rt: ModelRuntime):
+    """One-layer attention for one token. x: (B, d). The new K/V row is
+    written in place at ``idx`` of the layer's cache ``kv`` *before*
+    attention; ``attend(q, kv)`` is the attention over that cache."""
     B = x.shape[0]
     pol = rt.kernel_policy()
     h = norm(x, p["ln1"], cfg.norm, policy=pol)[:, None, :]   # (B,1,d)
     q, k, v = _attn_proj(p, h, cfg, policy=pol)
     q, k = L.apply_rope(q, k, rope, cfg)
-    bidx = torch.arange(B, device=x.device)
-    k_cache[bidx, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[bidx, slot] = v[:, 0].to(v_cache.dtype)
-    o = dispatch("decode_attention", pol, q[:, 0], k_cache, v_cache, mask)
+    _store_kv(kv, idx, k[:, 0], v[:, 0])
+    o = attend(q[:, 0], kv)
     x = x + o.reshape(B, -1) @ p["wo"].to(x.dtype)
     h2 = norm(x, p["ln2"], cfg.norm, policy=pol)
     return x + _mlp(p, h2[:, None, :], cfg)[:, 0]
+
+
+def _decode_layers(params, cfg: ModelConfig, cache, names, x, pos, idx,
+                   op: str, tail, rt: ModelRuntime) -> torch.Tensor:
+    """Every layer for one token, then the final norm and the
+    unembedding. Layer i's cache is ``cache[n][i]`` for the leaves
+    ``names = (k, v, ks, vs)`` (the scales absent from a float cache);
+    attention is the dispatch op ``op`` on the query, the cache leaves
+    present, then ``tail`` (the mask, after the page table if paged)."""
+    pol = rt.kernel_policy()
+
+    def attend(q, kv):
+        return dispatch(op, pol, q, *(t for t in kv if t is not None), *tail)
+
+    rope = L.rope_tables(pos[:, None], cfg)
+    for i in range(cfg.n_layers):
+        kv = tuple(cache[n][i] if n in cache else None for n in names)
+        x = _attn_decode_one(_layer(params["blocks"], i), x, kv, idx,
+                             attend, rope, cfg, rt)
+    x = norm(x[:, None, :], params["final_norm"], cfg.norm, policy=pol)
+    return _unembed(params, cfg, x)[:, 0]
 
 
 def decode_step(params, cfg: ModelConfig, cache: Dict[str, torch.Tensor],
@@ -359,13 +429,119 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, torch.Tensor],
     pos = cache["pos"]
     x = params["embed"].to(rt.torch_dtype)[tokens.long()]      # (B, d)
     W = cache["k"].shape[2]
-    slot = (pos % W).long()
+    idx = (torch.arange(x.shape[0], device=pos.device), (pos % W).long())
     mask = torch.arange(W, device=pos.device)[None, :] <= pos[:, None]
-    rope = L.rope_tables(pos[:, None], cfg)
-    for i in range(cfg.n_layers):
-        x = _attn_decode_one(_layer(params["blocks"], i), x, cache["k"][i],
-                             cache["v"][i], slot, mask, rope, cfg, rt)
+    op = "quant_decode_attention" if "ks" in cache else "decode_attention"
+    logits = _decode_layers(params, cfg, cache, ("k", "v", "ks", "vs"), x,
+                            pos, idx, op, (mask,), rt)
     pos += 1
-    x = norm(x[:, None, :], params["final_norm"], cfg.norm,
-             policy=rt.kernel_policy())
-    return cache, _unembed(params, cfg, x)[:, 0]
+    return cache, logits
+
+
+# ---------------------------------------------------------------------------
+# Paged cache (a pool of pages per layer + per-slot page tables)
+# ---------------------------------------------------------------------------
+def page_count(tokens: int, page_size: int) -> int:
+    """Pages needed to hold ``tokens`` cache rows (ceil division)."""
+    return -(-int(tokens) // int(page_size))
+
+
+def paged_cache_spec(cfg: ModelConfig, n_slots: int, n_pages: int,
+                     page_size: int, max_len: int, dtype: str = "bfloat16",
+                     kv_dtype: Optional[str] = None
+                     ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """{name: (shape, dtype)} of the paged decode cache: ``kp``/``vp``
+    ``(L, n_pages, page_size, Hkv, hd)`` pools addressed through per-slot
+    page tables ``pt (n_slots, ceil(W / page_size))``, and under int8 the
+    pooled scales ``ks``/``vs (L, n_pages, page_size, Hkv)``. Physical
+    page 0 is the null page: unowned table entries point at it and
+    retired slots write their masked decode rows into it."""
+    _require_dense(cfg)
+    W = _cache_window(cfg, max_len)
+    shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    kv = _kv_spec(shape, kv_dtype or dtype)
+    return {"pos": ((n_slots,), torch.int32),
+            "pt": ((n_slots, page_count(W, page_size)), torch.int32),
+            "kp": kv["k"], "vp": kv["v"],
+            **{n: kv[n] for n in ("ks", "vs") if n in kv}}
+
+
+#: Logical axes of the paged cache: the pools have no batch axis (the
+#: slots share them through their tables).
+PAGED_CACHE_AXES = {
+    "pos": ("batch",),
+    "pt": ("batch", None),
+    "kp": (None, None, None, "kv_heads", None),
+    "vp": (None, None, None, "kv_heads", None),
+    "ks": (None, None, None, "kv_heads"),
+    "vs": (None, None, None, "kv_heads"),
+}
+
+
+def init_paged_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
+                     page_size: int, max_len: int, dtype: str = "bfloat16",
+                     kv_dtype: Optional[str] = None, device="cuda"):
+    dev = check_device(device)
+    return {k: torch.zeros(s, dtype=d, device=dev)
+            for k, (s, d) in paged_cache_spec(
+                cfg, n_slots, n_pages, page_size, max_len, dtype,
+                kv_dtype).items()}
+
+
+def _scatter_rows_to_pages(pool: torch.Tensor, rows: torch.Tensor,
+                           page_ids: torch.Tensor, page_size: int) -> None:
+    """Write (L, width, S, ...) contiguous rows into an (L, n_pages,
+    page_size, ...) pool at ``page_ids (width, n_write)``, in place: row r
+    of a sequence lands in its page ``r // page_size``. Pad entries of
+    ``page_ids`` repeat the null page; which of their writes lands there
+    is unspecified, and nothing reads it."""
+    L_, width, S = rows.shape[:3]
+    n_write = page_ids.shape[1]
+    need = n_write * page_size
+    if need > S:
+        rows = torch.cat([rows, rows.new_zeros(
+            (L_, width, need - S) + tuple(rows.shape[3:]))], dim=2)
+    blocks = rows[:, :, :need].reshape(
+        (L_, width * n_write, page_size) + tuple(rows.shape[3:]))
+    pool[:, page_ids.reshape(-1).long()] = blocks.to(pool.dtype)
+
+
+def write_prefill_pages(kp, vp, k, v, page_ids, *, page_size: int) -> None:
+    """Scatter the prefill cache's (L, width, W, Hkv, hd) K/V rows into the
+    page pools through ``page_ids (width, n_write)``, in place."""
+    _scatter_rows_to_pages(kp, k, page_ids, page_size)
+    _scatter_rows_to_pages(vp, v, page_ids, page_size)
+
+
+def write_prefill_pages_quant(kp, vp, ks_pool, vs_pool, k, v, ks, vs,
+                              page_ids, *, page_size: int) -> None:
+    """int8 twin of :func:`write_prefill_pages`: the already quantized
+    payload rows and their (L, width, W, Hkv) scales."""
+    write_prefill_pages(kp, vp, k, v, page_ids, page_size=page_size)
+    _scatter_rows_to_pages(ks_pool, ks, page_ids, page_size)
+    _scatter_rows_to_pages(vs_pool, vs, page_ids, page_size)
+
+
+def decode_step_paged(params, cfg: ModelConfig,
+                      cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                      rt: ModelRuntime, *, page_size: int, window: int,
+                      ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Paged twin of :func:`decode_step`: each new K/V row is written
+    through the page table at physical page ``pt[b, (pos % W) // ps]``,
+    row ``(pos % W) % ps``, and attention reads the pools through the
+    table (``paged_decode_attention``, or ``quant_paged_decode_attention``
+    under int8). Updated in place and returned."""
+    _require_dense(cfg)
+    pos, pt = cache["pos"], cache["pt"]
+    x = params["embed"].to(rt.torch_dtype)[tokens.long()]      # (B, d)
+    W, ps = window, page_size
+    row = (pos % W).long()
+    phys = torch.gather(pt, 1, (row // ps)[:, None])[:, 0].long()
+    ar = torch.arange(pt.shape[1] * ps, device=pos.device)[None, :]
+    mask = (ar <= pos[:, None]) & (ar < W)
+    op = ("quant_paged_decode_attention" if "ks" in cache
+          else "paged_decode_attention")
+    logits = _decode_layers(params, cfg, cache, ("kp", "vp", "ks", "vs"), x,
+                            pos, (phys, row % ps), op, (pt, mask), rt)
+    pos += 1
+    return cache, logits

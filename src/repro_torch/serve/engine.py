@@ -10,7 +10,10 @@ leaf (``models.model.CACHE_AXES``), in place.
 
 Requests over the cache budget are rejected, truncated or refused at
 :meth:`ServeEngine.submit` (``overflow``), never clamped silently, and
-:meth:`ServeEngine.run` raises when requests remain unserved.
+:meth:`ServeEngine.run` raises when requests remain unserved. The cache
+hooks (``_init_cache``, ``_decode``, ``_cache_axes``, ``_release_slot``,
+``_allocated_tokens``) are where :class:`~repro_torch.serve.paged.
+PagedServeEngine` swaps in its page pool.
 """
 from __future__ import annotations
 
@@ -63,6 +66,9 @@ class EngineStats:
     rejected: int = 0
     live_token_steps: int = 0  # live context tokens of active slots
     alloc_token_steps: int = 0  # cache tokens those requests hold
+    # prefix caching (paged engine only)
+    prefix_hits: int = 0        # admissions that reused >= 1 prefix page
+    prefix_hit_tokens: int = 0  # prompt tokens served from shared pages
 
     @property
     def prefill_compiles(self) -> int:
@@ -148,8 +154,7 @@ class ServeEngine:
                 f"max_len={max_len}")
         self.overflow = overflow
         self.eos_id = eos_id
-        self.cache = init_cache(cfg, n_slots, max_len, rt.dtype,
-                                device=self.device)
+        self.cache = self._init_cache()
         self.slots: List[Optional[Request]] = [None] * n_slots
         self.last_tokens = np.zeros((n_slots,), np.int32)
         self.queue: List[Request] = []
@@ -162,14 +167,42 @@ class ServeEngine:
         # stats: no device sync on the hot path
         self._host_pos = np.zeros((n_slots,), np.int64)
 
+    # ------------------------------------------------------------ cache hooks
+    def _init_cache(self) -> Dict[str, torch.Tensor]:
+        """The device decode cache; the paged engine builds its pools."""
+        return init_cache(self.cfg, self.n_slots, self.max_len,
+                          self.rt.dtype, self.rt.kv_dtype,
+                          device=self.device)
+
+    def _decode(self, tokens: torch.Tensor) -> torch.Tensor:
+        """One decode step over every slot, in place; returns logits."""
+        self.cache, logits = decode_step(self.params, self.cfg, self.cache,
+                                         tokens, self.rt)
+        return logits
+
+    def _cache_axes(self) -> Dict[str, tuple]:
+        """Declared logical axes of every cache leaf (for splicing)."""
+        return CACHE_AXES
+
+    def _release_slot(self, slot: int):
+        """Called when the request in ``slot`` retires (the paged engine
+        frees its pages here)."""
+
     def kv_cache_bytes(self) -> int:
-        """Device bytes held by the KV cache."""
+        """Device bytes held by the KV cache (contiguous or paged),
+        including the int8 scale side-bands."""
         return sum(self.cache[k].numel() * self.cache[k].element_size()
-                   for k in ("k", "v"))
+                   for k in ("k", "v", "kp", "vp", "ks", "vs")
+                   if k in self.cache)
 
     def _live_tokens(self, active: List[int]) -> int:
         W = self.scheduler.window
         return int(sum(min(int(self._host_pos[s]), W) for s in active))
+
+    def _allocated_tokens(self, active: List[int]) -> int:
+        """Cache tokens the active requests hold: one full window per
+        slot, live or not, in the contiguous engine."""
+        return self.n_slots * self.scheduler.window
 
     # ---------------------------------------------------------------- admin
     def submit(self, req: Request):
@@ -254,19 +287,22 @@ class ServeEngine:
     def _admit_group(self, group: List[Request], plan: AdmissionPlan,
                      slots: List[int]):
         single, logits_np = self._prefill_group(group, plan)
-        _splice(self.cache, single, slots, rows=range(len(group)))
+        _splice(self.cache, single, slots, rows=range(len(group)),
+                axes=self._cache_axes())
         for j, (req, slot) in enumerate(zip(group, slots)):
             self._finish_admit(req, slot, plan, logits_np[j])
 
     def _finish_admit(self, req: Request, slot: int, plan: AdmissionPlan,
-                      logits_row: np.ndarray):
-        """Per-slot bookkeeping: seed the sampler stream, arm the
-        chunked-prefill tail (or emit the first token), record the
-        host-side context length."""
+                      logits_row: Optional[np.ndarray],
+                      start_pos: Optional[int] = None):
+        """Per-slot bookkeeping shared by every admission path: seed the
+        sampler stream, arm the chunked-prefill tail (or emit the first
+        token), record the host-side context length."""
         P = plan.prefill_len
         self.slots[slot] = req
         self._rngs[slot] = self.sampler.stream(req.rid)
-        start_pos = len(req.prompt) if plan.mode == "pad" else P
+        if start_pos is None:
+            start_pos = len(req.prompt) if plan.mode == "pad" else P
         self._host_pos[slot] = start_pos
         if start_pos < len(req.prompt):
             # chunked prefill: the rest of the prompt rides the decode
@@ -298,6 +334,7 @@ class ServeEngine:
             self.slots[slot] = None
             self._tails[slot] = []
             self._rngs[slot] = None
+            self._release_slot(slot)
 
     def step(self) -> int:
         """One engine iteration: admit new requests, decode one token for
@@ -308,12 +345,11 @@ class ServeEngine:
         if not active:
             return 0
         self.stats.live_token_steps += self._live_tokens(active)
-        self.stats.alloc_token_steps += self.n_slots * self.scheduler.window
+        self.stats.alloc_token_steps += self._allocated_tokens(active)
         self.stats.max_active = max(self.stats.max_active, len(active))
         with torch.no_grad():
-            self.cache, logits = decode_step(
-                self.params, self.cfg, self.cache,
-                torch.from_numpy(self.last_tokens).to(self.device), self.rt)
+            logits = self._decode(
+                torch.from_numpy(self.last_tokens).to(self.device))
             logits_np = logits.float().cpu().numpy()
         for slot in active:
             self._host_pos[slot] += 1

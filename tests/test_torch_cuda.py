@@ -1,5 +1,10 @@
 """Hand-written CUDA kernels against their plain versions, on the card.
 
+Covers rmsnorm, flash prefill and the four split-KV decode variants
+(contiguous, paged, int8, int8 paged) at odd shapes: page sizes 8 and
+16, page counts that are not a split multiple, G 1-8, D 16-128, a
+window that is not a page multiple, a table row all at the null page.
+
 Marked ``cuda``: skipped (with the reason) on a host without an NVIDIA
 GPU. On the card: ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py``. f32 comparisons run with TF32 off, so the
@@ -90,3 +95,138 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="head dim"):
         decode_attention(q, kc, kc, torch.ones(1, 8, dtype=torch.bool,
                                                device=dev))
+
+
+# ---------------------------------------------------------------- paged
+def _paged_inputs(dev, g, B, Hq, Hkv, D, ps, NP, W, dtype, quant):
+    """Pool of B * NP + 1 pages, a scattered table (sequence 0's row all
+    null page: a retired slot), ragged positions and the paged mask
+    ``(ar <= pos) & (ar < W)``."""
+    from repro_torch.kernels.quant import quantize_rows
+    P = B * NP + 1
+    q = torch.randn(B, Hq, D, device=dev, generator=g).to(dtype)
+    pages = [torch.randn(P, ps, Hkv, D, device=dev, generator=g)
+             for _ in range(2)]
+    if quant:
+        pages = [t for pg in pages for t in quantize_rows(pg)]
+    else:
+        pages = [pg.to(dtype) for pg in pages]
+    perm = torch.randperm(P - 1, device=dev, generator=g)[: B * NP] + 1
+    pt = perm.reshape(B, NP).to(torch.int32)
+    pt[0] = 0
+    pos = torch.randint(0, W, (B, 1), device=dev, generator=g)
+    ar = torch.arange(NP * ps, device=dev)[None, :]
+    return q, pages, pt, (ar <= pos) & (ar < W)
+
+
+PAGED_CASES = [  # B, Hq, Hkv, D, ps, NP, W
+    (3, 4, 2, 16, 8, 5, 37),      # ragged last page, G 2, D 16
+    (2, 8, 1, 128, 16, 9, 144),   # NP * ps not a split multiple, G 8
+    (4, 36, 36, 64, 16, 64, 1024),  # full width minicpm-2b, G 1
+    (2, 3, 3, 32, 8, 17, 130),    # G 1, D 32
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,D,ps,NP,W", PAGED_CASES)
+def test_paged_kernel(dev, dtype, B, Hq, Hkv, D, ps, NP, W):
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain)
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, (kp, vp), pt, mask = _paged_inputs(dev, g, B, Hq, Hkv, D, ps, NP, W,
+                                          dtype, quant=False)
+    n = paged_decode_attention.launches
+    got = paged_decode_attention(q, kp, vp, pt, mask)
+    assert paged_decode_attention.launches == n + 1
+    want = paged_decode_attention_plain(q, kp, vp, pt, mask)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,D,ps,NP,W", PAGED_CASES)
+def test_quant_paged_kernel(dev, dtype, B, Hq, Hkv, D, ps, NP, W):
+    from repro_torch.kernels.quant import (
+        quant_paged_decode_attention, quant_paged_decode_attention_plain)
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, (kp, ks, vp, vs), pt, mask = _paged_inputs(
+        dev, g, B, Hq, Hkv, D, ps, NP, W, dtype, quant=True)
+    n = quant_paged_decode_attention.launches
+    got = quant_paged_decode_attention(q, kp, vp, ks, vs, pt, mask)
+    assert quant_paged_decode_attention.launches == n + 1
+    want = quant_paged_decode_attention_plain(q, kp, vp, ks, vs, pt, mask)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,D,W", [(3, 4, 2, 16, 50),
+                                          (4, 36, 36, 64, 1024),
+                                          (2, 16, 2, 128, 300),
+                                          (2, 5, 5, 32, 129)])
+def test_quant_kernel(dev, dtype, B, Hq, Hkv, D, W):
+    from repro_torch.kernels.quant import (quant_decode_attention,
+                                           quant_decode_attention_plain,
+                                           quantize_rows)
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(B, Hq, D, device=dev, generator=g).to(dtype)
+    kq, ks = quantize_rows(torch.randn(B, W, Hkv, D, device=dev,
+                                       generator=g))
+    vq, vs = quantize_rows(torch.randn(B, W, Hkv, D, device=dev,
+                                       generator=g))
+    pos = torch.randint(0, W, (B, 1), device=dev, generator=g)
+    mask = torch.arange(W, device=dev)[None, :] <= pos
+    got = quant_decode_attention(q, kq, vq, ks, vs, mask)
+    want = quant_decode_attention_plain(q, kq, vq, ks, vs, mask)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+def test_paged_kernel_equals_contiguous_bit_for_bit(dev):
+    """The same rows, paged or contiguous, give identical outputs: the
+    split of logical rows and every sum are the same."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.paged_attention import (gather_pages,
+                                                     paged_decode_attention)
+    from repro_torch.kernels.quant import (quant_decode_attention,
+                                           quant_paged_decode_attention)
+    g = torch.Generator(device=dev).manual_seed(6)
+    args = (dev, g, 4, 36, 36, 64, 16, 64, 1024)
+    q, (kp, vp), pt, mask = _paged_inputs(*args, torch.bfloat16, False)
+    c = [gather_pages(t, pt).contiguous() for t in (kp, vp)]
+    assert torch.equal(paged_decode_attention(q, kp, vp, pt, mask),
+                       decode_attention(q, *c, mask))
+    q, pq, pt, mask = _paged_inputs(*args, torch.bfloat16, True)
+    c = [gather_pages(t, pt).contiguous() for t in pq]
+    assert torch.equal(
+        quant_paged_decode_attention(q, pq[0], pq[2], pq[1], pq[3], pt,
+                                     mask),
+        quant_decode_attention(q, c[0], c[2], c[1], c[3], mask))
+
+
+def test_new_wrappers_reject_bad_inputs(dev):
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.quant import (quant_decode_attention,
+                                           quant_paged_decode_attention,
+                                           quantize_rows)
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, (kp, vp), pt, mask = _paged_inputs(dev, g, 2, 4, 2, 16, 8, 3, 20,
+                                          torch.float32, False)
+    with pytest.raises(ValueError, match="int32"):
+        paged_decode_attention(q, kp, vp, pt.long(), mask)
+    with pytest.raises(ValueError, match="bfloat16"):
+        paged_decode_attention(q, kp.bfloat16(), vp, pt, mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_decode_attention(q, kp, vp, pt.t().contiguous().t(), mask)
+    q, (kq, ks, vq, vs), pt, mask = _paged_inputs(
+        dev, g, 2, 4, 2, 16, 8, 3, 20, torch.bfloat16, True)
+    with pytest.raises(ValueError, match="int8"):
+        quant_paged_decode_attention(q, kq.float(), vq, ks, vs, pt, mask)
+    with pytest.raises(ValueError, match="int32"):
+        quant_paged_decode_attention(q, kq, vq, ks, vs, pt.long(), mask)
+    kc, ksc = quantize_rows(torch.randn(2, 8, 2, 16, device=dev,
+                                        generator=g))
+    m8 = torch.ones(2, 8, dtype=torch.bool, device=dev)
+    strided = kc.transpose(1, 2).contiguous().transpose(1, 2)
+    assert strided.shape == kc.shape and not strided.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_decode_attention(q, strided, kc, ksc, ksc, m8)
+    with pytest.raises(ValueError, match="bfloat16"):
+        quant_decode_attention(q, kc, kc, ksc.float(), ksc, m8)

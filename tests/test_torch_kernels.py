@@ -157,7 +157,10 @@ def test_policy_defaults_to_cuda_and_mirrors_op_names():
     from repro.kernels.dispatch import KERNEL_OPS as JAX_OPS
     assert D.KERNEL_OPS == JAX_OPS
     pol = D.resolve_policy(None)
-    for op in ("prefill_attention", "decode_attention", "rmsnorm"):
+    for op in ("prefill_attention", "decode_attention", "rmsnorm",
+               "paged_decode_attention", "quant_decode_attention",
+               "quant_paged_decode_attention"):
+        assert op not in D.PENDING
         assert pol.impl_for(op) == "cuda"
         assert D.TORCH_POLICY.impl_for(op) == "torch"
         assert set(D.implementations(op)) == {"torch", "cuda"}
@@ -192,10 +195,36 @@ def test_rmsnorm_wrapper_counts_no_launch_on_cpu():
                                     torch.randn(2, 9, 2, 16, generator=g),
                                     torch.arange(9)[None, :]
                                     <= torch.tensor([[3], [8]]))),
+    ("paged_decode_attention",
+     lambda g: (torch.randn(2, 4, 16, generator=g),
+                torch.randn(5, 4, 2, 16, generator=g),
+                torch.randn(5, 4, 2, 16, generator=g),
+                torch.tensor([[3, 1, 0], [2, 4, 0]], dtype=torch.int32),
+                torch.arange(12)[None, :] <= torch.tensor([[6], [9]]))),
+    ("quant_decode_attention",
+     lambda g: (torch.randn(2, 4, 16, generator=g),
+                torch.randint(-127, 128, (2, 9, 2, 16), generator=g,
+                              dtype=torch.int8),
+                torch.randint(-127, 128, (2, 9, 2, 16), generator=g,
+                              dtype=torch.int8),
+                torch.rand(2, 9, 2, generator=g).to(torch.bfloat16),
+                torch.rand(2, 9, 2, generator=g).to(torch.bfloat16),
+                torch.arange(9)[None, :] <= torch.tensor([[3], [8]]))),
+    ("quant_paged_decode_attention",
+     lambda g: (torch.randn(2, 4, 16, generator=g),
+                torch.randint(-127, 128, (5, 4, 2, 16), generator=g,
+                              dtype=torch.int8),
+                torch.randint(-127, 128, (5, 4, 2, 16), generator=g,
+                              dtype=torch.int8),
+                torch.rand(5, 4, 2, generator=g).to(torch.bfloat16),
+                torch.rand(5, 4, 2, generator=g).to(torch.bfloat16),
+                torch.tensor([[3, 1, 0], [2, 4, 0]], dtype=torch.int32),
+                torch.arange(12)[None, :] <= torch.tensor([[6], [9]]))),
 ])
 def test_kernel_forward_reference_backward(op, make):
     """The cuda impl runs inside the autograd.Function whose backward is
-    the torch impl's autograd: gradients equal the plain version's."""
+    the torch impl's autograd: gradients equal the plain version's (for
+    the int8 ops, the gradient of the query and the scales)."""
     grads = []
     for pol in (D.TORCH_POLICY, D.CUDA_POLICY):
         args = [a.clone().requires_grad_(a.is_floating_point())
