@@ -9,10 +9,15 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
 1. device and build: the card, its power limit, the ``nvcc`` build of
    every kernel source (with ptxas' register counts);
 2. every kernel of the main paths against its plain PyTorch version at
-   the full-width minicpm-2b shapes, in bf16 and f32 (the int8 KV
-   kernels on int8 payloads with bf16 scales), then timed with CUDA
-   events (kernel, plain version, one PyTorch library call as a
-   yardstick) beside the least time the card could take;
+   the full-width shapes, in bf16 and f32: the attention kernels at
+   minicpm-2b's (D 64; the int8 KV kernels on int8 payloads with bf16
+   scales) and again at qwen2-moe's (D 128), the grouped expert GEMM at
+   qwen2-moe's decode and prefill rows (f 1408 and 2048, empty experts,
+   trailing blocks), the SSD scan at mamba2-1.3b's (S 1024, a ragged
+   700, and 16 < chunk); then each is timed with CUDA events (kernel,
+   plain version, one PyTorch library call as a yardstick where one
+   exists) beside the least time the card could take, the attention
+   kernels at both head dims and the grouped GEMM at both row counts;
 3. serving: full minicpm-2b (40 layers, bf16, seeded random weights)
    with the default ``cuda`` kernel policy, 4 slots, max_len 1024:
    ``ServeEngine`` at admit widths 1 and 2, ``PagedServeEngine`` (page
@@ -29,6 +34,16 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    under the ``cuda`` and ``torch`` policies on the same weights, and
    ``logit_parity`` for bf16 vs int8 KV and for int8 KV under both
    policies;
+
+   then phases 3 and 4 again for full-width qwen2-moe-a2.7b (24 layers,
+   60 experts top-4, dropless as served) and mamba2-1.3b (48 layers,
+   chunk-mode admission): each model through ``ServeEngine`` and
+   ``PagedServeEngine`` with equal streams, ``moe_gemm`` launched only
+   in the MoE runs, ``ssd_scan`` only in the SSM runs and no attention
+   kernel in the SSM runs; a prefill and a decode-step profile; and
+   cuda-vs-torch parity: mamba2 in bf16 under the same tolerance,
+   qwen2-moe asserted in f32 at 4 layers and reported in bf16 at full
+   depth (logits, argmax and routing agreement);
 5. one JSON line describing the kernels, the card's name and power
    limit, and last the JSON result line.
 
@@ -37,6 +52,7 @@ available or the repository's ``src/`` is missing.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -70,7 +86,18 @@ LOGIT_TOL = 0.25
 #: Split-KV decode shapes (B 4, positions 1023/700/300/12 of a 1024-row
 #: window) and the paged layout: page size 16, 64 pages per sequence.
 DECODE_POS = (1023, 700, 300, 12)
+
+#: MoE parity in f32 (cuda vs torch policy) at full width and this
+#: depth, held to the relative bar the reference holds its kernel policy
+#: to (tests/test_kernel_dispatch.py): f32 routing does not flip.
+MOE_PARITY_LAYERS = 4
+MOE_F32_RTOL = 1e-3
 PAGE_SIZE, PAGES_PER_SEQ = 16, 64
+#: Keys of a kernel's check and timing at a second shape: the ``d128``
+#: entry of the attention kernels (qwen2-moe's heads), the ``prefill``
+#: entry of ``moe_gemm``.
+SUB_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "shape")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -115,18 +142,14 @@ def bound(nbytes: float, ops: float, peak: str):
 # ===========================================================================
 # Phase 2: kernels against their plain versions
 # ===========================================================================
-def kernel_phase(cfg):
+def kernel_phase(cfg, moe_cfg, ssm_cfg):
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import (decode_attention,
-                                                      decode_attention_plain)
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    H, Hkv, D, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    d = cfg.d_model
     scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     flush = scratch.zero_                      # 256 MB > the 50 MB L2
 
@@ -171,22 +194,63 @@ def kernel_phase(cfg):
         library_call="F.rms_norm, bf16 weight",
         shape=f"x (2048, {d}) bf16")
 
-    # --- flash prefill: B 1-2, S up to 1024, 36 heads, D 64 --------------
+    # --- attention at D 64 (minicpm-2b), then D 128 (qwen2-moe) ----------
+    B, W = 4, 1024
+    mask = (torch.arange(W, device=dev)[None, :]
+            <= torch.tensor(DECODE_POS, device=dev)[:, None])
+    entries["flash_attention"] = flash_entry(cfg, rnd, compare, flush,
+                                             ((2, 1024), (1, 700)))
+    entries["decode_attention"] = decode_entry(cfg, rnd, compare, flush, mask)
+    entries.update(decode_variants(cfg, gen, rnd, compare, flush, mask))
+    d128 = {"flash_attention": flash_entry(moe_cfg, rnd, compare, flush,
+                                           ((1, 1024),)),
+            "decode_attention": decode_entry(moe_cfg, rnd, compare, flush,
+                                             mask),
+            **decode_variants(moe_cfg, gen, rnd, compare, flush, mask)}
+    for name, e in d128.items():
+        entries[name]["d128"] = {k: e[k] for k in SUB_KEYS}
+    entries["moe_gemm"] = moe_gemm_kernel(moe_cfg, gen, rnd, compare, flush)
+    entries["ssd_scan"] = ssd_scan_kernel(ssm_cfg, gen, rnd, compare, flush)
+    for e in entries.values():
+        for label, t in (("", e), *((f"{k} ", e[k]) for k in ("d128",
+                                                              "prefill")
+                                    if k in e)):
+            lib = ("none" if t["library_ms"] is None
+                   else f"{t['library_ms']:.4f} ms")
+            print(f"[time] {e['name']:<16} {label}{t['shape']}: kernel "
+                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+                  f"{lib} ({e['library_call']}), bound {t['bound_ms']:.4f} "
+                  f"ms ({t['bound_by']})")
+    del scratch
+    return entries
+
+
+def flash_entry(cfg, rnd, compare, flush, shapes):
+    """Flash prefill at ``cfg``'s heads against its plain version at each
+    causal (B, S) of ``shapes`` in f32 and bf16, then timed in bf16 at
+    the first."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     for dtype in (torch.float32, torch.bfloat16):
-        for B, S in ((2, 1024), (1, 700)):
+        for B, S in shapes:
             q = rnd(B, S, H, D, dtype=dtype)
             k = rnd(B, S, Hkv, D, dtype=dtype)
             v = rnd(B, S, Hkv, D, dtype=dtype)
             err = compare("flash_attention", flash_attention(q, k, v),
                           flash_attention_plain(q, k, v), dtype,
-                          f"B{B} S{S} H{H} D{D} causal {str(dtype)[6:]}")
-    B, S = 2, 1024
+                          f"B{B} S{S} H{H} Hkv{Hkv} D{D} causal "
+                          f"{str(dtype)[6:]}")
+    B, S = shapes[0]
     q, k, v = (rnd(B, S, h, D, dtype=torch.bfloat16) for h in (H, Hkv, Hkv))
     pairs = S * (S + 1) // 2                   # causal (q, k) pairs
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     b_ms, b_by = bound(nbytes, 4 * D * pairs * B * H, "bf16_tensor")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    entries["flash_attention"] = dict(
+    return dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:89", max_abs_err=err,
@@ -199,23 +263,30 @@ def kernel_phase(cfg):
         library_call="SDPA, causal",
         shape=f"B{B} S{S} Hq{H} Hkv{Hkv} D{D} causal bf16")
 
-    # --- split-KV decode: B 4, W 1024, 36 heads, D 64, ragged mask -------
-    B, W = 4, 1024
-    pos = torch.tensor(DECODE_POS, device=dev)[:, None]
-    mask = torch.arange(W, device=dev)[None, :] <= pos
+
+def decode_entry(cfg, rnd, compare, flush, mask):
+    """The contiguous split-KV decode kernel at ``cfg``'s heads (B 4, W
+    1024, ragged ``mask``) against its plain version, timed in bf16."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B, W = mask.shape
     for dtype in (torch.float32, torch.bfloat16):
         q = rnd(B, H, D, dtype=dtype)
         kc, vc = rnd(B, W, Hkv, D, dtype=dtype), rnd(B, W, Hkv, D,
                                                      dtype=dtype)
         err = compare("decode_attention", decode_attention(q, kc, vc, mask),
                       decode_attention_plain(q, kc, vc, mask), dtype,
-                      f"B{B} W{W} H{H} D{D} {str(dtype)[6:]}")
+                      f"B{B} W{W} H{H} Hkv{Hkv} D{D} {str(dtype)[6:]}")
     valid = int(mask.sum())
     nbytes = 2 * (2 * q.numel() + 2 * valid * Hkv * D) + mask.numel()
     b_ms, b_by = bound(nbytes, 4 * D * H * valid, "bf16_tensor")
     q4, k4, v4 = q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2)
     m4 = mask[:, None, None, :]
-    entries["decode_attention"] = dict(
+    return dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:44",
@@ -228,14 +299,130 @@ def kernel_phase(cfg):
             q4, k4, v4, attn_mask=m4, enable_gqa=True), flush=flush),
         library_call="SDPA, bool mask",
         shape=f"B{B} W{W} Hq{H} Hkv{Hkv} D{D} bf16, {valid} valid rows")
-    entries.update(decode_variants(cfg, gen, rnd, compare, flush, mask))
-    for e in entries.values():
-        print(f"[time] {e['name']:<16} {e['shape']}: kernel {e['ms']:.4f} "
-              f"ms, plain {e['plain_ms']:.4f} ms, library "
-              f"{e['library_ms']:.4f} ms ({e['library_call']}), bound "
-              f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
-    del scratch
-    return entries
+
+
+def moe_gemm_kernel(cfg, gen, rnd, compare, flush):
+    """The grouped expert GEMM at qwen2-moe's widths: decode (4 slots x
+    top-4 = 16 rows) and a 1024-token prefill (4096 rows), the gate/up
+    shape (d 2048 -> f 1408) and the down shape (1408 -> 2048), with
+    empty experts and the trailing blocks the sort's static bound
+    leaves. Timed at the decode gate/up shape (and the prefill one)."""
+    import torch
+    from repro_torch.kernels.moe_gemm import (
+        BLOCK_M, block_rows, grouped_gemm_padded, grouped_gemm_padded_plain,
+        sort_by_expert)
+
+    dev = torch.device("cuda")
+    m = cfg.moe
+    E, K, d, f = m.n_experts, m.experts_per_token, cfg.d_model, m.d_expert
+
+    def case(T, d_in, f_out, dtype, empty):
+        """Rows routed uniformly, experts 0..empty-1 left without a row."""
+        x = rnd(T, d_in, dtype=dtype)
+        w = (torch.randn(E, d_in, f_out, generator=gen, device=dev)
+             / math.sqrt(d_in)).to(dtype)
+        eor = torch.randint(0, E, (T,), generator=gen, device=dev)
+        eor = torch.where(eor < empty, eor + empty, eor)
+        xp, be, inv, Tp = sort_by_expert(x, eor, E, BLOCK_M)
+        rows = block_rows(inv, Tp // BLOCK_M, BLOCK_M)
+        trailing = be == E
+        check(bool(trailing.any()) and not bool(rows[trailing].any()),
+              f"moe_gemm T{T}: no trailing block, or one holding rows")
+        return x, w, eor, (xp, w, be, rows), inv, int(torch.unique(
+            eor).numel())
+
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for T, label in ((4 * K, "decode"), (1024 * K, "prefill")):
+            for d_in, f_out in ((d, f), (f, d)):
+                _, _, eor, args, inv, used = case(T, d_in, f_out, dtype, 4)
+                err = max(err, compare(
+                    "moe_gemm", grouped_gemm_padded(*args)[inv],
+                    grouped_gemm_padded_plain(*args)[inv], dtype,
+                    f"{label} T{T} {d_in}->{f_out} {used}/{E} experts "
+                    f"{str(dtype)[6:]}"))
+
+    def timed(T):
+        x, w, eor, args, inv, used = case(T, d, f, torch.bfloat16, 0)
+        present = torch.unique(eor)
+        counts = (eor[:, None] == present[None, :]).sum(0)
+        xe = x.new_zeros(len(present), int(counts.max()), d)
+        for j, e in enumerate(present.tolist()):
+            rows = x[eor == e]
+            xe[j, :len(rows)] = rows
+        ws = w[present].contiguous()
+        nbytes = 2 * (T * d + used * d * f + T * f) + 8 * len(args[2])
+        b_ms, b_by = bound(nbytes, 2 * T * d * f, "bf16_tensor")
+        return dict(max_abs_err=err,
+                    ms=time_ms(lambda: grouped_gemm_padded(*args),
+                               flush=flush),
+                    plain_ms=time_ms(lambda: grouped_gemm_padded_plain(*args),
+                                     iters=10, flush=flush),
+                    bound_ms=b_ms, bound_by=b_by,
+                    library_ms=time_ms(lambda: torch.bmm(xe, ws), flush=flush),
+                    shape=f"T{T} rows d{d} f{f} bf16, {used}/{E} experts, "
+                          f"block {args[0].shape[0] // len(args[2])}")
+
+    dec, pre = timed(4 * K), timed(1024 * K)
+    return dict(name="moe_gemm", route="cuda",
+                source="src/repro_torch/kernels/csrc/moe_gemm.cu",
+                replaces="src/repro/kernels/moe_gemm.py:32",
+                library_call="torch.bmm over the present experts' padded "
+                             "rows, layout not timed",
+                prefill={k: pre[k] for k in SUB_KEYS}, **dec)
+
+
+def ssd_scan_kernel(cfg, gen, rnd, compare, flush):
+    """The chunked SSD scan at mamba2-1.3b's widths (64 heads of 64, state
+    128, chunk 256): a 1024-token prefill, a ragged 700 (two sequences)
+    and a 16-token chunk-mode floor (S < chunk). Timed at B1 S1024."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+    from repro_torch.models.ssm import ssm_dims
+
+    dev = torch.device("cuda")
+    dims = ssm_dims(cfg)
+    nh, hp, N, L = dims["nh"], dims["hp"], dims["N"], cfg.ssm.chunk_size
+
+    def inputs(b, S, dtype):
+        x = rnd(b, S, nh, hp, dtype=dtype)
+        dt = F.softplus(torch.randn(b, S, nh, generator=gen, device=dev)
+                        - 2.0)
+        A = -torch.exp(torch.randn(nh, generator=gen, device=dev) * 0.5)
+        B, C = ((torch.randn(b, S, nh, N, generator=gen, device=dev)
+                 / N ** 0.25).to(dtype) for _ in range(2))
+        return x, dt, A, B, C
+
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, S in ((1, 1024), (2, 700), (1, 16)):
+            args = inputs(b, S, dtype)
+            (y, h), (yw, hw) = ssd_scan(*args, chunk=L), ssd_chunked(*args, L)
+            what = f"b{b} S{S} nh{nh} hp{hp} N{N} L{L} {str(dtype)[6:]}"
+            err = max(err, compare("ssd_scan", y, yw, dtype, f"y {what}"))
+            compare("ssd_scan", h, hw, torch.float32, f"state {what}")
+    b, S = 1, 1024
+    args = inputs(b, S, torch.bfloat16)
+    # what the chunked algorithm needs per (sequence, head, chunk): the
+    # causal C.B scores and their product with x, the carried-state term
+    # and the state update, each 2 operations per multiply-add
+    nc = -(-S // L)
+    pairs = L * (L + 1) // 2
+    ops = b * nh * nc * 2 * (pairs * N + pairs * hp + 2 * L * N * hp)
+    nbytes = (2 * b * S * nh * (2 * hp + 2 * N) + 4 * b * S * nh + 4 * nh
+              + 4 * b * nh * hp * N)
+    b_ms, b_by = bound(nbytes, ops, "f32_cuda_core")
+    return dict(name="ssd_scan", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                replaces="src/repro/kernels/ssd_scan.py:79", max_abs_err=err,
+                ms=time_ms(lambda: ssd_scan(*args, chunk=L), flush=flush),
+                plain_ms=time_ms(lambda: ssd_chunked(*args, L), iters=10,
+                                 flush=flush),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                library_call="none: no single PyTorch call computes a "
+                             "chunked SSD scan",
+                shape=f"b{b} S{S} nh{nh} hp{hp} N{N} chunk {L} bf16")
 
 
 def decode_variants(cfg, gen, rnd, compare, flush, mask):
@@ -500,10 +687,46 @@ def serve_phase(cfg, params, counters, rt):
           f"{cold['stats'].prefill_tokens} cold; warm tokens equal to cold "
           f"at {same}/{N_SYSTEM_REQS * NEW_TOKENS} positions (a hit "
           f"decode-feeds its tail, which rounds differently in bf16)")
-    totals = {name: sum(r["launches"][name] for r in runs.values())
-              for name in counters}
-    print(f"[serve] launches over all serving runs: {totals}")
-    return totals
+    return launch_totals(runs, counters)
+
+
+def launch_totals(runs, counters):
+    return {name: sum(r["launches"][name] for r in runs.values())
+            for name in counters}
+
+
+def serve_pair(label, cfg, params, rt, counters, expect, attention):
+    """One trace through ``ServeEngine`` and ``PagedServeEngine`` (page
+    size 16, the equal-HBM budget, prefix cache off): the same token
+    streams, and each run's launch counts. ``attention`` adds the
+    contiguous and the paged decode kernel to the expected sets (a pure
+    SSM model runs neither)."""
+    import numpy as np
+    from repro_torch.serve import PagedServeEngine, Scheduler, ServeEngine
+
+    kw = dict(n_slots=4, max_len=1024,
+              scheduler=Scheduler(cfg=cfg, max_len=1024))
+    rng = np.random.default_rng(21)
+    reqs = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+            for n in PROMPT_LENS]
+    runs = {}
+    for kind, eng, kernel in (
+            ("contiguous", ServeEngine(params, cfg, rt, **kw),
+             "decode_attention"),
+            ("paged", PagedServeEngine(params, cfg, rt, page_size=PAGE_SIZE,
+                                       prefix_cache=False, **kw),
+             "paged_decode_attention")):
+        runs[kind] = drive(f"{label} {kind} bf16", eng, reqs, counters,
+                           expect | ({kernel} if attention else set()))
+        if not attention:
+            check(eng.stats.forced_tokens > 0,
+                  f"{label} {kind}: no chunk-mode admission")
+        del eng
+    check(runs["paged"]["streams"] == runs["contiguous"]["streams"],
+          f"{label}: paged token streams differ from contiguous")
+    print(f"[serve] {label}: paged streams == contiguous ({len(reqs)} "
+          f"requests x {NEW_TOKENS} tokens each)")
+    return launch_totals(runs, counters)
 
 
 def device_profile(label, step, steps=5):
@@ -535,15 +758,12 @@ def device_profile(label, step, steps=5):
         print(f"[profile]   {ms:8.4f} ms/step  {n:6.0f}x  {key[:90]}")
 
 
-def profile_phase(cfg, params, rt):
-    """Where a full-width decode step's time goes, contiguous bf16 and
-    paged int8 (4 slots at positions 512-516), plus one 1024-token
-    prefill."""
-    import dataclasses
+def profile_model(label, cfg, params, rt):
+    """One 1024-token prefill (wall time) and the device profile of a
+    full-width contiguous decode step, 4 slots at positions 512-516.
+    Returns the 4 prompts and their next tokens."""
     import torch
-    from repro_torch.models import (decode_step, decode_step_paged,
-                                    init_paged_cache, prefill,
-                                    write_prefill_pages_quant)
+    from repro_torch.models import decode_step, prefill
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -555,15 +775,30 @@ def profile_phase(cfg, params, rt):
         t0 = time.perf_counter()
         prefill(params, cfg, {"tokens": toks}, 1024, rt)
         torch.cuda.synchronize()
-        print(f"[profile] prefill B1 S1024: "
+        print(f"[profile] {label} prefill B1 S1024: "
               f"{(time.perf_counter() - t0) * 1e3:.2f} ms wall")
         toks = torch.randint(0, cfg.vocab_size, (4, 512), generator=gen,
                              device=dev)
         nxt = toks[:, -1]
         cache, _ = prefill(params, cfg, {"tokens": toks}, 1024, rt)
-        device_profile("decode step B4 at pos 512-516, contiguous bf16",
-                       lambda: decode_step(params, cfg, cache, nxt, rt))
-        del cache
+        device_profile(f"{label} decode step B4 at pos 512-516, contiguous "
+                       f"bf16", lambda: decode_step(params, cfg, cache, nxt,
+                                                    rt))
+    return toks, nxt
+
+
+def profile_phase(cfg, params, rt):
+    """Where a full-width minicpm-2b decode step's time goes, contiguous
+    bf16 and paged int8 (4 slots at positions 512-516), plus one
+    1024-token prefill."""
+    import dataclasses
+    import torch
+    from repro_torch.models import (decode_step_paged, init_paged_cache,
+                                    prefill, write_prefill_pages_quant)
+
+    dev = torch.device("cuda")
+    toks, nxt = profile_model(cfg.name, cfg, params, rt)
+    with torch.no_grad():
         # paged int8: each slot's 64 pages, rows written through its table
         rt8 = dataclasses.replace(rt, kv_dtype="int8")
         single, _ = prefill(params, cfg, {"tokens": toks}, 1024, rt8)
@@ -578,8 +813,8 @@ def profile_phase(cfg, params, rt):
             page_size=PAGE_SIZE)
         cache["pos"].copy_(single["pos"])
         del single
-        device_profile("decode step B4 at pos 512-516, paged int8",
-                       lambda: decode_step_paged(
+        device_profile(f"{cfg.name} decode step B4 at pos 512-516, paged "
+                       f"int8", lambda: decode_step_paged(
                            params, cfg, cache, nxt, rt8,
                            page_size=PAGE_SIZE, window=1024))
 
@@ -587,50 +822,143 @@ def profile_phase(cfg, params, rt):
 # ===========================================================================
 # Phase 4: logit parity, cuda vs torch policy
 # ===========================================================================
-def parity_phase(cfg, params):
+def parity_inputs(cfg, seed, lengths=(300, 177), steps=8):
+    """Two 300-token prompts (real lengths ``lengths``, or exact when
+    None) and ``steps`` teacher-forced tokens per sequence."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (2, 300), generator=gen,
+                         device=dev)
+    forced = torch.randint(0, cfg.vocab_size, (steps, 2), generator=gen,
+                           device=dev)
+    if lengths is not None:
+        lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return toks, lengths, forced
+
+
+def cuda_vs_torch(params, cfg, inputs, on_policy=None, **rt_kw):
+    """Teacher-forced logits (steps + 1, B, V) f32 under the ``cuda`` and
+    the ``torch`` policy: prefill, then decode steps fed the forced
+    tokens. ``on_policy(name)`` runs before each policy's pass."""
     import torch
     from repro_torch.kernels.dispatch import KernelPolicy
     from repro_torch.models import ModelRuntime, decode_step, prefill
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(7)
-    S, steps = 300, 8
-    toks = torch.randint(0, cfg.vocab_size, (2, S), generator=gen,
-                         device=dev)
-    lengths = torch.tensor([300, 177], dtype=torch.int32, device=dev)
-    forced = torch.randint(0, cfg.vocab_size, (steps, 2), generator=gen,
-                           device=dev)
-    logs = {}
+    toks, lengths, forced = inputs
+    logs = []
     for pol in ("cuda", "torch"):
-        rt = ModelRuntime(kernels=getattr(KernelPolicy, pol)())
+        rt = ModelRuntime(kernels=getattr(KernelPolicy, pol)(), **rt_kw)
+        if on_policy is not None:
+            on_policy(pol)
         with torch.no_grad():
             cache, log = prefill(params, cfg, {"tokens": toks}, 1024, rt,
                                  lengths=lengths)
             out = [log.float()]
-            for t in range(steps):
+            for t in range(forced.shape[0]):
                 cache, log = decode_step(params, cfg, cache, forced[t], rt)
                 out.append(log.float())
-        logs[pol] = torch.stack(out)
+        logs.append(torch.stack(out))
         del cache
-    a, b = logs["cuda"], logs["torch"]
-    check(tuple(a.shape) == (steps + 1, 2, cfg.vocab_size),
-          f"logit shape {tuple(a.shape)}")
-    check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
-          "non-finite logits")
+    for pol, lg in zip(("cuda", "torch"), logs):
+        check(tuple(lg.shape) == (forced.shape[0] + 1, toks.shape[0],
+                                  cfg.vocab_size),
+              f"{cfg.name} {pol}: logit shape {tuple(lg.shape)}")
+        check(bool(torch.isfinite(lg).all()),
+              f"{cfg.name} {pol}: non-finite logits")
+    return logs
+
+
+def agreement(a, b) -> str:
+    return (f"max|dlogit| {float((a - b).abs().max()):.4f}, max|logit| "
+            f"{float(b.abs().max()):.3f}, argmax agreement "
+            f"{float((a.argmax(-1) == b.argmax(-1)).float().mean()):.3f}")
+
+
+def moe_parity(cfg, params):
+    """qwen2-moe, cuda vs torch policy, prefill (lengths 300/177) + 8
+    teacher-forced decode steps, dropless as served. Full depth in bf16
+    is reported, not asserted: a 4th/5th-expert near-tie that bf16
+    rounding flips moves that token's logits by more than LOGIT_TOL. The
+    assertion is in f32 at full width and MOE_PARITY_LAYERS layers."""
+    import dataclasses
+    from repro_torch.models import ModelRuntime, init_params
+    from repro_torch.models import moe as MOE
+
+    routes = {}
+    route = MOE._route
+
+    def recording(p, xt, c):
+        g, idx, aux = route(p, xt, c)
+        routes[current].append(idx)
+        return g, idx, aux
+
+    def on_policy(pol):
+        nonlocal current
+        current = pol
+        routes[pol] = []
+
+    current = None
+    inputs = parity_inputs(cfg, 17)
+    MOE._route = recording
+    try:
+        a, b = cuda_vs_torch(params, cfg, inputs, on_policy,
+                             moe_dropless=True)
+    finally:
+        MOE._route = route
+    check(len(routes["cuda"]) == len(routes["torch"]) > 0, "route calls")
+    same = sum(int((x == y).sum()) for x, y in zip(routes["cuda"],
+                                                   routes["torch"]))
+    total = sum(x.numel() for x in routes["cuda"])
+    print(f"[parity] {cfg.name} full depth ({cfg.n_layers} layers) bf16, "
+          f"prefill S300 (lengths 300/177) + 8 decode steps, cuda vs torch "
+          f"(reported): {agreement(a, b)}, routing agreement {same}/{total} "
+          f"(token, k) choices ({same / total:.5f})")
+
+    small = dataclasses.replace(cfg, n_layers=MOE_PARITY_LAYERS)
+    params32 = init_params(small, seed=0, rt=ModelRuntime(dtype="float32"))
+    a, b = cuda_vs_torch(params32, small, inputs, dtype="float32",
+                         moe_dropless=True)
+    del params32
+    rel = float((a - b).abs().max() / b.abs().max())
+    print(f"[parity] {cfg.name} full width, {MOE_PARITY_LAYERS} layers, f32, "
+          f"cuda vs torch: max|dlogit| / max|logit| {rel:.3e} (tol "
+          f"{MOE_F32_RTOL:g}); {agreement(a, b)}")
+    check(rel <= MOE_F32_RTOL, f"{cfg.name} f32 relative logit error {rel}")
+
+
+def ssm_parity(cfg, params):
+    """mamba2, cuda vs torch policy, exact-length prefill (a recurrent
+    state takes no pad) + 8 teacher-forced decode steps, bf16."""
+    a, b = cuda_vs_torch(params, cfg, parity_inputs(cfg, 19, lengths=None))
     dev_max = float((a - b).abs().max())
-    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
-    print(f"[parity] prefill S={S} (lengths 300/177) + {steps} decode "
-          f"steps, bf16: max|dlogit| {dev_max:.4f} (tol {LOGIT_TOL}), "
-          f"max|logit| {float(b.abs().max()):.3f}, argmax agreement "
-          f"{agree:.3f}")
+    per_step = " ".join(f"{float((x - y).abs().max()):.4f}"
+                        for x, y in zip(a, b))
+    print(f"[parity] {cfg.name} full depth ({cfg.n_layers} layers) bf16, "
+          f"prefill S300 + 8 decode steps, cuda vs torch: {agreement(a, b)} "
+          f"(tol {LOGIT_TOL}); max|dlogit| by step: {per_step}")
+    check(dev_max <= LOGIT_TOL, f"{cfg.name} max|dlogit| {dev_max} > "
+          f"{LOGIT_TOL}")
+
+
+def parity_phase(cfg, params):
+    """minicpm-2b: cuda vs torch teacher-forced logits, then the port's
+    ``logit_parity`` for bf16 vs int8 KV and for int8 KV under both
+    policies, on the same prompts."""
+    import dataclasses
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.kernels.quant import QUANT_PARITY_TOL
+    from repro_torch.models import ModelRuntime
+    from repro_torch.serve import logit_parity
+
+    inputs = parity_inputs(cfg, 7)
+    a, b = cuda_vs_torch(params, cfg, inputs)
+    dev_max = float((a - b).abs().max())
+    print(f"[parity] {cfg.name} prefill S=300 (lengths 300/177) + 8 decode "
+          f"steps, bf16: {agreement(a, b)} (tol {LOGIT_TOL})")
     check(dev_max <= LOGIT_TOL, f"max|dlogit| {dev_max} > {LOGIT_TOL}")
 
-    # the port's logit_parity: bf16 vs int8 KV, and int8 KV under the
-    # cuda vs the torch policy, on the same prompts
-    import dataclasses
-    from repro_torch.kernels.quant import QUANT_PARITY_TOL
-    from repro_torch.serve import logit_parity
-    rows = toks.cpu().numpy()
+    rows = inputs[0].cpu().numpy()
     prompts = [rows[0, :300], rows[1, :177]]
     rt = ModelRuntime()
     rt8 = dataclasses.replace(rt, kv_dtype="int8")
@@ -639,14 +967,12 @@ def parity_phase(cfg, params):
             ("int8 KV, torch vs cuda policy",
              dataclasses.replace(rt8, kernels=KernelPolicy.torch()), rt8)):
         report = logit_parity(params, cfg, prompts, rt_ref=ref,
-                              rt_test=test, max_new_tokens=steps,
-                              max_len=1024)
+                              rt_test=test, max_new_tokens=8, max_len=1024)
         print(f"[parity] logit_parity {label}: "
               f"{json.dumps(report.to_json())}")
         check(report.max_logit_dev <= QUANT_PARITY_TOL,
               f"{label}: max_logit_dev {report.max_logit_dev} > "
               f"{QUANT_PARITY_TOL}")
-    return dev_max
 
 
 def main() -> int:
@@ -659,10 +985,12 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gemm import grouped_gemm_padded
     from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.quant import (quant_decode_attention,
                                            quant_paged_decode_attention)
     from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.models import ModelRuntime, cast_params, init_params
 
     # f32 comparisons must be full f32 (the defaults, set explicitly)
@@ -686,8 +1014,9 @@ def main() -> int:
             print(f"[build] {line.strip()}")
 
     cfg = get_arch("minicpm-2b")
+    moe_cfg, ssm_cfg = get_arch("qwen2-moe-a2.7b"), get_arch("mamba2-1.3b")
     # --- phase 2 ---------------------------------------------------------
-    entries = kernel_phase(cfg)
+    entries = kernel_phase(cfg, moe_cfg, ssm_cfg)
 
     # --- phase 3 ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -703,20 +1032,48 @@ def main() -> int:
                 "decode_attention": decode_attention,
                 "paged_decode_attention": paged_decode_attention,
                 "quant_decode_attention": quant_decode_attention,
-                "quant_paged_decode_attention": quant_paged_decode_attention}
-    launches = serve_phase(cfg, params, counters, rt)
+                "quant_paged_decode_attention": quant_paged_decode_attention,
+                "moe_gemm": grouped_gemm_padded, "ssd_scan": ssd_scan}
+    totals = [serve_phase(cfg, params, counters, rt)]
     profile_phase(cfg, params, rt)
-
     # --- phase 4 ---------------------------------------------------------
     parity_phase(cfg, params)
+    del params
+
+    # --- phases 3 and 4: qwen2-moe-a2.7b, then mamba2-1.3b ----------------
+    for mcfg, expect, attention in (
+            (moe_cfg, {"rmsnorm", "flash_attention", "moe_gemm"}, True),
+            (ssm_cfg, {"rmsnorm", "ssd_scan"}, False)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mrt = ModelRuntime(moe_dropless=True)   # as the launcher serves
+        params = init_params(mcfg, seed=0, rt=mrt)   # cast leaf by leaf
+        torch.cuda.synchronize()
+        print(f"[serve] {mcfg.name} full width: {mcfg.n_layers} layers, "
+              f"{mcfg.param_count() / 1e9:.3f} B params in bf16, seeded "
+              f"init {time.perf_counter() - t0:.1f} s, "
+              f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+        totals.append(serve_pair(mcfg.name, mcfg, params, mrt, counters,
+                                 expect, attention))
+        profile_model(mcfg.name, mcfg, params, mrt)
+        if attention:
+            moe_parity(mcfg, params)
+        else:
+            ssm_parity(mcfg, params)
+        del params
+    launches = {name: sum(t[name] for t in totals) for name in counters}
+    print(f"[serve] launches over all serving runs: {launches}")
 
     # --- phase 5 ---------------------------------------------------------
     kernels = []
     for name, e in entries.items():
         e = dict(e, ok=True, launches=launches[name])
         e.pop("shape")
-        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
-            check(e[key] is None or math.isfinite(e[key]), f"{name} {key}")
+        for t in (e, *(e[k] for k in ("d128", "prefill") if k in e)):
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                check(t[key] is None or math.isfinite(t[key]),
+                      f"{name} {key}")
         kernels.append(e)
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

@@ -3,8 +3,8 @@
 Pure data, no framework import. This is a copy of the reference
 package's ``repro.configs.base`` (``ModelConfig``, ``smoke_config``):
 the port imports nothing of that package, so it carries the records it
-needs. Keep the two in step: the parity tests build both from the same
-arch id and compare them field by field.
+needs, ``param_count`` included. Keep the two in step: the parity
+tests build both from the same arch id and compare them field by field.
 """
 from __future__ import annotations
 
@@ -83,17 +83,59 @@ class ModelConfig:
     def is_encoder_only(self) -> bool:
         return not self.causal
 
-    def param_count(self) -> int:
-        """Parameters of a dense config (the only family the port runs)."""
-        if self.family != "dense":
-            raise NotImplementedError(
-                f"param_count for family {self.family!r} is not ported yet")
+    def attention_layer_indices(self) -> Tuple[int, ...]:
+        """Layer indices that run an attention block."""
+        if self.family == "ssm":
+            return ()
+        if self.family == "hybrid" and self.shared_attn_period:
+            return tuple(
+                i for i in range(self.n_layers)
+                if (i + 1) % self.shared_attn_period == 0
+            )
+        return tuple(range(self.n_layers))
+
+    def ssm_layer_indices(self) -> Tuple[int, ...]:
+        if self.family in ("ssm", "hybrid"):
+            return tuple(range(self.n_layers))  # every layer has a mixer
+        return ()
+
+    def param_count(self, active_only: bool = False) -> int:
+        """Parameters of the config, as the reference counts them
+        (``active_only``: only the routed experts a token uses)."""
         d, v = self.d_model, self.vocab_size
-        total = d * v * (1 if self.tie_embeddings else 2)
+        total = d * v                                  # embeddings
+        if not self.tie_embeddings:
+            total += d * v                             # unembed
         hd, nq, nkv = self.head_dim, self.n_heads, self.n_kv_heads
         attn = d * (nq * hd) + 2 * d * (nkv * hd) + (nq * hd) * d
-        mlp = (3 if self.mlp == "swiglu" else 2) * d * self.d_ff
-        total += self.n_layers * (attn + mlp)
+        if self.mlp == "swiglu":
+            dense_mlp = 3 * d * self.d_ff
+        else:
+            dense_mlp = 2 * d * self.d_ff
+        n_attn = len(self.attention_layer_indices())
+        n_ssm = len(self.ssm_layer_indices())
+        if self.family == "hybrid":
+            # shared attention blocks: parameters exist once per block
+            total += self.n_shared_attn_blocks * (attn + dense_mlp)
+            n_attn = 0
+        if self.ssm is not None:
+            di = self.ssm.d_inner(d)
+            nh = self.ssm.n_heads(d)
+            gn = self.ssm.n_groups * self.ssm.d_state
+            # in_proj (z,x,B,C,dt) + out_proj + conv + A,D
+            ssm_params = (d * (2 * di + 2 * gn + nh) + di * d
+                          + self.ssm.d_conv * (di + 2 * gn) + 2 * nh)
+            total += n_ssm * ssm_params
+        if self.moe is not None:
+            m = self.moe
+            per_expert = 3 * d * m.d_expert
+            router = d * m.n_experts
+            shared = m.n_shared_experts * 3 * d * (m.d_shared_expert
+                                                   or m.d_expert)
+            n_used = m.experts_per_token if active_only else m.n_experts
+            total += n_attn * (attn + router + n_used * per_expert + shared)
+        elif self.family not in ("ssm", "hybrid"):
+            total += n_attn * (attn + dense_mlp)
         total += 2 * self.n_layers * d + d          # norms
         return int(total)
 

@@ -62,6 +62,11 @@ SIGNATURES = {
     "rt_quant_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                         _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                         _P),
+    # x_pad, w, block_expert, block_rows, out, nb, d, f, E, dtype, stream
+    "rt_moe_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, dt, A, B, C, y, h, b, S, nh, hp, N, L, dtype, stream
+    "rt_ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                    _P),
 }
 
 #: dtype codes shared with ``csrc/common.cuh``.

@@ -37,10 +37,9 @@ KERNEL_OPS = ("prefill_attention", "decode_attention",
 RMSNORM_EPS = 1e-6
 
 #: Ops without an implementation in the port yet, and where ROADMAP.md
-#: queues them.
+#: queues them. No model path calls ``quant_matmul``; it comes with the
+#: tuner.
 PENDING = {
-    "ssd_scan": "ROADMAP.md Queue 1 item 8 / Queue 2 ssd_scan_pallas",
-    "moe_gemm": "ROADMAP.md Queue 1 item 7 / Queue 2 grouped_gemm_padded",
     "quant_matmul": "ROADMAP.md Queue 1 item 11 / Queue 2 quant_matmul_pallas",
 }
 
@@ -250,3 +249,27 @@ def _quant_paged_decode_attention_cuda(q, k_pages, v_pages, k_scales,
     from repro_torch.kernels.quant import quant_paged_decode_attention
     return quant_paged_decode_attention(q, k_pages, v_pages, k_scales,
                                         v_scales, page_table, kv_mask)
+
+
+@register_impl("ssd_scan", "torch")
+def _ssd_scan_torch(x, dt, A, B, C, *, chunk: int = 128, **_):
+    from repro_torch.kernels.ssd_scan import ssd_chunked
+    return ssd_chunked(x, dt, A, B, C, chunk)
+
+
+@register_impl("ssd_scan", "cuda")
+def _ssd_scan_cuda(x, dt, A, B, C, *, chunk: int = 128, **_):
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return ssd_scan(x, dt, A, B, C, chunk=chunk)
+
+
+@register_impl("moe_gemm", "torch")
+def _moe_gemm_torch(x, w, expert_of_row, *, n_experts: int, **_):
+    from repro_torch.kernels.moe_gemm import moe_gemm_plain
+    return moe_gemm_plain(x, w, expert_of_row, n_experts=n_experts)
+
+
+@register_impl("moe_gemm", "cuda")
+def _moe_gemm_cuda(x, w, expert_of_row, *, n_experts: int, **_):
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    return moe_gemm(x, w, expert_of_row, n_experts=n_experts)

@@ -1,6 +1,12 @@
 """Serving launcher of the port:
 ``python -m repro_torch.launch.serve --arch minicpm-2b [--smoke] [--device cpu]``
 
+``--arch`` takes the ported archs: ``minicpm-2b`` (dense),
+``qwen2-moe-a2.7b`` and ``mixtral-8x22b`` (MoE, served dropless as the
+reference launcher does) and ``mamba2-1.3b`` (pure SSM, chunk-mode
+admission). Full-width ``mixtral-8x22b`` (~282 GB in bf16) does not fit
+one card; its ``--smoke`` config runs anywhere.
+
 Scheduled continuous batching: bucketed/chunked prefill, seeded
 sampling (greedy / temperature / top-k) and cache-budget admission, over
 the contiguous cache of :class:`~repro_torch.serve.engine.ServeEngine`
@@ -99,8 +105,9 @@ def main(argv=None):
 
     rt = ModelRuntime(dtype="bfloat16" if args.device == "cuda"
                       else "float32", attn_chunk=128, device=args.device,
-                      kv_dtype=args.kv_dtype)
-    params = init_params(cfg, args.seed, device=args.device)
+                      kv_dtype=args.kv_dtype, moe_dropless=True)
+    # drawn and cast leaf by leaf: the f32 masters never coexist
+    params = init_params(cfg, args.seed, device=args.device, rt=rt)
     sched = Scheduler(cfg=cfg, max_len=args.max_len, buckets=buckets,
                       admit_width=args.admit_width)
     sampler = Sampler(kind=args.sampler, temperature=args.temperature,

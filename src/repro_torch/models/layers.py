@@ -9,7 +9,7 @@ from __future__ import annotations
 import math
 import zlib
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -24,7 +24,8 @@ from repro_torch.kernels.dispatch import RMSNORM_EPS, KernelPolicy, dispatch
 @dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
-    init: str = "fan_in"                # fan_in | embed | zeros | ones
+    init: str = "fan_in"                # fan_in | embed | zeros | ones | const
+    scale: float = 1.0                  # std multiplier; the value of const
 
 
 DefTree = Union[ParamDef, Dict[str, "DefTree"]]
@@ -36,28 +37,39 @@ def _leaf_seed(seed: int, path: str) -> int:
     return (int(seed) * 1_000_003 + zlib.crc32(path.encode())) % (2 ** 63)
 
 
-def init_from_defs(defs: DefTree, seed: int, device, path: str = ""):
+def init_from_defs(defs: DefTree, seed: int, device, path: str = "",
+                   cast: Optional[Callable] = None):
     """f32 master weights with the reference's distributions: ``embed``
-    is N(0, 0.02^2), ``fan_in`` a normal truncated at two standard
-    deviations with std ``1 / sqrt(fan_in)``. Each leaf draws from
-    its own ``torch.Generator`` seeded from ``(seed, path)``; the values
-    differ from ``jax.random``'s, which the weight bridge
-    (``models.convert``) exists for."""
+    is N(0, (0.02 scale)^2), ``fan_in`` a normal truncated at two
+    standard deviations with std ``scale / sqrt(fan_in)``, ``const`` the
+    value ``scale``. Each leaf draws from its own ``torch.Generator``
+    seeded from ``(seed, path)``; the values differ from ``jax.random``'s,
+    which the weight bridge (``models.convert``) exists for.
+
+    ``cast(path, leaf)``, when given, maps each leaf right after it is
+    drawn, so a tree cast to a narrower dtype never holds every f32
+    master at once."""
     if isinstance(defs, dict):
-        return {k: init_from_defs(v, seed, device, f"{path}['{k}']")
+        return {k: init_from_defs(v, seed, device, f"{path}['{k}']", cast)
                 for k, v in defs.items()}
-    d = defs
+    out = _init_leaf(defs, seed, device, path)
+    return out if cast is None else cast(path, out)
+
+
+def _init_leaf(d: ParamDef, seed: int, device, path: str) -> torch.Tensor:
     if d.init == "zeros":
         return torch.zeros(d.shape, device=device)
     if d.init == "ones":
         return torch.ones(d.shape, device=device)
+    if d.init == "const":
+        return torch.full(d.shape, float(d.scale), device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(_leaf_seed(seed, path))
     out = torch.empty(d.shape, device=device)
     if d.init == "embed":
-        return out.normal_(0.0, 0.02, generator=gen)
+        return out.normal_(0.0, 0.02 * d.scale, generator=gen)
     fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
-    std = 1.0 / math.sqrt(max(1, fan_in))
+    std = d.scale / math.sqrt(max(1, fan_in))
     return torch.nn.init.trunc_normal_(out, 0.0, std, -2.0 * std, 2.0 * std,
                                        generator=gen)
 

@@ -1,13 +1,21 @@
-"""Model assembly of the port: the dense decoder family (counterpart of
-``repro.models.model``).
+"""Model assembly of the port (counterpart of ``repro.models.model``):
+
+* dense / moe — stacked transformer blocks; the MoE family's FFN is
+  ``models.moe.moe_ffn`` (dropless at decode, and at prefill under
+  ``ModelRuntime.moe_dropless``);
+* ssm — stacked Mamba-2 blocks (``models.ssm``) with a ``{conv, ssm}``
+  state cache instead of K/V.
+
+The hybrid, vlm and audio families are not ported yet.
 
 Parameters are a nested dict of tensors with the reference's tree: f32
 master weights, per-layer weights stacked on a leading ``layers`` axis,
 projections stored ``(in, out)``. :func:`cast_params` casts the matmul
 weights and the embedding to ``rt.dtype`` once, when a runtime is set up
 (the reference casts before every matmul; the numbers are the same).
-Norm scales stay f32, as the reference multiplies by the f32 master
-scale. Activations run in ``rt.dtype``.
+The leaves the reference reads from their f32 masters stay f32 (norm
+scales, the router and shared-expert gate, ``A_log`` and ``dt_bias``):
+a bf16 router would route differently. Activations run in ``rt.dtype``.
 
 The decode cache is updated in place where the reference returns a new
 array from ``.at[].set``: that keeps one copy of the cache instead of
@@ -20,6 +28,7 @@ quantized per (token, kv head), with bf16 scale side-bands ``ks``/``vs``.
 """
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -29,6 +38,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.dispatch import KernelPolicy, dispatch
 from repro_torch.kernels.quant import quantize_rows
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import ParamDef, norm, norm_defs, swiglu
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -57,6 +68,9 @@ class ModelRuntime:
     ``kv_dtype`` is the KV cache's storage precision: None stores it at
     ``dtype``, a float dtype casts, ``int8`` quantizes each (token, kv
     head) row at write time with a bf16 scale side-band.
+    ``moe_dropless`` runs the MoE prefill without capacity drops (as
+    decode always does); ``moe_chunk`` is the GShard token-group size of
+    the capacity path (0: one group).
     """
 
     dtype: str = "bfloat16"
@@ -65,6 +79,8 @@ class ModelRuntime:
     kernels: Optional[KernelPolicy] = None
     device: str = "cuda"
     kv_dtype: Optional[str] = None
+    moe_dropless: bool = False
+    moe_chunk: int = 0
 
     def kernel_policy(self) -> KernelPolicy:
         if self.kernels is not None:
@@ -76,11 +92,21 @@ class ModelRuntime:
         return torch_dtype(self.dtype)
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.moe is not None:
+#: Families the port runs; hybrid (zamba2-2.7b) is the next slice.
+PORTED_FAMILIES = ("dense", "moe", "ssm")
+
+#: Leaves kept f32 by :func:`cast_params`: each is read from its f32
+#: master by the reference.
+F32_LEAVES = ("ln1", "ln2", "ln", "final_norm", "q_norm", "k_norm", "norm",
+              "router", "shared_gate", "A_log", "dt_bias")
+
+
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet "
-            f"(ROADMAP.md Queue 1 items 7-9)")
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
+            f"port runs {PORTED_FAMILIES}; hybrid is the next slice, vlm "
+            f"and audio follow (ROADMAP.md Queue 1 items 8-9)")
 
 
 def check_device(device) -> torch.device:
@@ -102,7 +128,8 @@ def _attn_defs(cfg: ModelConfig, n: int) -> Dict[str, Any]:
     s = (n,)
 
     def stacked(defs):
-        return {k: ParamDef(s + v.shape, v.init) for k, v in defs.items()}
+        return {k: ParamDef(s + v.shape, v.init, v.scale)
+                for k, v in defs.items()}
 
     defs: Dict[str, Any] = {
         "ln1": stacked(norm_defs(d, cfg.norm)),
@@ -115,43 +142,66 @@ def _attn_defs(cfg: ModelConfig, n: int) -> Dict[str, Any]:
     if cfg.qk_norm:
         defs["q_norm"] = ParamDef(s + (hd,), "ones")
         defs["k_norm"] = ParamDef(s + (hd,), "ones")
-    if cfg.mlp == "swiglu":
-        defs["wg"] = ParamDef(s + (d, cfg.d_ff))
-    defs["wi"] = ParamDef(s + (d, cfg.d_ff))
-    defs["wo2"] = ParamDef(s + (cfg.d_ff, d))
+    if cfg.moe is not None:
+        defs["moe"] = MOE.moe_defs(cfg, stack=s)
+    elif cfg.d_ff:
+        if cfg.mlp == "swiglu":
+            defs["wg"] = ParamDef(s + (d, cfg.d_ff))
+        defs["wi"] = ParamDef(s + (d, cfg.d_ff))
+        defs["wo2"] = ParamDef(s + (cfg.d_ff, d))
     return defs
 
 
 def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
-    _require_dense(cfg)
+    _require_ported(cfg)
     d, v = cfg.d_model, cfg.vocab_size
     defs: Dict[str, Any] = {
         "embed": ParamDef((v, d), "embed"),
         "final_norm": norm_defs(d, cfg.norm),
-        "blocks": _attn_defs(cfg, cfg.n_layers),
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, v))
+    if cfg.family == "ssm":
+        n = (cfg.n_layers,)
+        defs["blocks"] = {
+            "ssm": SSM.ssm_defs(cfg, stack=n),
+            "ln": {k: ParamDef(n + p.shape, p.init)
+                   for k, p in norm_defs(d, cfg.norm).items()},
+        }
+    else:
+        defs["blocks"] = _attn_defs(cfg, cfg.n_layers)
     return defs
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
-    """Seeded f32 master weights on ``device`` (CUDA unless asked)."""
-    return L.init_from_defs(param_defs(cfg), seed, check_device(device))
+def _cast_leaf(path, leaf: torch.Tensor, rt: ModelRuntime) -> torch.Tensor:
+    keep = any(p in F32_LEAVES for p in path)
+    return leaf.to(device=check_device(rt.device),
+                   dtype=torch.float32 if keep else rt.torch_dtype)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
+                rt: Optional[ModelRuntime] = None):
+    """Seeded f32 master weights on ``device`` (CUDA unless asked). With
+    ``rt``, each leaf is cast as :func:`cast_params` casts it right after
+    it is drawn, so the f32 masters of a large model never coexist with
+    its cast copy (full-width qwen2-moe: 57 GB of f32 masters against
+    28.6 GB of bf16 weights)."""
+    cast = None
+    if rt is not None:
+        def cast(path, leaf):
+            return _cast_leaf(re.findall(r"\['([^']*)'\]", path), leaf, rt)
+    return L.init_from_defs(param_defs(cfg), seed, check_device(device),
+                            cast=cast)
 
 
 def cast_params(params, rt: ModelRuntime):
-    """Matmul weights and the embedding in ``rt.dtype`` on ``rt.device``;
-    norm scales stay f32. A leaf already in place is not copied."""
-    dev = check_device(rt.device)
-    dt = rt.torch_dtype
-
+    """Weights in ``rt.dtype`` on ``rt.device``, except the
+    :data:`F32_LEAVES`, which stay f32. A leaf already in place is not
+    copied."""
     def walk(tree, path=()):
         if isinstance(tree, dict):
             return {k: walk(v, path + (k,)) for k, v in tree.items()}
-        is_norm = any(p in ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
-                      for p in path)
-        return tree.to(device=dev, dtype=torch.float32 if is_norm else dt)
+        return _cast_leaf(path, tree, rt)
 
     return walk(params)
 
@@ -186,11 +236,20 @@ def _attn_proj(p, h, cfg: ModelConfig, policy=None):
     return q, k, v
 
 
+def _ffn(p, h: torch.Tensor, cfg: ModelConfig, pol, dropless: bool,
+         token_chunk: int = 0) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's FFN on (B, S, d): the MoE layer (with its aux loss) or
+    the dense MLP (aux None)."""
+    if cfg.moe is not None:
+        return MOE.moe_ffn(p["moe"], h, cfg, dropless=dropless,
+                           token_chunk=token_chunk, policy=pol)
+    return _mlp(p, h, cfg), None
+
+
 def attn_block(p: Dict[str, Any], x: torch.Tensor, rope,
-               cfg: ModelConfig, rt: ModelRuntime
-               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Pre-norm attention + FFN block. Returns (x, (k, v)); k/v are
-    post-RoPE, exactly what the decode cache stores."""
+               cfg: ModelConfig, rt: ModelRuntime):
+    """Pre-norm attention + FFN block. Returns (x, aux or None, (k, v));
+    k/v are post-RoPE, exactly what the decode cache stores."""
     pol = rt.kernel_policy()
     h = norm(x, p["ln1"], cfg.norm, policy=pol)
     q, k, v = _attn_proj(p, h, cfg, policy=pol)
@@ -200,7 +259,18 @@ def attn_block(p: Dict[str, Any], x: torch.Tensor, rope,
     o = o.reshape(x.shape[0], x.shape[1], -1)
     x = x + o @ p["wo"].to(x.dtype)
     h2 = norm(x, p["ln2"], cfg.norm, policy=pol)
-    return x + _mlp(p, h2, cfg), (k, v)
+    y, aux = _ffn(p, h2, cfg, pol, rt.moe_dropless, rt.moe_chunk)
+    return x + y, aux, (k, v)
+
+
+def mamba_block(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
+                rt: ModelRuntime):
+    """Pre-norm Mamba-2 block. Returns (x, {'conv', 'ssm'} final states
+    for the prefill handoff)."""
+    pol = rt.kernel_policy()
+    h = norm(x, p["ln"], cfg.norm, policy=pol)
+    y, state = SSM.ssm_block(p["ssm"], h, cfg, policy=pol)
+    return x + y, state
 
 
 # ===========================================================================
@@ -223,29 +293,39 @@ def _unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _run_blocks(params, cfg: ModelConfig, x, positions, rt: ModelRuntime,
-                on_kv=None):
-    rope = L.rope_tables(positions, cfg)
+                on_layer=None):
+    """Every layer; ``on_layer(i, material)`` receives each layer's cache
+    material: ``(k, v)`` for attention blocks, the ``{conv, ssm}`` final
+    states for Mamba-2 blocks. Returns (x, summed aux loss f32)."""
+    aux = torch.zeros((), device=x.device)
+    rope = None if cfg.family == "ssm" else L.rope_tables(positions, cfg)
     for i in range(cfg.n_layers):
-        x, (k, v) = attn_block(_layer(params["blocks"], i), x, rope, cfg, rt)
-        if on_kv is not None:
-            on_kv(i, k, v)
-    return x
+        p = _layer(params["blocks"], i)
+        if cfg.family == "ssm":
+            x, material = mamba_block(p, x, cfg, rt)
+        else:
+            x, a, material = attn_block(p, x, rope, cfg, rt)
+            if a is not None:
+                aux = aux + a
+        if on_layer is not None:
+            on_layer(i, material)
+    return x, aux
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             rt: ModelRuntime = ModelRuntime()
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (logits (B, S, V) in rt.dtype, aux_loss scalar f32 (0 for the
-    dense family))."""
-    _require_dense(cfg)
+    """-> (logits (B, S, V) in rt.dtype, aux_loss scalar f32: the MoE
+    layers' summed load-balancing loss, else 0)."""
+    _require_ported(cfg)
     x = _embed_in(params, batch, rt)
     B, S, _ = x.shape
     positions = batch.get("positions")
     if positions is None:
         positions = _default_positions(B, S, x.device)
-    x = _run_blocks(params, cfg, x, positions, rt)
+    x, aux = _run_blocks(params, cfg, x, positions, rt)
     x = norm(x, params["final_norm"], cfg.norm, policy=rt.kernel_policy())
-    return _unembed(params, cfg, x), torch.zeros((), device=x.device)
+    return _unembed(params, cfg, x), aux
 
 
 def _fill_kv_window(out: torch.Tensor, k_full: torch.Tensor) -> None:
@@ -271,9 +351,11 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     ``batch['tokens']`` is right-padded to a bucketed length: the cache
     position is set to the real length and the logits are gathered at
     ``lengths - 1``. The pad keys land at cache rows ``>= length``,
-    where the decode mask hides them until they are overwritten.
+    where the decode mask hides them until they are overwritten. A
+    recurrent state would absorb pad tokens, so the ``ssm`` family takes
+    exact-length rows (the scheduler's chunk mode).
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     x = _embed_in(params, batch, rt)
     B, S, _ = x.shape
     positions = batch.get("positions")
@@ -283,7 +365,12 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                        device=x.device)
     quant = "ks" in cache
 
-    def on_kv(i, k, v):
+    def on_layer(i, material):
+        if cfg.family == "ssm":      # conv in rt.dtype, ssm in f32
+            cache["conv"][i] = material["conv"]
+            cache["ssm"][i] = material["ssm"]
+            return
+        k, v = material
         if quant:        # quantize at write time, as the reference does
             k, ks = quantize_rows(k)
             v, vs = quantize_rows(v)
@@ -292,7 +379,7 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         _fill_kv_window(cache["k"][i], k)
         _fill_kv_window(cache["v"][i], v)
 
-    x = _run_blocks(params, cfg, x, positions, rt, on_kv)
+    x, _ = _run_blocks(params, cfg, x, positions, rt, on_layer)
     if lengths is None:
         cache["pos"].fill_(S)
     else:
@@ -338,13 +425,23 @@ def _kv_spec(shape: Tuple[int, ...], kvd: str):
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
                dtype: str = "bfloat16", kv_dtype: Optional[str] = None
                ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """{name: (shape, dtype)} of the contiguous decode cache;
-    ``kv_dtype`` overrides the KV storage dtype (default ``dtype``)."""
-    _require_dense(cfg)
+    """{name: (shape, dtype)} of the contiguous decode cache: K/V for the
+    attention families (``kv_dtype`` overrides their storage dtype,
+    default ``dtype``), the recurrent state for ``ssm`` (``conv`` in
+    ``dtype``, ``ssm`` in f32)."""
+    _require_ported(cfg)
+    spec = {"pos": ((batch,), torch.int32)}
+    if cfg.family == "ssm":
+        return dict(spec, **_state_spec(cfg, batch, dtype))
     W = _cache_window(cfg, max_len)
     kv = (cfg.n_layers, batch, W, cfg.n_kv_heads, cfg.head_dim)
-    return {"pos": ((batch,), torch.int32),
-            **_kv_spec(kv, kv_dtype or dtype)}
+    return dict(spec, **_kv_spec(kv, kv_dtype or dtype))
+
+
+def _state_spec(cfg: ModelConfig, batch: int, dtype: str):
+    cs = SSM.ssm_cache_shapes(cfg, batch)
+    return {"conv": ((cfg.n_layers,) + cs["conv"], torch_dtype(dtype)),
+            "ssm": ((cfg.n_layers,) + cs["ssm"], torch.float32)}
 
 
 #: Declared logical axes of every cache leaf; the serving engine splices
@@ -355,6 +452,8 @@ CACHE_AXES = {
     "v": (None, "batch", "kv_seq", "kv_heads", None),
     "ks": (None, "batch", "kv_seq", "kv_heads"),
     "vs": (None, "batch", "kv_seq", "kv_heads"),
+    "conv": (None, "batch", None, "ssm_inner"),
+    "ssm": (None, "batch", "ssm_heads", None, None),
 }
 
 
@@ -396,7 +495,7 @@ def _attn_decode_one(p, x, kv, idx, attend, rope, cfg: ModelConfig,
     o = attend(q[:, 0], kv)
     x = x + o.reshape(B, -1) @ p["wo"].to(x.dtype)
     h2 = norm(x, p["ln2"], cfg.norm, policy=pol)
-    return x + _mlp(p, h2[:, None, :], cfg)[:, 0]
+    return x + _ffn(p, h2[:, None, :], cfg, pol, dropless=True)[0][:, 0]
 
 
 def _decode_layers(params, cfg: ModelConfig, cache, names, x, pos, idx,
@@ -424,10 +523,15 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, torch.Tensor],
                 tokens: torch.Tensor, rt: ModelRuntime = ModelRuntime(),
                 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """tokens: (B,) -> (cache, logits (B, V)). The cache is updated in
-    place (K/V rows and ``pos + 1``) and returned."""
-    _require_dense(cfg)
+    place (K/V rows or the recurrent state, and ``pos + 1``) and
+    returned."""
+    _require_ported(cfg)
     pos = cache["pos"]
     x = params["embed"].to(rt.torch_dtype)[tokens.long()]      # (B, d)
+    if cfg.family == "ssm":
+        logits = _decode_ssm(params, cfg, cache, x, rt)
+        pos += 1
+        return cache, logits
     W = cache["k"].shape[2]
     idx = (torch.arange(x.shape[0], device=pos.device), (pos % W).long())
     mask = torch.arange(W, device=pos.device)[None, :] <= pos[:, None]
@@ -436,6 +540,23 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, torch.Tensor],
                             pos, idx, op, (mask,), rt)
     pos += 1
     return cache, logits
+
+
+def _decode_ssm(params, cfg: ModelConfig, cache, x, rt: ModelRuntime):
+    """Every Mamba-2 layer for one token, each layer's state written back
+    into the cache in place; then the final norm and the unembedding."""
+    pol = rt.kernel_policy()
+    for i in range(cfg.n_layers):
+        p = _layer(params["blocks"], i)
+        h = norm(x, p["ln"], cfg.norm, policy=pol)
+        y, st = SSM.ssm_decode_step(p["ssm"], h, {
+            "conv": cache["conv"][i], "ssm": cache["ssm"][i]}, cfg,
+            policy=pol)
+        cache["conv"][i] = st["conv"]
+        cache["ssm"][i] = st["ssm"]
+        x = x + y
+    x = norm(x[:, None, :], params["final_norm"], cfg.norm, policy=pol)
+    return _unembed(params, cfg, x)[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -455,15 +576,19 @@ def paged_cache_spec(cfg: ModelConfig, n_slots: int, n_pages: int,
     page tables ``pt (n_slots, ceil(W / page_size))``, and under int8 the
     pooled scales ``ks``/``vs (L, n_pages, page_size, Hkv)``. Physical
     page 0 is the null page: unowned table entries point at it and
-    retired slots write their masked decode rows into it."""
-    _require_dense(cfg)
+    retired slots write their masked decode rows into it. The ``ssm``
+    family has no KV to page: its recurrent state stays contiguous per
+    slot (and the table rides along unused)."""
+    _require_ported(cfg)
     W = _cache_window(cfg, max_len)
+    spec = {"pos": ((n_slots,), torch.int32),
+            "pt": ((n_slots, page_count(W, page_size)), torch.int32)}
+    if cfg.family == "ssm":
+        return dict(spec, **_state_spec(cfg, n_slots, dtype))
     shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
     kv = _kv_spec(shape, kv_dtype or dtype)
-    return {"pos": ((n_slots,), torch.int32),
-            "pt": ((n_slots, page_count(W, page_size)), torch.int32),
-            "kp": kv["k"], "vp": kv["v"],
-            **{n: kv[n] for n in ("ks", "vs") if n in kv}}
+    return dict(spec, kp=kv["k"], vp=kv["v"],
+                **{n: kv[n] for n in ("ks", "vs") if n in kv})
 
 
 #: Logical axes of the paged cache: the pools have no batch axis (the
@@ -475,6 +600,8 @@ PAGED_CACHE_AXES = {
     "vp": (None, None, None, "kv_heads", None),
     "ks": (None, None, None, "kv_heads"),
     "vs": (None, None, None, "kv_heads"),
+    "conv": CACHE_AXES["conv"],
+    "ssm": CACHE_AXES["ssm"],
 }
 
 
@@ -530,8 +657,11 @@ def decode_step_paged(params, cfg: ModelConfig,
     through the page table at physical page ``pt[b, (pos % W) // ps]``,
     row ``(pos % W) % ps``, and attention reads the pools through the
     table (``paged_decode_attention``, or ``quant_paged_decode_attention``
-    under int8). Updated in place and returned."""
-    _require_dense(cfg)
+    under int8). Updated in place and returned. The ``ssm`` family has
+    no pages: it decodes as :func:`decode_step` does."""
+    _require_ported(cfg)
+    if cfg.family == "ssm":
+        return decode_step(params, cfg, cache, tokens, rt)
     pos, pt = cache["pos"], cache["pt"]
     x = params["embed"].to(rt.torch_dtype)[tokens.long()]      # (B, d)
     W, ps = window, page_size

@@ -20,6 +20,9 @@ not slots (counterpart of ``repro.serve.paged``).
 * prefix caching — full prompt pages are registered under a chained
   content hash; a later prompt sharing the prefix maps those pages into
   its table, sets ``pos`` past them and decode-feeds only its tail.
+* recurrent state — the ``ssm`` family's ``conv``/``ssm`` leaves are O(1)
+  per slot and stay contiguous: admission splices them with ``pos``, and
+  a pure-SSM model holds no pages at all.
 
 Token streams equal the contiguous engine's on the same requests: the
 prefill is shared, the paged decode attends over the same rows, and
@@ -279,6 +282,10 @@ class PagedServeEngine(ServeEngine):
     def _cache_axes(self) -> Dict[str, tuple]:
         return PAGED_CACHE_AXES
 
+    @property
+    def _has_kv(self) -> bool:
+        return "kp" in self.cache
+
     # ---------------------------------------------------------------- budget
     def _scatter_pages(self, plan: AdmissionPlan) -> int:
         """Pages the prefill bucket's rows span (the scatter width)."""
@@ -290,7 +297,9 @@ class PagedServeEngine(ServeEngine):
         """Worst-case pages an admission allocates up front: the pages
         the request can ever address (window-capped) or, if larger, the
         prefill bucket's scatter span (its tail pages are freed right
-        after the scatter)."""
+        after the scatter). A model without KV needs none."""
+        if not self._has_kv:
+            return 0
         need = self.scheduler.pages_for(len(req.prompt),
                                         req.max_new_tokens, self.page_size)
         if plan is None:
@@ -303,7 +312,7 @@ class PagedServeEngine(ServeEngine):
         never be admitted, so it is rejected, truncated or refused now
         rather than blocking the queue head."""
         S = int(len(req.prompt))
-        if S >= 1:
+        if S >= 1 and self._has_kv:
             ps, cap = self.page_size, self.pages.capacity
             need = self.scheduler.pages_for(S, req.max_new_tokens, ps)
             scatter = self._scatter_pages(self.scheduler.plan(S))
@@ -357,6 +366,13 @@ class PagedServeEngine(ServeEngine):
 
     def _admit_group(self, group: List[Request], plan: AdmissionPlan,
                      slots: List[int]):
+        if not self._has_kv:
+            # pure SSM: nothing pages (the page table rides along unused)
+            single, logits_np = self._prefill_group(group, plan)
+            self._splice_slot_leaves(single, slots)
+            for j, (req, slot) in enumerate(zip(group, slots)):
+                self._finish_admit(req, slot, plan, logits_np[j])
+            return
         cold: List[Tuple[Request, int]] = []
         for req, slot in zip(group, slots):
             shared: List[int] = []
@@ -372,6 +388,15 @@ class PagedServeEngine(ServeEngine):
                 cold.append((req, slot))
         if cold:
             self._admit_cold(cold, plan)
+
+    def _splice_slot_leaves(self, single, slots: List[int]):
+        """Splice the per-slot leaves a prefill produced (``pos`` and any
+        recurrent state) into ``slots`` as the contiguous engine does;
+        only the KV rows page."""
+        names = [n for n in ("pos", "conv", "ssm") if n in self.cache]
+        _splice({n: self.cache[n] for n in names},
+                {n: single[n] for n in names}, slots,
+                rows=range(len(slots)), axes=self._cache_axes())
 
     def _admit_prefix_hit(self, req: Request, slot: int,
                           shared: List[int]):
@@ -418,8 +443,7 @@ class PagedServeEngine(ServeEngine):
                 write_prefill_pages(self.cache["kp"], self.cache["vp"],
                                     single["k"], single["v"], ids,
                                     page_size=ps)
-        _splice({"pos": self.cache["pos"]}, {"pos": single["pos"]}, slots,
-                rows=range(len(pairs)), axes=self._cache_axes())
+        self._splice_slot_leaves(single, slots)
 
         rows = []
         for j, (req, slot) in enumerate(pairs):
@@ -460,6 +484,8 @@ class PagedServeEngine(ServeEngine):
 
     # ---------------------------------------------------------------- stats
     def _allocated_tokens(self, active: List[int]) -> int:
+        if not self._has_kv:
+            return super()._allocated_tokens(active)
         held = sum(len(sh) + len(pv)
                    for sh, pv in (self._slot_pages[s] for s in active))
         return held * self.page_size

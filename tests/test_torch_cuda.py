@@ -3,7 +3,9 @@
 Covers rmsnorm, flash prefill and the four split-KV decode variants
 (contiguous, paged, int8, int8 paged) at odd shapes: page sizes 8 and
 16, page counts that are not a split multiple, G 1-8, D 16-128, a
-window that is not a page multiple, a table row all at the null page.
+window that is not a page multiple, a table row all at the null page;
+the grouped expert GEMM (ragged f, empty experts, trailing blocks) and
+the chunked SSD scan (ragged chunks, S < chunk).
 
 Marked ``cuda``: skipped (with the reason) on a host without an NVIDIA
 GPU. On the card: ``PYTHONPATH=src python -m pytest -m cuda
@@ -230,3 +232,106 @@ def test_new_wrappers_reject_bad_inputs(dev):
         quant_decode_attention(q, strided, kc, ksc, ksc, m8)
     with pytest.raises(ValueError, match="bfloat16"):
         quant_decode_attention(q, kc, kc, ksc.float(), ksc, m8)
+
+
+# ---------------------------------------------------------------- moe
+def _moe_case(dev, g, T, d, f, E, dtype, empty=()):
+    x = torch.randn(T, d, device=dev, generator=g).to(dtype)
+    w = (torch.randn(E, d, f, device=dev, generator=g) / d ** 0.5).to(dtype)
+    eor = torch.randint(0, E, (T,), device=dev, generator=g)
+    for e in empty:                               # experts with no row
+        eor[eor == e] = (e + 1) % E
+    return x, w, eor.to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,d,f,E", [
+    (16, 2048, 1408, 60),      # qwen2-moe decode rows, f not a 64 multiple
+    (300, 64, 100, 5),         # tall blocks, ragged f
+    (7, 48, 40, 3),            # d not a 64 multiple, one block per expert
+    (512, 256, 2048, 8),       # mixtral-like f 2048
+])
+def test_moe_gemm_kernel(dev, dtype, T, d, f, E):
+    from repro_torch.kernels.moe_gemm import (
+        BLOCK_M, block_rows, grouped_gemm_padded,
+        grouped_gemm_padded_plain, moe_gemm, moe_gemm_plain, sort_by_expert)
+    g = torch.Generator(device=dev).manual_seed(8)
+    x, w, eor = _moe_case(dev, g, T, d, f, E, dtype, empty=(1,))
+    n = grouped_gemm_padded.launches
+    got = moe_gemm(x, w, eor, n_experts=E)
+    assert grouped_gemm_padded.launches == n + 1
+    torch.testing.assert_close(got.float(), moe_gemm_plain(
+        x, w, eor, n_experts=E).float(), **_tol(dtype))
+    # the padded layout: real rows equal, trailing blocks hold no row
+    xp, be, inv, Tp = sort_by_expert(x, eor, E, BLOCK_M)
+    rows = block_rows(inv, Tp // BLOCK_M, BLOCK_M)
+    assert bool((be == E).any()) and bool((rows[be == E] == 0).all())
+    torch.testing.assert_close(
+        grouped_gemm_padded(xp, w, be, rows)[inv].float(),
+        grouped_gemm_padded_plain(xp, w, be, rows)[inv].float(),
+        **_tol(dtype))
+
+
+def test_moe_gemm_rows_do_not_depend_on_their_batch(dev):
+    """A row's result is the same whether it is sorted alone or with
+    others: paged and contiguous serving give one stream."""
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    g = torch.Generator(device=dev).manual_seed(9)
+    x, w, eor = _moe_case(dev, g, 64, 512, 300, 6, torch.bfloat16)
+    full = moe_gemm(x, w, eor, n_experts=6)
+    assert torch.equal(moe_gemm(x[:5], w, eor[:5], n_experts=6), full[:5])
+
+
+# ---------------------------------------------------------------- ssd
+#: f32 SSD scan: each output sums up to a chunk of products over a
+#: 128-wide state, weighted by exp() of cumulative sums that the kernel
+#: takes serially and ``torch.cumsum`` in a parallel scan.
+SSD_F32_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,S,nh,hp,N,chunk", [
+    (1, 1024, 64, 64, 128, 256),   # mamba2-1.3b prefill
+    (2, 300, 4, 64, 128, 256),     # ragged last chunk
+    (1, 16, 3, 32, 16, 256),       # S < chunk
+    (2, 100, 2, 16, 8, 32),        # hp 16, small state
+])
+def test_ssd_scan_kernel(dev, dtype, b, S, nh, hp, N, chunk):
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn(b, S, nh, hp, device=dev, generator=g).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, S, nh, device=dev, generator=g) - 2.0)
+    A = -torch.exp(torch.randn(nh, device=dev, generator=g) * 0.5)
+    B = torch.randn(b, S, nh, N, device=dev, generator=g).to(dtype)
+    C = torch.randn(b, S, nh, N, device=dev, generator=g).to(dtype)
+    n = ssd_scan.launches
+    y, h = ssd_scan(x, dt, A, B, C, chunk=chunk)
+    assert ssd_scan.launches == n + 1
+    yw, hw = ssd_chunked(x, dt, A, B, C, chunk)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    tol = _tol(dtype) if dtype == torch.bfloat16 else SSD_F32_TOL
+    torch.testing.assert_close(y.float(), yw.float(), **tol)
+    torch.testing.assert_close(h, hw, **SSD_F32_TOL)
+
+
+def test_moe_and_ssd_wrappers_reject_bad_inputs(dev):
+    from repro_torch.kernels.moe_gemm import grouped_gemm_padded
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    x = torch.randn(32, 16, device=dev)
+    w = torch.randn(2, 16, 8, device=dev)
+    be = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="block height"):
+        grouped_gemm_padded(x, w, be[:1].repeat(4), be.repeat(2))
+    with pytest.raises(ValueError, match="int32"):
+        grouped_gemm_padded(x, w, be.long(), be)
+    with pytest.raises(ValueError, match="match"):
+        grouped_gemm_padded(x, w.bfloat16(), be, be)
+    xs = torch.randn(1, 8, 2, 24, device=dev)
+    dt = torch.rand(1, 8, 2, device=dev)
+    A = -torch.ones(2, device=dev)
+    Bm = torch.randn(1, 8, 2, 4, device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ssd_scan(xs, dt, A, Bm, Bm)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_scan(xs[..., :16].contiguous(), dt.double(), A, Bm, Bm)
