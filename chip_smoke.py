@@ -14,10 +14,21 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    scales) and again at qwen2-moe's (D 128), the grouped expert GEMM at
    qwen2-moe's decode and prefill rows (f 1408 and 2048, empty experts,
    trailing blocks), the SSD scan at mamba2-1.3b's (S 1024, a ragged
-   700, and 16 < chunk); then each is timed with CUDA events (kernel,
-   plain version, one PyTorch library call as a yardstick where one
-   exists) beside the least time the card could take, the attention
-   kernels at both head dims and the grouped GEMM at both row counts;
+   700, and 16 < chunk), the int8-weight matmul at minicpm-2b's decode
+   and prefill rows (and a ragged T 37, K 2300, N 1000, a zero-scale
+   column); then each is timed with CUDA events (kernel, plain version,
+   one PyTorch library call as a yardstick where one exists) beside the
+   least time the card could take, the attention kernels at both head
+   dims and the grouped GEMM and the int8 matmul at both row counts;
+
+   then the tuning path: ``run_tuning`` of the ``h100`` preset (reps 3,
+   written to ``chiprun_out/calibration_h100.json``) with every launch
+   count set to 0 before it: every op timed under ``torch`` and
+   ``cuda``, every kernel launched, the cuda output equal to the torch
+   output on every case (checked once, after the timing),
+   ``KernelPolicy.from_calibration`` equal to the payload's policy, the
+   ``MeasuredModel`` of every cell feasible against the H100 spec, and
+   the roofline-vs-measured rows of ``kernel_model_error``;
 3. serving: full minicpm-2b (40 layers, bf16, seeded random weights)
    with the default ``cuda`` kernel policy, 4 slots, max_len 1024:
    ``ServeEngine`` at admit widths 1 and 2, ``PagedServeEngine`` (page
@@ -25,7 +36,8 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    contiguous engine with int8 KV, and a shared-system-prompt trace
    with the prefix cache off and on. Before each run every kernel's
    launch count is set to 0; after it the run's kernels must have
-   risen and the other paths' kernels stayed at 0. Paged streams must
+   risen and the other paths' kernels (the int8-weight matmul among
+   them, which no serving path runs) stayed at 0. Paged streams must
    equal the contiguous ones (bf16 and int8), and the warm prefix run
    must hit and prefill fewer tokens. Then a profile of full-width
    decode steps (wall time against the device time of their kernels)
@@ -65,16 +77,27 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16_tensor": 989e12, "int8_tensor": 1979e12,
-            "f32_cuda_core": 67e12}
+from repro_torch.core.hardware import H100_SXM  # noqa: E402  (pure data)
+
+#: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit), from
+#: the port's one record of them.
+HBM_BYTES_PER_S = H100_SXM.hbm_bw
+PEAK_OPS = {"bf16_tensor": H100_SXM.peak_flops("bfloat16"),
+            "int8_tensor": H100_SXM.peak_flops("int8"),
+            "f32_cuda_core": H100_SXM.peak_flops("float32")}
 
 #: f32 kernel vs plain: only the summation order differs (TF32 is off).
 F32_TOL = dict(atol=5e-5, rtol=1e-5)
 #: bf16: both sides compute in f32 and round once; neighbouring bf16
 #: values differ by at most 2^-7 of the value.
 BF16_TOL = dict(atol=1e-5, rtol=2 ** -7)
+#: The tuner's cases, cuda vs torch, all f32 on the unscaled N(0, 1)
+#: inputs the reference's tuner draws: outputs reach tens in RMS (a
+#: K-2304 product of unit normals), so the f32 bar's atol is taken
+#: relative to the output's RMS. The SSD scan takes exp() of cumulative
+#: sums of up to 256 steps of dt * A (about -200 at the chunk's end), so
+#: an f32 rounding of the sum moves a decay factor by ~1e-5 of itself.
+TUNE_TOL = {"ssd_scan": dict(atol=1e-4, rtol=1e-4)}
 #: Teacher-forced logits, cuda vs torch policy, full width in bf16. The
 #: two paths round every norm and attention output to bf16 at the same
 #: places but may land one ulp apart; 40 layers carry such differences
@@ -211,6 +234,8 @@ def kernel_phase(cfg, moe_cfg, ssm_cfg):
         entries[name]["d128"] = {k: e[k] for k in SUB_KEYS}
     entries["moe_gemm"] = moe_gemm_kernel(moe_cfg, gen, rnd, compare, flush)
     entries["ssd_scan"] = ssd_scan_kernel(ssm_cfg, gen, rnd, compare, flush)
+    entries["quant_matmul"] = quant_matmul_kernel(cfg, gen, rnd, compare,
+                                                  flush)
     for e in entries.values():
         for label, t in (("", e), *((f"{k} ", e[k]) for k in ("d128",
                                                               "prefill")
@@ -425,6 +450,66 @@ def ssd_scan_kernel(cfg, gen, rnd, compare, flush):
                 shape=f"b{b} S{S} nh{nh} hp{hp} N{N} chunk {L} bf16")
 
 
+def quant_matmul_kernel(cfg, gen, rnd, compare, flush):
+    """The int8-weight matmul at minicpm-2b's widths (K 2304, N 17280 =
+    3 d_ff, the N the tuner recovers from the int8 FFN bytes), at the
+    decode rows (4 slots) and a 1024-token prefill, plus a ragged T 37,
+    K 2300, N 1000 (N % 16 != 0: the kernel's scalar weight loads).
+    Column 0 of every weight is zero (scale 0). x is scaled by 1/sqrt(K),
+    so outputs are of order 1. Timed in bf16 at both row counts."""
+    import torch
+    from repro_torch.kernels.quant import (quant_matmul, quant_matmul_plain,
+                                           quantize_channels)
+
+    dev = torch.device("cuda")
+    K, N = cfg.d_model, 3 * cfg.d_ff
+
+    def case(T, K, N, dtype):
+        x = (torch.randn(T, K, generator=gen, device=dev) / K ** 0.5) \
+            .to(dtype)
+        w = torch.randn(K, N, generator=gen, device=dev)
+        w[:, 0] = 0.0
+        w_q, scale = quantize_channels(w)
+        return x, w_q, scale
+
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for T, k, n, label in ((4, K, N, "decode"), (1024, K, N, "prefill"),
+                               (37, 2300, 1000, "ragged")):
+            x, w_q, scale = case(T, k, n, dtype)
+            got = quant_matmul(x, w_q, scale)
+            check(not bool(got[:, 0].any()), "quant_matmul: zero-scale "
+                  "column is not zero")
+            err = max(err, compare(
+                "quant_matmul", got, quant_matmul_plain(x, w_q, scale),
+                dtype, f"{label} T{T} K{k} N{n} {str(dtype)[6:]}"))
+
+    def timed(T):
+        x, w_q, scale = case(T, K, N, torch.bfloat16)
+        w_deq = w_q.to(torch.bfloat16)          # exact for -127..127
+        sc = scale.to(torch.bfloat16)
+        nbytes = 2 * T * K + K * N + 4 * N + 2 * T * N
+        b_ms, b_by = bound(nbytes, 2 * T * K * N, "bf16_tensor")
+        return dict(max_abs_err=err,
+                    ms=time_ms(lambda: quant_matmul(x, w_q, scale),
+                               flush=flush),
+                    plain_ms=time_ms(lambda: quant_matmul_plain(x, w_q, scale),
+                                     flush=flush),
+                    bound_ms=b_ms, bound_by=b_by,
+                    library_ms=time_ms(lambda: torch.matmul(x, w_deq) * sc,
+                                       flush=flush),
+                    shape=f"T{T} K{K} N{N} x bf16, w int8 + f32 scales")
+
+    dec, pre = timed(4), timed(1024)
+    return dict(name="quant_matmul", route="cuda",
+                source="src/repro_torch/kernels/csrc/quant_matmul.cu",
+                replaces="src/repro/kernels/quant.py:132",
+                library_call="torch.matmul against the weight dequantized "
+                             "to bf16 beforehand (not timed), then the "
+                             "scale",
+                prefill={k: pre[k] for k in SUB_KEYS}, **dec)
+
+
 def decode_variants(cfg, gen, rnd, compare, flush, mask):
     """The paged, int8 and int8-paged split-KV decode kernels at the
     full-width decode shapes: a 257-page pool whose table is a seeded
@@ -535,6 +620,139 @@ def decode_variants(cfg, gen, rnd, compare, flush, mask):
             bound_by=b_by, library_ms=time_ms(lib, flush=flush),
             library_call=lib_what, shape=shape)
     return entries
+
+
+# ===========================================================================
+# Phase 2b: the tuner and the measured model
+# ===========================================================================
+def tune_close(op, got, want):
+    """The tuner's cuda output against its torch output (TUNE_TOL);
+    returns max |err| over the output's RMS."""
+    import torch
+    tol = TUNE_TOL.get(op, F32_TOL)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    worst = 0.0
+    for g, w in zip(got, want, strict=True):
+        g, w = g.float(), w.float()
+        check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+              f"{op}: shape {tuple(g.shape)} vs {tuple(w.shape)}, or "
+              f"non-finite")
+        rms = max(1.0, float(w.square().mean().sqrt()))
+        torch.testing.assert_close(g, w, atol=tol["atol"] * rms,
+                                   rtol=tol["rtol"],
+                                   msg=lambda m: f"tuner {op}: {m}")
+        worst = max(worst, float((g - w).abs().max()) / rms)
+    return worst
+
+
+def tuner_phase(counters):
+    """``run_tuning(h100, reps=3)`` on the card, written under
+    chiprun_out/: every op timed under torch and cuda, every kernel
+    launched, cuda == torch on every case (checked once, after the
+    timing, on the same seeded inputs), the calibrated policy, the
+    measured model of every cell and the roofline-vs-measured rows.
+    Returns the phase's launch counts."""
+    import os
+    import torch
+    from repro_torch.bench import kernel_model_error
+    from repro_torch.core.analytical import DesignPoint, MeasuredModel
+    from repro_torch.core.workload import lm_workload
+    from repro_torch.kernels import tune
+    from repro_torch.kernels.dispatch import (KERNEL_OPS, KernelPolicy,
+                                              implementations)
+
+    out_dir = ROOT / "chiprun_out"
+    os.environ.setdefault("REPRO_TORCH_ARTIFACT_DIR",
+                          str(out_dir / "artifacts"))
+    t0 = time.perf_counter()
+    preset = tune.H100
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    payload = tune.run_tuning(preset, reps=3, device="cuda")
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    t_tune = time.perf_counter() - t0
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[tune] peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of "
+          f"{total / 2**30:.1f}")
+    path = tune.write_calibration(payload, str(out_dir /
+                                               "calibration_h100.json"))
+    print(f"[tune] {len(payload['entries'])} entries in {t_tune:.1f} s -> "
+          f"{Path(path).relative_to(ROOT)} ({payload['timer']}; "
+          f"{payload['device']})")
+    print(f"[tune] launches {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"tuner: kernel {name} was not launched")
+    entries = payload["entries"]
+    check({e["op"] for e in entries} == set(KERNEL_OPS),
+          f"tuner: ops {sorted({e['op'] for e in entries})}")
+    for e in entries:
+        check(set(e["impls"]) == {"torch", "cuda"},
+              f"tuner {e['op']}: impls {sorted(e['impls'])}")
+        t, c = e["impls"]["torch"], e["impls"]["cuda"]
+        print(f"[tune] {e['arch']}/{e['shape']} {e['op']:<28} torch "
+              f"{t['best_s'] * 1e3:10.4f} ms {t['best_params'] or ''} cuda "
+              f"{c['best_s'] * 1e3:10.4f} ms {c['best_params'] or ''} -> "
+              f"{e['winner']}")
+
+    # cuda == torch on each case, on the inputs the case timed
+    for arch, shape in preset.cells:
+        for case in tune.cases_for_cell(preset.arch(arch),
+                                        preset.shape(shape),
+                                        bench_batch=preset.bench_batch,
+                                        page_sizes=preset.paged_page_sizes,
+                                        device="cuda"):
+            args = case.make_args()
+            impls = implementations(case.op)
+            err = tune_close(case.op, impls["cuda"](*args, **case.kwargs),
+                             impls["torch"](*args, **case.kwargs))
+            print(f"[tune] check {arch}/{shape} {case.op}: max|cuda - torch| "
+                  f"/ max(1, rms) {err:.3e} ok")
+            del args
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pol = KernelPolicy.from_calibration(payload)
+    for op, choice in payload["policy"].items():
+        check(pol.impl_for(op) == choice["impl"]
+              and pol.params_for(op) == choice["params"],
+              f"from_calibration {op}: {pol.impl_for(op)} "
+              f"{pol.params_for(op)} vs {choice}")
+    print(f"[tune] policy: {pol.describe()}; params {dict(pol.params)}")
+
+    for arch, shape in preset.cells:
+        wl = lm_workload(preset.arch(arch), preset.shape(shape))
+        r = MeasuredModel(wl, payload, chip=H100_SXM).evaluate(
+            DesignPoint.make())
+        check(r.feasible and r.latency_s > 0, f"MeasuredModel {wl.name}: "
+              f"{r.reason}")
+        measured = int(r.resources["measured_ops"])
+        interp = int(r.resources["interpolated_ops"])
+        # the h100 preset times one sequence per case and the cells run at
+        # their global batch, so most ops fall outside the 4x match window
+        label = ("interpolated, no forecast" if interp > measured
+                 else "forecast")
+        print(f"[model] {wl.name} (global batch "
+              f"{preset.shape(shape).global_batch}; {label}): "
+              f"{r.latency_s * 1e3:.3f} ms, {r.gops:.1f} GOP/s, efficiency "
+              f"{r.efficiency:.4f} of {H100_SXM.name} bf16 peak; ops "
+              f"measured {measured}, interpolated {interp}")
+    err = kernel_model_error.run(payload)
+    for r in err["op_rows"]:
+        print(f"[model] roofline {r['arch']}/{r['shape']} {r['op']:<28} "
+              f"measured {r['measured_ms']:.4f} ms ({r['winner']}), "
+              f"roofline {r['roofline_ms']:.4f} ms, error {r['err_pct']:.1f} %")
+    check(err["pass"], "kernel_model_error did not pass")
+    print(f"[model] roofline-vs-measured error median "
+          f"{err['median_err_pct']:.2f} % / mean {err['mean_err_pct']:.2f} % "
+          f"over {err['ops']} entries")
+    print(f"[tune] phase wall time {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 # ===========================================================================
@@ -988,6 +1206,7 @@ def main() -> int:
     from repro_torch.kernels.moe_gemm import grouped_gemm_padded
     from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.quant import (quant_decode_attention,
+                                           quant_matmul,
                                            quant_paged_decode_attention)
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -1015,8 +1234,18 @@ def main() -> int:
 
     cfg = get_arch("minicpm-2b")
     moe_cfg, ssm_cfg = get_arch("qwen2-moe-a2.7b"), get_arch("mamba2-1.3b")
+    counters = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
+                "decode_attention": decode_attention,
+                "paged_decode_attention": paged_decode_attention,
+                "quant_decode_attention": quant_decode_attention,
+                "quant_paged_decode_attention": quant_paged_decode_attention,
+                "moe_gemm": grouped_gemm_padded, "ssd_scan": ssd_scan,
+                "quant_matmul": quant_matmul}
     # --- phase 2 ---------------------------------------------------------
     entries = kernel_phase(cfg, moe_cfg, ssm_cfg)
+    tuned = tuner_phase(counters)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # --- phase 3 ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -1028,12 +1257,6 @@ def main() -> int:
     print(f"[serve] minicpm-2b full width: {cfg.n_layers} layers, "
           f"{cfg.param_count() / 1e9:.3f} B params in bf16, seeded init "
           f"{time.perf_counter() - t0:.1f} s")
-    counters = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
-                "decode_attention": decode_attention,
-                "paged_decode_attention": paged_decode_attention,
-                "quant_decode_attention": quant_decode_attention,
-                "quant_paged_decode_attention": quant_paged_decode_attention,
-                "moe_gemm": grouped_gemm_padded, "ssd_scan": ssd_scan}
     totals = [serve_phase(cfg, params, counters, rt)]
     profile_phase(cfg, params, rt)
     # --- phase 4 ---------------------------------------------------------
@@ -1062,13 +1285,15 @@ def main() -> int:
         else:
             ssm_parity(mcfg, params)
         del params
-    launches = {name: sum(t[name] for t in totals) for name in counters}
-    print(f"[serve] launches over all serving runs: {launches}")
+    served = {name: sum(t[name] for t in totals) for name in counters}
+    print(f"[serve] launches over all serving runs: {served}")
 
     # --- phase 5 ---------------------------------------------------------
     kernels = []
     for name, e in entries.items():
-        e = dict(e, ok=True, launches=launches[name])
+        e = dict(e, ok=True, launches=served[name] + tuned[name],
+                 launches_by_path={"serve": served[name],
+                                   "tune": tuned[name]})
         e.pop("shape")
         for t in (e, *(e[k] for k in ("d128", "prefill") if k in e)):
             for key in ("ms", "plain_ms", "bound_ms", "library_ms"):

@@ -1,0 +1,39 @@
+"""Where the port writes what it generates.
+
+    <root>/kernels/calibration.json     the tuner's calibration
+    <root>/bench/<name>.json            benchmark outputs
+
+``<root>`` is ``$REPRO_TORCH_ARTIFACT_DIR`` when set, else
+``./artifacts/torch`` relative to the working directory. The port never
+writes the reference's ``artifacts/kernels/calibration.json``: the two
+tuners time different implementations on different devices. The helpers
+are functions, so the variable is read at call time.
+"""
+from __future__ import annotations
+
+import os
+
+ENV_VAR = "REPRO_TORCH_ARTIFACT_DIR"
+
+
+def artifact_root() -> str:
+    """Absolute root: ``$REPRO_TORCH_ARTIFACT_DIR`` or
+    ``./artifacts/torch``."""
+    return os.path.abspath(os.environ.get(ENV_VAR) or os.path.join(
+        os.getcwd(), "artifacts", "torch"))
+
+
+def kernels_dir() -> str:
+    """The tuner's artifacts (``repro_torch.kernels.tune``)."""
+    return os.path.join(artifact_root(), "kernels")
+
+
+def calibration_path() -> str:
+    """The calibration the measured model
+    (``repro_torch.core.analytical.measured``) prices workloads from."""
+    return os.path.join(kernels_dir(), "calibration.json")
+
+
+def bench_dir() -> str:
+    """Benchmark outputs (``repro_torch.bench``)."""
+    return os.path.join(artifact_root(), "bench")

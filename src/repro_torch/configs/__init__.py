@@ -10,9 +10,11 @@ from __future__ import annotations
 import re
 
 from repro_torch.configs.base import (
+    SHAPES,
     ModelConfig,
     MoEConfig,
     SSMConfig,
+    ShapeConfig,
     smoke_config,
 )
 from repro_torch.configs.mamba2_1_3b import CONFIG as _mamba2
@@ -35,16 +37,24 @@ def get_arch(name: str) -> ModelConfig:
             return cfg
     raise KeyError(
         f"arch {name!r} is not ported to repro_torch yet (ROADMAP.md, "
-        f"Queue 1: the hybrid zamba2-2.7b is the next slice; the vlm, "
-        f"audio and remaining dense archs follow); available: "
-        f"{sorted(ARCHS)}")
+        f"Queue 1: the hybrid zamba2-2.7b, the vlm, audio and remaining "
+        f"dense archs are queued); available: {sorted(ARCHS)}")
+
+
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; available: {sorted(SHAPES)}")
+    return SHAPES[name]
 
 
 __all__ = [
     "ARCHS",
+    "SHAPES",
     "ModelConfig",
     "MoEConfig",
     "SSMConfig",
+    "ShapeConfig",
     "get_arch",
+    "get_shape",
     "smoke_config",
 ]

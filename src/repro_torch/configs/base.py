@@ -1,10 +1,11 @@
 """Architecture configuration dataclasses (the port's own copy).
 
 Pure data, no framework import. This is a copy of the reference
-package's ``repro.configs.base`` (``ModelConfig``, ``smoke_config``):
-the port imports nothing of that package, so it carries the records it
-needs, ``param_count`` included. Keep the two in step: the parity
-tests build both from the same arch id and compare them field by field.
+package's ``repro.configs.base`` (``ModelConfig``, ``ShapeConfig``,
+``SHAPES``, ``smoke_config``): the port imports nothing of that package,
+so it carries the records it needs, ``param_count`` included. Keep the
+two in step: the parity tests build both from the same arch id and
+compare them field by field.
 """
 from __future__ import annotations
 
@@ -141,6 +142,28 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes of the LM cells (seq_len x global_batch), as the reference's.
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode
+    # decode only: the KV-cache length when it differs from seq_len;
+    # None -> seq_len
+    kv_len: Optional[int] = None
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:

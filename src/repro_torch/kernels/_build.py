@@ -67,6 +67,8 @@ SIGNATURES = {
     # x, dt, A, B, C, y, h, b, S, nh, hp, N, L, dtype, stream
     "rt_ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                     _P),
+    # x, w_q, scale, out, T, K, N, dtype, stream
+    "rt_quant_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 #: dtype codes shared with ``csrc/common.cuh``.

@@ -9,9 +9,11 @@ with pluggable implementations,
   ``pallas``). Its wrapper runs the plain version for CPU tensors only;
   for CUDA tensors it launches the kernel or raises.
 
-A :class:`KernelPolicy` names the implementation per op. The port's
-default is ``cuda`` (the reference defaults to ``xla``), so the card runs
-the kernels unless a caller asks for ``KernelPolicy.torch()``.
+A :class:`KernelPolicy` names the implementation per op, plus optional
+tuning parameters merged over the call-site keyword arguments (a policy
+built from a tuner calibration carries its winning parameters). The
+port's default is ``cuda`` (the reference defaults to ``xla``), so the
+card runs the kernels unless a caller asks for ``KernelPolicy.torch()``.
 
 Gradients: the kernels are forward-only, so when a gradient is needed a
 non-``torch`` implementation runs inside a ``torch.autograd.Function``
@@ -21,8 +23,8 @@ whose backward is the autograd of the op's ``torch`` implementation
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from dataclasses import dataclass, replace
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -36,17 +38,14 @@ KERNEL_OPS = ("prefill_attention", "decode_attention",
 #: threads through dispatch into whichever implementation runs.
 RMSNORM_EPS = 1e-6
 
-#: Ops without an implementation in the port yet, and where ROADMAP.md
-#: queues them. No model path calls ``quant_matmul``; it comes with the
-#: tuner.
-PENDING = {
-    "quant_matmul": "ROADMAP.md Queue 1 item 11 / Queue 2 quant_matmul_pallas",
-}
+ParamsTuple = Tuple[Tuple[str, Tuple[Tuple[str, Any], ...]], ...]
 
 
 @dataclass(frozen=True)
 class KernelPolicy:
-    """Per-op implementation choice (``torch`` or ``cuda``)."""
+    """Per-op implementation choice (``torch`` or ``cuda``) and tuning
+    parameters. Frozen and hashable: ``params`` are nested tuples, kept
+    in op-sorted order so equal policies compare equal."""
 
     prefill_attention: str = "cuda"
     decode_attention: str = "cuda"
@@ -57,6 +56,7 @@ class KernelPolicy:
     quant_matmul: str = "cuda"
     quant_decode_attention: str = "cuda"
     quant_paged_decode_attention: str = "cuda"
+    params: ParamsTuple = ()
 
     @classmethod
     def cuda(cls) -> "KernelPolicy":
@@ -71,11 +71,41 @@ class KernelPolicy:
         """The ``ModelRuntime.use_kernels`` bool, mapped onto a policy."""
         return cls.cuda() if use_kernels else cls.torch()
 
+    @classmethod
+    def from_calibration(cls, calib: Dict[str, Any]) -> "KernelPolicy":
+        """A policy from a calibration payload's ``policy`` block (written
+        by ``repro_torch.kernels.tune``): the winning implementation and
+        its parameters per op. An op the block does not name keeps the
+        port's default, ``cuda``."""
+        choices = calib.get("policy", {})
+        kw = {op: choices.get(op, {}).get("impl", "cuda")
+              for op in KERNEL_OPS}
+        params = tuple(
+            (op, tuple(sorted(choices[op].get("params", {}).items())))
+            for op in sorted(KERNEL_OPS)
+            if choices.get(op, {}).get("params"))
+        return cls(params=params, **kw)
+
     def impl_for(self, op: str) -> str:
         if op not in KERNEL_OPS:
             raise KeyError(f"unknown kernel op {op!r}; "
                            f"registered: {KERNEL_OPS}")
         return getattr(self, op)
+
+    def params_for(self, op: str) -> Dict[str, Any]:
+        for name, kv in self.params:
+            if name == op:
+                return dict(kv)
+        return {}
+
+    def with_params(self, op: str, **kw: Any) -> "KernelPolicy":
+        merged = {**self.params_for(op), **kw}
+        by_op = dict(self.params)
+        by_op[op] = tuple(sorted(merged.items()))
+        return replace(self, params=tuple(sorted(by_op.items())))
+
+    def describe(self) -> str:
+        return " ".join(f"{op}={self.impl_for(op)}" for op in KERNEL_OPS)
 
 
 CUDA_POLICY = KernelPolicy.cuda()
@@ -140,24 +170,23 @@ def dispatch(op: str, policy: Optional[KernelPolicy], *arrays: Any,
     """Route one hot-spot call through the policy's implementation.
 
     ``kwargs`` are call-site parameters (eps, causal, window, chunk, and
-    the reference's tile sizes ``block_k``/``pages_per_block``);
-    implementations accept ``**_`` so a parameter meaningful only to the
-    other implementation is ignored rather than rejected.
+    the reference's tile sizes ``block_k``/``pages_per_block``); the
+    policy's parameters for the op are merged over them. Implementations
+    accept ``**_`` so a parameter meaningful only to the other
+    implementation is ignored rather than rejected.
     """
-    impl = resolve_policy(policy).impl_for(op)
-    if op in PENDING:
-        raise NotImplementedError(
-            f"kernel op {op!r} is not ported to repro_torch yet "
-            f"({PENDING[op]})")
+    pol = resolve_policy(policy)
+    impl = pol.impl_for(op)
     table = implementations(op)
     if impl not in table:
         raise KeyError(f"kernel op {op!r} has no implementation {impl!r}; "
                        f"registered: {sorted(table)}")
+    merged = {**kwargs, **pol.params_for(op)}
     fn = table[impl]
     if impl != "torch" and torch.is_grad_enabled() and any(
             isinstance(a, torch.Tensor) and a.requires_grad for a in arrays):
-        return _RefBackward.apply(fn, table["torch"], kwargs, *arrays)
-    return fn(*arrays, **kwargs)
+        return _RefBackward.apply(fn, table["torch"], merged, *arrays)
+    return fn(*arrays, **merged)
 
 
 # ===========================================================================
@@ -273,3 +302,15 @@ def _moe_gemm_torch(x, w, expert_of_row, *, n_experts: int, **_):
 def _moe_gemm_cuda(x, w, expert_of_row, *, n_experts: int, **_):
     from repro_torch.kernels.moe_gemm import moe_gemm
     return moe_gemm(x, w, expert_of_row, n_experts=n_experts)
+
+
+@register_impl("quant_matmul", "torch")
+def _quant_matmul_torch(x, w_q, scale, **_):
+    from repro_torch.kernels.quant import quant_matmul_plain
+    return quant_matmul_plain(x, w_q, scale)
+
+
+@register_impl("quant_matmul", "cuda")
+def _quant_matmul_cuda(x, w_q, scale, **_):
+    from repro_torch.kernels.quant import quant_matmul
+    return quant_matmul(x, w_q, scale)

@@ -1,18 +1,21 @@
-"""int8 KV cache: the quantization scheme and the int8 split-KV decode
-kernels' wrappers with their plain versions.
+"""int8 weights and the int8 KV cache: the quantization schemes, the
+int8-weight matmul and the int8 split-KV decode kernels' wrappers with
+their plain versions.
 
 Replaces ``src/repro/kernels/quant.py``: ``quantize_rows`` /
-``dequantize_rows`` and the two KV kernels,
-``quant_decode_attention_splitkv`` (contiguous) and
+``dequantize_rows`` / ``quantize_channels``, the int8-weight matmul
+``quant_matmul_pallas`` (``csrc/quant_matmul.cu``) and the two KV
+kernels, ``quant_decode_attention_splitkv`` (contiguous) and
 ``quant_paged_decode_attention_splitkv`` (paged), both in
 ``csrc/quant_attention.cu`` (the split-KV template of
-``csrc/splitkv.cuh`` with an int8 row reader). See the source for what
+``csrc/splitkv.cuh`` with an int8 row reader). See the sources for what
 bounds them and the design.
 
-Scheme (the reference's): each (token, kv head) row of D values gets one
+Schemes (the reference's): each (token, kv head) row of D values gets one
 symmetric scale ``absmax / 127``, stored bf16 in the ``ks``/``vs``
 side-bands; rows quantize once, at write time, and dequantize as
-``q.float() * scale.float()``.
+``q.float() * scale.float()``. A ``(K, N)`` weight gets one f32 scale per
+output column.
 """
 from __future__ import annotations
 
@@ -51,6 +54,56 @@ def quantize_rows(x: torch.Tensor, scale_dtype: torch.dtype = torch.bfloat16):
 def dequantize_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`quantize_rows` -> float32 (..., D)."""
     return q.float() * scale.float()[..., None]
+
+
+def quantize_channels(w: torch.Tensor):
+    """Per-output-channel symmetric int8 for a (K, N) weight -> (w_q int8
+    (K, N), scale float32 (N,)). Unlike :func:`quantize_rows` this
+    divides by 127, as the reference computes it at its only call site
+    (the tuner's inputs, built eagerly, not under ``jit``)."""
+    wf = w.float()
+    scale = wf.abs().amax(dim=0) / 127.0
+    inv = torch.where(scale > 0, 1.0 / torch.clamp(scale, min=1e-30),
+                      torch.zeros_like(scale))
+    q = torch.clamp(torch.round(wf * inv[None, :]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def quant_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
+                       scale: torch.Tensor) -> torch.Tensor:
+    """x (T, K) float; w_q (K, N) int8; scale (N,) -> (T, N) in x's
+    dtype: the f32 product times the scale, rounded once (the reference
+    ``quant_matmul_xla``)."""
+    acc = x.float() @ w_q.float()
+    return (acc * scale.float()[None, :]).to(x.dtype)
+
+
+def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
+                 scale: torch.Tensor) -> torch.Tensor:
+    """The kernel for CUDA tensors; the plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return quant_matmul_plain(x, w_q, scale)
+    op = "quant_matmul"
+    if x.device.type != "cuda" or x.dim() != 2:
+        raise ValueError(f"{op}: x must be a (T, K) CUDA tensor, got "
+                         f"{tuple(x.shape)} on {x.device}")
+    T, K = x.shape
+    N = w_q.shape[-1]
+    code = _build.dtype_code(x)
+    if not x.is_contiguous():
+        raise ValueError(f"{op}: x must be contiguous")
+    check_input(op, "w_q", w_q, (K, N), torch.int8, x.device)
+    scale = scale.float().contiguous()
+    check_input(op, "scale", scale, (N,), torch.float32, x.device)
+    out = torch.empty((T, N), dtype=x.dtype, device=x.device)
+    if T == 0 or N == 0:
+        return out
+    err = _build.library().rt_quant_matmul(
+        _build.ptr(x), _build.ptr(w_q), _build.ptr(scale), _build.ptr(out),
+        T, K, N, code, _build.stream_handle())
+    _build.check_launch(err, op)
+    quant_matmul.launches += 1
+    return out
 
 
 def quant_decode_attention_plain(q, k_q, v_q, k_scale, v_scale, kv_mask):
@@ -135,5 +188,6 @@ def quant_paged_decode_attention(q, k_pages, v_pages, k_scales, v_scales,
     return out
 
 
+quant_matmul.launches = 0
 quant_decode_attention.launches = 0
 quant_paged_decode_attention.launches = 0

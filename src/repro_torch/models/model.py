@@ -92,7 +92,7 @@ class ModelRuntime:
         return torch_dtype(self.dtype)
 
 
-#: Families the port runs; hybrid (zamba2-2.7b) is the next slice.
+#: Families the port runs; hybrid (zamba2-2.7b), vlm and audio are queued.
 PORTED_FAMILIES = ("dense", "moe", "ssm")
 
 #: Leaves kept f32 by :func:`cast_params`: each is read from its f32
@@ -105,8 +105,8 @@ def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-            f"port runs {PORTED_FAMILIES}; hybrid is the next slice, vlm "
-            f"and audio follow (ROADMAP.md Queue 1 items 8-9)")
+            f"port runs {PORTED_FAMILIES}; hybrid, vlm and audio are "
+            f"queued (ROADMAP.md Queue 1 items 8-9)")
 
 
 def check_device(device) -> torch.device:

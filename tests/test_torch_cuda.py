@@ -5,7 +5,8 @@ Covers rmsnorm, flash prefill and the four split-KV decode variants
 16, page counts that are not a split multiple, G 1-8, D 16-128, a
 window that is not a page multiple, a table row all at the null page;
 the grouped expert GEMM (ragged f, empty experts, trailing blocks) and
-the chunked SSD scan (ragged chunks, S < chunk).
+the chunked SSD scan (ragged chunks, S < chunk) and the int8-weight
+matmul (ragged T, K and N, both tile shapes, an unaligned weight).
 
 Marked ``cuda``: skipped (with the reason) on a host without an NVIDIA
 GPU. On the card: ``PYTHONPATH=src python -m pytest -m cuda
@@ -335,3 +336,63 @@ def test_moe_and_ssd_wrappers_reject_bad_inputs(dev):
         ssd_scan(xs, dt, A, Bm, Bm)
     with pytest.raises(ValueError, match="float32"):
         ssd_scan(xs[..., :16].contiguous(), dt.double(), A, Bm, Bm)
+
+
+# ---------------------------------------------------------- quant_matmul
+def _qmm_case(dev, g, T, K, N, dtype, offset=0):
+    """x scaled by 1/sqrt(K) so outputs are of order 1; column 0 of the
+    weight is all zero (scale 0). ``offset`` shifts the int8 weight off
+    a 16-byte boundary (the kernel's scalar-load path)."""
+    from repro_torch.kernels.quant import quantize_channels
+    x = (torch.randn(T, K, device=dev, generator=g) / K ** 0.5).to(dtype)
+    w = torch.randn(K, N, device=dev, generator=g)
+    w[:, 0] = 0.0
+    w_q, scale = quantize_channels(w)
+    if offset:
+        buf = torch.empty(K * N + offset, dtype=torch.int8, device=dev)
+        buf[offset:].copy_(w_q.reshape(-1))
+        w_q = buf[offset:].view(K, N)
+    return x, w_q, scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,K,N,offset", [
+    (1, 2304, 17280, 0),       # minicpm-2b decode, one sequence
+    (4, 2304, 17280, 0),       # four slots
+    (37, 2300, 1000, 0),       # ragged T, K and N (N % 16 != 0)
+    (1024, 2048, 16896, 0),    # qwen2-moe shared-expert rows, prefill
+    (16, 64, 100, 0),          # the decode tile's last row count
+    (17, 96, 48, 1),           # the prefill tile; unaligned weight
+])
+def test_quant_matmul_kernel(dev, dtype, T, K, N, offset):
+    from repro_torch.kernels.quant import quant_matmul, quant_matmul_plain
+    g = torch.Generator(device=dev).manual_seed(11)
+    x, w_q, scale = _qmm_case(dev, g, T, K, N, dtype, offset)
+    n = quant_matmul.launches
+    got = quant_matmul(x, w_q, scale)
+    assert quant_matmul.launches == n + 1
+    assert got.dtype == dtype and tuple(got.shape) == (T, N)
+    want = quant_matmul_plain(x, w_q, scale)
+    assert not bool(got[:, 0].any())           # the zero-scale column
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+def test_quant_matmul_dispatch_and_rejects_bad_inputs(dev):
+    from repro_torch.kernels import dispatch as D
+    from repro_torch.kernels.quant import quant_matmul
+    g = torch.Generator(device=dev).manual_seed(12)
+    x, w_q, scale = _qmm_case(dev, g, 5, 64, 32, torch.float32)
+    n = quant_matmul.launches
+    got = D.dispatch("quant_matmul", D.CUDA_POLICY, x, w_q, scale)
+    assert quant_matmul.launches == n + 1
+    want = D.dispatch("quant_matmul", D.TORCH_POLICY, x, w_q, scale)
+    assert quant_matmul.launches == n + 1
+    torch.testing.assert_close(got, want, **_tol(torch.float32))
+    with pytest.raises(ValueError, match="int8"):
+        quant_matmul(x, w_q.float(), scale)
+    with pytest.raises(ValueError, match="shape"):
+        quant_matmul(x, w_q[:32], scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_matmul(x.t().contiguous().t(), w_q, scale)
+    with pytest.raises(TypeError, match="dtype"):
+        quant_matmul(x.half(), w_q, scale)

@@ -157,23 +157,40 @@ def test_policy_defaults_to_cuda_and_mirrors_op_names():
     from repro.kernels.dispatch import KERNEL_OPS as JAX_OPS
     assert D.KERNEL_OPS == JAX_OPS
     pol = D.resolve_policy(None)
-    for op in ("prefill_attention", "decode_attention", "rmsnorm",
-               "paged_decode_attention", "quant_decode_attention",
-               "quant_paged_decode_attention"):
-        assert op not in D.PENDING
+    for op in D.KERNEL_OPS:
         assert pol.impl_for(op) == "cuda"
         assert D.TORCH_POLICY.impl_for(op) == "torch"
         assert set(D.implementations(op)) == {"torch", "cuda"}
     assert D.KernelPolicy.from_flag(False) == D.TORCH_POLICY
+    assert pol.describe() == " ".join(f"{op}=cuda" for op in D.KERNEL_OPS)
     with pytest.raises(KeyError):
         pol.impl_for("nope")
 
 
-@pytest.mark.parametrize("op", sorted(D.PENDING))
-def test_unported_op_names_roadmap(op):
-    for pol in (D.CUDA_POLICY, D.TORCH_POLICY):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            D.dispatch(op, pol, torch.zeros(1))
+@pytest.mark.parametrize("pol", [D.TORCH_POLICY, D.CUDA_POLICY])
+def test_policy_params_reach_the_impl_through_dispatch(monkeypatch, pol):
+    """A policy's per-op params are merged over the call-site kwargs and
+    reach whichever implementation runs, as the reference's dispatch
+    merges them; params of another op do not."""
+    seen = []
+    impl = pol.impl_for("prefill_attention")
+    real = D.implementations("prefill_attention")[impl]
+
+    def spy(*arrays, **kw):
+        seen.append(kw)
+        return real(*arrays, **kw)
+
+    monkeypatch.setitem(D.implementations("prefill_attention"), impl, spy)
+    tuned = pol.with_params("prefill_attention", chunk=3) \
+        .with_params("ssd_scan", chunk=64)
+    assert tuned.params_for("prefill_attention") == {"chunk": 3}
+    assert tuned.with_params("ssd_scan", chunk=64) == tuned
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 7, h, 16, generator=g) for h in (4, 2, 2))
+    got = D.dispatch("prefill_attention", tuned, q, k, v, causal=True,
+                     chunk=512)
+    assert seen == [{"causal": True, "chunk": 3}]
+    torch.testing.assert_close(got, flash_attention_plain(q, k, v, chunk=3))
 
 
 def test_rmsnorm_wrapper_counts_no_launch_on_cpu():
@@ -220,6 +237,11 @@ def test_rmsnorm_wrapper_counts_no_launch_on_cpu():
                 torch.rand(5, 4, 2, generator=g).to(torch.bfloat16),
                 torch.tensor([[3, 1, 0], [2, 4, 0]], dtype=torch.int32),
                 torch.arange(12)[None, :] <= torch.tensor([[6], [9]]))),
+    ("quant_matmul",
+     lambda g: (torch.randn(5, 16, generator=g),
+                torch.randint(-127, 128, (16, 12), generator=g,
+                              dtype=torch.int8),
+                torch.rand(12, generator=g))),
 ])
 def test_kernel_forward_reference_backward(op, make):
     """The cuda impl runs inside the autograd.Function whose backward is

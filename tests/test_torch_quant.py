@@ -1,4 +1,10 @@
-"""Port int8 KV cache against the reference, on the CPU.
+"""Port int8 weights and int8 KV cache against the reference, on the CPU.
+
+``quantize_channels`` must give the reference's int8 weights and f32
+scales bit for bit, as the reference computes them at its only call
+site (eagerly), and the int8-weight matmul's plain version and the
+wrapper's CPU path match ``quant_matmul_xla`` and the Pallas kernel in
+interpret mode.
 
 The scheme (``quantize_rows``) must give the reference's payloads and
 scales bit for bit, as the reference computes them when serving: under
@@ -32,6 +38,7 @@ from repro.serve import ServeEngine as JEngine  # noqa: E402
 from repro.serve.parity import logit_parity as jparity  # noqa: E402
 
 from repro_torch.configs import ARCHS, smoke_config  # noqa: E402
+from repro_torch.kernels import dispatch as D  # noqa: E402
 from repro_torch.kernels import quant as Q  # noqa: E402
 from repro_torch.models import (ModelRuntime, cache_spec,  # noqa: E402
                                 decode_step, params_from_numpy, prefill)
@@ -105,6 +112,80 @@ def test_dequantize_rows_matches_reference():
     got = Q.dequantize_rows(_t(q), _t(np.asarray(s.astype(jnp.float32)))
                             .to(torch.bfloat16))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _channels_with_edges(rng):
+    """A (64, 100) weight with an all-zero column, a column whose values
+    round half to even, and a column whose absmax divided by 127 is not
+    absmax times f32(1/127)."""
+    w = rng.standard_normal((64, 100)).astype(np.float32)
+    w[:, 0] = 0.0
+    w[:, 1] = 0.0
+    w[:4, 1] = [127.0, 2.5, -1.5, 0.5]
+    cand = np.float32(1.0) + np.arange(1, 4096, dtype=np.float32) * \
+        np.float32(2 ** -12)
+    differ = cand[cand / np.float32(127.0) != cand * np.float32(Q.INV_127)]
+    w[:, 2] = np.clip(w[:, 2], -0.5, 0.5)
+    w[7, 2] = differ[0]
+    return w, 2
+
+
+def test_quantize_channels_bit_identical_to_eager_reference():
+    """The reference's only caller (its tuner's inputs) runs
+    ``quantize_channels`` eagerly, where ``absmax / 127.0`` is a
+    division: the port divides too (``quantize_rows`` multiplies, as the
+    jitted KV writers compute)."""
+    w, col = _channels_with_edges(np.random.default_rng(2))
+    want_q, want_s = jquant.quantize_channels(jnp.asarray(w))
+    q, s = Q.quantize_channels(_t(w))
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    np.testing.assert_array_equal(q.numpy(), np.asarray(want_q))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(want_s))
+    assert not q[:, 0].any() and float(s[0]) == 0.0
+    assert q[:4, 1].tolist() == [127, 2, -2, 0]
+    # the column where the two forms of the scale differ: the test sees
+    # the difference it guards, and the port's is the division
+    am = np.float32(np.abs(w[:, col]).max())
+    assert am / np.float32(127.0) != am * np.float32(Q.INV_127)
+    assert float(s[col]) == am / np.float32(127.0)
+    # a bf16 weight quantizes from its f32 value
+    wb = jnp.asarray(w).astype(jnp.bfloat16)
+    want_q, want_s = jquant.quantize_channels(wb)
+    q, s = Q.quantize_channels(_t(np.asarray(wb.astype(jnp.float32)))
+                               .to(torch.bfloat16))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(want_q))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(want_s))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quant_matmul_plain_matches_reference(dtype):
+    """The plain version and the wrapper's CPU path against
+    ``quant_matmul_xla`` and ``quant_matmul_pallas`` in interpret mode at
+    ragged tiles (T 37, N 100 against block_t 32, block_n 64). f32: 1e-5;
+    bf16 input: both round one f32 product once, so within one ulp."""
+    rng = np.random.default_rng(3)
+    w, _ = _channels_with_edges(rng)
+    xj = jnp.asarray(rng.standard_normal((37, 64)).astype(np.float32)
+                     / 8.0).astype(dtype)
+    wq_j, s_j = jquant.quantize_channels(jnp.asarray(w))
+    want_x = jquant.quant_matmul_xla(xj, wq_j, s_j)
+    want_p = jquant.quant_matmul_pallas(xj, wq_j, s_j, block_t=32,
+                                        block_n=64, interpret=True)
+    x = _t(np.asarray(xj.astype(jnp.float32))).to(getattr(torch, dtype))
+    w_q, scale = _t(np.asarray(wq_j)), _t(np.asarray(s_j))
+    before = Q.quant_matmul.launches
+    outs = [Q.quant_matmul_plain(x, w_q, scale), Q.quant_matmul(x, w_q, scale),
+            D.dispatch("quant_matmul", D.TORCH_POLICY, x, w_q, scale),
+            D.dispatch("quant_matmul", D.CUDA_POLICY, x, w_q, scale)]
+    assert Q.quant_matmul.launches == before
+    tol = TOL if dtype == "float32" else dict(atol=1e-5, rtol=2 ** -7)
+    for got in outs:
+        assert got.dtype == x.dtype and tuple(got.shape) == (37, 100)
+        for want in (want_x, want_p):
+            np.testing.assert_allclose(
+                got.float().numpy(),
+                np.asarray(want.astype(jnp.float32)), **tol)
+    assert not outs[0][:, 0].any()
 
 
 # ===========================================================================
