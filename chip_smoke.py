@@ -20,6 +20,8 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    one PyTorch library call as a yardstick where one exists) beside the
    least time the card could take, the attention kernels at both head
    dims and the grouped GEMM and the int8 matmul at both row counts;
+   the timings of flash (bf16) and of the int8 matmul at T > 16 name
+   the tensor-core body they ran (``mma.sync``);
 
    then the tuning path: ``run_tuning`` of the ``h100`` preset (reps 3,
    written to ``chiprun_out/calibration_h100.json``) with every launch
@@ -40,8 +42,8 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    them, which no serving path runs) stayed at 0. Paged streams must
    equal the contiguous ones (bf16 and int8), and the warm prefix run
    must hit and prefill fewer tokens. Then a profile of full-width
-   decode steps (wall time against the device time of their kernels)
-   and one 1024-token prefill;
+   decode steps and of one 1024-token prefill (wall time against the
+   device time of their kernels);
 4. logit parity at full width: teacher-forced prefill + decode steps
    under the ``cuda`` and ``torch`` policies on the same weights, and
    ``logit_parity`` for bf16 vs int8 KV and for int8 KV under both
@@ -120,7 +122,10 @@ PAGE_SIZE, PAGES_PER_SEQ = 16, 64
 #: entry of the attention kernels (qwen2-moe's heads), the ``prefill``
 #: entry of ``moe_gemm``.
 SUB_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape")
+            "library_ms", "shape", "body")
+#: The instruction of the tensor-core bodies (bf16 flash prefill, the
+#: int8-weight matmul at T > 16); a timing's "body" names the body it ran.
+MMA = "mma.sync"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -231,7 +236,7 @@ def kernel_phase(cfg, moe_cfg, ssm_cfg):
                                              mask),
             **decode_variants(moe_cfg, gen, rnd, compare, flush, mask)}
     for name, e in d128.items():
-        entries[name]["d128"] = {k: e[k] for k in SUB_KEYS}
+        entries[name]["d128"] = {k: e[k] for k in SUB_KEYS if k in e}
     entries["moe_gemm"] = moe_gemm_kernel(moe_cfg, gen, rnd, compare, flush)
     entries["ssd_scan"] = ssd_scan_kernel(ssm_cfg, gen, rnd, compare, flush)
     entries["quant_matmul"] = quant_matmul_kernel(cfg, gen, rnd, compare,
@@ -242,7 +247,9 @@ def kernel_phase(cfg, moe_cfg, ssm_cfg):
                                     if k in e)):
             lib = ("none" if t["library_ms"] is None
                    else f"{t['library_ms']:.4f} ms")
-            print(f"[time] {e['name']:<16} {label}{t['shape']}: kernel "
+            body = f" [{t['body']}]" if "body" in t else ""
+            print(f"[time] {e['name']:<16} {label}{t['shape']}{body}: "
+                  f"kernel "
                   f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
                   f"{lib} ({e['library_call']}), bound {t['bound_ms']:.4f} "
                   f"ms ({t['bound_by']})")
@@ -285,7 +292,7 @@ def flash_entry(cfg, rnd, compare, flush, shapes):
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), flush=flush),
-        library_call="SDPA, causal",
+        library_call="SDPA, causal", mma=MMA, body=MMA,
         shape=f"B{B} S{S} Hq{H} Hkv{Hkv} D{D} causal bf16")
 
 
@@ -394,7 +401,7 @@ def moe_gemm_kernel(cfg, gen, rnd, compare, flush):
                 replaces="src/repro/kernels/moe_gemm.py:32",
                 library_call="torch.bmm over the present experts' padded "
                              "rows, layout not timed",
-                prefill={k: pre[k] for k in SUB_KEYS}, **dec)
+                prefill={k: pre[k] for k in SUB_KEYS if k in pre}, **dec)
 
 
 def ssd_scan_kernel(cfg, gen, rnd, compare, flush):
@@ -498,6 +505,7 @@ def quant_matmul_kernel(cfg, gen, rnd, compare, flush):
                     bound_ms=b_ms, bound_by=b_by,
                     library_ms=time_ms(lambda: torch.matmul(x, w_deq) * sc,
                                        flush=flush),
+                    body=MMA if T > 16 else "f32 CUDA cores",
                     shape=f"T{T} K{K} N{N} x bf16, w int8 + f32 scales")
 
     dec, pre = timed(4), timed(1024)
@@ -506,7 +514,7 @@ def quant_matmul_kernel(cfg, gen, rnd, compare, flush):
                 replaces="src/repro/kernels/quant.py:132",
                 library_call="torch.matmul against the weight dequantized "
                              "to bf16 beforehand (not timed), then the "
-                             "scale",
+                             "scale", mma=MMA,
                 prefill={k: pre[k] for k in SUB_KEYS}, **dec)
 
 
@@ -977,8 +985,9 @@ def device_profile(label, step, steps=5):
 
 
 def profile_model(label, cfg, params, rt):
-    """One 1024-token prefill (wall time) and the device profile of a
-    full-width contiguous decode step, 4 slots at positions 512-516.
+    """One 1024-token prefill (wall time, then its device profile) and
+    the device profile of a full-width contiguous decode step, 4 slots
+    at positions 512-516.
     Returns the 4 prompts and their next tokens."""
     import torch
     from repro_torch.models import decode_step, prefill
@@ -995,6 +1004,8 @@ def profile_model(label, cfg, params, rt):
         torch.cuda.synchronize()
         print(f"[profile] {label} prefill B1 S1024: "
               f"{(time.perf_counter() - t0) * 1e3:.2f} ms wall")
+        device_profile(f"{label} prefill B1 S1024", lambda: prefill(
+            params, cfg, {"tokens": toks}, 1024, rt), steps=3)
         toks = torch.randint(0, cfg.vocab_size, (4, 512), generator=gen,
                              device=dev)
         nxt = toks[:, -1]

@@ -1,5 +1,5 @@
 """Times the int8-weight matmul kernel on the card at the h100 tuner
-cells' widths, beside its plain version and its bound.
+cells' widths, beside its plain version, one PyTorch call and its bound.
 
     PYTHONPATH=src python -m repro_torch.bench.quant_matmul [--iters N]
 
@@ -7,8 +7,10 @@ Rows T 1 and 4 (decode) and 1024 (a prefill slice) at minicpm-2b's
 K 2304, N 17280 and mixtral-8x22b's K 6144, N 8192, in bf16 and f32.
 Each call is timed with CUDA events after a 256 MB write that evicts
 the 50 MB L2, so the weight comes from device memory; the median over
-``--iters`` calls is reported. Prints the card's name and power limit,
-then one JSON object per case.
+``--iters`` calls is reported. The yardstick is ``torch.matmul`` of x
+against the weight dequantized to x's dtype beforehand (not timed),
+then the scale. Prints the card's name and power limit, then one JSON
+object per case.
 """
 from __future__ import annotations
 
@@ -60,6 +62,7 @@ def main(argv=None) -> int:
         w_q, scale = quantize_channels(
             torch.randn(K, N, generator=gen, device=dev))
         for dtype in (torch.bfloat16, torch.float32):
+            w_deq, sc = w_q.to(dtype), scale.to(dtype)  # exact for +-127
             for T in ROWS:
                 x = torch.randn(T, K, generator=gen, device=dev).to(dtype)
                 isz = x.element_size()
@@ -72,6 +75,9 @@ def main(argv=None) -> int:
                                     flush, args.iters),
                     "plain_ms": median_ms(
                         lambda: quant_matmul_plain(x, w_q, scale), flush,
+                        args.iters),
+                    "library_ms": median_ms(
+                        lambda: torch.matmul(x, w_deq) * sc, flush,
                         args.iters),
                     "bound_ms": bound * 1e3}), flush=True)
     return 0

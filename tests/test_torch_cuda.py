@@ -6,7 +6,10 @@ Covers rmsnorm, flash prefill and the four split-KV decode variants
 window that is not a page multiple, a table row all at the null page;
 the grouped expert GEMM (ragged f, empty experts, trailing blocks) and
 the chunked SSD scan (ragged chunks, S < chunk) and the int8-weight
-matmul (ragged T, K and N, both tile shapes, an unaligned weight).
+matmul (ragged T, K and N, both bodies, an unaligned weight). The
+tensor-core bodies (bf16 flash, the int8-weight matmul at T > 16) are
+also held to ``chip_smoke.py``'s bars, one bf16 ulp and f32 summation
+order.
 
 Marked ``cuda``: skipped (with the reason) on a host without an NVIDIA
 GPU. On the card: ``PYTHONPATH=src python -m pytest -m cuda
@@ -65,6 +68,72 @@ def test_flash_kernel(dev, dtype, B, S, Hq, Hkv, D, causal, window):
     got = flash_attention(q, k, v, causal=causal, window=window)
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+#: chip_smoke.py's bf16 bar: both sides round one f32 value once, so
+#: they may differ by one bf16 ulp (2^-7 of the value) and no more.
+BF16_TOL = dict(atol=1e-5, rtol=2 ** -7)
+
+
+def _flash_case(dev, g, B, S, Hq, Hkv, D, dtype=torch.bfloat16):
+    return [torch.randn(B, S, h, D, device=dev, generator=g).to(dtype)
+            for h in (Hq, Hkv, Hkv)]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,window", [
+    (1, 1, 2, 1, 64, True, 0),        # one row
+    (2, 63, 4, 2, 16, True, 0),       # one key tile less a row, D 16
+    (1, 64, 8, 1, 32, True, 0),       # one whole tile, G 8, D 32
+    (2, 65, 4, 4, 128, True, 0),      # a tile and a row, G 1, D 128
+    (1, 700, 8, 4, 64, True, 16),     # window 16, not a tile multiple
+    (1, 1024, 16, 2, 128, True, 0),   # qwen2-moe's heads, G 8
+    (2, 1024, 4, 2, 64, True, 0),     # minicpm-2b's D, B 2
+    (2, 130, 4, 2, 64, False, 0),     # not causal: every tile masked at T
+    (1, 300, 2, 2, 128, True, 40),    # window on the 4-warp block
+])
+def test_flash_mma_kernel(dev, B, S, Hq, Hkv, D, causal, window):
+    """The bf16 tensor-core body at ragged S, every head dim, G 1-8."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    g = torch.Generator(device=dev).manual_seed(13)
+    q, k, v = _flash_case(dev, g, B, S, Hq, Hkv, D)
+    n = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attention.launches == n + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_tol(torch.bfloat16))
+
+
+def test_flash_mma_kernel_within_one_ulp(dev):
+    """At S 1024, D 64 the bf16 body stays within chip_smoke.py's bar,
+    which P rounded once to bf16 would break (P enters P.V as hi + lo)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    g = torch.Generator(device=dev).manual_seed(14)
+    q, k, v = _flash_case(dev, g, 1, 1024, 8, 8, 64)
+    n = flash_attention.launches
+    got = flash_attention(q, k, v)
+    assert flash_attention.launches == n + 1
+    torch.testing.assert_close(got.float(), flash_attention_plain(q, k, v)
+                               .float(), **BF16_TOL)
+
+
+def test_flash_unaligned_bf16_view(dev):
+    """A bf16 view off a 16-byte boundary takes the CUDA-core body."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    g = torch.Generator(device=dev).manual_seed(15)
+    q, k, v = _flash_case(dev, g, 1, 77, 4, 2, 64)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+    buf[1:].copy_(q.reshape(-1))
+    qv = buf[1:].view(q.shape)
+    n = flash_attention.launches
+    got = flash_attention(qv, k, v)
+    assert flash_attention.launches == n + 1
+    torch.testing.assert_close(got.float(), flash_attention_plain(q, k, v)
+                               .float(), **_tol(torch.bfloat16))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -375,6 +444,57 @@ def test_quant_matmul_kernel(dev, dtype, T, K, N, offset):
     want = quant_matmul_plain(x, w_q, scale)
     assert not bool(got[:, 0].any())           # the zero-scale column
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+#: chip_smoke.py's f32 bar (summation order only).
+F32_TOL = dict(atol=5e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,K,N,offset", [
+    (17, 40, 1000, 0),         # K 40: a stage and a ragged one
+    (128, 2304, 17280, 0),     # one block height, minicpm-2b's widths
+    (1000, 2300, 1000, 0),     # K not a stage multiple, N % 16 != 0
+    (1024, 2304, 17280, 0),    # the served prefill slice
+    (1000, 2304, 1000, 1),     # unaligned weight: byte loads
+    (17, 2300, 17280, 0),      # K % 8 != 0: x loaded element by element
+])
+def test_quant_matmul_mma_kernel(dev, dtype, T, K, N, offset):
+    """The tensor-core body (T > 16): bf16 x as one piece, f32 x as three
+    exact bf16 pieces, held to the file's bars and to chip_smoke.py's."""
+    from repro_torch.kernels.quant import quant_matmul, quant_matmul_plain
+    g = torch.Generator(device=dev).manual_seed(16)
+    x, w_q, scale = _qmm_case(dev, g, T, K, N, dtype, offset)
+    n = quant_matmul.launches
+    got = quant_matmul(x, w_q, scale)
+    assert quant_matmul.launches == n + 1
+    assert got.dtype == dtype and tuple(got.shape) == (T, N)
+    want = quant_matmul_plain(x, w_q, scale)
+    assert not bool(got[:, 0].any())
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(F32_TOL if dtype == torch.float32
+                                  else BF16_TOL))
+
+
+@pytest.mark.parametrize("T,K,N", [(1024, 2304, 17280), (333, 2048, 1000)])
+def test_quant_matmul_mma_kernel_unscaled_f32(dev, T, K, N):
+    """f32 x at the tuner's unscaled N(0, 1) magnitudes (outputs near 48
+    in RMS): F32_TOL with its atol taken relative to the output's RMS, as
+    chip_smoke.py holds the tuner's cases."""
+    from repro_torch.kernels.quant import (quant_matmul, quant_matmul_plain,
+                                           quantize_channels)
+    g = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn(T, K, device=dev, generator=g)
+    w_q, scale = quantize_channels(torch.randn(K, N, device=dev,
+                                               generator=g))
+    n = quant_matmul.launches
+    got = quant_matmul(x, w_q, scale)
+    assert quant_matmul.launches == n + 1
+    want = quant_matmul_plain(x, w_q, scale)
+    rms = max(1.0, float(want.square().mean().sqrt()))
+    torch.testing.assert_close(got, want, atol=F32_TOL["atol"] * rms,
+                               rtol=F32_TOL["rtol"])
 
 
 def test_quant_matmul_dispatch_and_rejects_bad_inputs(dev):
