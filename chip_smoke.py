@@ -20,8 +20,10 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    one PyTorch library call as a yardstick where one exists) beside the
    least time the card could take, the attention kernels at both head
    dims and the grouped GEMM and the int8 matmul at both row counts;
-   the timings of flash (bf16) and of the int8 matmul at T > 16 name
-   the tensor-core body they ran (``mma.sync``);
+   the timings of flash (bf16), of the grouped GEMM (bf16) and of the
+   int8 matmul at T > 16 name the tensor-core body they ran
+   (``mma.sync``), and the grouped GEMM's checks name the body of each
+   dtype (f32: the CUDA cores);
 
    then the tuning path: ``run_tuning`` of the ``h100`` preset (reps 3,
    written to ``chiprun_out/calibration_h100.json``) with every launch
@@ -43,7 +45,8 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    equal the contiguous ones (bf16 and int8), and the warm prefix run
    must hit and prefill fewer tokens. Then a profile of full-width
    decode steps and of one 1024-token prefill (wall time against the
-   device time of their kernels);
+   device time of their kernels, kernels per step, and the share of the
+   model's heaviest hand-written kernel);
 4. logit parity at full width: teacher-forced prefill + decode steps
    under the ``cuda`` and ``torch`` policies on the same weights, and
    ``logit_parity`` for bf16 vs int8 KV and for int8 KV under both
@@ -124,8 +127,10 @@ PAGE_SIZE, PAGES_PER_SEQ = 16, 64
 SUB_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "body")
 #: The instruction of the tensor-core bodies (bf16 flash prefill, the
-#: int8-weight matmul at T > 16); a timing's "body" names the body it ran.
+#: bf16 grouped GEMM, the int8-weight matmul at T > 16); a timing's
+#: "body" names the body it ran.
 MMA = "mma.sync"
+CUDA_CORE = "f32 CUDA cores"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -338,7 +343,8 @@ def moe_gemm_kernel(cfg, gen, rnd, compare, flush):
     top-4 = 16 rows) and a 1024-token prefill (4096 rows), the gate/up
     shape (d 2048 -> f 1408) and the down shape (1408 -> 2048), with
     empty experts and the trailing blocks the sort's static bound
-    leaves. Timed at the decode gate/up shape (and the prefill one)."""
+    leaves. bf16 runs the tensor-core body, f32 the CUDA-core one.
+    Timed at the decode gate/up shape (and the prefill one)."""
     import torch
     from repro_torch.kernels.moe_gemm import (
         BLOCK_M, block_rows, grouped_gemm_padded, grouped_gemm_padded_plain,
@@ -368,11 +374,12 @@ def moe_gemm_kernel(cfg, gen, rnd, compare, flush):
         for T, label in ((4 * K, "decode"), (1024 * K, "prefill")):
             for d_in, f_out in ((d, f), (f, d)):
                 _, _, eor, args, inv, used = case(T, d_in, f_out, dtype, 4)
+                body = CUDA_CORE if dtype == torch.float32 else MMA
                 err = max(err, compare(
                     "moe_gemm", grouped_gemm_padded(*args)[inv],
                     grouped_gemm_padded_plain(*args)[inv], dtype,
-                    f"{label} T{T} {d_in}->{f_out} {used}/{E} experts "
-                    f"{str(dtype)[6:]}"))
+                    f"{label} T{T} {d_in}->{f_out} {used}/{E} "
+                    f"{str(dtype)[6:]} {body}"))
 
     def timed(T):
         x, w, eor, args, inv, used = case(T, d, f, torch.bfloat16, 0)
@@ -392,6 +399,7 @@ def moe_gemm_kernel(cfg, gen, rnd, compare, flush):
                                      iters=10, flush=flush),
                     bound_ms=b_ms, bound_by=b_by,
                     library_ms=time_ms(lambda: torch.bmm(xe, ws), flush=flush),
+                    body=MMA,
                     shape=f"T{T} rows d{d} f{f} bf16, {used}/{E} experts, "
                           f"block {args[0].shape[0] // len(args[2])}")
 
@@ -400,7 +408,7 @@ def moe_gemm_kernel(cfg, gen, rnd, compare, flush):
                 source="src/repro_torch/kernels/csrc/moe_gemm.cu",
                 replaces="src/repro/kernels/moe_gemm.py:32",
                 library_call="torch.bmm over the present experts' padded "
-                             "rows, layout not timed",
+                             "rows, layout not timed", mma=MMA,
                 prefill={k: pre[k] for k in SUB_KEYS if k in pre}, **dec)
 
 
@@ -955,9 +963,11 @@ def serve_pair(label, cfg, params, rt, counters, expect, attention):
     return launch_totals(runs, counters)
 
 
-def device_profile(label, step, steps=5):
+def device_profile(label, step, steps=5, focus=None):
     """Wall time of ``steps`` calls of ``step`` against the device time
-    of the kernels they run (torch.profiler); prints the top kernels."""
+    of the kernels they run (torch.profiler); prints the top kernels and,
+    for ``focus``, the device time and launches per step of the kernels
+    whose name holds it, with their share of the busy time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -982,12 +992,19 @@ def device_profile(label, step, steps=5):
           f"{sum(r[1] for r in rows):.0f} kernels per step")
     for ms, n, key in rows[:8]:
         print(f"[profile]   {ms:8.4f} ms/step  {n:6.0f}x  {key[:90]}")
+    if focus is not None:
+        mine = [r for r in rows if focus in r[2]]
+        check(bool(mine), f"{label}: no {focus} kernel in the profile")
+        ms = sum(r[0] for r in mine)
+        print(f"[profile]   {focus}: {ms:.3f} ms/step, "
+              f"{sum(r[1] for r in mine):.0f} launches/step, "
+              f"{ms / busy:.1%} of device busy")
 
 
-def profile_model(label, cfg, params, rt):
+def profile_model(label, cfg, params, rt, focus=None):
     """One 1024-token prefill (wall time, then its device profile) and
     the device profile of a full-width contiguous decode step, 4 slots
-    at positions 512-516.
+    at positions 512-516, each with ``focus``'s share (device_profile).
     Returns the 4 prompts and their next tokens."""
     import torch
     from repro_torch.models import decode_step, prefill
@@ -1005,14 +1022,14 @@ def profile_model(label, cfg, params, rt):
         print(f"[profile] {label} prefill B1 S1024: "
               f"{(time.perf_counter() - t0) * 1e3:.2f} ms wall")
         device_profile(f"{label} prefill B1 S1024", lambda: prefill(
-            params, cfg, {"tokens": toks}, 1024, rt), steps=3)
+            params, cfg, {"tokens": toks}, 1024, rt), steps=3, focus=focus)
         toks = torch.randint(0, cfg.vocab_size, (4, 512), generator=gen,
                              device=dev)
         nxt = toks[:, -1]
         cache, _ = prefill(params, cfg, {"tokens": toks}, 1024, rt)
         device_profile(f"{label} decode step B4 at pos 512-516, contiguous "
                        f"bf16", lambda: decode_step(params, cfg, cache, nxt,
-                                                    rt))
+                                                    rt), focus=focus)
     return toks, nxt
 
 
@@ -1290,7 +1307,8 @@ def main() -> int:
               f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
         totals.append(serve_pair(mcfg.name, mcfg, params, mrt, counters,
                                  expect, attention))
-        profile_model(mcfg.name, mcfg, params, mrt)
+        profile_model(mcfg.name, mcfg, params, mrt,
+                      focus="moe_gemm" if attention else None)
         if attention:
             moe_parity(mcfg, params)
         else:

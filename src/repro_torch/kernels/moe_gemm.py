@@ -11,7 +11,11 @@ Replaces ``src/repro/kernels/moe_gemm.py`` ``grouped_gemm_padded``. The
 * :func:`moe_gemm_plain` (the ``torch`` impl) loops over the experts
   present: the rows of expert ``e`` times ``w[e]``. It computes the
   reference ``xla`` gather ``einsum(x, w[expert_of_row])`` without
-  materialising one ``(d, f)`` matrix per row, so it fits at full width.
+  materialising one ``(d, f)`` matrix per row, so it fits at full width;
+* :func:`moe_gemm_glu` is what the dropless MoE layer runs under the
+  ``cuda`` impl: its three expert products (gate, up, down) share one
+  sorted layout, so the layer sorts its routed rows once, not once per
+  product, and gathers the real rows back once.
 
 Every version multiplies in float32 and casts the result to ``x``'s
 dtype once, as the Pallas body does. See ``csrc/moe_gemm.cu`` for what
@@ -159,11 +163,42 @@ def moe_gemm_plain(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def sorted_layout(x: torch.Tensor, expert_of_row: torch.Tensor,
+                  n_experts: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """:func:`sort_by_expert` and :func:`block_rows` at :data:`BLOCK_M`:
+    ``(x_pad, block_expert, rows, inv)``, the arguments of
+    :func:`grouped_gemm_padded` and the gather back to ``x``'s order.
+    It depends on ``(expert_of_row, n_experts)`` alone, so every product
+    over the same routing can share it."""
+    x_pad, be, inv, Tp = sort_by_expert(x, expert_of_row, n_experts,
+                                        BLOCK_M)
+    return x_pad, be, block_rows(inv, Tp // BLOCK_M, BLOCK_M), inv
+
+
 def moe_gemm(x: torch.Tensor, w: torch.Tensor, expert_of_row: torch.Tensor,
              *, n_experts: int) -> torch.Tensor:
     """Sort by expert, the grouped GEMM (the kernel on the card), and the
     gather of the real rows back into ``x``'s row order."""
-    x_pad, be, inv, Tp = sort_by_expert(x, expert_of_row, n_experts,
-                                        BLOCK_M)
-    rows = block_rows(inv, Tp // BLOCK_M, BLOCK_M)
+    x_pad, be, rows, inv = sorted_layout(x, expert_of_row, n_experts)
     return grouped_gemm_padded(x_pad, w, be, rows)[inv]
+
+
+def moe_gemm_glu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                 w_down: torch.Tensor, expert_of_row: torch.Tensor, act,
+                 *, n_experts: int) -> torch.Tensor:
+    """``act(x @ w_gate[e], x @ w_up[e]) @ w_down[e]`` for each row's
+    expert ``e``: the three products of a gated expert FFN as three
+    :func:`grouped_gemm_padded` calls on one sorted layout. x (T, d);
+    w_gate, w_up (E, d, f); w_down (E, f, d_out) -> (T, d_out).
+
+    ``act`` runs elementwise over the padded rows too. Their values are
+    whatever the first two products left there, and nothing reads them:
+    the kernel and the plain version read only each block's first
+    ``rows[i]`` rows. Each real row's result equals :func:`moe_gemm`'s
+    three calls bit for bit, since the layout is the same each time."""
+    x_pad, be, rows, inv = sorted_layout(x, expert_of_row, n_experts)
+    h = act(grouped_gemm_padded(x_pad, w_gate, be, rows),
+            grouped_gemm_padded(x_pad, w_up, be, rows))
+    return grouped_gemm_padded(h, w_down, be, rows)[inv]

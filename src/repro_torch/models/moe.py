@@ -4,8 +4,10 @@ dropless grouped-GEMM path and the GShard capacity path (counterpart of
 
 * dropless (``dropless=True``: decode, and prefill under
   ``ModelRuntime.moe_dropless``): every token's K rows run through the
-  ``moe_gemm`` dispatch op, under either policy (the ``torch`` impl loops
-  over the experts, the ``cuda`` impl is the grouped kernel);
+  policy's ``moe_gemm`` choice: the ``torch`` impl, three dispatches
+  that each loop over the experts, or the ``cuda`` impl, the grouped
+  kernel's three products on rows sorted once per layer
+  (``kernels.moe_gemm.moe_gemm_glu``);
 * capacity (the reference's default for ``forward``/prefill): each
   expert takes at most ``ceil(K T / E * capacity_factor)`` tokens; the
   overflow falls through the residual. The reference's dense einsum
@@ -23,7 +25,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.dispatch import KernelPolicy, dispatch
+from repro_torch.kernels.dispatch import (KernelPolicy, dispatch,
+                                          resolve_policy)
+from repro_torch.kernels.moe_gemm import moe_gemm_glu
 from repro_torch.models.layers import ParamDef, swiglu
 
 
@@ -98,20 +102,25 @@ def _routed_grouped(p, xt: torch.Tensor, cfg: ModelConfig,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dropless expert compute as grouped GEMMs over (token, k) rows: each
     token is repeated K times (one row per chosen expert), the three
-    expert matmuls run through ``moe_gemm`` and the K outputs are
-    gate-combined."""
+    expert matmuls follow the policy's ``moe_gemm`` choice and the K
+    outputs are gate-combined. Under ``cuda`` the three products share
+    one sort by expert (the layout depends on the routing alone)."""
     m = cfg.moe
     T, d = xt.shape
     E, K = m.n_experts, m.experts_per_token
     gate_vals, idx, aux = _route(p, xt, cfg)
     x_rep = xt.repeat_interleave(K, dim=0)                      # (T*K, d)
     eor = idx.reshape(T * K).to(torch.int32)                    # row -> expert
-    g = dispatch("moe_gemm", policy, x_rep, p["wg"].to(xt.dtype), eor,
-                 n_experts=E)
-    u = dispatch("moe_gemm", policy, x_rep, p["wi"].to(xt.dtype), eor,
-                 n_experts=E)
-    y = dispatch("moe_gemm", policy, swiglu(g, u), p["wo"].to(xt.dtype),
-                 eor, n_experts=E)                              # (T*K, d)
+    wg, wi, wo = (p[n].to(xt.dtype) for n in ("wg", "wi", "wo"))
+    if resolve_policy(policy).impl_for("moe_gemm") == "cuda":
+        # forward only: training (Queue 1 item 10) will have to route
+        # this through dispatch's autograd wrapper
+        y = moe_gemm_glu(x_rep, wg, wi, wo, eor, swiglu, n_experts=E)
+    else:
+        g = dispatch("moe_gemm", policy, x_rep, wg, eor, n_experts=E)
+        u = dispatch("moe_gemm", policy, x_rep, wi, eor, n_experts=E)
+        y = dispatch("moe_gemm", policy, swiglu(g, u), wo, eor,
+                     n_experts=E)                               # (T*K, d)
     y = y.reshape(T, K, d) * gate_vals[..., None].to(y.dtype)
     return y.sum(dim=1), aux
 

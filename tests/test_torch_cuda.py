@@ -4,12 +4,15 @@ Covers rmsnorm, flash prefill and the four split-KV decode variants
 (contiguous, paged, int8, int8 paged) at odd shapes: page sizes 8 and
 16, page counts that are not a split multiple, G 1-8, D 16-128, a
 window that is not a page multiple, a table row all at the null page;
-the grouped expert GEMM (ragged f, empty experts, trailing blocks) and
-the chunked SSD scan (ragged chunks, S < chunk) and the int8-weight
-matmul (ragged T, K and N, both bodies, an unaligned weight). The
-tensor-core bodies (bf16 flash, the int8-weight matmul at T > 16) are
-also held to ``chip_smoke.py``'s bars, one bf16 ulp and f32 summation
-order.
+the grouped expert GEMM (ragged f, empty experts, trailing blocks; its
+bf16 tensor-core body at every m16 slice boundary of a block, with an
+expert's blocks paired, ragged and unaligned operands, and the served
+widths; a row's bits independent of its batch; the MoE layer's one
+sort equal to three sorts, bit for bit) and the chunked SSD scan
+(ragged chunks, S < chunk) and the int8-weight matmul (ragged T, K and
+N, both bodies, an unaligned weight). The tensor-core bodies (bf16
+flash, the int8-weight matmul at T > 16) are also held to
+``chip_smoke.py``'s bars, one bf16 ulp and f32 summation order.
 
 Marked ``cuda``: skipped (with the reason) on a host without an NVIDIA
 GPU. On the card: ``PYTHONPATH=src python -m pytest -m cuda
@@ -342,14 +345,149 @@ def test_moe_gemm_kernel(dev, dtype, T, d, f, E):
         **_tol(dtype))
 
 
-def test_moe_gemm_rows_do_not_depend_on_their_batch(dev):
+@pytest.mark.parametrize("T,d,f,E,first", [
+    (64, 512, 300, 6, 5),
+    (4096, 2048, 1408, 60, 16),    # qwen2-moe: decode rows in a prefill
+    (4096, 1408, 2048, 60, 16),
+])
+def test_moe_gemm_rows_do_not_depend_on_their_batch(dev, T, d, f, E, first):
     """A row's result is the same whether it is sorted alone or with
-    others: paged and contiguous serving give one stream."""
+    others: paged and contiguous serving give one stream. At qwen2-moe's
+    widths the first 16 rows alone (one or two real rows a block, as at
+    decode) equal the same rows inside a 4,096-row batch (full blocks)."""
     from repro_torch.kernels.moe_gemm import moe_gemm
     g = torch.Generator(device=dev).manual_seed(9)
-    x, w, eor = _moe_case(dev, g, 64, 512, 300, 6, torch.bfloat16)
-    full = moe_gemm(x, w, eor, n_experts=6)
-    assert torch.equal(moe_gemm(x[:5], w, eor[:5], n_experts=6), full[:5])
+    x, w, eor = _moe_case(dev, g, T, d, f, E, torch.bfloat16)
+    full = moe_gemm(x, w, eor, n_experts=E)
+    assert torch.equal(moe_gemm(x[:first], w, eor[:first], n_experts=E),
+                       full[:first])
+
+
+def _moe_blocks(dev, g, blocks, d, f, E, offset=0):
+    """A padded layout by hand: ``blocks`` lists (expert, real rows) per
+    block, each expert's blocks adjacent and full but the last, as the
+    sort leaves them; then one trailing block (expert E, no row). x and w
+    start ``offset`` elements past a 16-byte boundary when it is > 0.
+    Padding rows hold NaN: the kernel must not read them."""
+    from repro_torch.kernels.moe_gemm import BLOCK_M
+    nb = len(blocks) + 1
+    x = torch.full((nb * BLOCK_M * d + offset,), float("nan"), device=dev,
+                   dtype=torch.bfloat16)[offset:].view(nb * BLOCK_M, d)
+    for i, (_, n) in enumerate(blocks):
+        x[i * BLOCK_M:i * BLOCK_M + n] = torch.randn(
+            n, d, device=dev, generator=g).to(torch.bfloat16)
+    w = (torch.randn(E * d * f + offset, device=dev, generator=g)
+         / d ** 0.5).to(torch.bfloat16)[offset:].view(E, d, f)
+    be = torch.tensor([e for e, _ in blocks] + [E], dtype=torch.int32,
+                      device=dev)
+    rows = torch.tensor([n for _, n in blocks] + [0], dtype=torch.int32,
+                        device=dev)
+    real = (torch.arange(BLOCK_M, device=dev)[None, :]
+            < rows[:, None]).reshape(-1)
+    return x, w, be, rows, real
+
+
+def _check_moe_blocks(x, w, be, rows, real):
+    from repro_torch.kernels.moe_gemm import (grouped_gemm_padded,
+                                              grouped_gemm_padded_plain)
+    n = grouped_gemm_padded.launches
+    got = grouped_gemm_padded(x, w, be, rows)
+    assert grouped_gemm_padded.launches == n + 1
+    want = grouped_gemm_padded_plain(x, w, be, rows)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got[real].float()).all())
+    torch.testing.assert_close(got[real].float(), want[real].float(),
+                               **_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("fill", [1, 15, 16, 17, 63, 64])
+def test_moe_gemm_mma_block_fills(dev, fill):
+    """The bf16 tensor-core body at every m16 slice boundary of a block:
+    an expert of one block, of two (starting at an odd block) and of
+    three (a pair and a single), each ending in ``fill`` real rows,
+    beside one-row and two-row blocks."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    blocks = [(0, fill), (1, 64), (1, fill), (2, 64), (2, 64), (2, fill),
+              (3, 1), (4, 2)]
+    _check_moe_blocks(*_moe_blocks(dev, g, blocks, 512, 384, 5))
+
+
+@pytest.mark.parametrize("d,f,offset", [
+    (48, 40, 0),       # d below one stage, f below one column tile
+    (100, 300, 0),     # d and f not multiples of 8: element-wise loads
+    (264, 77, 0),      # odd f: element-wise output stores
+    (256, 384, 3),     # x and w off a 16-byte boundary
+    (128, 200, 0),     # bulk copies, a ragged last column tile
+    (64, 136, 0),      # bulk copies, one stage
+])
+def test_moe_gemm_mma_ragged(dev, d, f, offset):
+    g = torch.Generator(device=dev).manual_seed(12)
+    blocks = [(0, 64), (0, 37), (1, 1), (2, 16), (3, 64), (3, 17)]
+    _check_moe_blocks(*_moe_blocks(dev, g, blocks, d, f, 4, offset))
+
+
+@pytest.mark.parametrize("T,d,f,E", [
+    (16, 2048, 1408, 60),        # qwen2-moe decode, gate/up
+    (16, 1408, 2048, 60),        # qwen2-moe decode, down
+    (4096, 2048, 1408, 60),      # qwen2-moe 1024-token prefill
+    (4096, 1408, 2048, 60),
+    (8, 6144, 16384, 8),         # mixtral-8x22b decode, gate/up
+])
+def test_moe_gemm_mma_full_width(dev, T, d, f, E):
+    from repro_torch.kernels.moe_gemm import (
+        BLOCK_M, block_rows, grouped_gemm_padded, grouped_gemm_padded_plain,
+        sort_by_expert)
+    g = torch.Generator(device=dev).manual_seed(13)
+    x, w, eor = _moe_case(dev, g, T, d, f, E, torch.bfloat16, empty=(0,))
+    xp, be, inv, Tp = sort_by_expert(x, eor, E, BLOCK_M)
+    rows = block_rows(inv, Tp // BLOCK_M, BLOCK_M)
+    n = grouped_gemm_padded.launches
+    got = grouped_gemm_padded(xp, w, be, rows)[inv]
+    assert grouped_gemm_padded.launches == n + 1
+    torch.testing.assert_close(
+        got.float(), grouped_gemm_padded_plain(xp, w, be, rows)[inv].float(),
+        **_tol(torch.bfloat16))
+
+
+def test_moe_layer_sort_once_equals_three_dispatches(dev, monkeypatch):
+    """The dropless MoE layer's one sort per layer gives the logits and
+    tokens of three ``moe_gemm`` calls, bit for bit, in bf16 on the card
+    (smoke qwen2-moe, prefill then greedy decode steps)."""
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.kernels.moe_gemm import grouped_gemm_padded, moe_gemm
+    from repro_torch.models import (ModelRuntime, decode_step, init_params,
+                                    prefill)
+    from repro_torch.models import moe as MOE
+    cfg = smoke_config(ARCHS["qwen2-moe-a2.7b"])
+    rt = ModelRuntime(moe_dropless=True)
+    params = init_params(cfg, seed=0, rt=rt)
+    g = torch.Generator(device=dev).manual_seed(14)
+    toks = torch.randint(0, cfg.vocab_size, (3, 20), device=dev, generator=g)
+    lengths = torch.tensor([20, 9, 4], dtype=torch.int32, device=dev)
+
+    def run():
+        n = grouped_gemm_padded.launches
+        with torch.no_grad():
+            cache, log = prefill(params, cfg, {"tokens": toks}, 32, rt,
+                                 lengths=lengths)
+            logs = [log]
+            for _ in range(5):
+                cache, log = decode_step(params, cfg, cache,
+                                         logs[-1].argmax(-1), rt)
+                logs.append(log)
+        assert grouped_gemm_padded.launches - n == 3 * cfg.n_layers * 6
+        return torch.stack(logs)
+
+    once = run()
+
+    def three(x, wg, wi, wo, eor, act, *, n_experts):
+        h = act(moe_gemm(x, wg, eor, n_experts=n_experts),
+                moe_gemm(x, wi, eor, n_experts=n_experts))
+        return moe_gemm(h, wo, eor, n_experts=n_experts)
+
+    monkeypatch.setattr(MOE, "moe_gemm_glu", three)
+    assert once.dtype == torch.bfloat16
+    assert torch.equal(once, run())
 
 
 # ---------------------------------------------------------------- ssd

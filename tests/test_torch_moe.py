@@ -9,7 +9,9 @@
   ``tests/test_kernels.py`` holds the Pallas kernel);
 * routing: identical top-k indices (a forced tie included) and gates;
 * ``moe_ffn`` dropless and capacity, the port's ``torch``/``cuda``
-  policies against the reference's ``xla``/``pallas`` ones;
+  policies against the reference's ``xla``/``pallas`` ones; the dropless
+  layer under ``cuda`` sorts its rows once for its three products and
+  equals the ``torch`` impl's three dispatches bit for bit;
 * smoke models with reference weights (``params_from_numpy``): f32
   logits and aux loss, and prefill + greedy decode token for token;
 * paged streams equal contiguous ones, and the engine equals the
@@ -244,6 +246,56 @@ def test_moe_ffn_matches_reference(models, name, dropless, token_chunk):
             np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                        **GEMM_TOL)
             np.testing.assert_allclose(float(aux), float(waux), rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ARCH_IDS)
+def test_sort_once_layer_equals_three_dispatches(models, name):
+    """The dropless layer under ``cuda`` (one sorted layout, three grouped
+    GEMMs) against the ``torch`` impl's three ``moe_gemm`` dispatches:
+    equal bit for bit in f32 (the same rows of each expert meet the same
+    weights in the same order), and within the reference's bar of JAX."""
+    cfg, jcfg, x, jl, tl = _moe_inputs(models, name, T=40)
+    got, aux = tmoe.moe_ffn(tl, _t(x), cfg, dropless=True,
+                            policy=TPOL["cuda"])
+    want, waux = tmoe.moe_ffn(tl, _t(x), cfg, dropless=True,
+                              policy=TPOL["torch"])
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert torch.equal(aux, waux)
+    jwant, _ = jmoe.moe_ffn(jl, jnp.asarray(x), jcfg, dropless=True,
+                            policy=JPOL["pallas"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(jwant), **GEMM_TOL)
+
+
+@pytest.mark.parametrize("name", ARCH_IDS)
+def test_dropless_layer_sorts_once(models, monkeypatch, name):
+    """Per dropless layer forward: one ``sort_by_expert`` and three
+    ``grouped_gemm_padded`` calls under ``cuda``; none of either under
+    ``torch`` (its impl loops over the experts). A whole dropless forward
+    sorts once per layer."""
+    from repro_torch.kernels import moe_gemm as MG
+    calls = {"sort": 0, "gemm": 0}
+
+    def counted(key, fn):
+        def wrapper(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    monkeypatch.setattr(MG, "sort_by_expert",
+                        counted("sort", MG.sort_by_expert))
+    monkeypatch.setattr(MG, "grouped_gemm_padded",
+                        counted("gemm", MG.grouped_gemm_padded))
+    cfg, _, x, _, tl = _moe_inputs(models, name)
+    for pol, want in (("cuda", {"sort": 1, "gemm": 3}),
+                      ("torch", {"sort": 0, "gemm": 0})):
+        calls.update(sort=0, gemm=0)
+        tmoe.moe_ffn(tl, _t(x), cfg, dropless=True, policy=TPOL[pol])
+        assert calls == want, pol
+    calls.update(sort=0, gemm=0)
+    tp = models[name][3]
+    forward(tp, cfg, {"tokens": torch.from_numpy(_tokens(cfg, 2, 7))},
+            _rt(True, kernels=TPOL["cuda"]))
+    assert calls == {"sort": cfg.n_layers, "gemm": 3 * cfg.n_layers}
 
 
 def test_capacity_path_drops_like_reference(models):
