@@ -7,7 +7,8 @@ Phases, each printing its results on lines of its own; any failure
 raises and exits non-zero (there is no CPU or plain-version fallback):
 
 1. device and build: the card, its power limit, the ``nvcc`` build of
-   every kernel source (with ptxas' register counts);
+   every kernel source (with ptxas' register counts, named for the int8
+   split-KV kernel's G-1 instantiations, and its spills);
 2. every kernel of the main paths against its plain PyTorch version at
    the full-width shapes, in bf16 and f32: the attention kernels at
    minicpm-2b's (D 64; the int8 KV kernels on int8 payloads with bf16
@@ -22,8 +23,9 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    dims and the grouped GEMM and the int8 matmul at both row counts;
    the timings of flash (bf16), of the grouped GEMM (bf16) and of the
    int8 matmul at T > 16 name the tensor-core body they ran
-   (``mma.sync``), and the grouped GEMM's checks name the body of each
-   dtype (f32: the CUDA cores);
+   (``mma.sync``), the int8 split-KV pair's name its row-parallel body,
+   and the grouped GEMM's checks name the body of each dtype (f32: the
+   CUDA cores);
 
    then the tuning path: ``run_tuning`` of the ``h100`` preset (reps 3,
    written to ``chiprun_out/calibration_h100.json``) with every launch
@@ -46,7 +48,8 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    must hit and prefill fewer tokens. Then a profile of full-width
    decode steps and of one 1024-token prefill (wall time against the
    device time of their kernels, kernels per step, and the share of the
-   model's heaviest hand-written kernel);
+   model's heaviest hand-written kernel; for the paged int8 step, the
+   int8 split-KV kernel's);
 4. logit parity at full width: teacher-forced prefill + decode steps
    under the ``cuda`` and ``torch`` policies on the same weights, and
    ``logit_parity`` for bf16 vs int8 KV and for int8 KV under both
@@ -131,6 +134,34 @@ SUB_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
 #: "body" names the body it ran.
 MMA = "mma.sync"
 CUDA_CORE = "f32 CUDA cores"
+#: The int8 split-KV body (csrc/quant_attention.cu) at G 1: D / 16 lanes
+#: a cache row, one 16-byte load each of K and V.
+INT8_BODY = "row-parallel, 16-byte lanes"
+#: The int8 split-KV kernel's name, as the profiler and ptxas list it.
+INT8_KERNEL = "quant_split_kernel"
+
+
+def int8_build_lines(log: str) -> None:
+    """ptxas' registers and spills of the int8 split kernel: one line per
+    G-1 instantiation (the ones serving runs), then the most any other
+    spills."""
+    worst = 0
+    for entry in log.split("Compiling entry function")[1:]:
+        m = re.search(INT8_KERNEL + r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)"
+                      r"ELb([01])E", entry.split("'")[1])
+        if not m:
+            continue
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = int(re.search(r"(\d+) bytes spill stores", entry).group(1))
+        if m.group(3) != "1":
+            worst = max(worst, spill)
+            continue
+        print(f"[build] {INT8_KERNEL}<{'f32' if m.group(1) == 'f' else 'bf16'}"
+              f", D {m.group(2)}, G 1, "
+              f"{'paged' if m.group(4) == '1' else 'contiguous'}>: "
+              f"{regs.group(1)} registers, {spill} bytes spill stores")
+    print(f"[build] {INT8_KERNEL} at G 2-8: at most {worst} bytes spill "
+          f"stores")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -146,6 +177,12 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+#: GPU cycles (~0.5 ms) of a spin queued before each timed call: the host
+#: then enqueues the call and its end event before the card reaches the
+#: start event, so a call of a few microseconds is timed on the card alone.
+SPIN_CYCLES = 1_000_000
+
+
 def time_ms(fn, iters: int = 30, warm: int = 3, flush=None) -> float:
     """Median CUDA-event time of one call; ``flush`` (untimed) runs
     before each call so inputs come from device memory, not L2."""
@@ -156,6 +193,7 @@ def time_ms(fn, iters: int = 30, warm: int = 3, flush=None) -> float:
     for _ in range(iters):
         if flush is not None:
             flush()
+        torch.cuda._sleep(SPIN_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -604,7 +642,7 @@ def decode_variants(cfg, gen, rnd, compare, flush, mask):
          by_bf16 + io + pt.numel() * 4, "bf16_tensor", lib_paged,
          "SDPA over pre-gathered bf16 K/V, gather not timed",
          f"B{B} NP{NP} ps{ps} Hq{H} Hkv{Hkv} D{D} bf16, {P}-page pool, "
-         f"{valid} valid rows"),
+         f"{valid} valid rows", None),
         ("quant_decode_attention", "quant_attention.cu",
          "src/repro/kernels/quant.py:184", errs[1],
          lambda: quant_decode_attention(q, kq, vq, ks, vs, mask),
@@ -612,7 +650,7 @@ def decode_variants(cfg, gen, rnd, compare, flush, mask):
          by_int8 + io, "int8_tensor", lib_quant,
          "SDPA over pre-dequantized bf16 K/V, dequantize not timed",
          f"B{B} W{W} Hq{H} Hkv{Hkv} D{D} int8 KV + bf16 scales, q bf16, "
-         f"{valid} valid rows"),
+         f"{valid} valid rows", INT8_BODY),
         ("quant_paged_decode_attention", "quant_attention.cu",
          "src/repro/kernels/quant.py:282", errs[2],
          lambda: quant_paged_decode_attention(q, kpq, vpq, kps, vps, pt,
@@ -622,11 +660,11 @@ def decode_variants(cfg, gen, rnd, compare, flush, mask):
          by_int8 + io + pt.numel() * 4, "int8_tensor", lib_qpaged,
          "SDPA over pre-gathered, pre-dequantized bf16 K/V, not timed",
          f"B{B} NP{NP} ps{ps} Hq{H} Hkv{Hkv} D{D} int8 KV + bf16 scales, "
-         f"q bf16, {P}-page pool, {valid} valid rows"),
+         f"q bf16, {P}-page pool, {valid} valid rows", INT8_BODY),
     ]
     entries = {}
     for name, src, replaces, err, fn, plain, nbytes, peak, lib, lib_what, \
-            shape in rows:
+            shape, body in rows:
         b_ms, b_by = bound(nbytes, ops, peak)
         entries[name] = dict(
             name=name, route="cuda",
@@ -635,6 +673,8 @@ def decode_variants(cfg, gen, rnd, compare, flush, mask):
             plain_ms=time_ms(plain, flush=flush), bound_ms=b_ms,
             bound_by=b_by, library_ms=time_ms(lib, flush=flush),
             library_call=lib_what, shape=shape)
+        if body is not None:
+            entries[name]["body"] = body
     return entries
 
 
@@ -1062,7 +1102,8 @@ def profile_phase(cfg, params, rt):
         device_profile(f"{cfg.name} decode step B4 at pos 512-516, paged "
                        f"int8", lambda: decode_step_paged(
                            params, cfg, cache, nxt, rt8,
-                           page_size=PAGE_SIZE, window=1024))
+                           page_size=PAGE_SIZE, window=1024),
+                       focus=INT8_KERNEL)
 
 
 # ===========================================================================
@@ -1255,10 +1296,12 @@ def main() -> int:
     _build.library()
     print(f"[build] {lib_path.relative_to(ROOT)} in "
           f"{time.perf_counter() - t0:.1f} s")
-    for line in (lib_path.parent / "build.log").read_text().splitlines():
+    build_log = (lib_path.parent / "build.log").read_text()
+    for line in build_log.splitlines():
         spills = re.search(r"(\d+) bytes spill stores", line)
         if "registers" in line or (spills and int(spills.group(1))):
             print(f"[build] {line.strip()}")
+    int8_build_lines(build_log)
 
     cfg = get_arch("minicpm-2b")
     moe_cfg, ssm_cfg = get_arch("qwen2-moe-a2.7b"), get_arch("mamba2-1.3b")

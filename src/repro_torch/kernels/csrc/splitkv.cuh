@@ -1,5 +1,6 @@
-// Split-KV decode attention (flash-decoding) for Hopper: the split and
-// merge kernels shared by every decode variant of the port.
+// Split-KV decode attention (flash-decoding) for Hopper: the split kernel
+// of the bf16/f32 decode pair and the merge kernel shared by every decode
+// variant of the port.
 //
 // One query token per sequence against a cache of W logical rows per
 // sequence; each split of BK logical rows is reduced into f32 partials
@@ -7,24 +8,22 @@
 // weights and casts on write, as the reference wrappers do
 // (decode_attention.py:88-96, paged_attention.py:121-129).
 //
-// The template varies only how a row is found and how it is read:
-//   * KT: the stored type, float / bf16, or int8 with one bf16 scale per
-//     (row, kv head) in ks/vs, dequantized in f32 as float(q) * scale
-//     (quant.py:168-169);
+// split_kernel varies only in how a row is found:
+//   * KT: the stored type, float / bf16 (the int8 cache has a body of its
+//     own in quant_attention.cu, on the same Rows and merge_kernel);
 //   * PAGED: logical row j of sequence b lives at physical page
 //     pt[b, j / ps], row j % ps, of a (P, ps, Hkv, D) pool; the block
 //     reads the page table itself.
 // The split of logical rows (BK per split) and every sum are the same
-// for all variants, so a paged cache and a contiguous one holding the
+// for both variants, so a paged cache and a contiguous one holding the
 // same rows give bit-identical outputs.
 //
 // Layouts are the reference's: q (B, Hq, D), contiguous caches
-// (B, W, Hkv, D), pools (P, ps, Hkv, D), scales without the last axis,
-// page table (B, NP) int32, mask (B, W) bool, out (B, Hq, D). Hq = Hkv * G;
-// the G query heads of one kv head share each key and value row read.
+// (B, W, Hkv, D), pools (P, ps, Hkv, D), int8 scales without the last
+// axis, page table (B, NP) int32, mask (B, W) bool, out (B, Hq, D).
+// Hq = Hkv * G; the G query heads of one kv head share each key and value
+// row read.
 #pragma once
-
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -34,19 +33,9 @@ namespace splitkv {
 constexpr int BK = 128;   // logical rows per split == threads per block
 constexpr int MAXG = 8;   // query heads per kv head
 
-// Eight int8 payload values dequantized in f32; p must be 8-byte aligned.
-__device__ __forceinline__ void load8_int8(const int8_t* p, float scale,
-                                           float* out) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const int8_t* v = reinterpret_cast<const int8_t*>(&u);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(v[i]) * scale;
-}
-
 // Where the cache rows live and how they are stored.
 template <typename KT, bool PAGED>
 struct Rows {
-  static constexpr bool QUANT = std::is_same<KT, int8_t>::value;
   const KT* k;
   const KT* v;
   const __nv_bfloat16* ks;  // (rows, Hkv) scales, int8 only
@@ -75,13 +64,12 @@ split_kernel(const T* __restrict__ q, const Rows<KT, PAGED> cache,
              const uint8_t* __restrict__ mask, float* __restrict__ o_part,
              float* __restrict__ m_part, float* __restrict__ l_part, int G,
              float sm_scale) {
-  constexpr bool QUANT = Rows<KT, PAGED>::QUANT;
   // In a split with no valid row every weight is exp(0) = 1. The
   // contiguous kernel then reads those V rows, as the reference does;
-  // the paged and int8 variants never read a masked row. The merge
-  // weights such a split by exactly 0 whenever the sequence has a valid
-  // row anywhere, so both give the same outputs on every such sequence.
-  constexpr bool SKIP_MASKED = PAGED || QUANT;
+  // the paged variant never reads a masked row. The merge weights such a
+  // split by exactly 0 whenever the sequence has a valid row anywhere, so
+  // both give the same outputs on every such sequence.
+  constexpr bool SKIP_MASKED = PAGED;
   __shared__ float sq[MAXG * D];
   __shared__ float sp[MAXG][BK];
   __shared__ float red[MAXG][BK / 32];
@@ -106,16 +94,10 @@ split_kernel(const T* __restrict__ q, const Rows<KT, PAGED> cache,
   if (valid) {
     const long long r = cache.at(b, j, hk);
     const KT* krow = cache.k + r * D;
-    float ksc = 1.f;
-    if constexpr (QUANT) ksc = to_float(cache.ks[r]);
 #pragma unroll
     for (int c = 0; c < D; c += 8) {
       float kv[8];
-      if constexpr (QUANT) {
-        load8_int8(krow + c, ksc, kv);
-      } else {
-        load8(krow + c, kv);
-      }
+      load8(krow + c, kv);
 #pragma unroll
       for (int g = 0; g < MAXG; ++g) {
         if (g < G) {
@@ -185,12 +167,7 @@ split_kernel(const T* __restrict__ q, const Rows<KT, PAGED> cache,
         if (!mask[(long long)b * W + jr]) continue;
       }
       const long long r = cache.at(b, jr, hk);
-      float vv;
-      if constexpr (QUANT) {
-        vv = static_cast<float>(cache.v[r * D + d]) * to_float(cache.vs[r]);
-      } else {
-        vv = to_float(cache.v[r * D + d]);
-      }
+      const float vv = to_float(cache.v[r * D + d]);
 #pragma unroll
       for (int g = 0; g < MAXG; ++g)
         if (g < G) acc[g] += sp[g][jj] * vv;
@@ -241,6 +218,17 @@ __global__ void merge_kernel(const float* __restrict__ o_part,
       from_float<T>(acc / fmaxf(l_all, 1e-30f));
 }
 
+// The merge of ns splits' partials for BH = B * Hkv (sequence, kv head)
+// pairs into out.
+template <typename T>
+int launch_merge(const float* o_part, const float* m_part,
+                 const float* l_part, void* out, int BH, int ns, int G,
+                 int D, cudaStream_t stream) {
+  merge_kernel<T><<<dim3((unsigned)BH, (unsigned)G), D, 0, stream>>>(
+      o_part, m_part, l_part, static_cast<T*>(out), ns, G, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, typename KT, bool PAGED, int D>
 int launch_d(const void* q, const Rows<KT, PAGED>& rows, const void* mask,
              float* o_part, float* m_part, float* l_part, void* out, int B,
@@ -253,15 +241,13 @@ int launch_d(const void* q, const Rows<KT, PAGED>& rows, const void* mask,
           1.0f / sqrtf((float)D));
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  merge_kernel<T><<<dim3((unsigned)(B * rows.Hkv), (unsigned)G), D, 0,
-                    stream>>>(o_part, m_part, l_part, static_cast<T*>(out),
-                              ns, G, D);
-  return static_cast<int>(cudaGetLastError());
+  return launch_merge<T>(o_part, m_part, l_part, out, B * rows.Hkv, ns, G,
+                         D, stream);
 }
 
-// Split + merge for q/out of type T over a cache stored as KT. For a
-// contiguous cache W is its length and ps, NP are unused; for a paged one
-// W = NP * ps logical rows.
+// Split + merge for q/out of type T over a cache stored as KT (float or
+// bf16; ks and vs are unused). For a contiguous cache W is its length and
+// ps, NP are unused; for a paged one W = NP * ps logical rows.
 template <typename T, typename KT, bool PAGED>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* pt, const void* mask, void* o_part,

@@ -5,8 +5,9 @@ Replaces ``src/repro/kernels/decode_attention.py``
 the shared template of ``csrc/splitkv.cuh``) reduces each 128-row split
 of the cache into f32 ``(o, m, l)`` partials and merges them with LSE
 weights in a second small kernel. See the sources for what bounds it and
-the design. The helpers below validate and allocate for every wrapper
-of that template (contiguous, paged, int8, int8 paged).
+the design. The helpers below validate and allocate for every split-KV
+wrapper (contiguous, paged, int8, int8 paged; the int8 pair has a body
+of its own, ``csrc/quant_attention.cu``, on the same split and merge).
 """
 from __future__ import annotations
 

@@ -7,9 +7,10 @@ Replaces ``src/repro/kernels/quant.py``: ``quantize_rows`` /
 ``quant_matmul_pallas`` (``csrc/quant_matmul.cu``) and the two KV
 kernels, ``quant_decode_attention_splitkv`` (contiguous) and
 ``quant_paged_decode_attention_splitkv`` (paged), both in
-``csrc/quant_attention.cu`` (the split-KV template of
-``csrc/splitkv.cuh`` with an int8 row reader). See the sources for what
-bounds them and the design.
+``csrc/quant_attention.cu``: one row-parallel body, ``D / 16`` lanes a
+cache row with one 16-byte load each of K and V (at G 1), whose
+partials the merge kernel of ``csrc/splitkv.cuh`` combines. See the
+sources for what bounds them and the design.
 
 Schemes (the reference's): each (token, kv head) row of D values gets one
 symmetric scale ``absmax / 127``, stored bf16 in the ``ks``/``vs``

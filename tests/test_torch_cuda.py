@@ -4,6 +4,9 @@ Covers rmsnorm, flash prefill and the four split-KV decode variants
 (contiguous, paged, int8, int8 paged) at odd shapes: page sizes 8 and
 16, page counts that are not a split multiple, G 1-8, D 16-128, a
 window that is not a page multiple, a table row all at the null page;
+paged equal to contiguous bit for bit, and for the int8 pair also
+whole splits without a valid row, a sequence's bits independent of its
+batch and no register spill in the served (G 1) instantiations;
 the grouped expert GEMM (ragged f, empty experts, trailing blocks; its
 bf16 tensor-core body at every m16 slice boundary of a block, with an
 expert's blocks paired, ragged and unaligned operands, and the served
@@ -254,7 +257,17 @@ def test_quant_kernel(dev, dtype, B, Hq, Hkv, D, W):
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
-def test_paged_kernel_equals_contiguous_bit_for_bit(dev):
+EQUAL_CASES = [  # B, Hq, Hkv, D, ps, NP, W
+    (4, 36, 36, 64, 16, 64, 1024),    # full width minicpm-2b, G 1
+    (2, 16, 2, 128, 16, 9, 144),      # D 128, G 8
+    (3, 4, 4, 16, 8, 5, 37),          # D 16, ps 8, ragged last page
+    (4, 16, 16, 128, 16, 64, 1024),   # qwen2-moe-a2.7b's heads
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,D,ps,NP,W", EQUAL_CASES)
+def test_paged_kernel_equals_contiguous_bit_for_bit(dev, B, Hq, Hkv, D, ps,
+                                                    NP, W):
     """The same rows, paged or contiguous, give identical outputs: the
     split of logical rows and every sum are the same."""
     from repro_torch.kernels.decode_attention import decode_attention
@@ -263,7 +276,7 @@ def test_paged_kernel_equals_contiguous_bit_for_bit(dev):
     from repro_torch.kernels.quant import (quant_decode_attention,
                                            quant_paged_decode_attention)
     g = torch.Generator(device=dev).manual_seed(6)
-    args = (dev, g, 4, 36, 36, 64, 16, 64, 1024)
+    args = (dev, g, B, Hq, Hkv, D, ps, NP, W)
     q, (kp, vp), pt, mask = _paged_inputs(*args, torch.bfloat16, False)
     c = [gather_pages(t, pt).contiguous() for t in (kp, vp)]
     assert torch.equal(paged_decode_attention(q, kp, vp, pt, mask),
@@ -274,6 +287,97 @@ def test_paged_kernel_equals_contiguous_bit_for_bit(dev):
         quant_paged_decode_attention(q, pq[0], pq[2], pq[1], pq[3], pt,
                                      mask),
         quant_decode_attention(q, c[0], c[2], c[1], c[3], mask))
+
+
+def _quant_cache(dev, g, B, Hq, Hkv, D, W, dtype):
+    """q and an int8 contiguous cache with its scales."""
+    from repro_torch.kernels.quant import quantize_rows
+    q = torch.randn(B, Hq, D, device=dev, generator=g).to(dtype)
+    kq, ks = quantize_rows(torch.randn(B, W, Hkv, D, device=dev,
+                                       generator=g))
+    vq, vs = quantize_rows(torch.randn(B, W, Hkv, D, device=dev,
+                                       generator=g))
+    return q, kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,D", [(36, 36, 64), (16, 2, 128)])
+def test_quant_kernels_fully_masked_splits(dev, dtype, Hq, Hkv, D):
+    """Sequence 0's one valid row is row 0 of a 1,024-row window, so 7 of
+    its 8 splits hold no valid row: they must weigh nothing, and the
+    output is that row's V, dequantized, exactly (one weight of 1)."""
+    from repro_torch.kernels.paged_attention import gather_pages
+    from repro_torch.kernels.quant import (
+        dequantize_rows, quant_decode_attention,
+        quant_decode_attention_plain, quant_paged_decode_attention)
+    g = torch.Generator(device=dev).manual_seed(8)
+    B, W, ps = 2, 1024, 16
+    NP = W // ps
+    q, kq, vq, ks, vs = _quant_cache(dev, g, B, Hq, Hkv, D, W, dtype)
+    mask = torch.arange(W, device=dev)[None, :] <= torch.tensor(
+        [[0], [W - 1]], device=dev)
+    got = quant_decode_attention(q, kq, vq, ks, vs, mask)
+    torch.testing.assert_close(
+        got.float(), quant_decode_attention_plain(q, kq, vq, ks, vs, mask)
+        .float(), **_tol(dtype))
+    row0 = dequantize_rows(vq[0, 0], vs[0, 0])            # (Hkv, D)
+    want0 = row0.repeat_interleave(Hq // Hkv, dim=0).to(dtype)
+    assert torch.equal(got[0], want0)
+    # the same rows through a page table: pages in reverse order
+    pt = torch.arange(B * NP, device=dev, dtype=torch.int32) \
+        .flip(0).reshape(B, NP)
+    pool = [torch.empty((B * NP, ps) + tuple(t.shape[2:]), dtype=t.dtype,
+                        device=dev) for t in (kq, vq, ks, vs)]
+    for p, t in zip(pool, (kq, vq, ks, vs)):
+        p[pt.long()] = t.reshape((B, NP, ps) + tuple(t.shape[2:]))
+        assert torch.equal(gather_pages(p, pt), t)
+    assert torch.equal(quant_paged_decode_attention(q, *pool, pt, mask), got)
+
+
+@pytest.mark.parametrize("Hq,Hkv,D", [(36, 36, 64), (16, 16, 128),
+                                      (8, 1, 32)])
+def test_quant_kernels_rows_do_not_depend_on_their_batch(dev, Hq, Hkv, D):
+    """Each sequence alone gives the bits it gives inside a batch of 4,
+    contiguous and paged."""
+    from repro_torch.kernels.quant import (quant_decode_attention,
+                                           quant_paged_decode_attention)
+    g = torch.Generator(device=dev).manual_seed(9)
+    B, W = 4, 1024
+    q, kq, vq, ks, vs = _quant_cache(dev, g, B, Hq, Hkv, D, W,
+                                     torch.bfloat16)
+    mask = torch.arange(W, device=dev)[None, :] <= torch.tensor(
+        [[1023], [700], [300], [12]], device=dev)
+    batch = quant_decode_attention(q, kq, vq, ks, vs, mask)
+    q2, (kp, ksp, vp, vsp), pt, _ = _paged_inputs(
+        dev, g, B, Hq, Hkv, D, 16, 64, W, torch.bfloat16, True)
+    pbatch = quant_paged_decode_attention(q2, kp, vp, ksp, vsp, pt, mask)
+    for i in range(B):
+        one = slice(i, i + 1)
+        alone = quant_decode_attention(
+            q[one].contiguous(), *(t[one].contiguous()
+                                   for t in (kq, vq, ks, vs)),
+            mask[one].contiguous())
+        assert torch.equal(alone[0], batch[i])
+        palone = quant_paged_decode_attention(
+            q2[one].contiguous(), kp, vp, ksp, vsp, pt[one].contiguous(),
+            mask[one].contiguous())
+        assert torch.equal(palone[0], pbatch[i])
+
+
+def test_quant_split_kernel_has_no_spills(dev):
+    """ptxas reports no spill in the int8 split kernel's G-1
+    instantiations, the ones serving runs."""
+    import re
+    from repro_torch.kernels import _build
+    log = (_build.build_library().parent / "build.log").read_text()
+    seen = 0
+    for entry in log.split("Compiling entry function")[1:]:
+        name = entry.split("'")[1]
+        if re.search(r"quant_split_kernelI.*?Li\d+ELi1ELb[01]E", name):
+            seen += 1
+            spill = re.search(r"(\d+) bytes spill stores", entry)
+            assert spill is not None and int(spill.group(1)) == 0, entry
+    assert seen == 16                  # 2 dtypes x 4 head dims x paged
 
 
 def test_new_wrappers_reject_bad_inputs(dev):

@@ -8,7 +8,11 @@ f32, so the result differs from the plain f32 version only in summation
 order; these tests show that the chosen number of pieces keeps each
 kernel within ``chip_smoke.py``'s bar, and that one piece fewer does
 not. They also check the exact int8 -> bf16 conversion the matmul
-kernel uses. Inputs are drawn with numpy from fixed seeds.
+kernel uses, and that the int8 split-KV decode kernels' order of work
+(the row scale factored out of the lanes' partial dot products, the
+lanes and rows summed in their shuffle order, P.V as (p * vs) * v)
+stays within the same bars. Inputs are drawn with numpy from fixed
+seeds.
 """
 import numpy as np
 import pytest
@@ -109,3 +113,91 @@ def test_int8_to_bf16_bit_trick_is_exact():
     top = torch.from_numpy((bits >> 16).astype(np.int16))
     assert torch.equal(top.view(torch.bfloat16).float(),
                        torch.from_numpy(b.astype(np.float32)))
+
+
+def _butterfly(x: torch.Tensor, n: int, step: int = 1) -> torch.Tensor:
+    """The xor-shuffle sum over the last axis's groups of ``n`` lanes
+    ``step`` apart, offsets n/2 .. 1 (in units of ``step``), as lane 0
+    of the group holds it."""
+    idx = torch.arange(x.shape[-1])
+    off = n // 2
+    while off >= 1:
+        x = x + x[..., idx ^ (off * step)]
+        off //= 2
+    return x
+
+
+def _quant_splitkv_emulated(q, kq, vq, ks, vs, mask):
+    """The int8 split-KV kernels' arithmetic at G 1, order for order:
+    16-column lane partials of q . k_int8, the L = D / 16 lanes summed by
+    xor shuffles, then the K scale and 1/sqrt(D); split-local max and
+    sum; each lane's (p * vs) * v_int8 over its L rows, the 32 / L rows of
+    a warp summed by xor shuffles, the 4 warps in order; the LSE merge."""
+    B, Hq, D = q.shape
+    W, Hkv = kq.shape[1], kq.shape[2]
+    assert Hq == Hkv and W % 128 == 0
+    C, BK = 16, 128
+    L = D // C
+    ns, RP = W // BK, BK // L
+    qf = q.float().reshape(B, Hkv, 1, L, C)
+    k = kq.float().permute(0, 2, 1, 3).reshape(B, Hkv, W, L, C)
+    part = torch.zeros(B, Hkv, W, L)
+    for u in range(C):                             # one lane's FMA chain
+        part = part + qf[..., u] * k[..., u]
+    dot = _butterfly(part, L)[..., 0]              # lane 0 of each row
+    sm_scale = torch.tensor(1.0) / torch.sqrt(torch.tensor(float(D)))
+    s = dot * ks.float().permute(0, 2, 1) * sm_scale
+    s = torch.where(mask[:, None, :], s, torch.full_like(s, -1e30))
+    s = s.reshape(B, Hkv, ns, BK)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    vsc = torch.where(mask[:, None, :], vs.float().permute(0, 2, 1),
+                      torch.zeros(()))
+    pv = p * vsc.reshape(B, Hkv, ns, BK)
+    v = torch.where(mask[:, None, :, None],
+                    vq.float().permute(0, 2, 1, 3), torch.zeros(()))
+    v = v.reshape(B, Hkv, ns, L, RP, D)            # row jj = pass * RP + slot
+    pv = pv.reshape(B, Hkv, ns, L, RP, 1)
+    acc = torch.zeros(B, Hkv, ns, RP, D)
+    for pas in range(L):                           # each lane's FMA chain
+        acc = acc + pv[:, :, :, pas] * v[:, :, :, pas]
+    acc = acc.reshape(B, Hkv, ns, 4, 32 // L, D)   # (warp, slot in warp)
+    acc = _butterfly(acc.transpose(-1, -2), 32 // L)[..., 0]
+    o = acc[:, :, :, 0]
+    for w in range(1, 4):
+        o = o + acc[:, :, :, w]
+    m_all = m.amax(dim=-1, keepdim=True)
+    wgt = torch.exp(m - m_all)
+    l_all, out = torch.zeros(B, Hkv), torch.zeros(B, Hkv, D)
+    for i in range(ns):                            # the merge kernel
+        l_all = l_all + l[..., i] * wgt[..., i]
+        out = out + o[:, :, i] * wgt[..., i, None]
+    out = out / torch.clamp(l_all, min=1e-30)[..., None]
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,D", [(36, 64), (16, 128)])
+def test_quant_splitkv_order_stays_within_the_bars(dtype, H, D):
+    """At both full-width int8 shapes (minicpm-2b 36 heads of 64,
+    qwen2-moe-a2.7b 16 of 128; B 4, W 1024, chip_smoke.py's positions),
+    the kernels' order lands within F32_TOL / BF16_TOL of the plain
+    version, which dequantizes before the dot products."""
+    from repro_torch.kernels.quant import (quant_decode_attention_plain,
+                                           quantize_rows)
+    rng = np.random.default_rng(H + D)
+    B, W = 4, 1024
+    q = torch.from_numpy(rng.standard_normal((B, H, D))
+                         .astype(np.float32)).to(dtype)
+    kq, ks = quantize_rows(torch.from_numpy(
+        rng.standard_normal((B, W, H, D)).astype(np.float32)))
+    vq, vs = quantize_rows(torch.from_numpy(
+        rng.standard_normal((B, W, H, D)).astype(np.float32)))
+    mask = torch.arange(W)[None, :] <= torch.tensor(
+        [[1023], [700], [300], [12]])
+    got = _quant_splitkv_emulated(q, kq, vq, ks, vs, mask)
+    want = quant_decode_attention_plain(q, kq, vq, ks, vs, mask)
+    assert got.dtype == want.dtype == dtype
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    assert _breaks(got, want, tol) == 0
