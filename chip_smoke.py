@@ -7,8 +7,9 @@ Phases, each printing its results on lines of its own; any failure
 raises and exits non-zero (there is no CPU or plain-version fallback):
 
 1. device and build: the card, its power limit, the ``nvcc`` build of
-   every kernel source (with ptxas' register counts, named for the int8
-   split-KV kernel's G-1 instantiations, and its spills);
+   every kernel source (with ptxas' register counts, named for the G-1
+   instantiations of both split-KV kernels, bf16 and int8 KV, and its
+   spills);
 2. every kernel of the main paths against its plain PyTorch version at
    the full-width shapes, in bf16 and f32: the attention kernels at
    minicpm-2b's (D 64; the int8 KV kernels on int8 payloads with bf16
@@ -23,7 +24,8 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    dims and the grouped GEMM and the int8 matmul at both row counts;
    the timings of flash (bf16), of the grouped GEMM (bf16) and of the
    int8 matmul at T > 16 name the tensor-core body they ran
-   (``mma.sync``), the int8 split-KV pair's name its row-parallel body,
+   (``mma.sync``), the four split-KV kernels' name their row-parallel
+   body,
    and the grouped GEMM's checks name the body of each dtype (f32: the
    CUDA cores);
 
@@ -47,9 +49,9 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    equal the contiguous ones (bf16 and int8), and the warm prefix run
    must hit and prefill fewer tokens. Then a profile of full-width
    decode steps and of one 1024-token prefill (wall time against the
-   device time of their kernels, kernels per step, and the share of the
-   model's heaviest hand-written kernel; for the paged int8 step, the
-   int8 split-KV kernel's);
+   device time of their kernels, kernels per step, and the shares of
+   the split-KV kernel of the step's cache (bf16 contiguous, int8 paged)
+   and of the MoE model's grouped GEMM);
 4. logit parity at full width: teacher-forced prefill + decode steps
    under the ``cuda`` and ``torch`` policies on the same weights, and
    ``logit_parity`` for bf16 vs int8 KV and for int8 KV under both
@@ -134,20 +136,22 @@ SUB_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
 #: "body" names the body it ran.
 MMA = "mma.sync"
 CUDA_CORE = "f32 CUDA cores"
-#: The int8 split-KV body (csrc/quant_attention.cu) at G 1: D / 16 lanes
-#: a cache row, one 16-byte load each of K and V.
-INT8_BODY = "row-parallel, 16-byte lanes"
-#: The int8 split-KV kernel's name, as the profiler and ptxas list it.
-INT8_KERNEL = "quant_split_kernel"
+#: The split-KV body of all four decode kernels (csrc/splitkv.cuh) at
+#: G 1: D / C lanes a cache row, one 16-byte load each of K and V (C = 8
+#: bf16, 16 int8 values).
+ROW_BODY = "row-parallel, 16-byte lanes"
+#: The split kernels' names, as the profiler and ptxas list them: the
+#: bf16/f32 pair's and the int8 pair's.
+BF16_KERNEL, INT8_KERNEL = "split_rows_kernel", "quant_split_kernel"
 
 
-def int8_build_lines(log: str) -> None:
-    """ptxas' registers and spills of the int8 split kernel: one line per
-    G-1 instantiation (the ones serving runs), then the most any other
+def split_build_lines(log: str, kernel: str) -> None:
+    """ptxas' registers and spills of a split kernel: one line per G-1
+    instantiation (the ones serving runs), then the most any other
     spills."""
     worst = 0
     for entry in log.split("Compiling entry function")[1:]:
-        m = re.search(INT8_KERNEL + r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)"
+        m = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)"
                       r"ELb([01])E", entry.split("'")[1])
         if not m:
             continue
@@ -156,11 +160,11 @@ def int8_build_lines(log: str) -> None:
         if m.group(3) != "1":
             worst = max(worst, spill)
             continue
-        print(f"[build] {INT8_KERNEL}<{'f32' if m.group(1) == 'f' else 'bf16'}"
+        print(f"[build] {kernel}<{'f32' if m.group(1) == 'f' else 'bf16'}"
               f", D {m.group(2)}, G 1, "
               f"{'paged' if m.group(4) == '1' else 'contiguous'}>: "
               f"{regs.group(1)} registers, {spill} bytes spill stores")
-    print(f"[build] {INT8_KERNEL} at G 2-8: at most {worst} bytes spill "
+    print(f"[build] {kernel} at G 2-8: at most {worst} bytes spill "
           f"stores")
 
 
@@ -372,7 +376,7 @@ def decode_entry(cfg, rnd, compare, flush, mask):
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, attn_mask=m4, enable_gqa=True), flush=flush),
-        library_call="SDPA, bool mask",
+        library_call="SDPA, bool mask", body=ROW_BODY,
         shape=f"B{B} W{W} Hq{H} Hkv{Hkv} D{D} bf16, {valid} valid rows")
 
 
@@ -642,7 +646,7 @@ def decode_variants(cfg, gen, rnd, compare, flush, mask):
          by_bf16 + io + pt.numel() * 4, "bf16_tensor", lib_paged,
          "SDPA over pre-gathered bf16 K/V, gather not timed",
          f"B{B} NP{NP} ps{ps} Hq{H} Hkv{Hkv} D{D} bf16, {P}-page pool, "
-         f"{valid} valid rows", None),
+         f"{valid} valid rows"),
         ("quant_decode_attention", "quant_attention.cu",
          "src/repro/kernels/quant.py:184", errs[1],
          lambda: quant_decode_attention(q, kq, vq, ks, vs, mask),
@@ -650,7 +654,7 @@ def decode_variants(cfg, gen, rnd, compare, flush, mask):
          by_int8 + io, "int8_tensor", lib_quant,
          "SDPA over pre-dequantized bf16 K/V, dequantize not timed",
          f"B{B} W{W} Hq{H} Hkv{Hkv} D{D} int8 KV + bf16 scales, q bf16, "
-         f"{valid} valid rows", INT8_BODY),
+         f"{valid} valid rows"),
         ("quant_paged_decode_attention", "quant_attention.cu",
          "src/repro/kernels/quant.py:282", errs[2],
          lambda: quant_paged_decode_attention(q, kpq, vpq, kps, vps, pt,
@@ -660,11 +664,11 @@ def decode_variants(cfg, gen, rnd, compare, flush, mask):
          by_int8 + io + pt.numel() * 4, "int8_tensor", lib_qpaged,
          "SDPA over pre-gathered, pre-dequantized bf16 K/V, not timed",
          f"B{B} NP{NP} ps{ps} Hq{H} Hkv{Hkv} D{D} int8 KV + bf16 scales, "
-         f"q bf16, {P}-page pool, {valid} valid rows", INT8_BODY),
+         f"q bf16, {P}-page pool, {valid} valid rows"),
     ]
     entries = {}
     for name, src, replaces, err, fn, plain, nbytes, peak, lib, lib_what, \
-            shape, body in rows:
+            shape in rows:
         b_ms, b_by = bound(nbytes, ops, peak)
         entries[name] = dict(
             name=name, route="cuda",
@@ -672,9 +676,7 @@ def decode_variants(cfg, gen, rnd, compare, flush, mask):
             max_abs_err=err, ms=time_ms(fn, flush=flush),
             plain_ms=time_ms(plain, flush=flush), bound_ms=b_ms,
             bound_by=b_by, library_ms=time_ms(lib, flush=flush),
-            library_call=lib_what, shape=shape)
-        if body is not None:
-            entries[name]["body"] = body
+            library_call=lib_what, shape=shape, body=ROW_BODY)
     return entries
 
 
@@ -1003,11 +1005,11 @@ def serve_pair(label, cfg, params, rt, counters, expect, attention):
     return launch_totals(runs, counters)
 
 
-def device_profile(label, step, steps=5, focus=None):
+def device_profile(label, step, steps=5, focus=()):
     """Wall time of ``steps`` calls of ``step`` against the device time
     of the kernels they run (torch.profiler); prints the top kernels and,
-    for ``focus``, the device time and launches per step of the kernels
-    whose name holds it, with their share of the busy time."""
+    for each name in ``focus``, the device time and launches per step of
+    the kernels whose name holds it, with their share of the busy time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1032,20 +1034,22 @@ def device_profile(label, step, steps=5, focus=None):
           f"{sum(r[1] for r in rows):.0f} kernels per step")
     for ms, n, key in rows[:8]:
         print(f"[profile]   {ms:8.4f} ms/step  {n:6.0f}x  {key[:90]}")
-    if focus is not None:
-        mine = [r for r in rows if focus in r[2]]
-        check(bool(mine), f"{label}: no {focus} kernel in the profile")
+    for name in focus:
+        mine = [r for r in rows if name in r[2]]
+        check(bool(mine), f"{label}: no {name} kernel in the profile")
         ms = sum(r[0] for r in mine)
-        print(f"[profile]   {focus}: {ms:.3f} ms/step, "
+        print(f"[profile]   {name}: {ms:.3f} ms/step, "
               f"{sum(r[1] for r in mine):.0f} launches/step, "
               f"{ms / busy:.1%} of device busy")
 
 
-def profile_model(label, cfg, params, rt, focus=None):
+def profile_model(label, cfg, params, rt, prefill_focus=(),
+                  decode_focus=()):
     """One 1024-token prefill (wall time, then its device profile) and
     the device profile of a full-width contiguous decode step, 4 slots
-    at positions 512-516, each with ``focus``'s share (device_profile).
-    Returns the 4 prompts and their next tokens."""
+    at positions 512-516, with the shares of the kernels named in
+    ``prefill_focus`` and ``decode_focus`` (device_profile). Returns the
+    4 prompts and their next tokens."""
     import torch
     from repro_torch.models import decode_step, prefill
 
@@ -1062,14 +1066,16 @@ def profile_model(label, cfg, params, rt, focus=None):
         print(f"[profile] {label} prefill B1 S1024: "
               f"{(time.perf_counter() - t0) * 1e3:.2f} ms wall")
         device_profile(f"{label} prefill B1 S1024", lambda: prefill(
-            params, cfg, {"tokens": toks}, 1024, rt), steps=3, focus=focus)
+            params, cfg, {"tokens": toks}, 1024, rt), steps=3,
+            focus=prefill_focus)
         toks = torch.randint(0, cfg.vocab_size, (4, 512), generator=gen,
                              device=dev)
         nxt = toks[:, -1]
         cache, _ = prefill(params, cfg, {"tokens": toks}, 1024, rt)
         device_profile(f"{label} decode step B4 at pos 512-516, contiguous "
                        f"bf16", lambda: decode_step(params, cfg, cache, nxt,
-                                                    rt), focus=focus)
+                                                    rt),
+                       focus=decode_focus)
     return toks, nxt
 
 
@@ -1083,7 +1089,8 @@ def profile_phase(cfg, params, rt):
                                     prefill, write_prefill_pages_quant)
 
     dev = torch.device("cuda")
-    toks, nxt = profile_model(cfg.name, cfg, params, rt)
+    toks, nxt = profile_model(cfg.name, cfg, params, rt,
+                              decode_focus=(BF16_KERNEL,))
     with torch.no_grad():
         # paged int8: each slot's 64 pages, rows written through its table
         rt8 = dataclasses.replace(rt, kv_dtype="int8")
@@ -1103,7 +1110,7 @@ def profile_phase(cfg, params, rt):
                        f"int8", lambda: decode_step_paged(
                            params, cfg, cache, nxt, rt8,
                            page_size=PAGE_SIZE, window=1024),
-                       focus=INT8_KERNEL)
+                       focus=(INT8_KERNEL,))
 
 
 # ===========================================================================
@@ -1301,7 +1308,8 @@ def main() -> int:
         spills = re.search(r"(\d+) bytes spill stores", line)
         if "registers" in line or (spills and int(spills.group(1))):
             print(f"[build] {line.strip()}")
-    int8_build_lines(build_log)
+    for kernel in (BF16_KERNEL, INT8_KERNEL):
+        split_build_lines(build_log, kernel)
 
     cfg = get_arch("minicpm-2b")
     moe_cfg, ssm_cfg = get_arch("qwen2-moe-a2.7b"), get_arch("mamba2-1.3b")
@@ -1351,7 +1359,9 @@ def main() -> int:
         totals.append(serve_pair(mcfg.name, mcfg, params, mrt, counters,
                                  expect, attention))
         profile_model(mcfg.name, mcfg, params, mrt,
-                      focus="moe_gemm" if attention else None)
+                      prefill_focus=("moe_gemm",) if attention else (),
+                      decode_focus=(("moe_gemm", BF16_KERNEL) if attention
+                                    else ()))
         if attention:
             moe_parity(mcfg, params)
         else:

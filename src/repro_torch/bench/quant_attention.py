@@ -23,10 +23,12 @@ valid row over the peak for the stored type.
 
 To compare two trees, run this file against each tree's package
 (``PYTHONPATH=<tree>/src python <this file>``): ``--save`` writes every
-output, ``--against`` loads another run's and asserts the bf16 kernels'
-outputs equal it bit for bit, and reports the int8 kernels' largest
-difference. ``--profile`` adds the device time per call of each kernel
-a call launches (the split and merge kernels), from ``torch.profiler``.
+output, ``--against`` loads another run's and asserts the int8 kernels'
+outputs equal it bit for bit, and reports the bf16 kernels' largest
+difference (``max_diff_to_against``).
+``--profile`` adds the device time per call of each kernel a call
+launches (the split kernel, ``split_rows_kernel`` or
+``quant_split_kernel``, and the merge), from ``torch.profiler``.
 Prints the card's name and power limit, then one JSON object a case.
 """
 from __future__ import annotations
@@ -196,8 +198,8 @@ def main(argv=None) -> int:
                        "valid_rows": valid}
                 if other is not None:
                     same = torch.equal(outs[key], other[key])
-                    if not int8 and not same:
-                        raise RuntimeError(f"{key}: bf16 output differs "
+                    if int8 and not same:
+                        raise RuntimeError(f"{key}: int8 output differs "
                                            f"from {args.against}")
                     row["equal_to_against"] = same
                     row["max_diff_to_against"] = float(

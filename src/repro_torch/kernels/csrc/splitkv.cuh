@@ -1,22 +1,66 @@
-// Split-KV decode attention (flash-decoding) for Hopper: the split kernel
-// of the bf16/f32 decode pair and the merge kernel shared by every decode
-// variant of the port.
+// Split-KV decode attention (flash-decoding) for Hopper: the row-parallel
+// split body shared by every decode variant of the port (bf16/f32 and int8
+// caches, contiguous and paged) and the merge kernel after it.
 //
 // One query token per sequence against a cache of W logical rows per
-// sequence; each split of BK logical rows is reduced into f32 partials
-// (o, m, l), then a second small kernel merges the splits with LSE
-// weights and casts on write, as the reference wrappers do
-// (decode_attention.py:88-96, paged_attention.py:121-129).
+// sequence; each split of BK logical rows of one (sequence, kv head) is
+// reduced by one block into f32 partials (o, m, l), then a second small
+// kernel merges the splits with LSE weights and casts on write, as the
+// reference wrappers do (decode_attention.py:88-96,
+// paged_attention.py:121-129).
 //
-// split_kernel varies only in how a row is found:
-//   * KT: the stored type, float / bf16 (the int8 cache has a body of its
-//     own in quant_attention.cu, on the same Rows and merge_kernel);
+// Bound on this card: bytes. A valid row costs 2 * D values of K/V for
+// 4 * G * D flops, G flops per byte or less, far below the ridge; no
+// served model has G > 1. So the design is about memory-level
+// parallelism: wide, coalesced loads, all issued before any is used.
+//
+// split_rows varies in three things:
+//   * KT, the stored type: float, bf16, or int8 with one bf16 scale per
+//     (row, kv head) in ks / vs; an int8 row dequantizes as
+//     float(q) * scale in f32, as the reference kernels do
+//     (quant.py:168-169, 261-264);
 //   * PAGED: logical row j of sequence b lives at physical page
 //     pt[b, j / ps], row j % ps, of a (P, ps, Hkv, D) pool; the block
-//     reads the page table itself.
-// The split of logical rows (BK per split) and every sum are the same
-// for both variants, so a paged cache and a contiguous one holding the
-// same rows give bit-identical outputs.
+//     reads the page table itself;
+//   * NG, the bucket (1, 2, 4, 8) of G query heads per kv head.
+// Design:
+//   * Row metadata: thread t reads logical row t's mask bit and (paged)
+//     its page-table entry together, and puts the physical (row, kv head)
+//     index in shared memory, -1 if the row is masked or past W; so the
+//     128 rows' lookups are in flight together and no row's are read
+//     twice. For int8 it then loads the row's two scales, which only it
+//     uses (in the softmax step) and which arrive under the K and V loads.
+//   * Lanes: L = D / C lanes share a row, each owning C consecutive
+//     columns: one 16-byte load per row and tensor at G 1 (C = 8 for
+//     bf16, 4 for f32, 16 for int8); at most 8 columns at G 2 and 4 at
+//     G > 2, which keeps the G x C accumulators and query values in
+//     registers. A warp covers 32 / L rows, the block its split in L
+//     passes.
+//   * Loads before use: every pass's K loads are issued before the first
+//     is used. V loads go with them while both fit in 64 registers a
+//     thread (int8 always; bf16 to D 64; f32 to D 32); past that the
+//     passes are staged: K for all passes, the dot products, then V into
+//     the registers K held, before the softmax's barriers, so V arrives
+//     under them. Masked rows are never read.
+//   * Scores: each lane's C-term dot product with q in f32; the L lanes
+//     of a row sum by xor shuffles (offsets L/2 .. 1); thread t then
+//     applies row t's K scale (int8) and 1/sqrt(D), in that order.
+//   * Softmax: thread t owns row t's score and forms the split's max and
+//     sum per query head (warp reduce, then the 4 warps in order); it
+//     stores p (times the V scale, int8) for the P.V pass.
+//   * P.V: each lane accumulates p * v over its C columns and its L rows;
+//     the rows of a warp that share a column slice sum by xor shuffles
+//     (offsets 16 .. L), then the 4 warps in shared memory, in warp order.
+// Every order above is a function of the logical row index alone, so a
+// paged and a contiguous cache holding the same rows give bit-identical
+// outputs, and a sequence's output does not depend on its batch.
+//
+// Masked rows score RT_NEG_INF. A split with no valid row leaves
+// (o, m, l) = (0, NEG_INF, 128); the merge weights it by exactly 0
+// whenever the sequence has a valid row anywhere. A wholly masked
+// sequence comes out 0. The reference's own two paths disagree there:
+// its xla path gives the mean of V over W, its Pallas wrapper divides
+// by the count padded to a split multiple; decode never builds one.
 //
 // Layouts are the reference's: q (B, Hq, D), contiguous caches
 // (B, W, Hkv, D), pools (P, ps, Hkv, D), int8 scales without the last
@@ -25,6 +69,8 @@
 // row read.
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -32,6 +78,8 @@ namespace splitkv {
 
 constexpr int BK = 128;   // logical rows per split == threads per block
 constexpr int MAXG = 8;   // query heads per kv head
+constexpr int WARPS = BK / 32;
+constexpr unsigned FULL = 0xffffffffu;
 
 // Where the cache rows live and how they are stored.
 template <typename KT, bool PAGED>
@@ -58,136 +106,254 @@ struct Rows {
   }
 };
 
-template <typename T, typename KT, int D, bool PAGED>
-__global__ void __launch_bounds__(BK)
-split_kernel(const T* __restrict__ q, const Rows<KT, PAGED> cache,
-             const uint8_t* __restrict__ mask, float* __restrict__ o_part,
-             float* __restrict__ m_part, float* __restrict__ l_part, int G,
-             float sm_scale) {
-  // In a split with no valid row every weight is exp(0) = 1. The
-  // contiguous kernel then reads those V rows, as the reference does;
-  // the paged variant never reads a masked row. The merge weights such a
-  // split by exactly 0 whenever the sequence has a valid row anywhere, so
-  // both give the same outputs on every such sequence.
-  constexpr bool SKIP_MASKED = PAGED;
-  __shared__ float sq[MAXG * D];
-  __shared__ float sp[MAXG][BK];
-  __shared__ float red[MAXG][BK / 32];
-  __shared__ float so[BK / D > 1 ? BK / D : 1][MAXG][D];
+// Columns a lane owns for a bucket of NG query heads per kv head.
+template <typename KT, int NG>
+__host__ __device__ constexpr int lane_cols() {
+  constexpr int c16 = 16 / (int)sizeof(KT);
+  constexpr int cap = NG == 1 ? 16 : NG == 2 ? 8 : 4;
+  return c16 < cap ? c16 : cap;
+}
+
+// BYTES bytes at p (BYTES-aligned) as BYTES / 4 words.
+template <int BYTES>
+__device__ __forceinline__ void load_words(const void* p, uint32_t* w) {
+  if constexpr (BYTES == 16) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
+  } else if constexpr (BYTES == 8) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = u.x; w[1] = u.y;
+  } else {
+    w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+  }
+}
+
+// Value i of packed words of KT, as f32.
+template <typename KT>
+__device__ __forceinline__ float unpack(const uint32_t* w, int i);
+template <>
+__device__ __forceinline__ float unpack<int8_t>(const uint32_t* w, int i) {
+  return static_cast<float>(static_cast<int8_t>(w[i >> 2] >> (8 * (i & 3))));
+}
+template <>
+__device__ __forceinline__ float unpack<__nv_bfloat16>(const uint32_t* w,
+                                                       int i) {
+  const uint32_t x = w[i >> 1];
+  return __uint_as_float((i & 1) ? (x & 0xffff0000u) : (x << 16));
+}
+template <>
+__device__ __forceinline__ float unpack<float>(const uint32_t* w, int i) {
+  return __uint_as_float(w[i]);
+}
+
+// This lane's C columns of every pass's row of one tensor (row slot rs
+// of pass p is row p * RP + rs of the split); masked rows read as zeros.
+template <int D, int C, typename KT, int L, int NW>
+__device__ __forceinline__ void load_passes(const KT* __restrict__ base,
+                                            const long long* srow, int rs,
+                                            int c, uint32_t (&w)[L][NW]) {
+  constexpr int RP = BK / L;
+#pragma unroll
+  for (int p = 0; p < L; ++p) {
+    const long long rp = srow[p * RP + rs];
+    if (rp >= 0) {
+      load_words<NW * 4>(base + rp * D + c * C, w[p]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < NW; ++i) w[p][i] = 0u;
+    }
+  }
+}
+
+// One block: split blockIdx.y of (sequence, kv head) blockIdx.x into
+// o_part / m_part / l_part. The body of every split kernel.
+template <typename T, typename KT, int D, int NG, bool PAGED>
+__device__ __forceinline__ void split_rows(
+    const T* __restrict__ q, const Rows<KT, PAGED>& cache,
+    const uint8_t* __restrict__ mask, float* __restrict__ o_part,
+    float* __restrict__ m_part, float* __restrict__ l_part, int G,
+    float sm_scale) {
+  constexpr bool SCALED = std::is_same<KT, int8_t>::value;
+  constexpr int C = lane_cols<KT, NG>();
+  constexpr int L = D / C;     // lanes per row
+  constexpr int RP = BK / L;   // rows per pass; L passes cover the split
+  constexpr int BYTES = C * (int)sizeof(KT);
+  constexpr int NW = BYTES / 4;  // words per lane, row and tensor
+  // K and V of every pass in flight together while both fit in 64
+  // registers a thread; past that V waits for the dot products
+  constexpr bool STAGED = 2 * L * NW > 64;
+  static_assert(L >= 1 && L <= 32 && BYTES % 4 == 0, "lanes per row");
+  __shared__ long long srow[BK];  // (row, kv head) index; -1 if masked
+  __shared__ float sp[NG][BK];    // lane-summed dot products, then p
+  __shared__ float red[NG][WARPS];
+  __shared__ float so[WARPS][NG][D];
 
   const int W = cache.W, Hkv = cache.Hkv;
   const int bh = blockIdx.x;  // b * Hkv + hk
   const int b = bh / Hkv, hk = bh % Hkv;
   const int split = blockIdx.y, ns = gridDim.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = tid % L, rs = tid / L;  // column slice, row slot
 
-  for (int e = tid; e < G * D; e += BK)
-    sq[e] = to_float(q[((long long)b * Hkv * G + (long long)hk * G) * D + e]);
-  __syncthreads();
-
-  // scores: thread tid owns logical row j
-  const int j = split * BK + tid;
-  const bool valid = j < W && mask[(long long)b * W + j] != 0;
-  float s[MAXG];
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) s[g] = 0.f;
-  if (valid) {
-    const long long r = cache.at(b, j, hk);
-    const KT* krow = cache.k + r * D;
-#pragma unroll
-    for (int c = 0; c < D; c += 8) {
-      float kv[8];
-      load8(krow + c, kv);
-#pragma unroll
-      for (int g = 0; g < MAXG; ++g) {
-        if (g < G) {
-#pragma unroll
-          for (int u = 0; u < 8; ++u) s[g] += sq[g * D + c + u] * kv[u];
+  // row metadata: thread tid reads logical row split * BK + tid's mask bit
+  // and table entry together, then (int8) its scales
+  long long r = -1;
+  float ksc = 0.f, vsc = 0.f;
+  {
+    const int j = split * BK + tid;
+    if (j < W) {
+      const bool on = mask[(long long)b * W + j] != 0;
+      const long long at = cache.at(b, j, hk);
+      if (on) {
+        r = at;
+        if constexpr (SCALED) {
+          ksc = to_float(cache.ks[r]);
+          vsc = to_float(cache.vs[r]);
         }
       }
     }
+    srow[tid] = r;
   }
+  // this lane's query columns, one row of C per query head
+  float qr[NG][C];
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g) s[g] = valid ? s[g] * sm_scale : RT_NEG_INF;
+  for (int g = 0; g < NG; ++g) {
+#pragma unroll
+    for (int u = 0; u < C; ++u)
+      qr[g][u] = (NG == 1 || g < G)
+                     ? to_float(q[((long long)bh * G + g) * D + c * C + u])
+                     : 0.f;
+  }
+  __syncthreads();
 
-  // split-local softmax statistics, per query head
-  float m[MAXG], l[MAXG];
+  uint32_t kw[L][NW], vw[L][NW];
+  load_passes<D, C>(cache.k, srow, rs, c, kw);
+  if constexpr (!STAGED) load_passes<D, C>(cache.v, srow, rs, c, vw);
+
+  // dot products: lane partials, summed across the row's lanes
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    if (g < G) {
-      const float w = warp_max(s[g]);
+  for (int p = 0; p < L; ++p) {
+    const int jj = p * RP + rs;
+    float s[NG];
+#pragma unroll
+    for (int g = 0; g < NG; ++g) s[g] = 0.f;
+#pragma unroll
+    for (int u = 0; u < C; ++u) {
+      const float kf = unpack<KT>(kw[p], u);
+#pragma unroll
+      for (int g = 0; g < NG; ++g) s[g] += qr[g][u] * kf;
+    }
+#pragma unroll
+    for (int off = L / 2; off > 0; off >>= 1) {
+#pragma unroll
+      for (int g = 0; g < NG; ++g) s[g] += __shfl_xor_sync(FULL, s[g], off);
+    }
+    if (c == 0) {
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+        if (NG == 1 || g < G) sp[g][jj] = s[g];
+    }
+  }
+  if constexpr (STAGED) load_passes<D, C>(cache.v, srow, rs, c, vw);
+  __syncthreads();
+
+  // split-local softmax statistics, per query head; thread tid owns row
+  // tid and scales its score: the K scale (int8), then 1/sqrt(D)
+  float sc[NG], m[NG], l[NG];
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+    sc[g] = RT_NEG_INF;
+    if (NG == 1 || g < G) {
+      if (r >= 0) {
+        if constexpr (SCALED)
+          sc[g] = sp[g][tid] * ksc * sm_scale;
+        else
+          sc[g] = sp[g][tid] * sm_scale;
+      }
+      const float w = warp_max(sc[g]);
       if (lane == 0) red[g][warp] = w;
     }
   }
   __syncthreads();
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
+  for (int g = 0; g < NG; ++g) {
     m[g] = RT_NEG_INF;
-    if (g < G) {
+    if (NG == 1 || g < G) {
 #pragma unroll
-      for (int w = 0; w < BK / 32; ++w) m[g] = fmaxf(m[g], red[g][w]);
+      for (int w = 0; w < WARPS; ++w) m[g] = fmaxf(m[g], red[g][w]);
     }
   }
   __syncthreads();
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    if (g < G) {
-      const float p = expf(s[g] - m[g]);
-      sp[g][tid] = p;
+  for (int g = 0; g < NG; ++g) {
+    if (NG == 1 || g < G) {
+      const float p = expf(sc[g] - m[g]);
+      if constexpr (SCALED)
+        sp[g][tid] = p * vsc;
+      else
+        sp[g][tid] = p;
       const float w = warp_sum(p);
       if (lane == 0) red[g][warp] = w;
     }
   }
   __syncthreads();
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
+  for (int g = 0; g < NG; ++g) {
     l[g] = 0.f;
-    if (g < G) {
+    if (NG == 1 || g < G) {
 #pragma unroll
-      for (int w = 0; w < BK / 32; ++w) l[g] += red[g][w];
+      for (int w = 0; w < WARPS; ++w) l[g] += red[g][w];
     }
   }
 
-  // o = p @ v over this split: column d, rows part, part + NPART, ...
-  constexpr int NPART = BK / D > 1 ? BK / D : 1;
-  const int d = tid % D, part = tid / D;
-  float acc[MAXG];
+  // o = sum over rows of p * v: a masked row has v = 0 (never read), so
+  // it adds +0 and leaves every sum as it is
+  float acc[NG][C];
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g) acc[g] = 0.f;
-  if (part < NPART) {
-    for (int jj = part; jj < BK; jj += NPART) {
-      const int jr = split * BK + jj;
-      if (jr >= W) break;
-      bool any = false;
+  for (int g = 0; g < NG; ++g) {
 #pragma unroll
-      for (int g = 0; g < MAXG; ++g)
-        if (g < G) any = any || sp[g][jj] != 0.f;
-      if (!any) continue;
-      if constexpr (SKIP_MASKED) {
-        if (!mask[(long long)b * W + jr]) continue;
-      }
-      const long long r = cache.at(b, jr, hk);
-      const float vv = to_float(cache.v[r * D + d]);
+    for (int u = 0; u < C; ++u) acc[g][u] = 0.f;
+  }
 #pragma unroll
-      for (int g = 0; g < MAXG; ++g)
-        if (g < G) acc[g] += sp[g][jj] * vv;
+  for (int p = 0; p < L; ++p) {
+    const int jj = p * RP + rs;
+    float pv[NG];
+#pragma unroll
+    for (int g = 0; g < NG; ++g) pv[g] = (NG == 1 || g < G) ? sp[g][jj] : 0.f;
+#pragma unroll
+    for (int u = 0; u < C; ++u) {
+      const float vf = unpack<KT>(vw[p], u);
+#pragma unroll
+      for (int g = 0; g < NG; ++g) acc[g][u] += pv[g] * vf;
     }
+  }
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g)
-      if (g < G) so[part][g][d] = acc[g];
+  for (int off = 16; off >= L; off >>= 1) {
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+#pragma unroll
+      for (int u = 0; u < C; ++u)
+        acc[g][u] += __shfl_xor_sync(FULL, acc[g][u], off);
+    }
+  }
+  if (lane < L) {
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      if (NG == 1 || g < G) {
+#pragma unroll
+        for (int u = 0; u < C; ++u) so[warp][g][c * C + u] = acc[g][u];
+      }
+    }
   }
   __syncthreads();
 
   const long long base = (long long)bh * ns + split;
-  if (tid < D) {
+  for (int e = tid; e < G * D; e += BK) {
+    const int g = e / D, d = e % D;
+    float t = so[0][g][d];
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      if (g < G) {
-        float t = 0.f;
-        for (int pp = 0; pp < NPART; ++pp) t += so[pp][g][tid];
-        o_part[(base * G + g) * D + tid] = t;
-      }
-    }
+    for (int w = 1; w < WARPS; ++w) t += so[w][g][d];
+    o_part[base * G * D + e] = t;
   }
   if (tid == 0) {
     for (int g = 0; g < G; ++g) {
@@ -195,6 +361,17 @@ split_kernel(const T* __restrict__ q, const Rows<KT, PAGED> cache,
       l_part[base * G + g] = l[g];
     }
   }
+}
+
+// The split kernel of the bf16/f32 pair (T = KT).
+template <typename T, int D, int NG, bool PAGED>
+__global__ void __launch_bounds__(BK)
+split_rows_kernel(const T* __restrict__ q, const Rows<T, PAGED> cache,
+                  const uint8_t* __restrict__ mask,
+                  float* __restrict__ o_part, float* __restrict__ m_part,
+                  float* __restrict__ l_part, int G, float sm_scale) {
+  split_rows<T, T, D, NG, PAGED>(q, cache, mask, o_part, m_part, l_part, G,
+                                 sm_scale);
 }
 
 // One block per (b * Hkv + hk, g), one thread per head-dim column.
@@ -229,32 +406,34 @@ int launch_merge(const float* o_part, const float* m_part,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename KT, bool PAGED, int D>
-int launch_d(const void* q, const Rows<KT, PAGED>& rows, const void* mask,
-             float* o_part, float* m_part, float* l_part, void* out, int B,
-             int G, cudaStream_t stream) {
-  const int ns = (rows.W + BK - 1) / BK;
-  split_kernel<T, KT, D, PAGED>
-      <<<dim3((unsigned)(B * rows.Hkv), (unsigned)ns), BK, 0, stream>>>(
-          static_cast<const T*>(q), rows,
-          static_cast<const uint8_t*>(mask), o_part, m_part, l_part, G,
-          1.0f / sqrtf((float)D));
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return launch_merge<T>(o_part, m_part, l_part, out, B * rows.Hkv, ns, G,
-                         D, stream);
-}
-
-// Split + merge for q/out of type T over a cache stored as KT (float or
-// bf16; ks and vs are unused). For a contiguous cache W is its length and
-// ps, NP are unused; for a paged one W = NP * ps logical rows.
-template <typename T, typename KT, bool PAGED>
-int launch(const void* q, const void* k, const void* v, const void* ks,
-           const void* vs, const void* pt, const void* mask, void* o_part,
-           void* m_part, void* l_part, void* out, int B, int W, int Hkv,
-           int G, int D, int ps, int NP, void* stream) {
+// Split + merge for q/out of type T over a cache stored as KT (ks and vs
+// are the int8 cache's scales, else unused). pick(d, g) gives the split
+// kernel for head dim d and G bucket g, both std::integral_constant. For
+// a contiguous cache W is its length and ps, NP are unused; for a paged
+// one W = NP * ps logical rows.
+template <typename T, typename KT, bool PAGED, typename Pick>
+int launch(Pick pick, const void* q, const void* k, const void* v,
+           const void* ks, const void* vs, const void* pt, const void* mask,
+           void* o_part, void* m_part, void* l_part, void* out, int B, int W,
+           int Hkv, int G, int D, int ps, int NP, void* stream) {
   if (B <= 0 || W <= 0) return 0;
   if (G < 1 || G > MAXG) return static_cast<int>(cudaErrorInvalidValue);
+  using Kernel = decltype(pick(std::integral_constant<int, 16>{},
+                               std::integral_constant<int, 1>{}));
+  auto bucket = [&](auto d) -> Kernel {
+    if (G == 1) return pick(d, std::integral_constant<int, 1>{});
+    if (G == 2) return pick(d, std::integral_constant<int, 2>{});
+    if (G <= 4) return pick(d, std::integral_constant<int, 4>{});
+    return pick(d, std::integral_constant<int, 8>{});
+  };
+  Kernel kernel;
+  switch (D) {
+    case 16: kernel = bucket(std::integral_constant<int, 16>{}); break;
+    case 32: kernel = bucket(std::integral_constant<int, 32>{}); break;
+    case 64: kernel = bucket(std::integral_constant<int, 64>{}); break;
+    case 128: kernel = bucket(std::integral_constant<int, 128>{}); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Rows<KT, PAGED> rows{
       static_cast<const KT*>(k), static_cast<const KT*>(v),
       static_cast<const __nv_bfloat16*>(ks),
@@ -264,13 +443,28 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   float* op = static_cast<float*>(o_part);
   float* mp = static_cast<float*>(m_part);
   float* lp = static_cast<float*>(l_part);
-  switch (D) {
-    case 16: return launch_d<T, KT, PAGED, 16>(q, rows, mask, op, mp, lp, out, B, G, s);
-    case 32: return launch_d<T, KT, PAGED, 32>(q, rows, mask, op, mp, lp, out, B, G, s);
-    case 64: return launch_d<T, KT, PAGED, 64>(q, rows, mask, op, mp, lp, out, B, G, s);
-    case 128: return launch_d<T, KT, PAGED, 128>(q, rows, mask, op, mp, lp, out, B, G, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int ns = (W + BK - 1) / BK;
+  kernel<<<dim3((unsigned)(B * Hkv), (unsigned)ns), BK, 0, s>>>(
+      static_cast<const T*>(q), rows, static_cast<const uint8_t*>(mask), op,
+      mp, lp, G, 1.0f / sqrtf((float)D));
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return launch_merge<T>(op, mp, lp, out, B * Hkv, ns, G, D, s);
+}
+
+// The bf16/f32 pair's kernels (T = KT).
+template <typename T, bool PAGED>
+int launch_same(const void* q, const void* k, const void* v, const void* pt,
+                const void* mask, void* o_part, void* m_part, void* l_part,
+                void* out, int B, int W, int Hkv, int G, int D, int ps,
+                int NP, void* stream) {
+  auto pick = [](auto d, auto g) {
+    return &split_rows_kernel<T, decltype(d)::value, decltype(g)::value,
+                              PAGED>;
+  };
+  return launch<T, T, PAGED>(pick, q, k, v, nullptr, nullptr, pt, mask,
+                             o_part, m_part, l_part, out, B, W, Hkv, G, D,
+                             ps, NP, stream);
 }
 
 }  // namespace splitkv

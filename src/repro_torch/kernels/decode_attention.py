@@ -1,13 +1,14 @@
 """Split-KV decode attention: the kernel's wrapper and its plain version.
 
 Replaces ``src/repro/kernels/decode_attention.py``
-``decode_attention_splitkv``. The kernel (``csrc/decode_attention.cu``,
-the shared template of ``csrc/splitkv.cuh``) reduces each 128-row split
-of the cache into f32 ``(o, m, l)`` partials and merges them with LSE
-weights in a second small kernel. See the sources for what bounds it and
-the design. The helpers below validate and allocate for every split-KV
-wrapper (contiguous, paged, int8, int8 paged; the int8 pair has a body
-of its own, ``csrc/quant_attention.cu``, on the same split and merge).
+``decode_attention_splitkv``. The kernel (``csrc/decode_attention.cu``)
+is the row-parallel split body of ``csrc/splitkv.cuh``: each 128-row
+split of the cache is reduced into f32 ``(o, m, l)`` partials, ``D / 8``
+lanes a bf16 row with one 16-byte load each of K and V (at G 1), and a
+second small kernel merges them with LSE weights. See the sources for
+what bounds it and the design. The helpers below validate and allocate
+for every split-KV wrapper (contiguous, paged, int8, int8 paged), all
+four on that one body and merge.
 """
 from __future__ import annotations
 

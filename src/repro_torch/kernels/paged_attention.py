@@ -3,10 +3,11 @@ version.
 
 Replaces ``src/repro/kernels/paged_attention.py``
 ``paged_decode_attention_splitkv``. The kernel
-(``csrc/paged_attention.cu``) is the split-KV template of
-``csrc/splitkv.cuh`` reading each logical row through the page table:
-no contiguous copy of a sequence is ever made. See the source for what
-bounds it and the design.
+(``csrc/paged_attention.cu``) is the row-parallel split body of
+``csrc/splitkv.cuh`` reading each logical row through the page table,
+one table read per row: no contiguous copy of a sequence is ever made,
+and a paged cache gives the contiguous kernel's bits. See the sources
+for what bounds it and the design.
 """
 from __future__ import annotations
 

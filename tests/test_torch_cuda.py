@@ -4,9 +4,10 @@ Covers rmsnorm, flash prefill and the four split-KV decode variants
 (contiguous, paged, int8, int8 paged) at odd shapes: page sizes 8 and
 16, page counts that are not a split multiple, G 1-8, D 16-128, a
 window that is not a page multiple, a table row all at the null page;
-paged equal to contiguous bit for bit, and for the int8 pair also
-whole splits without a valid row, a sequence's bits independent of its
-batch and no register spill in the served (G 1) instantiations;
+paged equal to contiguous bit for bit, and for both the bf16 and the
+int8 pair whole splits without a valid row, a sequence's bits
+independent of its batch and no register spill in the served (G 1,
+bf16 or int8 KV) instantiations;
 the grouped expert GEMM (ragged f, empty experts, trailing blocks; its
 bf16 tensor-core body at every m16 slice boundary of a block, with an
 expert's blocks paired, ragged and unaligned operands, and the served
@@ -364,20 +365,91 @@ def test_quant_kernels_rows_do_not_depend_on_their_batch(dev, Hq, Hkv, D):
         assert torch.equal(palone[0], pbatch[i])
 
 
-def test_quant_split_kernel_has_no_spills(dev):
-    """ptxas reports no spill in the int8 split kernel's G-1
-    instantiations, the ones serving runs."""
+def _bf16_cache(dev, g, B, Hq, Hkv, D, W, dtype):
+    """q and a float / bf16 contiguous cache."""
+    return tuple(torch.randn(*shape, device=dev, generator=g).to(dtype)
+                 for shape in ((B, Hq, D), (B, W, Hkv, D), (B, W, Hkv, D)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,D", [(36, 36, 64), (16, 2, 128)])
+def test_kernels_fully_masked_splits(dev, dtype, Hq, Hkv, D):
+    """The bf16/f32 pair: sequence 0's one valid row is row 0 of a
+    1,024-row window, so 7 of its 8 splits hold no valid row: they must
+    weigh nothing, and the output is that row's V exactly (one weight of
+    1); paged equals contiguous."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.paged_attention import (gather_pages,
+                                                     paged_decode_attention)
+    g = torch.Generator(device=dev).manual_seed(10)
+    B, W, ps = 2, 1024, 16
+    NP = W // ps
+    q, kc, vc = _bf16_cache(dev, g, B, Hq, Hkv, D, W, dtype)
+    mask = torch.arange(W, device=dev)[None, :] <= torch.tensor(
+        [[0], [W - 1]], device=dev)
+    got = decode_attention(q, kc, vc, mask)
+    torch.testing.assert_close(
+        got.float(), decode_attention_plain(q, kc, vc, mask).float(),
+        **_tol(dtype))
+    assert torch.equal(got[0], vc[0, 0].repeat_interleave(Hq // Hkv, dim=0))
+    # the same rows through a page table: pages in reverse order
+    pt = torch.arange(B * NP, device=dev, dtype=torch.int32) \
+        .flip(0).reshape(B, NP)
+    pool = [torch.empty((B * NP, ps, Hkv, D), dtype=dtype, device=dev)
+            for _ in range(2)]
+    for p, t in zip(pool, (kc, vc)):
+        p[pt.long()] = t.reshape(B, NP, ps, Hkv, D)
+        assert torch.equal(gather_pages(p, pt), t)
+    assert torch.equal(paged_decode_attention(q, *pool, pt, mask), got)
+
+
+@pytest.mark.parametrize("Hq,Hkv,D", [(36, 36, 64), (16, 16, 128),
+                                      (8, 1, 32)])
+def test_kernels_rows_do_not_depend_on_their_batch(dev, Hq, Hkv, D):
+    """The bf16 pair: each sequence alone gives the bits it gives inside
+    a batch of 4, contiguous and paged."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    g = torch.Generator(device=dev).manual_seed(11)
+    B, W = 4, 1024
+    q, kc, vc = _bf16_cache(dev, g, B, Hq, Hkv, D, W, torch.bfloat16)
+    mask = torch.arange(W, device=dev)[None, :] <= torch.tensor(
+        [[1023], [700], [300], [12]], device=dev)
+    batch = decode_attention(q, kc, vc, mask)
+    q2, (kp, vp), pt, _ = _paged_inputs(dev, g, B, Hq, Hkv, D, 16, 64, W,
+                                        torch.bfloat16, False)
+    pbatch = paged_decode_attention(q2, kp, vp, pt, mask)
+    for i in range(B):
+        one = slice(i, i + 1)
+        alone = decode_attention(*(t[one].contiguous()
+                                   for t in (q, kc, vc, mask)))
+        assert torch.equal(alone[0], batch[i])
+        palone = paged_decode_attention(
+            q2[one].contiguous(), kp, vp, pt[one].contiguous(),
+            mask[one].contiguous())
+        assert torch.equal(palone[0], pbatch[i])
+
+
+@pytest.mark.parametrize("kernel,types,count", [
+    ("quant_split_kernel", r"(f|13__nv_bfloat16)", 16),  # 2 q dtypes
+    ("split_rows_kernel", r"13__nv_bfloat16", 8),       # bf16 KV
+])
+def test_quant_split_kernel_has_no_spills(dev, kernel, types, count):
+    """ptxas reports no spill in the split kernels' G-1 instantiations,
+    the ones serving runs: the int8 pair's, and the bf16 pair's in bf16
+    (f32 is held to correctness only)."""
     import re
     from repro_torch.kernels import _build
     log = (_build.build_library().parent / "build.log").read_text()
     seen = 0
     for entry in log.split("Compiling entry function")[1:]:
         name = entry.split("'")[1]
-        if re.search(r"quant_split_kernelI.*?Li\d+ELi1ELb[01]E", name):
+        if re.search(kernel + r"I" + types + r"Li\d+ELi1ELb[01]E", name):
             seen += 1
             spill = re.search(r"(\d+) bytes spill stores", entry)
             assert spill is not None and int(spill.group(1)) == 0, entry
-    assert seen == 16                  # 2 dtypes x 4 head dims x paged
+    assert seen == count               # x 4 head dims x paged
 
 
 def test_new_wrappers_reject_bad_inputs(dev):

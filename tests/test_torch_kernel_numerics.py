@@ -8,10 +8,11 @@ f32, so the result differs from the plain f32 version only in summation
 order; these tests show that the chosen number of pieces keeps each
 kernel within ``chip_smoke.py``'s bar, and that one piece fewer does
 not. They also check the exact int8 -> bf16 conversion the matmul
-kernel uses, and that the int8 split-KV decode kernels' order of work
-(the row scale factored out of the lanes' partial dot products, the
-lanes and rows summed in their shuffle order, P.V as (p * vs) * v)
-stays within the same bars. Inputs are drawn with numpy from fixed
+kernel uses, and that the split-KV decode kernels' order of work (the
+lanes' partial dot products, for int8 with the row scale factored out,
+the lanes and rows summed in their shuffle order, P.V as p * v or
+(p * vs) * v) stays within the same bars, for the bf16/f32 and the int8
+pair. Inputs are drawn with numpy from fixed
 seeds.
 """
 import numpy as np
@@ -127,54 +128,70 @@ def _butterfly(x: torch.Tensor, n: int, step: int = 1) -> torch.Tensor:
     return x
 
 
-def _quant_splitkv_emulated(q, kq, vq, ks, vs, mask):
-    """The int8 split-KV kernels' arithmetic at G 1, order for order:
-    16-column lane partials of q . k_int8, the L = D / 16 lanes summed by
-    xor shuffles, then the K scale and 1/sqrt(D); split-local max and
-    sum; each lane's (p * vs) * v_int8 over its L rows, the 32 / L rows of
-    a warp summed by xor shuffles, the 4 warps in order; the LSE merge."""
+def _lane_cols(itemsize: int, G: int) -> int:
+    """Columns a lane of the split-KV body owns (splitkv.cuh lane_cols):
+    one 16-byte load at G 1, at most 8 at G 2 and 4 at G > 2."""
+    return min(16 // itemsize, 16 if G == 1 else 8 if G == 2 else 4)
+
+
+def _splitkv_emulated(q, k, v, mask, ks=None, vs=None):
+    """The split-KV kernels' arithmetic (splitkv.cuh split_rows), order
+    for order: C-column lane partials of q . k, the L = D / C lanes
+    summed by xor shuffles, then (int8) the K scale and 1/sqrt(D);
+    split-local max and sum; each lane's p * v (int8: (p * vs) * v) over
+    its L rows, the 32 / L rows of a warp summed by xor shuffles, the 4
+    warps in order; the LSE merge. k, v: (B, W, Hkv, D), int8 with the
+    (B, W, Hkv) scales ks, vs, or float / bf16 without."""
     B, Hq, D = q.shape
-    W, Hkv = kq.shape[1], kq.shape[2]
-    assert Hq == Hkv and W % 128 == 0
-    C, BK = 16, 128
+    W, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    assert W % 128 == 0
+    C, BK = _lane_cols(k.element_size(), G), 128
     L = D // C
     ns, RP = W // BK, BK // L
-    qf = q.float().reshape(B, Hkv, 1, L, C)
-    k = kq.float().permute(0, 2, 1, 3).reshape(B, Hkv, W, L, C)
-    part = torch.zeros(B, Hkv, W, L)
+    qf = q.float().reshape(B, Hkv, G, 1, L, C)
+    kf = k.float().permute(0, 2, 1, 3).reshape(B, Hkv, 1, W, L, C)
+    part = torch.zeros(B, Hkv, G, W, L)
     for u in range(C):                             # one lane's FMA chain
-        part = part + qf[..., u] * k[..., u]
-    dot = _butterfly(part, L)[..., 0]              # lane 0 of each row
-    sm_scale = torch.tensor(1.0) / torch.sqrt(torch.tensor(float(D)))
-    s = dot * ks.float().permute(0, 2, 1) * sm_scale
-    s = torch.where(mask[:, None, :], s, torch.full_like(s, -1e30))
-    s = s.reshape(B, Hkv, ns, BK)
+        part = part + qf[..., u] * kf[..., u]
+    s = _butterfly(part, L)[..., 0]                # lane 0 of each row
+    row = mask[:, None, None, :]
+    if ks is not None:
+        s = s * ks.float().permute(0, 2, 1)[:, :, None, :]
+    s = s * (torch.tensor(1.0) / torch.sqrt(torch.tensor(float(D))))
+    s = torch.where(row, s, torch.full_like(s, -1e30))
+    s = s.reshape(B, Hkv, G, ns, BK)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)
-    vsc = torch.where(mask[:, None, :], vs.float().permute(0, 2, 1),
-                      torch.zeros(()))
-    pv = p * vsc.reshape(B, Hkv, ns, BK)
-    v = torch.where(mask[:, None, :, None],
-                    vq.float().permute(0, 2, 1, 3), torch.zeros(()))
-    v = v.reshape(B, Hkv, ns, L, RP, D)            # row jj = pass * RP + slot
-    pv = pv.reshape(B, Hkv, ns, L, RP, 1)
-    acc = torch.zeros(B, Hkv, ns, RP, D)
+    if vs is not None:
+        vsc = torch.where(mask[:, None, :], vs.float().permute(0, 2, 1),
+                          torch.zeros(()))
+        p = p * vsc.reshape(B, Hkv, 1, ns, BK)
+    vf = torch.where(mask[:, None, :, None],
+                     v.float().permute(0, 2, 1, 3), torch.zeros(()))
+    vf = vf.reshape(B, Hkv, 1, ns, L, RP, D)       # row = pass * RP + slot
+    p = p.reshape(B, Hkv, G, ns, L, RP, 1)
+    acc = torch.zeros(B, Hkv, G, ns, RP, D)
     for pas in range(L):                           # each lane's FMA chain
-        acc = acc + pv[:, :, :, pas] * v[:, :, :, pas]
-    acc = acc.reshape(B, Hkv, ns, 4, 32 // L, D)   # (warp, slot in warp)
+        acc = acc + p[:, :, :, :, pas] * vf[:, :, :, :, pas]
+    acc = acc.reshape(B, Hkv, G, ns, 4, 32 // L, D)  # (warp, slot in warp)
     acc = _butterfly(acc.transpose(-1, -2), 32 // L)[..., 0]
-    o = acc[:, :, :, 0]
+    o = acc[..., 0, :]
     for w in range(1, 4):
-        o = o + acc[:, :, :, w]
+        o = o + acc[..., w, :]
     m_all = m.amax(dim=-1, keepdim=True)
     wgt = torch.exp(m - m_all)
-    l_all, out = torch.zeros(B, Hkv), torch.zeros(B, Hkv, D)
+    l_all, out = torch.zeros(B, Hkv, G), torch.zeros(B, Hkv, G, D)
     for i in range(ns):                            # the merge kernel
         l_all = l_all + l[..., i] * wgt[..., i]
-        out = out + o[:, :, i] * wgt[..., i, None]
+        out = out + o[..., i, :] * wgt[..., i, None]
     out = out / torch.clamp(l_all, min=1e-30)[..., None]
     return out.reshape(B, Hq, D).to(q.dtype)
+
+
+#: chip_smoke.py's positions in a 1024-row window, B 4.
+_POS = [[1023], [700], [300], [12]]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -194,10 +211,31 @@ def test_quant_splitkv_order_stays_within_the_bars(dtype, H, D):
         rng.standard_normal((B, W, H, D)).astype(np.float32)))
     vq, vs = quantize_rows(torch.from_numpy(
         rng.standard_normal((B, W, H, D)).astype(np.float32)))
-    mask = torch.arange(W)[None, :] <= torch.tensor(
-        [[1023], [700], [300], [12]])
-    got = _quant_splitkv_emulated(q, kq, vq, ks, vs, mask)
+    mask = torch.arange(W)[None, :] <= torch.tensor(_POS)
+    got = _splitkv_emulated(q, kq, vq, mask, ks, vs)
     want = quant_decode_attention_plain(q, kq, vq, ks, vs, mask)
+    assert got.dtype == want.dtype == dtype
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    assert _breaks(got, want, tol) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,D", [(36, 36, 64), (16, 16, 128),
+                                      (16, 2, 128)])
+def test_splitkv_order_stays_within_the_bars(dtype, Hq, Hkv, D):
+    """The bf16/f32 pair's order (C = 8 bf16 / 4 f32 columns a lane at
+    G 1, 4 at G 8) at both full-width shapes (minicpm-2b 36 heads of 64,
+    qwen2-moe-a2.7b 16 of 128, G 1) and at G 8, B 4, W 1024, lands within
+    F32_TOL / BF16_TOL of ``decode_attention_plain``."""
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    rng = np.random.default_rng(Hq + Hkv + D)
+    B, W = 4, 1024
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32)).to(dtype)
+               for shape in ((B, Hq, D), (B, W, Hkv, D), (B, W, Hkv, D)))
+    mask = torch.arange(W)[None, :] <= torch.tensor(_POS)
+    got = _splitkv_emulated(q, k, v, mask)
+    want = decode_attention_plain(q, k, v, mask)
     assert got.dtype == want.dtype == dtype
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     assert _breaks(got, want, tol) == 0
