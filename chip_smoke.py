@@ -8,8 +8,9 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
 
 1. device and build: the card, its power limit, the ``nvcc`` build of
    every kernel source (with ptxas' register counts, named for the G-1
-   instantiations of both split-KV kernels, bf16 and int8 KV, and its
-   spills);
+   instantiations of both split-KV kernels, bf16 and int8 KV, for the SSD
+   scan's bf16 kernels at mamba2-1.3b's widths and for RMSNorm's at the
+   served widths and row counts, and its spills);
 2. every kernel of the main paths against its plain PyTorch version at
    the full-width shapes, in bf16 and f32: the attention kernels at
    minicpm-2b's (D 64; the int8 KV kernels on int8 payloads with bf16
@@ -24,10 +25,11 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    dims and the grouped GEMM and the int8 matmul at both row counts;
    the timings of flash (bf16), of the grouped GEMM (bf16) and of the
    int8 matmul at T > 16 name the tensor-core body they ran
-   (``mma.sync``), the four split-KV kernels' name their row-parallel
-   body,
-   and the grouped GEMM's checks name the body of each dtype (f32: the
-   CUDA cores);
+   (``mma.sync``), the four split-KV kernels', RMSNorm's and the SSD
+   scan's name their body, and the grouped GEMM's checks name the body
+   of each dtype (f32: the CUDA cores); the SSD scan's bound is taken at
+   the bf16 tensor-core rate (the least time the card could take), with
+   the f32 CUDA-core figure, its body's own unit, beside it;
 
    then the tuning path: ``run_tuning`` of the ``h100`` preset (reps 3,
    written to ``chiprun_out/calibration_h100.json``) with every launch
@@ -65,7 +67,8 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    kernel in the SSM runs; a prefill and a decode-step profile; and
    cuda-vs-torch parity: mamba2 in bf16 under the same tolerance,
    qwen2-moe asserted in f32 at 4 layers and reported in bf16 at full
-   depth (logits, argmax and routing agreement);
+   depth (logits, argmax and routing agreement); mamba2's prefill profile
+   shows each of the SSD scan's three kernels and their share;
 5. one JSON line describing the kernels, the card's name and power
    limit, and last the JSON result line.
 
@@ -143,29 +146,46 @@ ROW_BODY = "row-parallel, 16-byte lanes"
 #: The split kernels' names, as the profiler and ptxas list them: the
 #: bf16/f32 pair's and the int8 pair's.
 BF16_KERNEL, INT8_KERNEL = "split_rows_kernel", "quant_split_kernel"
-
-
-def split_build_lines(log: str, kernel: str) -> None:
+#: The SSD scan's body (csrc/ssd_scan.cu): chunks in parallel, three
+#: launches (chunk states, the pass over chunks, chunk outputs), each dot
+#: product one fma chain in the plain version's order.
+SSD_BODY = "chunk-parallel, 3 launches, f32 CUDA cores in the plain order"
+#: The SSD scan's kernels, as the profiler and ptxas name them.
+SSD_KERNELS = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")
+#: The RMSNorm body of every served row (csrc/rmsnorm.cu rmsnorm_vec).
+NORM_BODY = "a row in registers, PyTorch's reduction order"
+def split_build_lines(entries, kernel: str) -> None:
     """ptxas' registers and spills of a split kernel: one line per G-1
     instantiation (the ones serving runs), then the most any other
-    spills."""
+    spills. ``entries``: ``_build.ptxas_entries`` of the build log."""
     worst = 0
-    for entry in log.split("Compiling entry function")[1:]:
+    for name, regs, spill in entries:
         m = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)"
-                      r"ELb([01])E", entry.split("'")[1])
+                      r"ELb([01])E", name)
         if not m:
             continue
-        regs = re.search(r"Used (\d+) registers", entry)
-        spill = int(re.search(r"(\d+) bytes spill stores", entry).group(1))
         if m.group(3) != "1":
             worst = max(worst, spill)
             continue
         print(f"[build] {kernel}<{'f32' if m.group(1) == 'f' else 'bf16'}"
               f", D {m.group(2)}, G 1, "
               f"{'paged' if m.group(4) == '1' else 'contiguous'}>: "
-              f"{regs.group(1)} registers, {spill} bytes spill stores")
+              f"{regs} registers, {spill} bytes spill stores")
     print(f"[build] {kernel} at G 2-8: at most {worst} bytes spill "
           f"stores")
+
+
+def served_build_lines(entries, served) -> None:
+    """ptxas' registers and spills of each (label, name pattern) in
+    ``served`` (``_build.SERVED_BUILDS``); fails if one is not in the
+    build."""
+    for label, pattern in served:
+        found = [(regs, spill) for name, regs, spill in entries
+                 if re.search(pattern, name)]
+        check(len(found) == 1, f"{len(found)} builds of {label} "
+              f"({pattern}) in the build log")
+        print(f"[build] {label}: {found[0][0]} registers, {found[0][1]} "
+              f"bytes spill stores")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -266,7 +286,7 @@ def kernel_phase(cfg, moe_cfg, ssm_cfg):
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: F.rms_norm(x, (d,), sb, 1e-6),
                            flush=flush),
-        library_call="F.rms_norm, bf16 weight",
+        library_call="F.rms_norm, bf16 weight", body=NORM_BODY,
         shape=f"x (2048, {d}) bf16")
 
     # --- attention at D 64 (minicpm-2b), then D 128 (qwen2-moe) ----------
@@ -494,7 +514,7 @@ def ssd_scan_kernel(cfg, gen, rnd, compare, flush):
     ops = b * nh * nc * 2 * (pairs * N + pairs * hp + 2 * L * N * hp)
     nbytes = (2 * b * S * nh * (2 * hp + 2 * N) + 4 * b * S * nh + 4 * nh
               + 4 * b * nh * hp * N)
-    b_ms, b_by = bound(nbytes, ops, "f32_cuda_core")
+    b_ms, b_by = bound(nbytes, ops, "bf16_tensor")
     return dict(name="ssd_scan", route="cuda",
                 source="src/repro_torch/kernels/csrc/ssd_scan.cu",
                 replaces="src/repro/kernels/ssd_scan.py:79", max_abs_err=err,
@@ -503,7 +523,8 @@ def ssd_scan_kernel(cfg, gen, rnd, compare, flush):
                                  flush=flush),
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 library_call="none: no single PyTorch call computes a "
-                             "chunked SSD scan",
+                             "chunked SSD scan", body=SSD_BODY,
+                bound_ms_f32_cuda_core=bound(nbytes, ops, "f32_cuda_core")[0],
                 shape=f"b{b} S{S} nh{nh} hp{hp} N{N} chunk {L} bf16")
 
 
@@ -1308,8 +1329,10 @@ def main() -> int:
         spills = re.search(r"(\d+) bytes spill stores", line)
         if "registers" in line or (spills and int(spills.group(1))):
             print(f"[build] {line.strip()}")
+    ptxas = _build.ptxas_entries(build_log)
     for kernel in (BF16_KERNEL, INT8_KERNEL):
-        split_build_lines(build_log, kernel)
+        split_build_lines(ptxas, kernel)
+    served_build_lines(ptxas, _build.SERVED_BUILDS)
 
     cfg = get_arch("minicpm-2b")
     moe_cfg, ssm_cfg = get_arch("qwen2-moe-a2.7b"), get_arch("mamba2-1.3b")
@@ -1359,7 +1382,8 @@ def main() -> int:
         totals.append(serve_pair(mcfg.name, mcfg, params, mrt, counters,
                                  expect, attention))
         profile_model(mcfg.name, mcfg, params, mrt,
-                      prefill_focus=("moe_gemm",) if attention else (),
+                      prefill_focus=(("moe_gemm",) if attention
+                                     else SSD_KERNELS + ("ssd_",)),
                       decode_focus=(("moe_gemm", BF16_KERNEL) if attention
                                     else ()))
         if attention:

@@ -17,11 +17,12 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 HERE = Path(__file__).resolve().parent
 CSRC = HERE / "csrc"
@@ -64,9 +65,9 @@ SIGNATURES = {
                                         _P),
     # x_pad, w, block_expert, block_rows, out, nb, d, f, E, dtype, stream
     "rt_moe_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # x, dt, A, B, C, y, h, b, S, nh, hp, N, L, dtype, stream
-    "rt_ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                    _P),
+    # x, dt, A, B, C, y, h, ws, b, S, nh, hp, N, L, dtype, stream
+    "rt_ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                    _I, _P),
     # x, w_q, scale, out, T, K, N, dtype, stream
     "rt_quant_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
@@ -178,6 +179,48 @@ def dtype_code(t) -> int:
     except KeyError:
         raise TypeError(f"dtype {t.dtype} is not supported by the kernels "
                         f"(float32, bfloat16)") from None
+
+
+#: The instantiations that served bf16 shapes run, as (label, pattern
+#: of ptxas' mangled name): the SSD scan's kernels at mamba2-1.3b's hp
+#: 64 (64 columns a block), and RMSNorm's row-in-registers body at 16
+#: rows or more (32 threads a row: 16 vectors of 4 a thread at d 2048,
+#: 32 at 2304 and 4096) and at 4 rows (128 threads a row). The host code
+#: chooses which one a shape runs (``launch_pt`` in ``csrc/ssd_scan.cu``,
+#: ``launch`` in ``csrc/rmsnorm.cu``): a change there must be made here
+#: too. ``chip_smoke.py`` prints their registers and spills, and the card
+#: tests hold each to no spill.
+SERVED_BUILDS = (
+    ("ssd_chunk_state<bf16, 64 columns>",
+     r"ssd_chunk_stateI13__nv_bfloat16Li4E"),
+    ("ssd_state_pass", r"ssd_state_pass"),
+    ("ssd_chunk_out<bf16, 64 columns>",
+     r"ssd_chunk_outI13__nv_bfloat16Li4E"),
+    ("rmsnorm_vec<bf16, 32 threads, 16 vectors> (d 2048)",
+     r"rmsnorm_vecI13__nv_bfloat16Li32ELi16E"),
+    ("rmsnorm_vec<bf16, 32 threads, 32 vectors> (d 2304, 4096)",
+     r"rmsnorm_vecI13__nv_bfloat16Li32ELi32E"),
+    ("rmsnorm_vec<bf16, 128 threads, 4 vectors> (d 2048, 4 rows)",
+     r"rmsnorm_vecI13__nv_bfloat16Li128ELi4E"),
+    ("rmsnorm_vec<bf16, 128 threads, 8 vectors> (d 2304, 4096, 4 rows)",
+     r"rmsnorm_vecI13__nv_bfloat16Li128ELi8E"),
+)
+
+
+def ptxas_entries(log: str) -> List[Tuple[str, int, int]]:
+    """(mangled name, registers, bytes of spill stores) of every entry
+    function in a build log (``build.log`` beside the library: ``-Xptxas
+    -v`` prints each)."""
+    entries = []
+    for entry in log.split("Compiling entry function")[1:]:
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores", entry)
+        if regs is None or spill is None:
+            raise ValueError(f"ptxas entry without registers or spills: "
+                             f"{entry[:200]}")
+        entries.append((entry.split("'")[1], int(regs.group(1)),
+                        int(spill.group(1))))
+    return entries
 
 
 def stream_handle():

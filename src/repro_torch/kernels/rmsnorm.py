@@ -1,8 +1,11 @@
 """RMSNorm: the CUDA kernel's wrapper and its plain PyTorch version.
 
 Replaces ``src/repro/kernels/rmsnorm.py`` ``rmsnorm_pallas``. The kernel
-(``csrc/rmsnorm.cu``) is bound by bytes: one block per row, an f32
-warp-shuffle reduction, cast on write. See the source for the design.
+(``csrc/rmsnorm.cu``) is bound by bytes: a row in registers, read once
+and written once, and summed in the order PyTorch's own reduction sums
+the plain version's ``x.float().square().mean(-1)`` on the card, so a
+row's bits depend on the call's row count as the plain version's do.
+See the source for the design.
 """
 from __future__ import annotations
 
@@ -10,6 +13,13 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import RMSNORM_EPS
+
+#: The PyTorch release whose CUDA reduction order (ATen ``Reduce.cuh``:
+#: threads a row from the row count, 4 accumulators, the trees, the
+#: mean's factor) ``csrc/rmsnorm.cu`` copies. With it the kernel equals
+#: ``rmsnorm_plain`` bit for bit on the card; with another release it
+#: is held to the one-ulp bar only (the card tests check the release).
+REDUCE_ORDER_TORCH = "2.11."
 
 
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, *,

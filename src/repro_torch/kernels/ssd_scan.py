@@ -4,8 +4,10 @@ PyTorch version.
 Replaces ``src/repro/kernels/ssd_scan.py`` ``ssd_scan_pallas``. The
 plain version is the reference's ``ssd_chunked`` (the ``xla``
 implementation), op for op: intra-chunk decay-masked products, chunk
-summaries, and the recurrence over chunks. See ``csrc/ssd_scan.cu`` for
-what bounds the kernel and its design.
+summaries, and the recurrence over chunks. The kernel runs the chunks in
+parallel in three launches (each chunk's state, the pass over chunks,
+each chunk's outputs) through an f32 workspace the wrapper allocates;
+see ``csrc/ssd_scan.cu`` for what bounds it and its design.
 """
 from __future__ import annotations
 
@@ -111,12 +113,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if not all(t.is_contiguous() for t in (x, dt, A, B, C)):
         raise ValueError("ssd_scan: inputs must be contiguous")
     code = _build.dtype_code(x)
+    L = min(chunk, S)
+    nc = -(-S // L)
     y = torch.empty_like(x)
     h = torch.empty((b, nh, hp, N), dtype=torch.float32, device=x.device)
+    # each chunk's state, then each chunk's cumulative sum
+    ws = torch.empty(b * nh * nc * (hp * N + L), dtype=torch.float32,
+                     device=x.device)
     err = _build.library().rt_ssd_scan(
         _build.ptr(x), _build.ptr(dt), _build.ptr(A), _build.ptr(B),
-        _build.ptr(C), _build.ptr(y), _build.ptr(h), b, S, nh, hp, N,
-        min(chunk, S), code, _build.stream_handle())
+        _build.ptr(C), _build.ptr(y), _build.ptr(h), _build.ptr(ws), b, S,
+        nh, hp, N, L, code, _build.stream_handle())
     _build.check_launch(err, "ssd_scan")
     ssd_scan.launches += 1
     return y, h

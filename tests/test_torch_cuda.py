@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels against their plain versions, on the card.
 
-Covers rmsnorm, flash prefill and the four split-KV decode variants
+Covers rmsnorm (the served widths at every row count, bit for bit
+against its plain version; a width no vector divides, a misaligned
+slice), flash prefill and the four split-KV decode variants
 (contiguous, paged, int8, int8 paged) at odd shapes: page sizes 8 and
 16, page counts that are not a split multiple, G 1-8, D 16-128, a
 window that is not a page multiple, a table row all at the null page;
@@ -13,7 +15,8 @@ bf16 tensor-core body at every m16 slice boundary of a block, with an
 expert's blocks paired, ragged and unaligned operands, and the served
 widths; a row's bits independent of its batch; the MoE layer's one
 sort equal to three sorts, bit for bit) and the chunked SSD scan
-(ragged chunks, S < chunk) and the int8-weight matmul (ragged T, K and
+(ragged chunks, S < chunk, 16 chunks, N 8, 12 and 16, a bf16 rerun
+equal bit for bit) and the int8-weight matmul (ragged T, K and
 N, both bodies, an unaligned weight). The tensor-core bodies (bf16
 flash, the int8-weight matmul at T > 16) are also held to
 ``chip_smoke.py``'s bars, one bf16 ulp and f32 summation order.
@@ -28,6 +31,8 @@ sides round the f32 result once but may land on neighbouring values.
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import _build  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -48,7 +53,8 @@ def _tol(dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,d", [(7, 16), (33, 2304), (4, 5000)])
+@pytest.mark.parametrize("rows,d", [(7, 16), (33, 2304), (4, 5000),
+                                    (5, 2303), (1, 2303)])
 def test_rmsnorm_kernel(dev, dtype, rows, d):
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
     g = torch.Generator(device=dev).manual_seed(0)
@@ -59,6 +65,44 @@ def test_rmsnorm_kernel(dev, dtype, rows, d):
     assert rmsnorm.launches == n + 1
     torch.testing.assert_close(got.float(), rmsnorm_plain(x, s, eps=1e-5)
                                .float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 8, 16, 37, 600, 2048])
+@pytest.mark.parametrize("d", [2048, 2304, 4096])
+def test_rmsnorm_equals_the_plain_version_bit_for_bit(dev, dtype, rows, d):
+    """At the served widths, at every row count (PyTorch's reduction
+    changes its threads a row with the rows), the kernel sums in the
+    plain version's order and rounds where it rounds: bit equality. The
+    order is that of the PyTorch release ``REDUCE_ORDER_TORCH`` names,
+    which this test requires."""
+    from repro_torch.kernels.rmsnorm import (REDUCE_ORDER_TORCH, rmsnorm,
+                                             rmsnorm_plain)
+    assert torch.__version__.startswith(REDUCE_ORDER_TORCH), (
+        f"csrc/rmsnorm.cu copies torch {REDUCE_ORDER_TORCH}x's reduction "
+        f"order; this is torch {torch.__version__}: re-derive it")
+    g = torch.Generator(device=dev).manual_seed(rows * d)
+    x = torch.randn(rows, d, device=dev, generator=g).to(dtype)
+    s = torch.randn(d, device=dev, generator=g)
+    assert torch.equal(rmsnorm(x, s), rmsnorm_plain(x, s))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_misaligned_slice(dev, dtype):
+    """A contiguous view one element into its storage (not aligned for a
+    vector load) loads its elements one by one and comes out bit for bit
+    as the aligned copy does, within the bar of the plain version."""
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+    g = torch.Generator(device=dev).manual_seed(3)
+    rows, d = 37, 2048
+    base = torch.randn(rows * d + 1, device=dev, generator=g).to(dtype)
+    x = base[1:].view(rows, d)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    s = torch.randn(d, device=dev, generator=g)
+    got = rmsnorm(x, s)
+    torch.testing.assert_close(got.float(), rmsnorm_plain(x, s).float(),
+                               **_tol(dtype))
+    assert torch.equal(got, rmsnorm(x.clone(), s))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -440,16 +484,11 @@ def test_quant_split_kernel_has_no_spills(dev, kernel, types, count):
     the ones serving runs: the int8 pair's, and the bf16 pair's in bf16
     (f32 is held to correctness only)."""
     import re
-    from repro_torch.kernels import _build
     log = (_build.build_library().parent / "build.log").read_text()
-    seen = 0
-    for entry in log.split("Compiling entry function")[1:]:
-        name = entry.split("'")[1]
-        if re.search(kernel + r"I" + types + r"Li\d+ELi1ELb[01]E", name):
-            seen += 1
-            spill = re.search(r"(\d+) bytes spill stores", entry)
-            assert spill is not None and int(spill.group(1)) == 0, entry
-    assert seen == count               # x 4 head dims x paged
+    found = [spill for name, _, spill in _build.ptxas_entries(log)
+             if re.search(kernel + r"I" + types + r"Li\d+ELi1ELb[01]E",
+                          name)]
+    assert found == [0] * count        # x 4 head dims x paged
 
 
 def test_new_wrappers_reject_bad_inputs(dev):
@@ -668,8 +707,8 @@ def test_moe_layer_sort_once_equals_three_dispatches(dev, monkeypatch):
 
 # ---------------------------------------------------------------- ssd
 #: f32 SSD scan: each output sums up to a chunk of products over a
-#: 128-wide state, weighted by exp() of cumulative sums that the kernel
-#: takes serially and ``torch.cumsum`` in a parallel scan.
+#: 128-wide state, weighted by exp() of cumulative sums of up to 256
+#: steps.
 SSD_F32_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
@@ -679,6 +718,9 @@ SSD_F32_TOL = dict(atol=1e-4, rtol=1e-4)
     (2, 300, 4, 64, 128, 256),     # ragged last chunk
     (1, 16, 3, 32, 16, 256),       # S < chunk
     (2, 100, 2, 16, 8, 32),        # hp 16, small state
+    (2, 700, 64, 64, 128, 256),    # mamba2 widths, b 2, ragged S
+    (1, 1024, 8, 64, 128, 64),     # 16 chunks
+    (1, 130, 2, 32, 12, 64),       # N % 8 != 0: the CUDA-core body
 ])
 def test_ssd_scan_kernel(dev, dtype, b, S, nh, hp, N, chunk):
     from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
@@ -697,6 +739,59 @@ def test_ssd_scan_kernel(dev, dtype, b, S, nh, hp, N, chunk):
     tol = _tol(dtype) if dtype == torch.bfloat16 else SSD_F32_TOL
     torch.testing.assert_close(y.float(), yw.float(), **tol)
     torch.testing.assert_close(h, hw, **SSD_F32_TOL)
+
+
+def test_ssd_scan_kernel_is_deterministic(dev):
+    """The chunk-parallel scan has no atomics: a bf16 rerun at mamba2's
+    widths equals the first run bit for bit."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    g = torch.Generator(device=dev).manual_seed(11)
+    b, S, nh, hp, N = 2, 700, 64, 64, 128
+    x = torch.randn(b, S, nh, hp, device=dev, generator=g).bfloat16()
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, S, nh, device=dev, generator=g) - 2.0)
+    A = -torch.exp(torch.randn(nh, device=dev, generator=g) * 0.5)
+    B, C = (torch.randn(b, S, nh, N, device=dev, generator=g).bfloat16()
+            for _ in range(2))
+    y1, h1 = ssd_scan(x, dt, A, B, C, chunk=256)
+    y2, h2 = ssd_scan(x, dt, A, B, C, chunk=256)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+@pytest.mark.parametrize("a_init", ["served", "random"])
+@pytest.mark.parametrize("b,S", [(1, 1024), (2, 700)])
+def test_ssd_scan_equals_the_plain_version_bit_for_bit(dev, a_init, b, S):
+    """At mamba2-1.3b's widths in bf16 (64 heads of 64, state 128, chunk
+    256) the scan sums in the plain version's order and rounds where it
+    rounds: y and the final state equal ``ssd_chunked``'s bit for bit.
+    A = -1 as the model initialises it (``A_log`` 0), and random A,
+    where dt * A is not exact and the cumulative sum's rounding shows."""
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+    g = torch.Generator(device=dev).manual_seed(S + b)
+    nh, hp, N = 64, 64, 128
+    x = torch.randn(b, S, nh, hp, device=dev, generator=g).bfloat16()
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, S, nh, device=dev, generator=g) - 2.0)
+    A = (-torch.ones(nh, device=dev) if a_init == "served" else
+         -torch.exp(torch.randn(nh, device=dev, generator=g) * 0.5))
+    B, C = (torch.randn(b, S, nh, N, device=dev, generator=g).bfloat16()
+            for _ in range(2))
+    y, h = ssd_scan(x, dt, A, B, C, chunk=256)
+    yw, hw = ssd_chunked(x, dt, A, B, C, 256)
+    assert torch.equal(y, yw) and torch.equal(h, hw)
+
+
+@pytest.mark.parametrize("label,pattern", _build.SERVED_BUILDS)
+def test_served_scan_and_norm_bodies_have_no_spills(dev, label, pattern):
+    """ptxas reports no spill in the instantiations the served shapes run
+    in bf16 (``_build.SERVED_BUILDS``): the SSD scan's three kernels at
+    mamba2's widths, and RMSNorm at the served widths, prefill and decode
+    row counts."""
+    import re
+    log = (_build.build_library().parent / "build.log").read_text()
+    found = [spill for name, _, spill in _build.ptxas_entries(log)
+             if re.search(pattern, name)]
+    assert found == [0], (label, found)
 
 
 def test_moe_and_ssd_wrappers_reject_bad_inputs(dev):

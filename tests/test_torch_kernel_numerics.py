@@ -12,7 +12,9 @@ kernel uses, and that the split-KV decode kernels' order of work (the
 lanes' partial dot products, for int8 with the row scale factored out,
 the lanes and rows summed in their shuffle order, P.V as p * v or
 (p * vs) * v) stays within the same bars, for the bf16/f32 and the int8
-pair. Inputs are drawn with numpy from fixed
+pair. The SSD scan's order of work (a serial f32 cumulative sum, each
+dot product one fma chain in index order) is modelled at mamba2-1.3b's
+widths and held to the same bars. Inputs are drawn with numpy from fixed
 seeds.
 """
 import numpy as np
@@ -239,3 +241,98 @@ def test_splitkv_order_stays_within_the_bars(dtype, Hq, Hkv, D):
     assert got.dtype == want.dtype == dtype
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     assert _breaks(got, want, tol) == 0
+
+
+
+# --------------------------------------------------------------- ssd_scan
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fmaf(a, b, c) of f32 tensors: the product is exact in f64, the sum
+    rounded (twice, which differs from one rounding only at rare ties)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _ssd_kernel_order(x, dt, A, B, C, L):
+    """The SSD kernel's order of work (csrc/ssd_scan.cu), with torch on
+    the CPU: per chunk one f32 add after another of the rounded products
+    dt * A (chunk_cumsum); w = dt * exp(a_last - a); each chunk's state
+    (p, n) one fma chain over s of (x_s w_s) B_s; the pass over chunks, h
+    = h exp(a_last) + state, rounded apart; the scores one fma chain over
+    n; M = (scores * exp(a_t - a_s)) * dt_s; y = (fma chain over s of M x)
+    + (fma chain over n of C h) * exp(a_t), rounded once."""
+    b, S, nh, hp = x.shape
+    N = B.shape[-1]
+    nc = -(-S // L)
+    pad = nc * L - S
+
+    def chunks(t):
+        t = torch.nn.functional.pad(t.float(), (0, 0) * (t.ndim - 2)
+                                    + (0, pad))
+        t = t.reshape(b, nc, L, nh, *t.shape[3:])
+        return t.permute(0, 3, 1, 2, *range(4, t.ndim))  # b nh nc L ...
+
+    xc, dtc, Bc, Cc = chunks(x), chunks(dt), chunks(B), chunks(C)
+    dA = dtc * A.float()[None, :, None, None]
+    a, run = torch.empty_like(dA), torch.zeros(dA.shape[:-1])
+    for t in range(L):
+        run = run + dA[..., t]
+        a[..., t] = run
+    a_last = a[..., -1]
+    wx = (dtc * torch.exp(a_last[..., None] - a))[..., None] * xc
+    state = torch.zeros(b, nh, nc, hp, N)
+    for s in range(L):
+        state = _fma(wx[..., s, :, None], Bc[..., s, None, :], state)
+    h, h_prev = torch.zeros(b, nh, hp, N), []
+    for c in range(nc):
+        h_prev.append(h)
+        h = h * torch.exp(a_last[..., c])[..., None, None] + state[:, :, c]
+    h_prev = torch.stack(h_prev, 2)
+    sc = torch.zeros(b, nh, nc, L, L)
+    for n in range(N):
+        sc = _fma(Cc[..., :, None, n], Bc[..., None, :, n], sc)
+    causal = torch.ones(L, L, dtype=torch.bool).tril()
+    M = torch.where(causal, sc * torch.exp(a[..., :, None] - a[..., None, :])
+                    * dtc[..., None, :], torch.zeros(()))
+    dia = torch.zeros(b, nh, nc, L, hp)
+    off = torch.zeros(b, nh, nc, L, hp)
+    for s in range(L):
+        dia = _fma(M[..., :, s, None], xc[..., s, None, :], dia)
+    for n in range(N):
+        off = _fma(Cc[..., :, n, None], h_prev[..., None, :, n], off)
+    y = dia + off * torch.exp(a)[..., None]
+    y = y.permute(0, 2, 3, 1, 4).reshape(b, nc * L, nh, hp)[:, :S]
+    return y.to(x.dtype), h
+
+
+def _ssd_case(b, S, nh, hp, N, dtype, seed):
+    """``chip_smoke.py``'s SSD inputs: x unit normals, dt = softplus(z -
+    2), A = -exp(z / 2), B and C unit normals over N^(1/4)."""
+    rng = np.random.default_rng(seed)
+
+    def z(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32))
+
+    x = z(b, S, nh, hp).to(dtype)
+    dt = torch.nn.functional.softplus(z(b, S, nh) - 2.0)
+    A = -torch.exp(z(nh) * 0.5)
+    B, C = ((z(b, S, nh, N) / N ** 0.25).to(dtype) for _ in range(2))
+    return x, dt, A, B, C
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,S", [(1, 1024), (2, 700)])
+def test_ssd_kernel_order_stays_within_the_bars(dtype, b, S):
+    """At mamba2-1.3b's widths (hp 64, N 128, chunk 256; 4 of its 64
+    heads), the kernel's order of work (serial f32 cumulative sum, fma
+    chains in index order) lands within F32_TOL / BF16_TOL of
+    ``ssd_chunked`` on the CPU (whose cumulative sum runs in f64 and whose
+    products go through the CPU's own GEMMs), its final state within
+    F32_TOL."""
+    from repro_torch.kernels.ssd_scan import ssd_chunked
+    args = _ssd_case(b, S, 4, 64, 128, dtype, seed=S + b)
+    want_y, want_h = ssd_chunked(*args, 256)
+    y, h = _ssd_kernel_order(*args, 256)
+    assert y.dtype == dtype and h.shape == want_h.shape
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    assert _breaks(y, want_y, tol) == 0
+    assert _breaks(h, want_h, F32_TOL) == 0
