@@ -69,8 +69,24 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    qwen2-moe asserted in f32 at 4 layers and reported in bf16 at full
    depth (logits, argmax and routing agreement); mamba2's prefill profile
    shows each of the SSD scan's three kernels and their share;
-5. one JSON line describing the kernels, the card's name and power
-   limit, and last the JSON result line.
+5. training (``[train]``), with the card emptied first: full-width
+   minicpm-2b (40 layers, f32 master weights), one f32 loss and gradient
+   at B 2, S 512 under the ``cuda`` and the ``torch`` policy (TF32 off,
+   remat none; the loss within 1e-5 relative, the largest gradient
+   difference over all leaves within 1e-3 of the largest gradient), then
+   five bf16 AdamW steps of ``make_train_step`` at B 4, S 512 on
+   ``SyntheticLMData`` with the WSD schedule (finite losses, step 0
+   within 0.02 of the ``torch`` policy's; step time, tokens/s, MFU, peak
+   memory) and a device profile of one step; then qwen2-moe-a2.7b at
+   full width and 2 layers, dropless (the sort-once grouped GEMMs under
+   autograd), and mamba2-1.3b at full width, each the same gradient
+   check and two bf16 steps. Each cuda-policy run must launch its
+   model's kernels and no decode or int8 kernel, each torch-policy run
+   none; over the phase rmsnorm, flash, the grouped GEMM and the SSD
+   scan must all have launched;
+6. one JSON line describing the kernels (each kernel's launches by
+   path: serve, tune and train), the card's name and power limit, and
+   last the JSON result line.
 
 It exits non-zero without printing a result when no CUDA device is
 available or the repository's ``src/`` is missing.
@@ -1290,6 +1306,230 @@ def parity_phase(cfg, params):
               f"{QUANT_PARITY_TOL}")
 
 
+# ===========================================================================
+# Phase 5: training
+# ===========================================================================
+#: Batch and length of the train phase: B 2 for the f32 gradient checks,
+#: B 4 for the bf16 AdamW steps, S 512 for both.
+TRAIN_CHECK_B, TRAIN_B, TRAIN_S = 2, 4, 512
+#: f32, cuda vs torch policy, TF32 off: the loss within 1e-5 of itself,
+#: and the largest gradient difference over all leaves within 1e-3 of
+#: the largest gradient (the reference's bar for its kernels under
+#: autograd, tests/test_kernel_dispatch.py).
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-3
+#: bf16: step 0's loss under the cuda policy against the torch policy's
+#: on the same batch (both round every activation to bf16).
+TRAIN_BF16_LOSS_TOL = 0.02
+#: qwen2-moe trains at full width and 2 layers: 24 layers of f32 weights
+#: and AdamW state need ~229 GB, 2 layers ~28 GB.
+MOE_TRAIN_LAYERS = 2
+#: Kernels no training path runs (the decode kernels, the int8 matmul).
+TRAIN_ABSENT = ("decode_attention", "paged_decode_attention",
+                "quant_decode_attention", "quant_paged_decode_attention",
+                "quant_matmul")
+
+
+def train_run(label, counters, expect, fn):
+    """``fn()`` with every launch count set to 0 before it; afterwards the
+    kernels in ``expect`` must have launched and every other kernel not.
+    Returns (fn's result, the launches)."""
+    import torch
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    for name, n in launches.items():
+        if name in expect:
+            check(n > 0, f"{label}: kernel {name} was not launched")
+        else:
+            check(n == 0, f"{label}: kernel {name} ran {n} times")
+    return out, launches
+
+
+def train_batch(cfg, b, seed):
+    """``SyntheticLMData``'s lcg batch 0 (B ``b``, S ``TRAIN_S``) on the
+    card."""
+    import torch
+    from repro_torch.data import SyntheticLMData
+    data = SyntheticLMData(TRAIN_S, b, cfg.vocab_size, seed=seed)
+    return {k: torch.from_numpy(v).cuda() for k, v in
+            data.batch_at(0).items()}
+
+
+def grad_check(label, cfg, params, counters, expect, **rt_kw):
+    """One f32 loss and gradient at B ``TRAIN_CHECK_B``, S ``TRAIN_S``,
+    remat none, under the cuda and the torch policy: the cuda pass runs
+    ``expect``'s kernels forward (the plain versions' autograd as their
+    backward), the torch pass none. Returns the cuda pass's launches."""
+    import torch
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.models import ModelRuntime
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.tree import tree_items
+
+    batch = train_batch(cfg, TRAIN_CHECK_B, seed=5)
+    res = {}
+    for pol in ("cuda", "torch"):
+        rt = ModelRuntime(dtype="float32", remat="none",
+                          kernels=getattr(KernelPolicy, pol)(), **rt_kw)
+        res[pol], launches = train_run(
+            f"{label} f32 gradients, {pol} policy", counters,
+            expect if pol == "cuda" else set(),
+            lambda: value_and_grad(cfg, rt, params, batch))
+        if pol == "cuda":
+            cuda_launches = launches
+    (lc, _, gc_), (lt, _, gt) = res["cuda"], res["torch"]
+    loss_rel = float((lc - lt).abs() / lt.abs())
+    dmax = gmax = 0.0
+    for path_c, path_t in zip(tree_items(gc_), tree_items(gt)):
+        check(path_c[0] == path_t[0], f"{label}: gradient trees differ")
+        a, b = path_c[1], path_t[1]
+        check(bool(torch.isfinite(a).all()), f"{label}: non-finite "
+              f"gradient {path_c[0]}")
+        dmax = max(dmax, float((a - b).abs().max()))
+        gmax = max(gmax, float(b.abs().max()))
+    print(f"[train] {label} f32 B{TRAIN_CHECK_B} S{TRAIN_S}, cuda vs torch "
+          f"policy: loss {float(lc):.6f} vs {float(lt):.6f}, |dloss|/|loss| "
+          f"{loss_rel:.3e} (tol {TRAIN_LOSS_RTOL:g}); gradients max|dg| / "
+          f"max|g| {dmax / gmax:.3e} over {len(list(tree_items(gt)))} leaves "
+          f"(max|g| {gmax:.4e}, tol {TRAIN_GRAD_RTOL:g}); cuda launches "
+          f"{ {k: v for k, v in cuda_launches.items() if v} }")
+    check(loss_rel < TRAIN_LOSS_RTOL, f"{label}: f32 loss differs by "
+          f"{loss_rel:.3e}")
+    check(dmax / gmax < TRAIN_GRAD_RTOL, f"{label}: f32 gradients differ "
+          f"by {dmax / gmax:.3e} of the largest")
+    return cuda_launches
+
+
+def train_steps(label, cfg, params, counters, expect, steps, **rt_kw):
+    """``steps`` bf16 AdamW steps of ``make_train_step`` on the f32
+    masters (the launcher's runtime: remat none, the config's schedule),
+    B ``TRAIN_B``, S ``TRAIN_S``, on ``SyntheticLMData``'s lcg batches:
+    every loss finite, step 0's within ``TRAIN_BF16_LOSS_TOL`` of the
+    torch policy's on the same batch. Prints the losses, the median step
+    time over steps 1.. (host clock, synchronised), tokens/s, MFU against
+    the H100's bf16 dense peak, the peak memory and the launches. Returns
+    (the launches, the state, the step function, a batch)."""
+    import dataclasses
+    import torch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.models import ModelRuntime, loss_fn
+    from repro_torch.train import AdamWConfig, TrainConfig
+    from repro_torch.train.loop import init_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    rt = ModelRuntime(dtype="bfloat16", remat="none", **rt_kw)
+    data = SyntheticLMData(TRAIN_S, TRAIN_B, cfg.vocab_size, seed=9)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                data.batch_at(i).items()} for i in range(steps)]
+    with torch.no_grad():
+        ref_loss = float(loss_fn(params, cfg, batches[0], dataclasses.replace(
+            rt, kernels=KernelPolicy.torch()))[0])
+    tc = TrainConfig(opt=AdamWConfig(
+        peak_lr=3e-3, warmup_steps=5, total_steps=steps,
+        schedule="wsd" if cfg.lr_schedule == "wsd" else "cosine"))
+    step_fn = make_train_step(cfg, rt, tc)
+    state = init_state(params)
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        losses, times = [], []
+        st = state
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = step_fn(st, b)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return losses, times
+
+    (losses, times), launches = train_run(f"{label} bf16 steps", counters,
+                                          expect, run)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(math.isfinite(x) for x in losses), f"{label}: non-finite "
+          f"loss {losses}")
+    d0 = abs(losses[0] - ref_loss)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    step_ms = statistics.median(times[1:])
+    tok_s = TRAIN_B * TRAIN_S / step_ms * 1e3
+    mfu = 6 * n_params * TRAIN_B * TRAIN_S / (step_ms / 1e3) \
+        / PEAK_OPS["bf16_tensor"]
+    print(f"[train] {label} bf16 AdamW, B{TRAIN_B} S{TRAIN_S}, {tc.opt.schedule}"
+          f": loss by step {' '.join(f'{x:.4f}' for x in losses)}; step 0 "
+          f"vs torch policy {ref_loss:.4f} (|d| {d0:.4f}, tol "
+          f"{TRAIN_BF16_LOSS_TOL}); step ms {' '.join(f'{t:.1f}' for t in times)}"
+          f", median over steps 1-{steps - 1} {step_ms:.2f} ms, "
+          f"{tok_s:.1f} tok/s, MFU {mfu:.4f} (6 x {n_params / 1e9:.3f} B "
+          f"params x tokens / step / 989 TFLOP/s); peak {peak:.2f} GiB; "
+          f"launches { {k: v for k, v in launches.items() if v} }")
+    check(d0 <= TRAIN_BF16_LOSS_TOL, f"{label}: bf16 step-0 loss "
+          f"{losses[0]} vs torch policy {ref_loss}")
+    return launches, state, step_fn, batches[0]
+
+
+def train_phase(counters):
+    """Full-width training on the card: minicpm-2b's f32 gradient check
+    and five bf16 AdamW steps with a profile of one, then qwen2-moe at 2
+    layers (dropless: the sort-once grouped GEMMs under autograd) and
+    mamba2, each a gradient check and two steps. Returns the launches of
+    every cuda-policy run, summed."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    totals = []
+    for name, layers, expect, steps, rt_kw in (
+            ("minicpm-2b", None, {"rmsnorm", "flash_attention"}, 5, {}),
+            ("qwen2-moe-a2.7b", MOE_TRAIN_LAYERS,
+             {"rmsnorm", "flash_attention", "moe_gemm"}, 2,
+             dict(moe_dropless=True)),
+            ("mamba2-1.3b", None, {"rmsnorm", "ssd_scan"}, 2, {})):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_arch(name)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0, device="cuda")        # f32
+        torch.cuda.synchronize()
+        label = f"{name} ({cfg.n_layers} layers)"
+        print(f"[train] {label} full width: "
+              f"{sum(t.numel() for t in tree_leaves(params)) / 1e9:.3f} B "
+              f"params, f32 masters, seeded init "
+              f"{time.perf_counter() - t0:.1f} s")
+        totals.append(grad_check(label, cfg, params, counters, expect,
+                                 **rt_kw))
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches, state, step_fn, batch = train_steps(
+            label, cfg, params, counters, expect, steps, **rt_kw)
+        totals.append(launches)
+        if name == "minicpm-2b":          # profile one step of the dense model
+            holder = [state]
+
+            def one_step():
+                holder[0], _ = step_fn(holder[0], batch)
+
+            device_profile(f"{label} bf16 train step B{TRAIN_B} "
+                           f"S{TRAIN_S}", one_step, steps=1,
+                           focus=("flash_fwd", "rmsnorm", "nvjet",
+                                  "elementwise", "reduce_kernel"))
+            del holder
+        del params, state, step_fn, batch
+    train = {name: sum(t[name] for t in totals) for name in counters}
+    for name in ("rmsnorm", "flash_attention", "moe_gemm", "ssd_scan"):
+        check(train[name] > 0, f"train path: {name} never launched")
+    print(f"[train] launches over all training runs: {train}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return train
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1393,13 +1633,19 @@ def main() -> int:
         del params
     served = {name: sum(t[name] for t in totals) for name in counters}
     print(f"[serve] launches over all serving runs: {served}")
+    del totals
 
     # --- phase 5 ---------------------------------------------------------
+    trained = train_phase(counters)
+
+    # --- phase 6 ---------------------------------------------------------
     kernels = []
     for name, e in entries.items():
-        e = dict(e, ok=True, launches=served[name] + tuned[name],
+        e = dict(e, ok=True,
+                 launches=served[name] + tuned[name] + trained[name],
                  launches_by_path={"serve": served[name],
-                                   "tune": tuned[name]})
+                                   "tune": tuned[name],
+                                   "train": trained[name]})
         e.pop("shape")
         for t in (e, *(e[k] for k in ("d128", "prefill") if k in e)):
             for key in ("ms", "plain_ms", "bound_ms", "library_ms"):

@@ -1,0 +1,3 @@
+from repro_torch.data.pipeline import SyntheticLMData, host_shard
+
+__all__ = ["SyntheticLMData", "host_shard"]

@@ -144,7 +144,9 @@ def implementations(op: str) -> Dict[str, Callable]:
 
 class _RefBackward(torch.autograd.Function):
     """Forward: the kernel. Backward: autograd of the ``torch`` impl at
-    the same inputs and keyword arguments."""
+    the same inputs and keyword arguments, for the inputs that need a
+    gradient. A tuple result (the SSD scan's ``(y, h)``) takes one
+    cotangent per element."""
 
     @staticmethod
     def forward(ctx, fn, ref, kwargs, *arrays):
@@ -153,16 +155,31 @@ class _RefBackward(torch.autograd.Function):
         return fn(*arrays, **kwargs)
 
     @staticmethod
-    def backward(ctx, ct):
-        arrays = [a.detach().requires_grad_(a.is_floating_point())
-                  for a in ctx.saved_tensors]
+    def backward(ctx, *cts):
+        need = ctx.needs_input_grad[3:]
+        arrays = [a.detach().requires_grad_(n)
+                  for a, n in zip(ctx.saved_tensors, need)]
         diff = [a for a in arrays if a.requires_grad]
         with torch.enable_grad():
             out = ctx.ref(*arrays, **ctx.kwargs)
-            grads = iter(torch.autograd.grad(out, diff, ct,
+            outs = out if isinstance(out, tuple) else (out,)
+            grads = iter(torch.autograd.grad(outs, diff, cts,
                                              allow_unused=True))
         return (None, None, None) + tuple(
             next(grads) if a.requires_grad else None for a in arrays)
+
+
+def ref_backward(fn: Callable, ref: Callable, *arrays: Any,
+                 **kwargs: Any) -> Any:
+    """``fn(*arrays, **kwargs)``, differentiated as ``ref`` is: when a
+    gradient is needed, ``fn`` runs inside :class:`_RefBackward`, whose
+    backward is the autograd of ``ref`` at the same inputs (kernel
+    forward, reference backward). Without one (serving) ``fn`` is called
+    directly."""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in arrays):
+        return _RefBackward.apply(fn, ref, kwargs, *arrays)
+    return fn(*arrays, **kwargs)
 
 
 def dispatch(op: str, policy: Optional[KernelPolicy], *arrays: Any,
@@ -173,7 +190,9 @@ def dispatch(op: str, policy: Optional[KernelPolicy], *arrays: Any,
     the reference's tile sizes ``block_k``/``pages_per_block``); the
     policy's parameters for the op are merged over them. Implementations
     accept ``**_`` so a parameter meaningful only to the other
-    implementation is ignored rather than rejected.
+    implementation is ignored rather than rejected. A non-``torch``
+    implementation is differentiated as the ``torch`` one
+    (:func:`ref_backward`).
     """
     pol = resolve_policy(policy)
     impl = pol.impl_for(op)
@@ -182,11 +201,9 @@ def dispatch(op: str, policy: Optional[KernelPolicy], *arrays: Any,
         raise KeyError(f"kernel op {op!r} has no implementation {impl!r}; "
                        f"registered: {sorted(table)}")
     merged = {**kwargs, **pol.params_for(op)}
-    fn = table[impl]
-    if impl != "torch" and torch.is_grad_enabled() and any(
-            isinstance(a, torch.Tensor) and a.requires_grad for a in arrays):
-        return _RefBackward.apply(fn, table["torch"], merged, *arrays)
-    return fn(*arrays, **merged)
+    if impl == "torch":
+        return table[impl](*arrays, **merged)
+    return ref_backward(table[impl], table["torch"], *arrays, **merged)
 
 
 # ===========================================================================

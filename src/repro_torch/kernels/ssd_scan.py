@@ -21,13 +21,20 @@ from repro_torch.kernels import _build
 
 def _segsum_decay(a_cs: torch.Tensor) -> torch.Tensor:
     """exp(a_cs[t] - a_cs[s]) on the lower triangle (inclusive), else 0.
-    a_cs: (..., L, H) -> (..., H, L, L)."""
+    a_cs: (..., L, H) -> (..., H, L, L).
+
+    The upper triangle is masked to -inf before the exp, where the
+    reference (``repro.models.ssm._segsum_decay``) takes the exp first
+    and masks after: the values are the same (exp(-inf) is 0), but past
+    ~88 of decay within a chunk (mamba2's chunk of 256 at dt ~ 0.7) the
+    reference's masked exp overflows to inf and its gradient is 0 * inf,
+    NaN, for dt and A."""
     L = a_cs.shape[-2]
     diff = a_cs[..., :, None, :] - a_cs[..., None, :, :]   # (..., L, L, H)
     diff = torch.movedim(diff, -1, -3)                     # (..., H, L, L)
     tri = torch.tril(torch.ones((L, L), dtype=torch.bool,
                                 device=a_cs.device))
-    return torch.where(tri, torch.exp(diff), torch.zeros_like(diff))
+    return torch.exp(torch.where(tri, diff, float("-inf")))
 
 
 def ssd_chunked(x, dt, A, B, C, chunk: int,

@@ -1,5 +1,6 @@
 """Shared model primitives of the port: parameter definitions, RMSNorm,
-standard RoPE and SwiGLU (counterpart of ``repro.models.layers``).
+standard RoPE, SwiGLU and the cross-entropy loss (counterpart of
+``repro.models.layers``).
 
 Parameter *definitions* (shape + initializer) are data, so ``init`` and
 the shape checks of the weight bridge derive from one source.
@@ -152,7 +153,15 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, tables, cfg: ModelConfig
 
 
 # ===========================================================================
-# Activations
+# Activations + loss
 # ===========================================================================
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy; logits promoted to f32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)

@@ -8,6 +8,10 @@
 
 The hybrid, vlm and audio families are not ported yet.
 
+Training takes :func:`loss_fn` (cross-entropy plus the MoE aux loss) by
+autograd through :func:`forward`; ``ModelRuntime.remat`` checkpoints
+each block's activations while a gradient is taken.
+
 Parameters are a nested dict of tensors with the reference's tree: f32
 master weights, per-layer weights stacked on a leading ``layers`` axis,
 projections stored ``(in, out)``. :func:`cast_params` casts the matmul
@@ -30,9 +34,11 @@ from __future__ import annotations
 
 import re
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.dispatch import KernelPolicy, dispatch
@@ -60,7 +66,7 @@ def kv_torch_dtype(name: str) -> torch.dtype:
 
 @dataclass(frozen=True)
 class ModelRuntime:
-    """Serving-time knobs (not part of the architecture).
+    """Training/serving-time knobs (not part of the architecture).
 
     ``use_kernels`` defaults to True here (the reference defaults to
     False): the port's entry points run the hand-written kernels on the
@@ -70,10 +76,14 @@ class ModelRuntime:
     head) row at write time with a bf16 scale side-band.
     ``moe_dropless`` runs the MoE prefill without capacity drops (as
     decode always does); ``moe_chunk`` is the GShard token-group size of
-    the capacity path (0: one group).
+    the capacity path (0: one group). ``remat`` checkpoints each block's
+    activations while a gradient is taken (:func:`_remat`: ``none``,
+    ``dots`` — the reference's default — or ``full``); under
+    ``torch.no_grad()`` (serving) nothing is checkpointed.
     """
 
     dtype: str = "bfloat16"
+    remat: str = "dots"
     attn_chunk: int = 512
     use_kernels: bool = True
     kernels: Optional[KernelPolicy] = None
@@ -206,10 +216,15 @@ def cast_params(params, rt: ModelRuntime):
     return walk(params)
 
 
-def _layer(blocks: Dict[str, Any], i: int) -> Dict[str, Any]:
-    """Layer ``i``'s weights as views into the stacked tensors."""
-    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
-            for k, v in blocks.items()}
+def _layers(blocks: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Every layer's weights as views into the stacked tensors, one
+    ``unbind`` a leaf: under autograd its backward stacks the layers'
+    gradients once, where a view ``v[i]`` a layer would add a full-size
+    gradient each."""
+    split = {k: (_layers(v) if isinstance(v, dict) else v.unbind(0))
+             for k, v in blocks.items()}
+    n = len(next(iter(split.values())))
+    return [{k: v[i] for k, v in split.items()} for i in range(n)]
 
 
 # ===========================================================================
@@ -292,21 +307,53 @@ def _unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x @ params["lm_head"].to(x.dtype)
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """``dots``: keep the outputs of matmuls without batch dims (the
+    reference's ``checkpoint_dots_with_no_batch_dims``), recompute the
+    rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, rt: ModelRuntime):
+    """``fn`` (one block) under ``rt.remat`` while a gradient is taken:
+    ``full`` saves only the block's inputs and recomputes the rest in
+    the backward pass, ``dots`` also saves the matmul outputs. The
+    gradients are the same either way."""
+    if rt.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if rt.remat == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if rt.remat == "dots":
+        return lambda *a: checkpoint(
+            fn, *a, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(
+                _save_dots))
+    raise ValueError(f"remat {rt.remat!r} not supported; available: "
+                     f"none, dots, full")
+
+
 def _run_blocks(params, cfg: ModelConfig, x, positions, rt: ModelRuntime,
                 on_layer=None):
     """Every layer; ``on_layer(i, material)`` receives each layer's cache
     material: ``(k, v)`` for attention blocks, the ``{conv, ssm}`` final
     states for Mamba-2 blocks. Returns (x, summed aux loss f32)."""
     aux = torch.zeros((), device=x.device)
-    rope = None if cfg.family == "ssm" else L.rope_tables(positions, cfg)
-    for i in range(cfg.n_layers):
-        p = _layer(params["blocks"], i)
-        if cfg.family == "ssm":
-            x, material = mamba_block(p, x, cfg, rt)
-        else:
-            x, a, material = attn_block(p, x, rope, cfg, rt)
-            if a is not None:
-                aux = aux + a
+    ssm = cfg.family == "ssm"
+    rope = None if ssm else L.rope_tables(positions, cfg)
+
+    def body(p, x_):
+        if ssm:
+            return mamba_block(p, x_, cfg, rt) + (None,)
+        x_, a, kv = attn_block(p, x_, rope, cfg, rt)
+        return x_, kv, a
+
+    block = _remat(body, rt)
+    for i, p in enumerate(_layers(params["blocks"])):
+        x, material, a = block(p, x)
+        if a is not None:
+            aux = aux + a
         if on_layer is not None:
             on_layer(i, material)
     return x, aux
@@ -326,6 +373,16 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     x, aux = _run_blocks(params, cfg, x, positions, rt)
     x = norm(x, params["final_norm"], cfg.norm, policy=rt.kernel_policy())
     return _unembed(params, cfg, x), aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            rt: ModelRuntime = ModelRuntime()
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Training loss: token cross-entropy of ``batch['labels']`` plus the
+    MoE aux loss -> (ce + aux, {'ce', 'aux'})."""
+    logits, aux = forward(params, cfg, batch, rt)
+    ce = L.cross_entropy(logits, batch["labels"])
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def _fill_kv_window(out: torch.Tensor, k_full: torch.Tensor) -> None:
@@ -511,10 +568,9 @@ def _decode_layers(params, cfg: ModelConfig, cache, names, x, pos, idx,
         return dispatch(op, pol, q, *(t for t in kv if t is not None), *tail)
 
     rope = L.rope_tables(pos[:, None], cfg)
-    for i in range(cfg.n_layers):
+    for i, p in enumerate(_layers(params["blocks"])):
         kv = tuple(cache[n][i] if n in cache else None for n in names)
-        x = _attn_decode_one(_layer(params["blocks"], i), x, kv, idx,
-                             attend, rope, cfg, rt)
+        x = _attn_decode_one(p, x, kv, idx, attend, rope, cfg, rt)
     x = norm(x[:, None, :], params["final_norm"], cfg.norm, policy=pol)
     return _unembed(params, cfg, x)[:, 0]
 
@@ -546,8 +602,7 @@ def _decode_ssm(params, cfg: ModelConfig, cache, x, rt: ModelRuntime):
     """Every Mamba-2 layer for one token, each layer's state written back
     into the cache in place; then the final norm and the unembedding."""
     pol = rt.kernel_policy()
-    for i in range(cfg.n_layers):
-        p = _layer(params["blocks"], i)
+    for i, p in enumerate(_layers(params["blocks"])):
         h = norm(x, p["ln"], cfg.norm, policy=pol)
         y, st = SSM.ssm_decode_step(p["ssm"], h, {
             "conv": cache["conv"][i], "ssm": cache["ssm"][i]}, cfg,

@@ -18,6 +18,7 @@ Both paths consume :func:`_route`, so the policy cannot change routing.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -25,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.dispatch import (KernelPolicy, dispatch,
+from repro_torch.kernels.dispatch import (TORCH_POLICY, KernelPolicy,
+                                          dispatch, ref_backward,
                                           resolve_policy)
 from repro_torch.kernels.moe_gemm import moe_gemm_glu
 from repro_torch.models.layers import ParamDef, swiglu
@@ -113,16 +115,29 @@ def _routed_grouped(p, xt: torch.Tensor, cfg: ModelConfig,
     eor = idx.reshape(T * K).to(torch.int32)                    # row -> expert
     wg, wi, wo = (p[n].to(xt.dtype) for n in ("wg", "wi", "wo"))
     if resolve_policy(policy).impl_for("moe_gemm") == "cuda":
-        # forward only: training (Queue 1 item 10) will have to route
-        # this through dispatch's autograd wrapper
-        y = moe_gemm_glu(x_rep, wg, wi, wo, eor, swiglu, n_experts=E)
+        y = ref_backward(moe_gemm_glu, _EXPERT_GLU_TORCH, x_rep, wg, wi, wo,
+                         eor, act=swiglu, n_experts=E)
     else:
-        g = dispatch("moe_gemm", policy, x_rep, wg, eor, n_experts=E)
-        u = dispatch("moe_gemm", policy, x_rep, wi, eor, n_experts=E)
-        y = dispatch("moe_gemm", policy, swiglu(g, u), wo, eor,
-                     n_experts=E)                               # (T*K, d)
+        y = _expert_glu(x_rep, wg, wi, wo, eor, act=swiglu, n_experts=E,
+                        policy=policy)                          # (T*K, d)
     y = y.reshape(T, K, d) * gate_vals[..., None].to(y.dtype)
     return y.sum(dim=1), aux
+
+
+def _expert_glu(x, wg, wi, wo, expert_of_row, *, act, n_experts: int,
+                policy: Optional[KernelPolicy]) -> torch.Tensor:
+    """``act(x @ wg[e], x @ wi[e]) @ wo[e]`` for each row's expert as
+    three ``moe_gemm`` dispatches."""
+    g = dispatch("moe_gemm", policy, x, wg, expert_of_row,
+                 n_experts=n_experts)
+    u = dispatch("moe_gemm", policy, x, wi, expert_of_row,
+                 n_experts=n_experts)
+    return dispatch("moe_gemm", policy, act(g, u), wo, expert_of_row,
+                    n_experts=n_experts)
+
+
+#: The sort-once path's gradient: the ``torch`` impl's three dispatches.
+_EXPERT_GLU_TORCH = functools.partial(_expert_glu, policy=TORCH_POLICY)
 
 
 def _routed_core(p, xt: torch.Tensor, cfg: ModelConfig, cap: int

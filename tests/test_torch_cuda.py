@@ -925,3 +925,179 @@ def test_quant_matmul_dispatch_and_rejects_bad_inputs(dev):
         quant_matmul(x.t().contiguous().t(), w_q, scale)
     with pytest.raises(TypeError, match="dtype"):
         quant_matmul(x.half(), w_q, scale)
+
+
+# ---------------------------------------------------------------- train
+#: f32 training, cuda vs torch policy (TF32 off): the loss within 1e-5 of
+#: itself; gradients within 1e-3 of the largest (the reference's bar for
+#: its kernels under autograd, tests/test_kernel_dispatch.py); a single
+#: MoE layer's within 1e-4 of each leaf's largest (its kernel and plain
+#: forward differ in summation order only).
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, MOE_LAYER_GRAD_RTOL = 1e-5, 1e-3, 1e-4
+
+
+def _grads_rel(a, b):
+    """max|a - b| / max|b| over all leaves of two gradient trees."""
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    assert len(la) == len(lb)
+    return (max(float((x - y).abs().max()) for x, y in zip(la, lb))
+            / max(float(y.abs().max()) for y in lb))
+
+
+def test_sort_once_moe_layer_gradients_match_torch_policy(dev):
+    """The dropless layer's one-sort grouped GEMMs run forward on the card
+    under autograd and carry the three-dispatch torch path's gradients
+    to x, the router and every expert weight (f32, small width)."""
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.kernels.dispatch import CUDA_POLICY, TORCH_POLICY
+    from repro_torch.kernels.moe_gemm import grouped_gemm_padded
+    from repro_torch.models import init_params
+    from repro_torch.models import moe as MOE
+    cfg = smoke_config(ARCHS["qwen2-moe-a2.7b"])
+    blocks = init_params(cfg, seed=3, device=dev)["blocks"]["moe"]
+    g = torch.Generator(device=dev).manual_seed(15)
+    x0 = torch.randn(2, 37, cfg.d_model, device=dev, generator=g)
+    w = torch.randn(2, 37, cfg.d_model, device=dev, generator=g)
+    grads = {}
+    for name, pol in (("torch", TORCH_POLICY), ("cuda", CUDA_POLICY)):
+        p = {k: v[0].detach().clone().requires_grad_()
+             for k, v in blocks.items()}
+        x = x0.clone().requires_grad_()
+        n = grouped_gemm_padded.launches
+        y, aux = MOE.moe_ffn(p, x, cfg, dropless=True, policy=pol)
+        assert grouped_gemm_padded.launches - n == (3 if name == "cuda"
+                                                    else 0)
+        ((y * w).sum() + aux).backward()
+        assert grouped_gemm_padded.launches - n == (3 if name == "cuda"
+                                                    else 0)
+        grads[name] = {"x": x.grad, **{k: v.grad for k, v in p.items()}}
+    for k, want in grads["torch"].items():
+        got = grads["cuda"][k]
+        assert got is not None and bool(torch.isfinite(got).all()), k
+        d = float((got - want).abs().max())
+        assert d <= MOE_LAYER_GRAD_RTOL * float(want.abs().max()), (k, d)
+
+
+@pytest.mark.parametrize("name,kernels", [
+    ("minicpm-2b", ("rmsnorm", "flash_attention")),
+    ("qwen2-moe-a2.7b", ("rmsnorm", "flash_attention", "moe_gemm")),
+    ("mamba2-1.3b", ("rmsnorm", "ssd_scan"))])
+def test_two_layer_model_trains_as_torch_policy(dev, name, kernels):
+    """Full width, 2 layers, f32, B 2, S 128 (qwen2-moe dropless): loss
+    and every gradient under cuda against torch; the cuda pass runs the
+    model's kernels forward only (backward is the plain versions'
+    autograd, so it launches none)."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.models import ModelRuntime, init_params
+    from repro_torch.train.loop import value_and_grad
+    cfg = dataclasses.replace(ARCHS[name], n_layers=2)
+    params = init_params(cfg, seed=1, device=dev)
+    g = torch.Generator(device=dev).manual_seed(16)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 128), device=dev,
+                              generator=g, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    counters = _counters()
+    out = {}
+    for pol in ("torch", "cuda"):
+        rt = ModelRuntime(dtype="float32", remat="none",
+                          moe_dropless=True,
+                          kernels=getattr(KernelPolicy, pol)())
+        before = {k: c.launches for k, c in counters.items()}
+        out[pol] = value_and_grad(cfg, rt, params, batch)
+        ran = {k: c.launches - before[k] for k, c in counters.items()}
+        assert {k for k, n in ran.items() if n} == (
+            set(kernels) if pol == "cuda" else set()), ran
+    (lc, mc, gc), (lt, mt, gt) = out["cuda"], out["torch"]
+    assert float((lc - lt).abs() / lt.abs()) < TRAIN_LOSS_RTOL
+    assert float((mc["aux"] - mt["aux"]).abs()) < 1e-6
+    assert _grads_rel(gc, gt) < TRAIN_GRAD_RTOL
+
+
+def _counters():
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gemm import grouped_gemm_padded
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
+            "moe_gemm": grouped_gemm_padded, "ssd_scan": ssd_scan}
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "qwen2-moe-a2.7b",
+                                  "mamba2-1.3b"])
+def test_serving_launches_unchanged_by_autograd(dev, arch):
+    """Weights that require grad change nothing under ``torch.no_grad()``
+    (the same launches, no graph); with grad the forward launches the
+    same kernels and, with remat none, the backward launches none."""
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.models import ModelRuntime, forward, init_params
+    from repro_torch.tree import tree_map
+    cfg = smoke_config(ARCHS[arch])
+    rt = ModelRuntime(dtype="float32", remat="none", moe_dropless=True)
+    params = init_params(cfg, seed=2, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(4))
+    counters = _counters()
+
+    def launches(fn):
+        before = {k: c.launches for k, c in counters.items()}
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: c.launches - before[k] for k, c in counters.items()}
+
+    with torch.no_grad():
+        served, n_served = launches(lambda: forward(
+            params, cfg, {"tokens": toks}, rt)[0])
+    leaves = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+    with torch.no_grad():
+        again, n_again = launches(lambda: forward(
+            leaves, cfg, {"tokens": toks}, rt)[0])
+    assert again.grad_fn is None and n_again == n_served
+    assert torch.equal(again, served)
+    logits, n_grad = launches(lambda: forward(
+        leaves, cfg, {"tokens": toks}, rt)[0])
+    assert logits.grad_fn is not None and n_grad == n_served
+    assert torch.equal(logits.detach(), served)
+    _, n_back = launches(lambda: logits.float().square().mean().backward())
+    assert not any(n_back.values()), n_back
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "mamba2-1.3b"])
+def test_remat_recomputes_the_kernels_and_keeps_the_gradients(dev, arch):
+    """``dots`` and ``full`` checkpoint each block around the kernels'
+    autograd function: the backward runs the block's forward again, its
+    kernels included (one launch each per block), and the gradients
+    are those of ``none`` within 1e-6 of the largest (the embedding's
+    backward adds rows with atomics, in no fixed order on the card)."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import ModelRuntime, init_params
+    from repro_torch.train.loop import value_and_grad
+    cfg = dataclasses.replace(ARCHS[arch], n_layers=2)
+    params = init_params(cfg, seed=5, device=dev)
+    g = torch.Generator(device=dev).manual_seed(17)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 64), device=dev,
+                              generator=g, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    counters = _counters()
+    out = {}
+    for remat in ("none", "dots", "full"):
+        rt = ModelRuntime(dtype="float32", remat=remat)
+        before = {k: c.launches for k, c in counters.items()}
+        out[remat] = value_and_grad(cfg, rt, params, batch)
+        torch.cuda.synchronize()
+        out[remat] += ({k: c.launches - before[k]
+                        for k, c in counters.items()},)
+    base = out["none"][3]
+    assert any(base.values())
+    for remat in ("dots", "full"):
+        loss, _, grads, ran = out[remat]
+        # the recomputed blocks launch their kernels again; the final
+        # norm lies outside every block
+        assert ran["rmsnorm"] == 2 * base["rmsnorm"] - 1, (remat, ran)
+        for k in ("flash_attention", "ssd_scan"):
+            assert ran[k] == 2 * base[k], (remat, ran)
+        assert torch.equal(loss, out["none"][0])
+        assert _grads_rel(grads, out["none"][2]) < 1e-6, remat

@@ -242,18 +242,32 @@ def test_rmsnorm_wrapper_counts_no_launch_on_cpu():
                 torch.randint(-127, 128, (16, 12), generator=g,
                               dtype=torch.int8),
                 torch.rand(12, generator=g))),
+    ("ssd_scan",
+     lambda g: (torch.randn(2, 11, 3, 16, generator=g),
+                torch.rand(2, 11, 3, generator=g),
+                -torch.rand(3, generator=g),
+                torch.randn(2, 11, 3, 8, generator=g),
+                torch.randn(2, 11, 3, 8, generator=g))),
+    ("moe_gemm",
+     lambda g: (torch.randn(9, 16, generator=g),
+                torch.randn(3, 16, 12, generator=g),
+                torch.tensor([2, 0, 2, 1, 0, 2, 2, 0, 1],
+                             dtype=torch.int32))),
 ])
 def test_kernel_forward_reference_backward(op, make):
     """The cuda impl runs inside the autograd.Function whose backward is
     the torch impl's autograd: gradients equal the plain version's (for
-    the int8 ops, the gradient of the query and the scales)."""
+    the int8 ops, the gradient of the query and the scales; for the SSD
+    scan, through both of its outputs)."""
+    kw = {"ssd_scan": dict(chunk=4), "moe_gemm": dict(n_experts=3)}
     grads = []
     for pol in (D.TORCH_POLICY, D.CUDA_POLICY):
         args = [a.clone().requires_grad_(a.is_floating_point())
                 for a in make(torch.Generator().manual_seed(0))]
-        out = D.dispatch(op, pol, *args)
-        (out * torch.linspace(-1, 1, out.numel()).reshape(out.shape)) \
-            .sum().backward()
+        out = D.dispatch(op, pol, *args, **kw.get(op, {}))
+        sum(((o * torch.linspace(-1, 1, o.numel()).reshape(o.shape)).sum()
+             for o in (out if isinstance(out, tuple) else (out,)))
+            ).backward()
         grads.append([a.grad for a in args if a.is_floating_point()])
     for gt, gc in zip(*grads):
         torch.testing.assert_close(gc, gt)
