@@ -23,6 +23,12 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    one PyTorch library call as a yardstick where one exists) beside the
    least time the card could take, the attention kernels at both head
    dims and the grouped GEMM and the int8 matmul at both row counts;
+   then zamba2-2.7b's shapes: the five attention kernels at its head dim
+   80 (32 heads, G 1; checked in f32 and bf16 and timed, the ``d80``
+   entries), the paged split-KV kernels equal to the contiguous ones bit
+   for bit there (bf16 and int8 KV), flash at D 80 (the plain version's
+   order), RMSNorm at d 2560 and 5120 and the SSD scan at its widths (80
+   heads of 64, state 64) equal to their plain versions bit for bit;
    the timings of flash (bf16), of the grouped GEMM (bf16) and of the
    int8 matmul at T > 16 name the tensor-core body they ran
    (``mma.sync``), the four split-KV kernels', RMSNorm's and the SSD
@@ -60,12 +66,17 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    policies;
 
    then phases 3 and 4 again for full-width qwen2-moe-a2.7b (24 layers,
-   60 experts top-4, dropless as served) and mamba2-1.3b (48 layers,
-   chunk-mode admission): each model through ``ServeEngine`` and
-   ``PagedServeEngine`` with equal streams, ``moe_gemm`` launched only
-   in the MoE runs, ``ssd_scan`` only in the SSM runs and no attention
-   kernel in the SSM runs; a prefill and a decode-step profile; and
-   cuda-vs-torch parity: mamba2 in bf16 under the same tolerance,
+   60 experts top-4, dropless as served), mamba2-1.3b (48 layers,
+   chunk-mode admission) and the hybrid zamba2-2.7b (54 Mamba-2 layers,
+   a shared attention block at head dim 80 after every 6, chunk-mode
+   admission): each model through ``ServeEngine`` and
+   ``PagedServeEngine`` with equal streams (zamba2 in bf16 and int8 KV,
+   four engines), ``moe_gemm`` launched only in the MoE runs,
+   ``ssd_scan`` only in the SSM and hybrid runs and no attention kernel
+   in the SSM runs; a prefill and a decode-step profile; and
+   cuda-vs-torch parity: mamba2 and zamba2 in bf16 under the same
+   tolerance (zamba2 also int8 KV under both policies within
+   ``QUANT_PARITY_TOL``, and bf16 vs int8 KV reported),
    qwen2-moe asserted in f32 at 4 layers and reported in bf16 at full
    depth (logits, argmax and routing agreement); mamba2's prefill profile
    shows each of the SSD scan's three kernels and their share;
@@ -79,8 +90,10 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    within 0.02 of the ``torch`` policy's; step time, tokens/s, MFU, peak
    memory) and a device profile of one step; then qwen2-moe-a2.7b at
    full width and 2 layers, dropless (the sort-once grouped GEMMs under
-   autograd), and mamba2-1.3b at full width, each the same gradient
-   check and two bf16 steps. Each cuda-policy run must launch its
+   autograd), mamba2-1.3b at full width and zamba2-2.7b at full width
+   (its bf16 steps at B 2: AdamW's f32 state of 2.5 B parameters takes
+   40 GB), each the same gradient check and two bf16 steps. Each
+   cuda-policy run must launch its
    model's kernels and no decode or int8 kernel, each torch-policy run
    none; over the phase rmsnorm, flash, the grouped GEMM and the SSD
    scan must all have launched;
@@ -145,11 +158,13 @@ DECODE_POS = (1023, 700, 300, 12)
 MOE_PARITY_LAYERS = 4
 MOE_F32_RTOL = 1e-3
 PAGE_SIZE, PAGES_PER_SEQ = 16, 64
-#: Keys of a kernel's check and timing at a second shape: the ``d128``
-#: entry of the attention kernels (qwen2-moe's heads), the ``prefill``
-#: entry of ``moe_gemm``.
+#: Keys of a kernel's check and timing at another shape: the ``d128``
+#: and ``d80`` entries of the attention kernels (qwen2-moe's heads,
+#: zamba2-2.7b's), the ``prefill`` entry of ``moe_gemm`` and
+#: ``quant_matmul``.
 SUB_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "body")
+SUB_ENTRIES = ("d128", "d80", "prefill")
 #: The instruction of the tensor-core bodies (bf16 flash prefill, the
 #: bf16 grouped GEMM, the int8-weight matmul at T > 16); a timing's
 #: "body" names the body it ran.
@@ -170,6 +185,9 @@ SSD_BODY = "chunk-parallel, 3 launches, f32 CUDA cores in the plain order"
 SSD_KERNELS = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")
 #: The RMSNorm body of every served row (csrc/rmsnorm.cu rmsnorm_vec).
 NORM_BODY = "a row in registers, PyTorch's reduction order"
+#: Flash's body at head dim 80 (csrc/flash_chunked.cuh): the plain
+#: version's chunked loop op for op, bit for bit.
+PLAIN_ORDER = "f32 CUDA cores, the plain version's order"
 def split_build_lines(entries, kernel: str) -> None:
     """ptxas' registers and spills of a split kernel: one line per G-1
     instantiation (the ones serving runs), then the most any other
@@ -253,7 +271,7 @@ def bound(nbytes: float, ops: float, peak: str):
 # ===========================================================================
 # Phase 2: kernels against their plain versions
 # ===========================================================================
-def kernel_phase(cfg, moe_cfg, ssm_cfg):
+def kernel_phase(cfg, moe_cfg, ssm_cfg, hyb_cfg):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
@@ -320,13 +338,23 @@ def kernel_phase(cfg, moe_cfg, ssm_cfg):
             **decode_variants(moe_cfg, gen, rnd, compare, flush, mask)}
     for name, e in d128.items():
         entries[name]["d128"] = {k: e[k] for k in SUB_KEYS if k in e}
+    # --- zamba2-2.7b: attention at D 80, RMSNorm and the scan bit for bit
+    d80 = {"flash_attention": flash_entry(hyb_cfg, rnd, compare, flush,
+                                          ((1, 1024), (2, 333)),
+                                          body=PLAIN_ORDER),
+           "decode_attention": decode_entry(hyb_cfg, rnd, compare, flush,
+                                            mask),
+           **decode_variants(hyb_cfg, gen, rnd, compare, flush, mask)}
+    for name, e in d80.items():
+        entries[name]["d80"] = {k: e[k] for k in SUB_KEYS if k in e}
+    paged_equals_contiguous(hyb_cfg, gen, mask)
+    bit_for_bit_at(hyb_cfg, gen, rnd)
     entries["moe_gemm"] = moe_gemm_kernel(moe_cfg, gen, rnd, compare, flush)
     entries["ssd_scan"] = ssd_scan_kernel(ssm_cfg, gen, rnd, compare, flush)
     entries["quant_matmul"] = quant_matmul_kernel(cfg, gen, rnd, compare,
                                                   flush)
     for e in entries.values():
-        for label, t in (("", e), *((f"{k} ", e[k]) for k in ("d128",
-                                                              "prefill")
+        for label, t in (("", e), *((f"{k} ", e[k]) for k in SUB_ENTRIES
                                     if k in e)):
             lib = ("none" if t["library_ms"] is None
                    else f"{t['library_ms']:.4f} ms")
@@ -340,10 +368,10 @@ def kernel_phase(cfg, moe_cfg, ssm_cfg):
     return entries
 
 
-def flash_entry(cfg, rnd, compare, flush, shapes):
+def flash_entry(cfg, rnd, compare, flush, shapes, body=MMA):
     """Flash prefill at ``cfg``'s heads against its plain version at each
     causal (B, S) of ``shapes`` in f32 and bf16, then timed in bf16 at
-    the first."""
+    the first; ``body`` names the bf16 body that runs."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -375,7 +403,7 @@ def flash_entry(cfg, rnd, compare, flush, shapes):
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), flush=flush),
-        library_call="SDPA, causal", mma=MMA, body=MMA,
+        library_call="SDPA, causal", mma=MMA, body=body,
         shape=f"B{B} S{S} Hq{H} Hkv{Hkv} D{D} causal bf16")
 
 
@@ -717,6 +745,94 @@ def decode_variants(cfg, gen, rnd, compare, flush, mask):
     return entries
 
 
+def paged_equals_contiguous(cfg, gen, mask):
+    """At ``cfg``'s heads, the paged split-KV kernels (bf16 and int8 KV)
+    give the contiguous kernels' outputs on the same rows bit for bit:
+    the pool's pages are a seeded permutation, the contiguous caches
+    their gather."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.paged_attention import (gather_pages,
+                                                     paged_decode_attention)
+    from repro_torch.kernels.quant import (quant_decode_attention,
+                                           quant_paged_decode_attention,
+                                           quantize_rows)
+
+    dev = mask.device
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B = mask.shape[0]
+    P = B * PAGES_PER_SEQ + 1
+    pt = (torch.randperm(P - 1, generator=gen, device=dev) + 1) \
+        .reshape(B, PAGES_PER_SEQ).to(torch.int32)
+    q = torch.randn(B, H, D, generator=gen, device=dev).bfloat16()
+    pools = [torch.randn(P, PAGE_SIZE, Hkv, D, generator=gen, device=dev)
+             for _ in range(2)]
+    kp, vp = (t.bfloat16() for t in pools)
+    (kq, ks), (vq, vs) = (quantize_rows(t) for t in pools)
+
+    def rows(t):
+        return gather_pages(t, pt).contiguous()
+
+    same = [torch.equal(paged_decode_attention(q, kp, vp, pt, mask),
+                        decode_attention(q, rows(kp), rows(vp), mask)),
+            torch.equal(quant_paged_decode_attention(q, kq, vq, ks, vs, pt,
+                                                     mask),
+                        quant_decode_attention(q, rows(kq), rows(vq),
+                                               rows(ks), rows(vs), mask))]
+    check(all(same), f"D {D}: paged != contiguous (bf16, int8): {same}")
+    print(f"[kernels] split-KV D{D} H{H}: paged == contiguous bit for bit, "
+          f"bf16 and int8 KV ok")
+
+
+def bit_for_bit_at(cfg, gen, rnd):
+    """Flash at ``cfg``'s heads (the parity prefill and a 1024-token one),
+    RMSNorm at its widths (d_model and the Mamba-2 gated norm's d_inner;
+    decode and prefill rows) and the SSD scan at its widths, each equal
+    to its plain version bit for bit, bf16 and f32."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+    from repro_torch.models.ssm import ssm_dims
+
+    dev = torch.device("cuda")
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S in ((2, 300), (1, 1024)):
+            q, k, v = (rnd(B, S, h, D, dtype=dtype) for h in (H, Hkv, Hkv))
+            check(torch.equal(flash_attention(q, k, v),
+                              flash_attention_plain(q, k, v)),
+                  f"flash_attention B{B} S{S} D{D} {dtype}: not bit for bit")
+    print(f"[kernels] flash_attention H{H} D{D} (B2 S300, B1 S1024, f32 and "
+          f"bf16): equal to the plain version bit for bit ok")
+    dims = ssm_dims(cfg)
+    for d in (cfg.d_model, dims["di"]):
+        s = torch.randn(d, generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            for rows in (4, 2048):
+                x = rnd(rows, d, dtype=dtype)
+                check(torch.equal(rmsnorm(x, s), rmsnorm_plain(x, s)),
+                      f"rmsnorm ({rows}, {d}) {dtype}: not bit for bit")
+        print(f"[kernels] rmsnorm d {d} (4 and 2048 rows, f32 and bf16): "
+              f"equal to the plain version bit for bit ok")
+    nh, hp, N, L = dims["nh"], dims["hp"], dims["N"], cfg.ssm.chunk_size
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, S in ((1, 1024), (2, 700)):
+            x = rnd(b, S, nh, hp, dtype=dtype)
+            dt = F.softplus(torch.randn(b, S, nh, generator=gen, device=dev)
+                            - 2.0)
+            A = -torch.exp(torch.randn(nh, generator=gen, device=dev) * 0.5)
+            B, C = (rnd(b, S, nh, N, dtype=dtype) for _ in range(2))
+            (y, h), (yw, hw) = (ssd_scan(x, dt, A, B, C, chunk=L),
+                                ssd_chunked(x, dt, A, B, C, L))
+            check(torch.equal(y, yw) and torch.equal(h, hw),
+                  f"ssd_scan b{b} S{S} N{N} {dtype}: not bit for bit")
+    print(f"[kernels] ssd_scan nh{nh} hp{hp} N{N} L{L} (b1 S1024, b2 S700, "
+          f"f32 and bf16): equal to the plain version bit for bit ok")
+
+
 # ===========================================================================
 # Phase 2b: the tuner and the measured model
 # ===========================================================================
@@ -1008,12 +1124,17 @@ def launch_totals(runs, counters):
             for name in counters}
 
 
-def serve_pair(label, cfg, params, rt, counters, expect, attention):
+def serve_pair(label, cfg, params, rt, counters, expect, attention,
+               kv_dtypes=(None,)):
     """One trace through ``ServeEngine`` and ``PagedServeEngine`` (page
-    size 16, the equal-HBM budget, prefix cache off): the same token
+    size 16, the equal-HBM budget, prefix cache off) for each KV dtype
+    of ``kv_dtypes`` (None: ``rt.dtype``; ``int8``): the same token
     streams, and each run's launch counts. ``attention`` adds the
-    contiguous and the paged decode kernel to the expected sets (a pure
-    SSM model runs neither)."""
+    contiguous and the paged decode kernel of the KV dtype to the
+    expected sets (a pure SSM model runs neither). A recurrent model
+    must have admitted in chunk mode; the paged pools must hold the
+    contiguous bf16 cache's bytes within 1 %."""
+    import dataclasses
     import numpy as np
     from repro_torch.serve import PagedServeEngine, Scheduler, ServeEngine
 
@@ -1023,22 +1144,40 @@ def serve_pair(label, cfg, params, rt, counters, expect, attention):
     reqs = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
             for n in PROMPT_LENS]
     runs = {}
-    for kind, eng, kernel in (
-            ("contiguous", ServeEngine(params, cfg, rt, **kw),
-             "decode_attention"),
-            ("paged", PagedServeEngine(params, cfg, rt, page_size=PAGE_SIZE,
-                                       prefix_cache=False, **kw),
-             "paged_decode_attention")):
-        runs[kind] = drive(f"{label} {kind} bf16", eng, reqs, counters,
-                           expect | ({kernel} if attention else set()))
-        if not attention:
-            check(eng.stats.forced_tokens > 0,
-                  f"{label} {kind}: no chunk-mode admission")
-        del eng
-    check(runs["paged"]["streams"] == runs["contiguous"]["streams"],
-          f"{label}: paged token streams differ from contiguous")
-    print(f"[serve] {label}: paged streams == contiguous ({len(reqs)} "
-          f"requests x {NEW_TOKENS} tokens each)")
+    for kvd in kv_dtypes:
+        run_rt = dataclasses.replace(rt, kv_dtype=kvd)
+        tag = kvd or "bf16"
+        quant = "quant_" if kvd == "int8" else ""
+        for kind, make, kernel in (
+                ("contiguous", lambda: ServeEngine(params, cfg, run_rt, **kw),
+                 f"{quant}decode_attention"),
+                ("paged", lambda: PagedServeEngine(
+                    params, cfg, run_rt, page_size=PAGE_SIZE,
+                    prefix_cache=False, **kw),
+                 f"{quant}paged_decode_attention")):
+            eng = make()
+            runs[kind, tag] = drive(
+                f"{label} {kind} {tag}", eng, reqs, counters,
+                expect | ({kernel} if attention else set()))
+            if cfg.family in ("ssm", "hybrid"):
+                check(eng.stats.forced_tokens > 0,
+                      f"{label} {kind}: no chunk-mode admission")
+            del eng
+        check(runs["paged", tag]["streams"]
+              == runs["contiguous", tag]["streams"],
+              f"{label} {tag}: paged token streams differ from contiguous")
+        print(f"[serve] {label}: paged {tag} streams == contiguous "
+              f"({len(reqs)} requests x {NEW_TOKENS} tokens each)")
+    if attention:
+        contig = runs["contiguous", "bf16"]["kv_bytes"]
+        for key, r in runs.items():
+            print(f"[serve] kv cache {label} {key[0]} {key[1]}: "
+                  f"{r['kv_bytes']} B = {r['kv_bytes'] / contig:.4f} x "
+                  f"contiguous bf16")
+            check(key[0] == "contiguous"
+                  or abs(r["kv_bytes"] - contig) <= 0.01 * contig,
+                  f"{label} {key}: kv cache {r['kv_bytes']} B is not "
+                  f"within 1 % of {contig} B")
     return launch_totals(runs, counters)
 
 
@@ -1258,10 +1397,13 @@ def moe_parity(cfg, params):
     check(rel <= MOE_F32_RTOL, f"{cfg.name} f32 relative logit error {rel}")
 
 
-def ssm_parity(cfg, params):
-    """mamba2, cuda vs torch policy, exact-length prefill (a recurrent
-    state takes no pad) + 8 teacher-forced decode steps, bf16."""
-    a, b = cuda_vs_torch(params, cfg, parity_inputs(cfg, 19, lengths=None))
+def ssm_parity(cfg, params, inputs=None):
+    """mamba2 (and zamba2), cuda vs torch policy, exact-length prefill (a
+    recurrent state takes no pad) + 8 teacher-forced decode steps,
+    bf16."""
+    if inputs is None:
+        inputs = parity_inputs(cfg, 19, lengths=None)
+    a, b = cuda_vs_torch(params, cfg, inputs)
     dev_max = float((a - b).abs().max())
     per_step = " ".join(f"{float((x - y).abs().max()):.4f}"
                         for x, y in zip(a, b))
@@ -1270,6 +1412,44 @@ def ssm_parity(cfg, params):
           f"(tol {LOGIT_TOL}); max|dlogit| by step: {per_step}")
     check(dev_max <= LOGIT_TOL, f"{cfg.name} max|dlogit| {dev_max} > "
           f"{LOGIT_TOL}")
+
+
+def hybrid_parity(cfg, params):
+    """zamba2, exact-length prompts (a recurrent state takes no pad) + 8
+    teacher-forced decode steps: cuda vs torch policy in bf16 within
+    LOGIT_TOL; ``logit_parity`` of int8 KV under the torch and the cuda
+    policy within QUANT_PARITY_TOL. bf16 vs int8 KV is reported under
+    both policies, not asserted: 54 random-weight Mamba-2 layers carry
+    int8 rounding past the bar in the plain versions too
+    (``repro_torch.bench.logit_sensitivity``)."""
+    import dataclasses
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.kernels.quant import QUANT_PARITY_TOL
+    from repro_torch.models import ModelRuntime
+    from repro_torch.serve import logit_parity
+
+    inputs = parity_inputs(cfg, 23, lengths=None)
+    ssm_parity(cfg, params, inputs)
+    rows = inputs[0].cpu().numpy()
+    prompts = [rows[0], rows[1]]
+    rt = ModelRuntime()
+    rt8 = dataclasses.replace(rt, kv_dtype="int8")
+    torch_pol = KernelPolicy.torch()
+    for label, ref, test, asserted in (
+            ("int8 KV, torch vs cuda policy",
+             dataclasses.replace(rt8, kernels=torch_pol), rt8, True),
+            ("bf16 KV vs int8 KV, cuda policy", rt, rt8, False),
+            ("bf16 KV vs int8 KV, torch policy",
+             dataclasses.replace(rt, kernels=torch_pol),
+             dataclasses.replace(rt8, kernels=torch_pol), False)):
+        report = logit_parity(params, cfg, prompts, rt_ref=ref, rt_test=test,
+                              max_new_tokens=8, max_len=1024)
+        print(f"[parity] {cfg.name} logit_parity {label}, prompts S300 "
+              f"(exact){'' if asserted else ' (reported)'}: "
+              f"{json.dumps(report.to_json())}")
+        check(not asserted or report.max_logit_dev <= QUANT_PARITY_TOL,
+              f"{cfg.name} {label}: max_logit_dev {report.max_logit_dev} > "
+              f"{QUANT_PARITY_TOL}")
 
 
 def parity_phase(cfg, params):
@@ -1323,6 +1503,11 @@ TRAIN_BF16_LOSS_TOL = 0.02
 #: qwen2-moe trains at full width and 2 layers: 24 layers of f32 weights
 #: and AdamW state need ~229 GB, 2 layers ~28 GB.
 MOE_TRAIN_LAYERS = 2
+#: zamba2-2.7b's bf16 steps run at B 2: its f32 masters, moments and
+#: gradients take 2.5 B x 16 bytes = 40 GB and its bf16 copies 5 GB, and
+#: its activations at B 4 (54 Mamba-2 layers of d_inner 5120, scaled from
+#: mamba2-1.3b's ~24 GB) would take ~34 GB more.
+HYBRID_TRAIN_B = 2
 #: Kernels no training path runs (the decode kernels, the int8 matmul).
 TRAIN_ABSENT = ("decode_attention", "paged_decode_attention",
                 "quant_decode_attention", "quant_paged_decode_attention",
@@ -1402,10 +1587,11 @@ def grad_check(label, cfg, params, counters, expect, **rt_kw):
     return cuda_launches
 
 
-def train_steps(label, cfg, params, counters, expect, steps, **rt_kw):
+def train_steps(label, cfg, params, counters, expect, steps, batch=TRAIN_B,
+                **rt_kw):
     """``steps`` bf16 AdamW steps of ``make_train_step`` on the f32
     masters (the launcher's runtime: remat none, the config's schedule),
-    B ``TRAIN_B``, S ``TRAIN_S``, on ``SyntheticLMData``'s lcg batches:
+    B ``batch``, S ``TRAIN_S``, on ``SyntheticLMData``'s lcg batches:
     every loss finite, step 0's within ``TRAIN_BF16_LOSS_TOL`` of the
     torch policy's on the same batch. Prints the losses, the median step
     time over steps 1.. (host clock, synchronised), tokens/s, MFU against
@@ -1421,7 +1607,7 @@ def train_steps(label, cfg, params, counters, expect, steps, **rt_kw):
     from repro_torch.tree import tree_leaves
 
     rt = ModelRuntime(dtype="bfloat16", remat="none", **rt_kw)
-    data = SyntheticLMData(TRAIN_S, TRAIN_B, cfg.vocab_size, seed=9)
+    data = SyntheticLMData(TRAIN_S, batch, cfg.vocab_size, seed=9)
     batches = [{k: torch.from_numpy(v).cuda() for k, v in
                 data.batch_at(i).items()} for i in range(steps)]
     with torch.no_grad():
@@ -1454,10 +1640,10 @@ def train_steps(label, cfg, params, counters, expect, steps, **rt_kw):
     d0 = abs(losses[0] - ref_loss)
     n_params = sum(t.numel() for t in tree_leaves(params))
     step_ms = statistics.median(times[1:])
-    tok_s = TRAIN_B * TRAIN_S / step_ms * 1e3
-    mfu = 6 * n_params * TRAIN_B * TRAIN_S / (step_ms / 1e3) \
+    tok_s = batch * TRAIN_S / step_ms * 1e3
+    mfu = 6 * n_params * batch * TRAIN_S / (step_ms / 1e3) \
         / PEAK_OPS["bf16_tensor"]
-    print(f"[train] {label} bf16 AdamW, B{TRAIN_B} S{TRAIN_S}, {tc.opt.schedule}"
+    print(f"[train] {label} bf16 AdamW, B{batch} S{TRAIN_S}, {tc.opt.schedule}"
           f": loss by step {' '.join(f'{x:.4f}' for x in losses)}; step 0 "
           f"vs torch policy {ref_loss:.4f} (|d| {d0:.4f}, tol "
           f"{TRAIN_BF16_LOSS_TOL}); step ms {' '.join(f'{t:.1f}' for t in times)}"
@@ -1473,9 +1659,10 @@ def train_steps(label, cfg, params, counters, expect, steps, **rt_kw):
 def train_phase(counters):
     """Full-width training on the card: minicpm-2b's f32 gradient check
     and five bf16 AdamW steps with a profile of one, then qwen2-moe at 2
-    layers (dropless: the sort-once grouped GEMMs under autograd) and
-    mamba2, each a gradient check and two steps. Returns the launches of
-    every cuda-policy run, summed."""
+    layers (dropless: the sort-once grouped GEMMs under autograd), mamba2
+    and zamba2 (its steps at B ``HYBRID_TRAIN_B``), each a gradient check
+    and two steps. Returns the launches of every cuda-policy run,
+    summed."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
@@ -1484,12 +1671,15 @@ def train_phase(counters):
 
     t_phase = time.perf_counter()
     totals = []
-    for name, layers, expect, steps, rt_kw in (
-            ("minicpm-2b", None, {"rmsnorm", "flash_attention"}, 5, {}),
+    for name, layers, expect, steps, b, rt_kw in (
+            ("minicpm-2b", None, {"rmsnorm", "flash_attention"}, 5, TRAIN_B,
+             {}),
             ("qwen2-moe-a2.7b", MOE_TRAIN_LAYERS,
-             {"rmsnorm", "flash_attention", "moe_gemm"}, 2,
+             {"rmsnorm", "flash_attention", "moe_gemm"}, 2, TRAIN_B,
              dict(moe_dropless=True)),
-            ("mamba2-1.3b", None, {"rmsnorm", "ssd_scan"}, 2, {})):
+            ("mamba2-1.3b", None, {"rmsnorm", "ssd_scan"}, 2, TRAIN_B, {}),
+            ("zamba2-2.7b", None, {"rmsnorm", "flash_attention", "ssd_scan"},
+             2, HYBRID_TRAIN_B, {})):
         gc.collect()
         torch.cuda.empty_cache()
         cfg = get_arch(name)
@@ -1508,7 +1698,7 @@ def train_phase(counters):
         gc.collect()
         torch.cuda.empty_cache()
         launches, state, step_fn, batch = train_steps(
-            label, cfg, params, counters, expect, steps, **rt_kw)
+            label, cfg, params, counters, expect, steps, batch=b, **rt_kw)
         totals.append(launches)
         if name == "minicpm-2b":          # profile one step of the dense model
             holder = [state]
@@ -1576,6 +1766,7 @@ def main() -> int:
 
     cfg = get_arch("minicpm-2b")
     moe_cfg, ssm_cfg = get_arch("qwen2-moe-a2.7b"), get_arch("mamba2-1.3b")
+    hyb_cfg = get_arch("zamba2-2.7b")
     counters = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
                 "decode_attention": decode_attention,
                 "paged_decode_attention": paged_decode_attention,
@@ -1584,7 +1775,7 @@ def main() -> int:
                 "moe_gemm": grouped_gemm_padded, "ssd_scan": ssd_scan,
                 "quant_matmul": quant_matmul}
     # --- phase 2 ---------------------------------------------------------
-    entries = kernel_phase(cfg, moe_cfg, ssm_cfg)
+    entries = kernel_phase(cfg, moe_cfg, ssm_cfg, hyb_cfg)
     tuned = tuner_phase(counters)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1605,10 +1796,11 @@ def main() -> int:
     parity_phase(cfg, params)
     del params
 
-    # --- phases 3 and 4: qwen2-moe-a2.7b, then mamba2-1.3b ----------------
+    # --- phases 3 and 4: qwen2-moe-a2.7b, mamba2-1.3b, zamba2-2.7b --------
     for mcfg, expect, attention in (
             (moe_cfg, {"rmsnorm", "flash_attention", "moe_gemm"}, True),
-            (ssm_cfg, {"rmsnorm", "ssd_scan"}, False)):
+            (ssm_cfg, {"rmsnorm", "ssd_scan"}, False),
+            (hyb_cfg, {"rmsnorm", "flash_attention", "ssd_scan"}, True)):
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -1619,17 +1811,18 @@ def main() -> int:
               f"{mcfg.param_count() / 1e9:.3f} B params in bf16, seeded "
               f"init {time.perf_counter() - t0:.1f} s, "
               f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
-        totals.append(serve_pair(mcfg.name, mcfg, params, mrt, counters,
-                                 expect, attention))
-        profile_model(mcfg.name, mcfg, params, mrt,
-                      prefill_focus=(("moe_gemm",) if attention
-                                     else SSD_KERNELS + ("ssd_",)),
-                      decode_focus=(("moe_gemm", BF16_KERNEL) if attention
-                                    else ()))
-        if attention:
-            moe_parity(mcfg, params)
-        else:
-            ssm_parity(mcfg, params)
+        hybrid = mcfg.family == "hybrid"
+        totals.append(serve_pair(
+            mcfg.name, mcfg, params, mrt, counters, expect, attention,
+            kv_dtypes=(None, "int8") if hybrid else (None,)))
+        focus = {"moe": (("moe_gemm",), ("moe_gemm", BF16_KERNEL)),
+                 "ssm": (SSD_KERNELS + ("ssd_",), ()),
+                 "hybrid": (SSD_KERNELS + ("ssd_", "flash_fwd"),
+                            (BF16_KERNEL,))}[mcfg.family]
+        profile_model(mcfg.name, mcfg, params, mrt, prefill_focus=focus[0],
+                      decode_focus=focus[1])
+        {"moe": moe_parity, "ssm": ssm_parity,
+         "hybrid": hybrid_parity}[mcfg.family](mcfg, params)
         del params
     served = {name: sum(t[name] for t in totals) for name in counters}
     print(f"[serve] launches over all serving runs: {served}")
@@ -1647,7 +1840,7 @@ def main() -> int:
                                    "tune": tuned[name],
                                    "train": trained[name]})
         e.pop("shape")
-        for t in (e, *(e[k] for k in ("d128", "prefill") if k in e)):
+        for t in (e, *(e[k] for k in SUB_ENTRIES if k in e)):
             for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
                 check(t[key] is None or math.isfinite(t[key]),
                       f"{name} {key}")

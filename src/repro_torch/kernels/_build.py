@@ -43,9 +43,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, scale, out, rows, d, eps, dtype, stream
     "rt_rmsnorm": (_P, _P, _P, _L, _I, _F, _I, _P),
-    # q, k, v, out, B, S, T, Hq, Hkv, D, causal, window, dtype, stream
+    # q, k, v, out, B, S, T, Hq, Hkv, D, causal, window, chunk, dtype,
+    # stream
     "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _P),
+                           _I, _I, _P),
     # q, k, v, mask, o_part, m_part, l_part, out, B, W, Hkv, G, D, dtype,
     # stream
     "rt_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -182,10 +183,12 @@ def dtype_code(t) -> int:
 
 
 #: The instantiations that served bf16 shapes run, as (label, pattern
-#: of ptxas' mangled name): the SSD scan's kernels at mamba2-1.3b's hp
-#: 64 (64 columns a block), and RMSNorm's row-in-registers body at 16
-#: rows or more (32 threads a row: 16 vectors of 4 a thread at d 2048,
-#: 32 at 2304 and 4096) and at 4 rows (128 threads a row). The host code
+#: of ptxas' mangled name): the SSD scan's kernels at hp 64 (mamba2-1.3b
+#: and zamba2-2.7b; 64 columns a block), and RMSNorm's row-in-registers
+#: body at 16 rows or more (32 threads a row: 16 vectors of 4 a thread
+#: at d 2048, 32 at 2304, 2560 and 4096; zamba2's gated norm at d 5120,
+#: 40 vectors a thread, rereads its row) and at 4 rows (128 threads a
+#: row). The host code
 #: chooses which one a shape runs (``launch_pt`` in ``csrc/ssd_scan.cu``,
 #: ``launch`` in ``csrc/rmsnorm.cu``): a change there must be made here
 #: too. ``chip_smoke.py`` prints their registers and spills, and the card
@@ -198,12 +201,16 @@ SERVED_BUILDS = (
      r"ssd_chunk_outI13__nv_bfloat16Li4E"),
     ("rmsnorm_vec<bf16, 32 threads, 16 vectors> (d 2048)",
      r"rmsnorm_vecI13__nv_bfloat16Li32ELi16E"),
-    ("rmsnorm_vec<bf16, 32 threads, 32 vectors> (d 2304, 4096)",
+    ("rmsnorm_vec<bf16, 32 threads, 32 vectors> (d 2304, 2560, 4096)",
      r"rmsnorm_vecI13__nv_bfloat16Li32ELi32E"),
+    ("rmsnorm_wide<bf16, 32 threads> (d 5120)",
+     r"rmsnorm_wideI13__nv_bfloat16Li32EE"),
     ("rmsnorm_vec<bf16, 128 threads, 4 vectors> (d 2048, 4 rows)",
      r"rmsnorm_vecI13__nv_bfloat16Li128ELi4E"),
-    ("rmsnorm_vec<bf16, 128 threads, 8 vectors> (d 2304, 4096, 4 rows)",
-     r"rmsnorm_vecI13__nv_bfloat16Li128ELi8E"),
+    ("rmsnorm_vec<bf16, 128 threads, 8 vectors> (d 2304, 2560, 4096, 4 "
+     "rows)", r"rmsnorm_vecI13__nv_bfloat16Li128ELi8E"),
+    ("rmsnorm_vec<bf16, 128 threads, 16 vectors> (d 5120, 4 rows)",
+     r"rmsnorm_vecI13__nv_bfloat16Li128ELi16E"),
 )
 
 

@@ -10,10 +10,13 @@
 // never replicated. Positions of q and k are both numbered from 0.
 //
 // Bound on this card: operations. At the prefill shapes of the main
-// path (S up to 1024, D 64 or 128) the causal product needs ~S/2 * 4D
+// path (S up to 1024, D 64, 80 or 128) the causal product needs ~S/2 * 4D
 // flops per query row against 4D bytes of q/out, well above the ridge.
 //
-// Two bodies, chosen before the launch by dtype and alignment:
+// At D 80 (zamba2-2.7b) a third body runs in both dtypes, equal to the
+// plain version bit for bit (flash_chunked.cuh says why). At D 16, 32,
+// 64 and 128, two bodies, chosen before the launch by dtype and
+// alignment:
 //
 // * bf16 inputs whose pointers are 16-byte aligned (every served prefill)
 //   run flash_fwd_mma, on the tensor cores with warp-level
@@ -47,6 +50,7 @@
 //   operand to stay within 1e-5 of the f32 result, which no served model
 //   needs.
 #include "common.cuh"
+#include "flash_chunked.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -469,8 +473,9 @@ int launch_body(const void* q, const void* k, const void* v, void* o, int B,
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* o, int B,
              int S, int Tn, int Hq, int Hkv, int D, int causal, int window,
-             cudaStream_t stream) {
+             int chunk, cudaStream_t stream) {
   switch (D) {
+    case 80: return chunked::launch<T, 80>(q, k, v, o, B, S, Tn, Hq, Hkv, causal, window, chunk, stream);
     case 16: return launch_body<T, 16>(q, k, v, o, B, S, Tn, Hq, Hkv, causal, window, stream);
     case 32: return launch_body<T, 32>(q, k, v, o, B, S, Tn, Hq, Hkv, causal, window, stream);
     case 64: return launch_body<T, 64>(q, k, v, o, B, S, Tn, Hq, Hkv, causal, window, stream);
@@ -484,14 +489,14 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int B, int S, int Tn, int Hq,
                                   int Hkv, int D, int causal, int window,
-                                  int dtype, void* stream) {
+                                  int chunk, int dtype, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == RT_BF16)
     return launch_d<__nv_bfloat16>(q, k, v, o, B, S, Tn, Hq, Hkv, D, causal,
-                                   window, s);
+                                   window, chunk, s);
   if (dtype == RT_F32)
     return launch_d<float>(q, k, v, o, B, S, Tn, Hq, Hkv, D, causal, window,
-                           s);
+                           chunk, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

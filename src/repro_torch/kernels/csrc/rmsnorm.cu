@@ -40,9 +40,14 @@
 //   (kernels/rmsnorm.py REDUCE_ORDER_TORCH); another version may change
 //   it, and then this kernel still meets the one-ulp bar but no longer
 //   equals rmsnorm_plain bit for bit.
+// * rmsnorm_wide (the same rows past 32 vectors a thread: zamba2-2.7b's
+//   gated norm, d 5120 at 16 rows or more, 40 vectors a thread) sums the
+//   same squares in the same order, each vector loaded where it is
+//   added, and reads the row a second time for the write (from L1/L2),
+//   so it too equals rmsnorm_plain bit for bit.
 // * rmsnorm_scalar (every other row: d < 128 or not a multiple of 4,
-//   wider rows): one block a row, strided scalar loads, the second read
-//   of the row for the write served by L1/L2.
+//   rows PyTorch splits across blocks): one block a row, strided scalar
+//   loads, the second read of the row for the write served by L1/L2.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -98,6 +103,55 @@ struct Vec4<__nv_bfloat16> {
   }
 };
 
+// Adds the squares of a vector's 4 elements to the 4 accumulators, each
+// product and sum rounded apart.
+__device__ __forceinline__ void add_squares(float (&acc)[4],
+                                            const float (&f)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn(f[i], f[i]));
+}
+
+// The row's sum of squares from each of its TPR threads' 4 accumulators,
+// in ATen's order (see the top of the file); every thread of the block
+// must call it. Thread tx of row rw; part has a float a thread.
+template <int TPR>
+__device__ __forceinline__ float row_sum(const float (&acc)[4], float* part,
+                                         float* total, int tx, int rw) {
+  float s = __fadd_rn(__fadd_rn(__fadd_rn(acc[0], acc[1]), acc[2]), acc[3]);
+  if constexpr (TPR > 32) {
+    part[threadIdx.x] = s;
+#pragma unroll
+    for (int off = TPR / 2; off >= 32; off >>= 1) {
+      __syncthreads();
+      if (tx < off) {
+        s = __fadd_rn(s, part[threadIdx.x + off]);
+        part[threadIdx.x] = s;
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s = __fadd_rn(s, __shfl_down_sync(0xffffffffu, s, off));
+  if (tx == 0) total[rw] = s;
+  __syncthreads();
+  return total[rw];
+}
+
+// Vector j of a row, normed with r and the scale, rounded on write.
+template <typename T>
+__device__ __forceinline__ void write_vec(T* orow, const float* scale, int j,
+                                          const typename Vec4<T>::raw& v,
+                                          float r, bool vec) {
+  const float4 sc = *reinterpret_cast<const float4*>(scale + 4 * j);
+  const float w[4] = {sc.x, sc.y, sc.z, sc.w};
+  float f[4];
+  Vec4<T>::widen(v, f);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[i] = __fmul_rn(__fmul_rn(f[i], r), w[i]);
+  Vec4<T>::store(orow + 4 * j, vec, f);
+}
+
 template <typename T, int TPR, int VPL>
 __global__ void __launch_bounds__(TPR > 256 ? TPR : 256)
 rmsnorm_vec(const T* __restrict__ x, const float* __restrict__ scale,
@@ -125,47 +179,55 @@ rmsnorm_vec(const T* __restrict__ x, const float* __restrict__ scale,
       if (tx + k * TPR < nvec) {
         float f[4];
         V::widen(v[k], f);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          acc[i] = __fadd_rn(acc[i], __fmul_rn(f[i], f[i]));
+        add_squares(acc, f);
       }
     }
   }
-  float s = __fadd_rn(__fadd_rn(__fadd_rn(acc[0], acc[1]), acc[2]), acc[3]);
-  if constexpr (TPR > 32) {
-    part[threadIdx.x] = s;
-#pragma unroll
-    for (int off = TPR / 2; off >= 32; off >>= 1) {
-      __syncthreads();
-      if (tx < off) {
-        s = __fadd_rn(s, part[threadIdx.x + off]);
-        part[threadIdx.x] = s;
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    s = __fadd_rn(s, __shfl_down_sync(0xffffffffu, s, off));
-  if (tx == 0) total[rw] = s;
-  __syncthreads();
+  const float s = row_sum<TPR>(acc, part, total, tx, rw);
   if (!live) return;
 
-  const float r = rsqrtf(__fadd_rn(__fmul_rn(total[rw], factor), eps));
+  const float r = rsqrtf(__fadd_rn(__fmul_rn(s, factor), eps));
   T* orow = out + row * d;
 #pragma unroll
   for (int k = 0; k < VPL; ++k) {
     const int j = tx + k * TPR;
-    if (j < nvec) {
-      const float4 sc = *reinterpret_cast<const float4*>(scale + 4 * j);
-      const float w[4] = {sc.x, sc.y, sc.z, sc.w};
+    if (j < nvec) write_vec(orow, scale, j, v[k], r, vec);
+  }
+}
+
+// rmsnorm_vec's sums for a row of more than MAX_VPL vectors a thread:
+// each vector loaded where it is added, the row read again to write.
+template <typename T, int TPR>
+__global__ void __launch_bounds__(TPR > 256 ? TPR : 256)
+rmsnorm_wide(const T* __restrict__ x, const float* __restrict__ scale,
+             T* __restrict__ out, long long rows, int d, float factor,
+             float eps, bool vec) {
+  using V = Vec4<T>;
+  constexpr int THREADS = TPR > 256 ? TPR : 256;
+  constexpr int RPB = THREADS / TPR;              // rows a block
+  __shared__ float part[THREADS];
+  __shared__ float total[RPB];
+  const int tx = threadIdx.x % TPR, rw = threadIdx.x / TPR;
+  const long long row = (long long)blockIdx.x * RPB + rw;
+  const bool live = row < rows;
+  const int nvec = d / 4;
+  const T* xr = x + row * d;
+
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  if (live) {
+    for (int j = tx; j < nvec; j += TPR) {
       float f[4];
-      V::widen(v[k], f);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) f[i] = __fmul_rn(__fmul_rn(f[i], r), w[i]);
-      V::store(orow + 4 * j, vec, f);
+      V::widen(V::load(xr + 4 * j, vec), f);
+      add_squares(acc, f);
     }
   }
+  const float s = row_sum<TPR>(acc, part, total, tx, rw);
+  if (!live) return;
+
+  const float r = rsqrtf(__fadd_rn(__fmul_rn(s, factor), eps));
+  T* orow = out + row * d;
+  for (int j = tx; j < nvec; j += TPR)
+    write_vec(orow, scale, j, V::load(xr + 4 * j, vec), r, vec);
 }
 
 template <typename T>
@@ -211,11 +273,21 @@ int launch_vec(const void* x, const void* scale, void* out, long long rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// VPL rounded up to a power of 2 (the extra vectors idle).
+// VPL rounded up to a power of 2 (the extra vectors idle); past MAX_VPL
+// the row-rereading body.
 template <typename T, int TPR>
 int launch_vpl(int vpl, const void* x, const void* scale, void* out,
                long long rows, int d, float factor, float eps, bool vec,
                cudaStream_t s) {
+  if (vpl > MAX_VPL) {
+    constexpr int THREADS = TPR > 256 ? TPR : 256;
+    constexpr int RPB = THREADS / TPR;
+    rmsnorm_wide<T, TPR><<<(unsigned)((rows + RPB - 1) / RPB), THREADS, 0,
+                           s>>>(
+        static_cast<const T*>(x), static_cast<const float*>(scale),
+        static_cast<T*>(out), rows, d, factor, eps, vec);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (vpl <= 1) return launch_vec<T, TPR, 1>(x, scale, out, rows, d, factor, eps, vec, s);
   if (vpl <= 2) return launch_vec<T, TPR, 2>(x, scale, out, rows, d, factor, eps, vec, s);
   if (vpl <= 4) return launch_vec<T, TPR, 4>(x, scale, out, rows, d, factor, eps, vec, s);
@@ -249,7 +321,7 @@ int launch(const void* x, const void* scale, void* out, long long rows, int d,
   const int tpr = (int)(width0 < MAX_TPR / height ? width0 : MAX_TPR / height);
   const int vpl = (int)((nvec + tpr - 1) / tpr);
   const int split_at = 16 * height < 256 ? 16 * height : 256;
-  if (d % 4 == 0 && d >= 128 && tpr >= 32 && vpl <= MAX_VPL &&
+  if (d % 4 == 0 && d >= 128 && tpr >= 32 &&
       (d + tpr - 1) / tpr < split_at && aligned(scale, 16)) {
     const bool vec =
         aligned(x, 4 * sizeof(T)) && aligned(out, 4 * sizeof(T));

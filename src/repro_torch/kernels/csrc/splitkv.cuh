@@ -30,12 +30,16 @@
 //     128 rows' lookups are in flight together and no row's are read
 //     twice. For int8 it then loads the row's two scales, which only it
 //     uses (in the softmax step) and which arrive under the K and V loads.
-//   * Lanes: L = D / C lanes share a row, each owning C consecutive
-//     columns: one 16-byte load per row and tensor at G 1 (C = 8 for
-//     bf16, 4 for f32, 16 for int8); at most 8 columns at G 2 and 4 at
-//     G > 2, which keeps the G x C accumulators and query values in
-//     registers. A warp covers 32 / L rows, the block its split in L
-//     passes.
+//   * Lanes: L lanes share a row, the first D / C each owning C
+//     consecutive columns: one 16-byte load per row and tensor at G 1
+//     (C = 8 for bf16, 4 for f32, 16 for int8); at most 8 columns at G 2
+//     and 4 at G > 2, which keeps the G x C accumulators and query values
+//     in registers. L is D / C rounded up to a power of two, so that a
+//     row's lanes sum by xor shuffles and a pass holds BK / L whole rows:
+//     at D 16-128 every lane is live; at D 80 (zamba2-2.7b) 10 of 16
+//     bf16 lanes (5 of 8 int8, 20 of 32 f32), the others idle, reading
+//     nothing and adding exact zeros. A warp covers 32 / L rows, the
+//     block its split in L passes.
 //   * Loads before use: every pass's K loads are issued before the first
 //     is used. V loads go with them while both fit in 64 registers a
 //     thread (int8 always; bf16 to D 64; f32 to D 32); past that the
@@ -146,17 +150,28 @@ __device__ __forceinline__ float unpack<float>(const uint32_t* w, int i) {
   return __uint_as_float(w[i]);
 }
 
+// Lanes a row for a head dim of D at C columns a lane: D / C rounded up
+// to a power of two.
+template <int D, int C>
+__host__ __device__ constexpr int row_lanes() {
+  int l = 1;
+  while (l < D / C) l *= 2;
+  return l;
+}
+
 // This lane's C columns of every pass's row of one tensor (row slot rs
-// of pass p is row p * RP + rs of the split); masked rows read as zeros.
+// of pass p is row p * RP + rs of the split); masked rows, and every row
+// of an idle lane (live false), read as zeros.
 template <int D, int C, typename KT, int L, int NW>
 __device__ __forceinline__ void load_passes(const KT* __restrict__ base,
                                             const long long* srow, int rs,
-                                            int c, uint32_t (&w)[L][NW]) {
+                                            int c, bool live,
+                                            uint32_t (&w)[L][NW]) {
   constexpr int RP = BK / L;
 #pragma unroll
   for (int p = 0; p < L; ++p) {
     const long long rp = srow[p * RP + rs];
-    if (rp >= 0) {
+    if (rp >= 0 && live) {
       load_words<NW * 4>(base + rp * D + c * C, w[p]);
     } else {
 #pragma unroll
@@ -175,14 +190,15 @@ __device__ __forceinline__ void split_rows(
     float sm_scale) {
   constexpr bool SCALED = std::is_same<KT, int8_t>::value;
   constexpr int C = lane_cols<KT, NG>();
-  constexpr int L = D / C;     // lanes per row
+  constexpr int LA = D / C;    // live lanes per row
+  constexpr int L = row_lanes<D, C>();  // lanes per row
   constexpr int RP = BK / L;   // rows per pass; L passes cover the split
   constexpr int BYTES = C * (int)sizeof(KT);
   constexpr int NW = BYTES / 4;  // words per lane, row and tensor
   // K and V of every pass in flight together while both fit in 64
   // registers a thread; past that V waits for the dot products
   constexpr bool STAGED = 2 * L * NW > 64;
-  static_assert(L >= 1 && L <= 32 && BYTES % 4 == 0, "lanes per row");
+  static_assert(D % C == 0 && L <= 32 && BYTES % 4 == 0, "lanes per row");
   __shared__ long long srow[BK];  // (row, kv head) index; -1 if masked
   __shared__ float sp[NG][BK];    // lane-summed dot products, then p
   __shared__ float red[NG][WARPS];
@@ -194,6 +210,7 @@ __device__ __forceinline__ void split_rows(
   const int split = blockIdx.y, ns = gridDim.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c = tid % L, rs = tid / L;  // column slice, row slot
+  const bool live = LA == L || c < LA;  // an idle lane owns no columns
 
   // row metadata: thread tid reads logical row split * BK + tid's mask bit
   // and table entry together, then (int8) its scales
@@ -220,15 +237,15 @@ __device__ __forceinline__ void split_rows(
   for (int g = 0; g < NG; ++g) {
 #pragma unroll
     for (int u = 0; u < C; ++u)
-      qr[g][u] = (NG == 1 || g < G)
+      qr[g][u] = ((NG == 1 || g < G) && live)
                      ? to_float(q[((long long)bh * G + g) * D + c * C + u])
                      : 0.f;
   }
   __syncthreads();
 
   uint32_t kw[L][NW], vw[L][NW];
-  load_passes<D, C>(cache.k, srow, rs, c, kw);
-  if constexpr (!STAGED) load_passes<D, C>(cache.v, srow, rs, c, vw);
+  load_passes<D, C>(cache.k, srow, rs, c, live, kw);
+  if constexpr (!STAGED) load_passes<D, C>(cache.v, srow, rs, c, live, vw);
 
   // dot products: lane partials, summed across the row's lanes
 #pragma unroll
@@ -254,7 +271,7 @@ __device__ __forceinline__ void split_rows(
         if (NG == 1 || g < G) sp[g][jj] = s[g];
     }
   }
-  if constexpr (STAGED) load_passes<D, C>(cache.v, srow, rs, c, vw);
+  if constexpr (STAGED) load_passes<D, C>(cache.v, srow, rs, c, live, vw);
   __syncthreads();
 
   // split-local softmax statistics, per query head; thread tid owns row
@@ -336,7 +353,7 @@ __device__ __forceinline__ void split_rows(
         acc[g][u] += __shfl_xor_sync(FULL, acc[g][u], off);
     }
   }
-  if (lane < L) {
+  if (lane < L && live) {
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
       if (NG == 1 || g < G) {
@@ -431,6 +448,7 @@ int launch(Pick pick, const void* q, const void* k, const void* v,
     case 16: kernel = bucket(std::integral_constant<int, 16>{}); break;
     case 32: kernel = bucket(std::integral_constant<int, 32>{}); break;
     case 64: kernel = bucket(std::integral_constant<int, 64>{}); break;
+    case 80: kernel = bucket(std::integral_constant<int, 80>{}); break;
     case 128: kernel = bucket(std::integral_constant<int, 128>{}); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -3,8 +3,11 @@
 Replaces ``src/repro/kernels/flash_attention.py`` ``flash_attention_fwd``.
 The kernel (``csrc/flash_attention.cu``) keeps the reference layouts,
 q ``(B, S, Hq, D)`` and k/v ``(B, T, Hkv, D)``, and reads the kv head of
-q head ``h`` as ``h // G`` without replicating K/V. See the source for
-what bounds it and the design.
+q head ``h`` as ``h // G`` without replicating K/V. At head dim 80 it
+runs the plain version's chunked loop op for op (``csrc/
+flash_chunked.cuh``), so there it equals :func:`flash_attention_plain`
+bit for bit at the same ``chunk``. See the sources for what bounds it
+and the design.
 """
 from __future__ import annotations
 
@@ -16,8 +19,8 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 
-#: Head dims the kernel is instantiated for.
-HEAD_DIMS = (16, 32, 64, 128)
+#: Head dims the kernel is instantiated for (80: zamba2-2.7b).
+HEAD_DIMS = (16, 32, 64, 80, 128)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -63,7 +66,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     chunk: int = 512) -> torch.Tensor:
     """The kernel for CUDA tensors; the plain version for CPU tensors.
-    ``chunk`` only shapes the plain version's loop."""
+    ``chunk`` is the plain version's loop over keys, which the head-dim-80
+    body runs too; the other bodies ignore it."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      chunk=chunk)
@@ -90,8 +94,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib = _build.library()
     err = lib.rt_flash_attention(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-        B, S, T, Hq, Hkv, D, int(bool(causal)), int(window), code,
-        _build.stream_handle())
+        B, S, T, Hq, Hkv, D, int(bool(causal)), int(window), int(chunk),
+        code, _build.stream_handle())
     _build.check_launch(err, "flash_attention")
     flash_attention.launches += 1
     return out

@@ -18,6 +18,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.ckpt.checkpoint import read_leaf
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamDef
 from repro_torch.models.model import check_device, param_defs
@@ -47,7 +48,9 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any], device="cuda",
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
     """Nested dict of numpy arrays from one checkpoint step directory
-    (``<dir>/step_<N>``). Refuses an incomplete checkpoint."""
+    (``<dir>/step_<N>``), each leaf read by its manifest dtype; numpy has
+    no bf16, so a bf16 leaf comes back as the f32 array of the same
+    values (exact). Refuses an incomplete checkpoint."""
     if not os.path.exists(os.path.join(path, "_COMPLETE")):
         raise FileNotFoundError(f"incomplete or missing checkpoint at "
                                 f"{path} (no _COMPLETE marker)")
@@ -59,7 +62,8 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
         if not keys:
             raise ValueError(f"leaf {fname}: unsupported tree path "
                              f"{meta['path']!r}")
-        arr = np.load(os.path.join(path, fname + ".npy"))
+        t = read_leaf(os.path.join(path, fname + ".npy"), meta["dtype"])
+        arr = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
         if list(arr.shape) != list(meta["shape"]):
             raise ValueError(f"leaf {fname}: shape {arr.shape} != manifest "
                              f"{meta['shape']}")

@@ -4,9 +4,13 @@
   ``models.moe.moe_ffn`` (dropless at decode, and at prefill under
   ``ModelRuntime.moe_dropless``);
 * ssm — stacked Mamba-2 blocks (``models.ssm``) with a ``{conv, ssm}``
-  state cache instead of K/V.
+  state cache instead of K/V;
+* hybrid (Zamba2) — the Mamba-2 stack, with a *shared* attention + FFN
+  block after every ``shared_attn_period`` layers, alternating between
+  ``n_shared_attn_blocks`` physical blocks; its cache holds the state of
+  every layer and the K/V of every group.
 
-The hybrid, vlm and audio families are not ported yet.
+The vlm and audio families are not ported yet.
 
 Training takes :func:`loss_fn` (cross-entropy plus the MoE aux loss) by
 autograd through :func:`forward`; ``ModelRuntime.remat`` checkpoints
@@ -102,8 +106,8 @@ class ModelRuntime:
         return torch_dtype(self.dtype)
 
 
-#: Families the port runs; hybrid (zamba2-2.7b), vlm and audio are queued.
-PORTED_FAMILIES = ("dense", "moe", "ssm")
+#: Families the port runs; vlm and audio are queued.
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 #: Leaves kept f32 by :func:`cast_params`: each is read from its f32
 #: master by the reference.
@@ -115,8 +119,8 @@ def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-            f"port runs {PORTED_FAMILIES}; hybrid, vlm and audio are "
-            f"queued (ROADMAP.md Queue 1 items 8-9)")
+            f"port runs {PORTED_FAMILIES}; vlm and audio are queued "
+            f"(ROADMAP.md Queue 1 item 9)")
 
 
 def check_device(device) -> torch.device:
@@ -171,13 +175,15 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, v))
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         n = (cfg.n_layers,)
         defs["blocks"] = {
             "ssm": SSM.ssm_defs(cfg, stack=n),
             "ln": {k: ParamDef(n + p.shape, p.init)
                    for k, p in norm_defs(d, cfg.norm).items()},
         }
+        if cfg.family == "hybrid":
+            defs["shared"] = _attn_defs(cfg, cfg.n_shared_attn_blocks)
     else:
         defs["blocks"] = _attn_defs(cfg, cfg.n_layers)
     return defs
@@ -225,6 +231,37 @@ def _layers(blocks: Dict[str, Any]) -> List[Dict[str, Any]]:
              for k, v in blocks.items()}
     n = len(next(iter(split.values())))
     return [{k: v[i] for k, v in split.items()} for i in range(n)]
+
+
+def _schedule(params, cfg: ModelConfig) -> List[Tuple[str, int, Dict]]:
+    """Every block in execution order as ``(kind, i, weights)``: kind
+    ``mamba`` for Mamba-2 layer i, ``attn`` for attention block i, which
+    for the hybrid is the shared block run after group i (``period``
+    Mamba-2 layers), physical block ``i % n_shared_attn_blocks``. i
+    indexes the cache leaves of its kind."""
+    if cfg.family == "ssm":
+        return [("mamba", i, p)
+                for i, p in enumerate(_layers(params["blocks"]))]
+    if cfg.family != "hybrid":
+        return [("attn", i, p)
+                for i, p in enumerate(_layers(params["blocks"]))]
+    period = cfg.shared_attn_period
+    shared = _layers(params["shared"])
+    out = []
+    for i, p in enumerate(_layers(params["blocks"])):
+        out.append(("mamba", i, p))
+        if (i + 1) % period == 0:
+            g = i // period
+            out.append(("attn", g, shared[g % len(shared)]))
+    return out
+
+
+def _kv_layers(cfg: ModelConfig) -> int:
+    """Attention blocks whose K/V a cache holds: one per layer, or one
+    per group of the hybrid (its shared blocks run once a group)."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_period
+    return cfg.n_layers
 
 
 # ===========================================================================
@@ -336,22 +373,24 @@ def _remat(fn, rt: ModelRuntime):
 
 def _run_blocks(params, cfg: ModelConfig, x, positions, rt: ModelRuntime,
                 on_layer=None):
-    """Every layer; ``on_layer(i, material)`` receives each layer's cache
-    material: ``(k, v)`` for attention blocks, the ``{conv, ssm}`` final
-    states for Mamba-2 blocks. Returns (x, summed aux loss f32)."""
+    """Every block in :func:`_schedule`'s order, each under ``rt.remat``
+    (the reference remats a hybrid group whole; the gradients are the
+    same); ``on_layer(i, material)`` receives each block's cache
+    material: ``(k, v)`` for attention block i, the ``{conv, ssm}`` final
+    states for Mamba-2 layer i. Returns (x, summed aux loss f32)."""
     aux = torch.zeros((), device=x.device)
-    ssm = cfg.family == "ssm"
-    rope = None if ssm else L.rope_tables(positions, cfg)
+    rope = None if cfg.family == "ssm" else L.rope_tables(positions, cfg)
 
-    def body(p, x_):
-        if ssm:
-            return mamba_block(p, x_, cfg, rt) + (None,)
+    def attn(p, x_):
         x_, a, kv = attn_block(p, x_, rope, cfg, rt)
         return x_, kv, a
 
-    block = _remat(body, rt)
-    for i, p in enumerate(_layers(params["blocks"])):
-        x, material, a = block(p, x)
+    def mamba(p, x_):
+        return mamba_block(p, x_, cfg, rt) + (None,)
+
+    blocks = {"attn": _remat(attn, rt), "mamba": _remat(mamba, rt)}
+    for kind, i, p in _schedule(params, cfg):
+        x, material, a = blocks[kind](p, x)
         if a is not None:
             aux = aux + a
         if on_layer is not None:
@@ -409,8 +448,9 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     position is set to the real length and the logits are gathered at
     ``lengths - 1``. The pad keys land at cache rows ``>= length``,
     where the decode mask hides them until they are overwritten. A
-    recurrent state would absorb pad tokens, so the ``ssm`` family takes
-    exact-length rows (the scheduler's chunk mode).
+    recurrent state would absorb pad tokens, so the ``ssm`` and
+    ``hybrid`` families take exact-length rows (the scheduler's chunk
+    mode).
     """
     _require_ported(cfg)
     x = _embed_in(params, batch, rt)
@@ -423,7 +463,7 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     quant = "ks" in cache
 
     def on_layer(i, material):
-        if cfg.family == "ssm":      # conv in rt.dtype, ssm in f32
+        if isinstance(material, dict):   # conv in rt.dtype, ssm in f32
             cache["conv"][i] = material["conv"]
             cache["ssm"][i] = material["ssm"]
             return
@@ -483,15 +523,18 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
                dtype: str = "bfloat16", kv_dtype: Optional[str] = None
                ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """{name: (shape, dtype)} of the contiguous decode cache: K/V for the
-    attention families (``kv_dtype`` overrides their storage dtype,
-    default ``dtype``), the recurrent state for ``ssm`` (``conv`` in
-    ``dtype``, ``ssm`` in f32)."""
+    attention blocks (``kv_dtype`` overrides their storage dtype, default
+    ``dtype``; the hybrid's one per group), the recurrent state for the
+    ``ssm`` and ``hybrid`` families (``conv`` in ``dtype``, ``ssm`` in
+    f32)."""
     _require_ported(cfg)
     spec = {"pos": ((batch,), torch.int32)}
+    if cfg.family in ("ssm", "hybrid"):
+        spec.update(_state_spec(cfg, batch, dtype))
     if cfg.family == "ssm":
-        return dict(spec, **_state_spec(cfg, batch, dtype))
+        return spec
     W = _cache_window(cfg, max_len)
-    kv = (cfg.n_layers, batch, W, cfg.n_kv_heads, cfg.head_dim)
+    kv = (_kv_layers(cfg), batch, W, cfg.n_kv_heads, cfg.head_dim)
     return dict(spec, **_kv_spec(kv, kv_dtype or dtype))
 
 
@@ -555,20 +598,37 @@ def _attn_decode_one(p, x, kv, idx, attend, rope, cfg: ModelConfig,
     return x + _ffn(p, h2[:, None, :], cfg, pol, dropless=True)[0][:, 0]
 
 
-def _decode_layers(params, cfg: ModelConfig, cache, names, x, pos, idx,
-                   op: str, tail, rt: ModelRuntime) -> torch.Tensor:
-    """Every layer for one token, then the final norm and the
-    unembedding. Layer i's cache is ``cache[n][i]`` for the leaves
-    ``names = (k, v, ks, vs)`` (the scales absent from a float cache);
-    attention is the dispatch op ``op`` on the query, the cache leaves
-    present, then ``tail`` (the mask, after the page table if paged)."""
+def _mamba_decode_one(p, x, cache, i: int, cfg: ModelConfig, pol):
+    """One Mamba-2 layer for one token; layer i's state is written back
+    into the cache in place."""
+    h = norm(x, p["ln"], cfg.norm, policy=pol)
+    y, st = SSM.ssm_decode_step(p["ssm"], h, {
+        "conv": cache["conv"][i], "ssm": cache["ssm"][i]}, cfg, policy=pol)
+    cache["conv"][i] = st["conv"]
+    cache["ssm"][i] = st["ssm"]
+    return x + y
+
+
+def _decode_blocks(params, cfg: ModelConfig, cache, x, rt: ModelRuntime,
+                   names=(), pos=None, idx=None, op: str = "",
+                   tail=()) -> torch.Tensor:
+    """Every block for one token in :func:`_schedule`'s order, then the
+    final norm and the unembedding. Mamba-2 layer i updates its state in
+    the cache; attention block i's cache is ``cache[n][i]`` for the
+    leaves ``names = (k, v, ks, vs)`` (the scales absent from a float
+    cache), its new row written at ``idx``, and attention is the
+    dispatch op ``op`` on the query, the cache leaves present, then
+    ``tail`` (the mask, after the page table if paged)."""
     pol = rt.kernel_policy()
 
     def attend(q, kv):
         return dispatch(op, pol, q, *(t for t in kv if t is not None), *tail)
 
-    rope = L.rope_tables(pos[:, None], cfg)
-    for i, p in enumerate(_layers(params["blocks"])):
+    rope = None if cfg.family == "ssm" else L.rope_tables(pos[:, None], cfg)
+    for kind, i, p in _schedule(params, cfg):
+        if kind == "mamba":
+            x = _mamba_decode_one(p, x, cache, i, cfg, pol)
+            continue
         kv = tuple(cache[n][i] if n in cache else None for n in names)
         x = _attn_decode_one(p, x, kv, idx, attend, rope, cfg, rt)
     x = norm(x[:, None, :], params["final_norm"], cfg.norm, policy=pol)
@@ -579,39 +639,23 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, torch.Tensor],
                 tokens: torch.Tensor, rt: ModelRuntime = ModelRuntime(),
                 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """tokens: (B,) -> (cache, logits (B, V)). The cache is updated in
-    place (K/V rows or the recurrent state, and ``pos + 1``) and
+    place (K/V rows and the recurrent state, and ``pos + 1``) and
     returned."""
     _require_ported(cfg)
     pos = cache["pos"]
     x = params["embed"].to(rt.torch_dtype)[tokens.long()]      # (B, d)
     if cfg.family == "ssm":
-        logits = _decode_ssm(params, cfg, cache, x, rt)
+        logits = _decode_blocks(params, cfg, cache, x, rt)
         pos += 1
         return cache, logits
     W = cache["k"].shape[2]
     idx = (torch.arange(x.shape[0], device=pos.device), (pos % W).long())
     mask = torch.arange(W, device=pos.device)[None, :] <= pos[:, None]
     op = "quant_decode_attention" if "ks" in cache else "decode_attention"
-    logits = _decode_layers(params, cfg, cache, ("k", "v", "ks", "vs"), x,
-                            pos, idx, op, (mask,), rt)
+    logits = _decode_blocks(params, cfg, cache, x, rt,
+                            ("k", "v", "ks", "vs"), pos, idx, op, (mask,))
     pos += 1
     return cache, logits
-
-
-def _decode_ssm(params, cfg: ModelConfig, cache, x, rt: ModelRuntime):
-    """Every Mamba-2 layer for one token, each layer's state written back
-    into the cache in place; then the final norm and the unembedding."""
-    pol = rt.kernel_policy()
-    for i, p in enumerate(_layers(params["blocks"])):
-        h = norm(x, p["ln"], cfg.norm, policy=pol)
-        y, st = SSM.ssm_decode_step(p["ssm"], h, {
-            "conv": cache["conv"][i], "ssm": cache["ssm"][i]}, cfg,
-            policy=pol)
-        cache["conv"][i] = st["conv"]
-        cache["ssm"][i] = st["ssm"]
-        x = x + y
-    x = norm(x[:, None, :], params["final_norm"], cfg.norm, policy=pol)
-    return _unembed(params, cfg, x)[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -629,18 +673,22 @@ def paged_cache_spec(cfg: ModelConfig, n_slots: int, n_pages: int,
     """{name: (shape, dtype)} of the paged decode cache: ``kp``/``vp``
     ``(L, n_pages, page_size, Hkv, hd)`` pools addressed through per-slot
     page tables ``pt (n_slots, ceil(W / page_size))``, and under int8 the
-    pooled scales ``ks``/``vs (L, n_pages, page_size, Hkv)``. Physical
-    page 0 is the null page: unowned table entries point at it and
-    retired slots write their masked decode rows into it. The ``ssm``
-    family has no KV to page: its recurrent state stays contiguous per
-    slot (and the table rides along unused)."""
+    pooled scales ``ks``/``vs (L, n_pages, page_size, Hkv)``; L counts
+    the attention blocks (the hybrid's groups). Physical page 0 is the
+    null page: unowned table entries point at it and retired slots write
+    their masked decode rows into it. Recurrent state (``ssm``,
+    ``hybrid``) stays contiguous per slot; the ``ssm`` family has no KV
+    to page (the table rides along unused)."""
     _require_ported(cfg)
     W = _cache_window(cfg, max_len)
     spec = {"pos": ((n_slots,), torch.int32),
             "pt": ((n_slots, page_count(W, page_size)), torch.int32)}
+    if cfg.family in ("ssm", "hybrid"):
+        spec.update(_state_spec(cfg, n_slots, dtype))
     if cfg.family == "ssm":
-        return dict(spec, **_state_spec(cfg, n_slots, dtype))
-    shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+        return spec
+    shape = (_kv_layers(cfg), n_pages, page_size, cfg.n_kv_heads,
+             cfg.head_dim)
     kv = _kv_spec(shape, kv_dtype or dtype)
     return dict(spec, kp=kv["k"], vp=kv["v"],
                 **{n: kv[n] for n in ("ks", "vs") if n in kv})
@@ -712,8 +760,10 @@ def decode_step_paged(params, cfg: ModelConfig,
     through the page table at physical page ``pt[b, (pos % W) // ps]``,
     row ``(pos % W) % ps``, and attention reads the pools through the
     table (``paged_decode_attention``, or ``quant_paged_decode_attention``
-    under int8). Updated in place and returned. The ``ssm`` family has
-    no pages: it decodes as :func:`decode_step` does."""
+    under int8); the hybrid's Mamba-2 layers update their contiguous
+    state as :func:`decode_step` does. Updated in place and returned.
+    The ``ssm`` family has no pages: it decodes as :func:`decode_step`
+    does."""
     _require_ported(cfg)
     if cfg.family == "ssm":
         return decode_step(params, cfg, cache, tokens, rt)
@@ -726,7 +776,8 @@ def decode_step_paged(params, cfg: ModelConfig,
     mask = (ar <= pos[:, None]) & (ar < W)
     op = ("quant_paged_decode_attention" if "ks" in cache
           else "paged_decode_attention")
-    logits = _decode_layers(params, cfg, cache, ("kp", "vp", "ks", "vs"), x,
-                            pos, (phys, row % ps), op, (pt, mask), rt)
+    logits = _decode_blocks(params, cfg, cache, x, rt,
+                            ("kp", "vp", "ks", "vs"), pos, (phys, row % ps),
+                            op, (pt, mask))
     pos += 1
     return cache, logits

@@ -4,8 +4,9 @@ Covers rmsnorm (the served widths at every row count, bit for bit
 against its plain version; a width no vector divides, a misaligned
 slice), flash prefill and the four split-KV decode variants
 (contiguous, paged, int8, int8 paged) at odd shapes: page sizes 8 and
-16, page counts that are not a split multiple, G 1-8, D 16-128, a
-window that is not a page multiple, a table row all at the null page;
+16, page counts that are not a split multiple, G 1-8, D 16-128 and
+zamba2-2.7b's 80, a window that is not a page multiple, a table row all
+at the null page;
 paged equal to contiguous bit for bit, and for both the bf16 and the
 int8 pair whole splits without a valid row, a sequence's bits
 independent of its batch and no register spill in the served (G 1,
@@ -69,7 +70,7 @@ def test_rmsnorm_kernel(dev, dtype, rows, d):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows", [1, 2, 3, 4, 8, 16, 37, 600, 2048])
-@pytest.mark.parametrize("d", [2048, 2304, 4096])
+@pytest.mark.parametrize("d", [2048, 2304, 4096, 2560, 5120])
 def test_rmsnorm_equals_the_plain_version_bit_for_bit(dev, dtype, rows, d):
     """At the served widths, at every row count (PyTorch's reduction
     changes its threads a row with the rows), the kernel sums in the
@@ -108,7 +109,8 @@ def test_rmsnorm_misaligned_slice(dev, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,window", [
     (2, 100, 4, 2, 16, True, 0), (1, 129, 4, 4, 64, True, 0),
-    (1, 77, 8, 2, 128, True, 16), (2, 50, 2, 1, 32, False, 0)])
+    (1, 77, 8, 2, 128, True, 16), (2, 50, 2, 1, 32, False, 0),
+    (1, 200, 4, 4, 80, True, 0), (2, 70, 4, 2, 80, True, 24)])
 def test_flash_kernel(dev, dtype, B, S, Hq, Hkv, D, causal, window):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
@@ -157,6 +159,44 @@ def test_flash_mma_kernel(dev, B, S, Hq, Hkv, D, causal, window):
                                **_tol(torch.bfloat16))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,causal,window,chunk", [
+    (2, 300, 32, 32, True, 0, 512),    # zamba2-2.7b's parity prefill
+    (1, 1024, 32, 32, True, 0, 512),   # two chunks, the second's rows
+    (1, 512, 32, 32, True, 0, 512),    # a chunk-mode prompt floor
+    (4, 64, 32, 32, True, 0, 512),     # n < 128: the unvectorized sum
+    (1, 8, 32, 32, True, 0, 512),      # the smallest floor
+    (1, 333, 32, 32, True, 0, 512),    # n % 4 != 0: unaligned sum rows
+    (1, 1000, 32, 32, True, 0, 256),   # another chunk, a ragged last
+    (2, 200, 8, 2, True, 0, 512),      # G 4
+    (1, 700, 8, 8, True, 100, 512),    # a window across the chunks
+    (2, 150, 4, 4, False, 0, 64),      # not causal, three chunks
+    (1, 5, 1, 1, True, 0, 512),        # 5 rows of p: not bit for bit
+])
+def test_flash_d80_equals_the_plain_version_bit_for_bit(dev, dtype, B, S,
+                                                        Hq, Hkv, causal,
+                                                        window, chunk):
+    """At head dim 80 (zamba2-2.7b) the kernel runs the plain version's
+    chunked loop op for op: its output equals ``flash_attention_plain``'s
+    at the same ``chunk`` bit for bit, whenever the plain version's
+    softmax sum has 16 rows or more (B * Hq * S, every served prefill);
+    below, where PyTorch sums a row with more than 32 threads, it holds
+    the one-ulp bar."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    g = torch.Generator(device=dev).manual_seed(S + B)
+    q, k, v = _flash_case(dev, g, B, S, Hq, Hkv, 80, dtype)
+    n = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window,
+                          chunk=chunk)
+    assert flash_attention.launches == n + 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 chunk=chunk)
+    if B * Hq * S >= 16:
+        assert torch.equal(got, want)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
 def test_flash_mma_kernel_within_one_ulp(dev):
     """At S 1024, D 64 the bf16 body stays within chip_smoke.py's bar,
     which P rounded once to bf16 would break (P enters P.V as hi + lo)."""
@@ -190,7 +230,9 @@ def test_flash_unaligned_bf16_view(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Hq,Hkv,D,W", [(3, 4, 2, 16, 50),
                                           (4, 36, 36, 64, 1024),
-                                          (2, 16, 2, 128, 300)])
+                                          (2, 16, 2, 128, 300),
+                                          (4, 32, 32, 80, 1024),
+                                          (3, 4, 2, 80, 50)])
 def test_decode_kernel(dev, dtype, B, Hq, Hkv, D, W):
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain)
@@ -247,6 +289,8 @@ PAGED_CASES = [  # B, Hq, Hkv, D, ps, NP, W
     (2, 8, 1, 128, 16, 9, 144),   # NP * ps not a split multiple, G 8
     (4, 36, 36, 64, 16, 64, 1024),  # full width minicpm-2b, G 1
     (2, 3, 3, 32, 8, 17, 130),    # G 1, D 32
+    (4, 32, 32, 80, 16, 64, 1024),  # full width zamba2-2.7b, G 1, D 80
+    (3, 8, 2, 80, 8, 5, 37),      # D 80, G 4, ragged last page
 ]
 
 
@@ -284,7 +328,9 @@ def test_quant_paged_kernel(dev, dtype, B, Hq, Hkv, D, ps, NP, W):
 @pytest.mark.parametrize("B,Hq,Hkv,D,W", [(3, 4, 2, 16, 50),
                                           (4, 36, 36, 64, 1024),
                                           (2, 16, 2, 128, 300),
-                                          (2, 5, 5, 32, 129)])
+                                          (2, 5, 5, 32, 129),
+                                          (4, 32, 32, 80, 1024),
+                                          (2, 4, 2, 80, 130)])
 def test_quant_kernel(dev, dtype, B, Hq, Hkv, D, W):
     from repro_torch.kernels.quant import (quant_decode_attention,
                                            quant_decode_attention_plain,
@@ -307,6 +353,9 @@ EQUAL_CASES = [  # B, Hq, Hkv, D, ps, NP, W
     (2, 16, 2, 128, 16, 9, 144),      # D 128, G 8
     (3, 4, 4, 16, 8, 5, 37),          # D 16, ps 8, ragged last page
     (4, 16, 16, 128, 16, 64, 1024),   # qwen2-moe-a2.7b's heads
+    (4, 32, 32, 80, 16, 64, 1024),    # zamba2-2.7b's heads, D 80
+    (2, 8, 4, 80, 8, 9, 72),          # D 80, G 2
+    (2, 8, 1, 80, 16, 9, 144),        # D 80, G 8
 ]
 
 
@@ -476,8 +525,8 @@ def test_kernels_rows_do_not_depend_on_their_batch(dev, Hq, Hkv, D):
 
 
 @pytest.mark.parametrize("kernel,types,count", [
-    ("quant_split_kernel", r"(f|13__nv_bfloat16)", 16),  # 2 q dtypes
-    ("split_rows_kernel", r"13__nv_bfloat16", 8),       # bf16 KV
+    ("quant_split_kernel", r"(f|13__nv_bfloat16)", 20),  # 2 q dtypes
+    ("split_rows_kernel", r"13__nv_bfloat16", 10),      # bf16 KV
 ])
 def test_quant_split_kernel_has_no_spills(dev, kernel, types, count):
     """ptxas reports no spill in the split kernels' G-1 instantiations,
@@ -488,7 +537,7 @@ def test_quant_split_kernel_has_no_spills(dev, kernel, types, count):
     found = [spill for name, _, spill in _build.ptxas_entries(log)
              if re.search(kernel + r"I" + types + r"Li\d+ELi1ELb[01]E",
                           name)]
-    assert found == [0] * count        # x 4 head dims x paged
+    assert found == [0] * count        # x 5 head dims x paged
 
 
 def test_new_wrappers_reject_bad_inputs(dev):
@@ -781,6 +830,28 @@ def test_ssd_scan_equals_the_plain_version_bit_for_bit(dev, a_init, b, S):
     assert torch.equal(y, yw) and torch.equal(h, hw)
 
 
+@pytest.mark.parametrize("a_init", ["served", "random"])
+@pytest.mark.parametrize("b,S", [(1, 1024), (2, 700)])
+def test_ssd_scan_equals_the_plain_version_at_zamba2_widths(dev, a_init, b,
+                                                            S):
+    """zamba2-2.7b's Mamba-2 widths in bf16 (80 heads of 64, state 64,
+    chunk 256): y and the final state equal ``ssd_chunked``'s bit for
+    bit, as at mamba2's state of 128."""
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+    g = torch.Generator(device=dev).manual_seed(3 * S + b)
+    nh, hp, N = 80, 64, 64
+    x = torch.randn(b, S, nh, hp, device=dev, generator=g).bfloat16()
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, S, nh, device=dev, generator=g) - 2.0)
+    A = (-torch.ones(nh, device=dev) if a_init == "served" else
+         -torch.exp(torch.randn(nh, device=dev, generator=g) * 0.5))
+    B, C = (torch.randn(b, S, nh, N, device=dev, generator=g).bfloat16()
+            for _ in range(2))
+    y, h = ssd_scan(x, dt, A, B, C, chunk=256)
+    yw, hw = ssd_chunked(x, dt, A, B, C, 256)
+    assert torch.equal(y, yw) and torch.equal(h, hw)
+
+
 @pytest.mark.parametrize("label,pattern", _build.SERVED_BUILDS)
 def test_served_scan_and_norm_bodies_have_no_spills(dev, label, pattern):
     """ptxas reports no spill in the instantiations the served shapes run
@@ -979,6 +1050,40 @@ def test_sort_once_moe_layer_gradients_match_torch_policy(dev):
         assert d <= MOE_LAYER_GRAD_RTOL * float(want.abs().max()), (k, d)
 
 
+def test_zamba2_gradients_match_torch_policy(dev):
+    """Full-width zamba2-2.7b cut to one group (6 Mamba-2 layers and one
+    shared attention block at D 80), f32, B 2, S 128: loss and every
+    gradient, the shared blocks' included, under cuda against torch; the
+    cuda pass runs RMSNorm, flash and the scan forward only."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.models import ModelRuntime, init_params
+    from repro_torch.train.loop import value_and_grad
+    cfg = ARCHS["zamba2-2.7b"]
+    cfg = dataclasses.replace(cfg, n_layers=cfg.shared_attn_period)
+    params = init_params(cfg, seed=1, device=dev)
+    g = torch.Generator(device=dev).manual_seed(18)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 128), device=dev,
+                              generator=g, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    counters = _counters()
+    out = {}
+    for pol in ("torch", "cuda"):
+        rt = ModelRuntime(dtype="float32", remat="none",
+                          kernels=getattr(KernelPolicy, pol)())
+        before = {k: c.launches for k, c in counters.items()}
+        out[pol] = value_and_grad(cfg, rt, params, batch)
+        ran = {k: c.launches - before[k] for k, c in counters.items()}
+        assert ran == ({"rmsnorm": 2 * 6 + 2 + 1, "flash_attention": 1,
+                        "moe_gemm": 0, "ssd_scan": 6} if pol == "cuda"
+                       else dict.fromkeys(ran, 0)), ran
+    (lc, _, gc), (lt, _, gt) = out["cuda"], out["torch"]
+    assert float((lc - lt).abs() / lt.abs()) < TRAIN_LOSS_RTOL
+    assert _grads_rel(gc, gt) < TRAIN_GRAD_RTOL
+    assert _grads_rel(gc["shared"], gt["shared"]) < TRAIN_GRAD_RTOL
+
+
 @pytest.mark.parametrize("name,kernels", [
     ("minicpm-2b", ("rmsnorm", "flash_attention")),
     ("qwen2-moe-a2.7b", ("rmsnorm", "flash_attention", "moe_gemm")),
@@ -1026,7 +1131,7 @@ def _counters():
 
 
 @pytest.mark.parametrize("arch", ["minicpm-2b", "qwen2-moe-a2.7b",
-                                  "mamba2-1.3b"])
+                                  "mamba2-1.3b", "zamba2-2.7b"])
 def test_serving_launches_unchanged_by_autograd(dev, arch):
     """Weights that require grad change nothing under ``torch.no_grad()``
     (the same launches, no graph); with grad the forward launches the

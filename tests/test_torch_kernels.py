@@ -271,3 +271,58 @@ def test_kernel_forward_reference_backward(op, make):
         grads.append([a.grad for a in args if a.is_floating_point()])
     for gt, gc in zip(*grads):
         torch.testing.assert_close(gc, gt)
+
+
+# ===========================================================================
+# Head dim 80 (zamba2-2.7b)
+# ===========================================================================
+def _d80_inputs(rng, op):
+    """Inputs of ``op`` at D 80, small B and W, a ragged mask; the int8
+    ops on int8 rows with bf16 scales, the paged ones through a
+    scattered table."""
+    B, Hq, Hkv, D, ps, NP = 2, 4, 4, 80, 8, 5
+    W = ps * NP
+    q = _rand(rng, (B, Hq, D))
+    mask = np.arange(W)[None, :] <= rng.integers(0, W, B)[:, None]
+    pt = (rng.permutation(B * NP) + 1).reshape(B, NP).astype(np.int32)
+    rows = (B, W) if "paged" not in op else (B * NP + 1, ps)
+
+    def kv():
+        x = _rand(rng, rows + (Hkv, D))
+        if not op.startswith("quant"):
+            return (x,)
+        scale = np.abs(x).max(-1) / 127.0
+        xq = np.clip(np.round(x / scale[..., None]), -127, 127)
+        return xq.astype(np.int8), scale
+    (k, *ks), (v, *vs) = kv(), kv()
+    args = [q, k, v] + ([ks[0], vs[0]] if ks else [])
+    return args + ([pt] if "paged" in op else []) + [mask]
+
+
+@pytest.mark.parametrize("op", ["prefill_attention", "decode_attention",
+                                "paged_decode_attention",
+                                "quant_decode_attention",
+                                "quant_paged_decode_attention"])
+def test_attention_plain_at_head_dim_80_matches_reference(op):
+    """The plain versions the D 80 kernels are held against, op by op
+    against the reference's ``xla`` implementations (the torch policy
+    runs them; on the CPU so does the cuda policy)."""
+    rng = np.random.default_rng(8)
+    if op == "prefill_attention":
+        q, k, v = (_rand(rng, (2, 37, h, 80)) for h in (4, 2, 2))
+        jargs, targs = map(jnp.asarray, (q, k, v)), map(_t, (q, k, v))
+        kw = dict(causal=True, window=0, chunk=16)
+    else:
+        args = _d80_inputs(rng, op)
+        scales = range(3, 5) if op.startswith("quant") else ()
+        jargs = [jnp.asarray(a).astype(jnp.bfloat16) if i in scales
+                 else jnp.asarray(a) for i, a in enumerate(args)]
+        targs = [_t(a).to(torch.bfloat16) if i in scales else _t(a)
+                 for i, a in enumerate(args)]
+        kw = {}
+    jargs, targs = list(jargs), list(targs)
+    want = np.asarray(jdispatch(op, XLA_POLICY, *jargs, **kw))
+    for pol in (D.TORCH_POLICY, D.CUDA_POLICY):
+        got = D.dispatch(op, pol, *targs, **kw)
+        assert got.shape[-1] == 80
+        np.testing.assert_allclose(got.numpy(), want, **TOL)

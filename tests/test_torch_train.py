@@ -284,6 +284,35 @@ def test_adamw_update_matches_reference():
     assert float(m["grad_norm"]) > 1.0
 
 
+def test_adamw_update_in_slices_equals_one_pass(monkeypatch):
+    """A leaf past ``UPDATE_SLICE`` elements is updated in slices of its
+    first axis: parameters, moments and step equal the one-pass update's
+    bit for bit (the update is elementwise)."""
+    from repro_torch.train import optim
+    g = torch.Generator().manual_seed(3)
+    cfg = AdamWConfig(warmup_steps=2, total_steps=10)
+
+    def tree():
+        return {"w": torch.randn(7, 5, 3, generator=g),
+                "b": torch.randn(11, generator=g)}
+
+    params, grads = tree(), tree()
+    outs = []
+    for cap in (optim.UPDATE_SLICE, 8):
+        monkeypatch.setattr(optim, "UPDATE_SLICE", cap)
+        p = {k: v.clone() for k, v in params.items()}
+        st = optim.adamw_init(p)
+        for _ in range(3):
+            p, st, _ = adamw_update(cfg, p, grads, st)
+        outs.append((p, st))
+    (p1, s1), (p2, s2) = outs
+    for k in params:
+        assert torch.equal(p1[k], p2[k])
+        assert torch.equal(s1["mu"][k], s2["mu"][k])
+        assert torch.equal(s1["nu"][k], s2["nu"][k])
+    assert int(s1["step"]) == int(s2["step"]) == 3
+
+
 def test_train_step_matches_reference(models):
     cfg, jcfg, jp = models["minicpm-2b"]
     opt = dict(peak_lr=1e-3, warmup_steps=2, total_steps=10,
@@ -411,6 +440,42 @@ def test_checkpoints_cross_between_packages(models, tmp_path, writer):
         want = np.asarray(want)
         assert got.dtype == want.dtype, p
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_checkpoint_bf16_leaf_round_trips(tmp_path, writer):
+    """A bf16 leaf is written as the reference writes one (2-byte
+    records, manifest dtype ``bfloat16``) and read back into the port bit
+    for bit, by ``restore`` and by ``load_checkpoint`` (as the f32 array
+    of the same values): the port's own leaf, and one the reference
+    wrote."""
+    import json
+
+    from repro_torch.models import load_checkpoint
+    x = np.random.default_rng(0).standard_normal((3, 5)).astype(np.float32)
+    want = torch.from_numpy(x).to(torch.bfloat16)
+    tree = {"w": want, "n": {"i": torch.arange(4, dtype=torch.int32)}}
+    if writer == "port":
+        path = tckpt.save(str(tmp_path), 2, tree)
+        ac = tckpt.AsyncCheckpointer(str(tmp_path / "async"))
+        ac.submit(2, tree)
+        ac.close()
+        back = tckpt.restore(str(tmp_path / "async"), 2, tree)
+        assert torch.equal(back["w"], want)
+    else:
+        path = jckpt.save(str(tmp_path), 2, {
+            "w": jnp.asarray(x).astype(jnp.bfloat16),
+            "n": {"i": jnp.arange(4, dtype=jnp.int32)}})
+    with open(os.path.join(path, "manifest.json")) as f:
+        leaves = json.load(f)["leaves"]
+    assert leaves["w"]["dtype"] == "bfloat16"
+    assert np.load(os.path.join(path, "w.npy")).dtype.itemsize == 2
+    back = tckpt.restore(str(tmp_path), 2, tree)
+    assert back["w"].dtype == torch.bfloat16 and torch.equal(back["w"], want)
+    assert torch.equal(back["n"]["i"], tree["n"]["i"])
+    loaded = load_checkpoint(path)
+    assert loaded["w"].dtype == np.float32
+    np.testing.assert_array_equal(loaded["w"], want.float().numpy())
 
 
 def test_checkpoint_incomplete_ignored(tmp_path):

@@ -40,7 +40,8 @@ from repro_torch.core.workload import lm_workload  # noqa: E402
 from repro_torch.kernels import dispatch as D  # noqa: E402
 from repro_torch.kernels import tune  # noqa: E402
 
-ARCH_IDS = ("minicpm-2b", "qwen2-moe-a2.7b", "mixtral-8x22b", "mamba2-1.3b")
+ARCH_IDS = ("minicpm-2b", "qwen2-moe-a2.7b", "mixtral-8x22b", "mamba2-1.3b",
+            "zamba2-2.7b")
 OP_FIELDS = ("name", "kind", "flops", "weight_bytes", "act_in_bytes",
              "act_out_bytes", "layer_idx", "weight_axis", "width",
              "weight_dtype", "act_dtype")
@@ -83,7 +84,7 @@ def test_lm_workload_resolves_ids_and_decode_kv_len():
     assert [o.act_in_bytes for o in got] == [o.act_in_bytes for o in want]
     assert got.meta["kv_len"] == 1000
     with pytest.raises(KeyError):
-        lm_workload("zamba2-2.7b", "decode_32k")
+        lm_workload("qwen2-vl-7b", "decode_32k")
 
 
 # ===========================================================================
@@ -342,7 +343,7 @@ def test_cli_ci_on_the_cpu_writes_the_ports_file(monkeypatch, tmp_path,
 
 @pytest.mark.parametrize("argv,msg", [
     (["--preset", "ci", "--cells", "minicpm-2b"], "arch/shape"),
-    (["--preset", "ci", "--cells", "zamba2-2.7b/decode_32k"], "zamba2"),
+    (["--preset", "ci", "--cells", "qwen2-vl-7b/decode_32k"], "qwen2-vl"),
     (["--preset", "ci", "--cells", "minicpm-2b/train_4k"], "unknown shape"),
 ])
 def test_cli_rejects_bad_cells(argv, msg, capsys):
