@@ -97,7 +97,24 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    model's kernels and no decode or int8 kernel, each torch-policy run
    none; over the phase rmsnorm, flash, the grouped GEMM and the SSD
    scan must all have launched;
-6. one JSON line describing the kernels (each kernel's launches by
+6. ``[explore]``, no timed run: the one-card analytic model
+   (``repro_torch.core.analytical.gpu_model``, the reference's TPU model
+   at one chip) at the shapes phases 3-5 ran: per model one line each
+   for the profiled prefill (B1 S1024), the profiled decode step (B 4,
+   KV 516) and the training run (its B, S 512 and layers, remat none,
+   M 1), ``predicted <ms> (<dominant>) device <ms> wall <ms>
+   device/predicted <x>`` (every wall unprofiled), and each training
+   run's predicted footprint against ``max_memory_allocated`` (reported,
+   no bar); asserted: every configuration run is predicted to fit the
+   card (zamba2-2.7b's K/V, which the footprint leaves out for the
+   hybrid family as the reference does, added and printed), mixtral-8x22b's
+   prefill and 24-layer qwen2-moe training are predicted not to;
+   ``explore_gpu`` at train_4k for the four models equals an exhaustive
+   pass over its 14 points (qwen2-moe infeasible); paradigm 3
+   (``explore_fpga``) reaches 0.99 of the better of paradigms 1 and 2 on
+   vgg16 at KU115; the DSE's int8 proxy printed beside the bf16-vs-int8
+   KV ``logit_parity`` measured for minicpm-2b and zamba2-2.7b;
+7. one JSON line describing the kernels (each kernel's launches by
    path: serve, tune and train), the card's name and power limit, and
    last the JSON result line.
 
@@ -1185,7 +1202,8 @@ def device_profile(label, step, steps=5, focus=()):
     """Wall time of ``steps`` calls of ``step`` against the device time
     of the kernels they run (torch.profiler); prints the top kernels and,
     for each name in ``focus``, the device time and launches per step of
-    the kernels whose name holds it, with their share of the busy time."""
+    the kernels whose name holds it, with their share of the busy time.
+    Returns the wall and device-busy ms of one call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1217,6 +1235,12 @@ def device_profile(label, step, steps=5, focus=()):
         print(f"[profile]   {name}: {ms:.3f} ms/step, "
               f"{sum(r[1] for r in mine):.0f} launches/step, "
               f"{ms / busy:.1%} of device busy")
+    return {"wall_ms": wall_ms, "device_ms": busy}
+
+
+#: Unprofiled decode steps timed for ``[explore]``'s wall: the profiler's
+#: CPU-side recording about doubles a decode step's wall.
+DECODE_WALL_STEPS = 5
 
 
 def profile_model(label, cfg, params, rt, prefill_focus=(),
@@ -1225,7 +1249,9 @@ def profile_model(label, cfg, params, rt, prefill_focus=(),
     the device profile of a full-width contiguous decode step, 4 slots
     at positions 512-516, with the shares of the kernels named in
     ``prefill_focus`` and ``decode_focus`` (device_profile). Returns the
-    4 prompts and their next tokens."""
+    4 prompts, their next tokens and the measurements ``[explore]`` reads:
+    per phase, the unprofiled wall ms and the device-busy ms of one
+    call."""
     import torch
     from repro_torch.models import decode_step, prefill
 
@@ -1239,34 +1265,50 @@ def profile_model(label, cfg, params, rt, prefill_focus=(),
         t0 = time.perf_counter()
         prefill(params, cfg, {"tokens": toks}, 1024, rt)
         torch.cuda.synchronize()
-        print(f"[profile] {label} prefill B1 S1024: "
-              f"{(time.perf_counter() - t0) * 1e3:.2f} ms wall")
-        device_profile(f"{label} prefill B1 S1024", lambda: prefill(
-            params, cfg, {"tokens": toks}, 1024, rt), steps=3,
-            focus=prefill_focus)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        print(f"[profile] {label} prefill B1 S1024: {wall_ms:.2f} ms wall")
+        measured = {"prefill": dict(device_profile(
+            f"{label} prefill B1 S1024", lambda: prefill(
+                params, cfg, {"tokens": toks}, 1024, rt), steps=3,
+            focus=prefill_focus), wall_ms=wall_ms)}
         toks = torch.randint(0, cfg.vocab_size, (4, 512), generator=gen,
                              device=dev)
         nxt = toks[:, -1]
         cache, _ = prefill(params, cfg, {"tokens": toks}, 1024, rt)
-        device_profile(f"{label} decode step B4 at pos 512-516, contiguous "
-                       f"bf16", lambda: decode_step(params, cfg, cache, nxt,
-                                                    rt),
-                       focus=decode_focus)
-    return toks, nxt
+
+        def step():
+            decode_step(params, cfg, cache, nxt, rt)
+
+        pos0 = cache["pos"].clone()       # the step advances it in place
+        step()                                                # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DECODE_WALL_STEPS):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / DECODE_WALL_STEPS
+        cache["pos"].copy_(pos0)          # the profile runs at 512-516 too
+        what = f"{label} decode step B4 at pos 512-516, contiguous bf16"
+        print(f"[profile] {what}: {wall_ms:.2f} ms wall, unprofiled "
+              f"({DECODE_WALL_STEPS} steps)")
+        measured["decode"] = dict(device_profile(what, step,
+                                                 focus=decode_focus),
+                                  wall_ms=wall_ms)
+    return toks, nxt, measured
 
 
 def profile_phase(cfg, params, rt):
     """Where a full-width minicpm-2b decode step's time goes, contiguous
     bf16 and paged int8 (4 slots at positions 512-516), plus one
-    1024-token prefill."""
+    1024-token prefill. Returns profile_model's measurements."""
     import dataclasses
     import torch
     from repro_torch.models import (decode_step_paged, init_paged_cache,
                                     prefill, write_prefill_pages_quant)
 
     dev = torch.device("cuda")
-    toks, nxt = profile_model(cfg.name, cfg, params, rt,
-                              decode_focus=(BF16_KERNEL,))
+    toks, nxt, measured = profile_model(cfg.name, cfg, params, rt,
+                                        decode_focus=(BF16_KERNEL,))
     with torch.no_grad():
         # paged int8: each slot's 64 pages, rows written through its table
         rt8 = dataclasses.replace(rt, kv_dtype="int8")
@@ -1287,11 +1329,17 @@ def profile_phase(cfg, params, rt):
                            params, cfg, cache, nxt, rt8,
                            page_size=PAGE_SIZE, window=1024),
                        focus=(INT8_KERNEL,))
+    return measured
 
 
 # ===========================================================================
 # Phase 4: logit parity, cuda vs torch policy
 # ===========================================================================
+#: The logit_parity run whose max_logit_dev ``[explore]`` prints beside
+#: the DSE's int8 accuracy proxy.
+INT8_KV_LABEL = "bf16 KV vs int8 KV, cuda policy"
+
+
 def parity_inputs(cfg, seed, lengths=(300, 177), steps=8):
     """Two 300-token prompts (real lengths ``lengths``, or exact when
     None) and ``steps`` teacher-forced tokens per sequence."""
@@ -1421,7 +1469,8 @@ def hybrid_parity(cfg, params):
     policy within QUANT_PARITY_TOL. bf16 vs int8 KV is reported under
     both policies, not asserted: 54 random-weight Mamba-2 layers carry
     int8 rounding past the bar in the plain versions too
-    (``repro_torch.bench.logit_sensitivity``)."""
+    (``repro_torch.bench.logit_sensitivity``). Returns bf16 vs int8 KV's
+    max_logit_dev under the cuda policy."""
     import dataclasses
     from repro_torch.kernels.dispatch import KernelPolicy
     from repro_torch.kernels.quant import QUANT_PARITY_TOL
@@ -1438,24 +1487,28 @@ def hybrid_parity(cfg, params):
     for label, ref, test, asserted in (
             ("int8 KV, torch vs cuda policy",
              dataclasses.replace(rt8, kernels=torch_pol), rt8, True),
-            ("bf16 KV vs int8 KV, cuda policy", rt, rt8, False),
+            (INT8_KV_LABEL, rt, rt8, False),
             ("bf16 KV vs int8 KV, torch policy",
              dataclasses.replace(rt, kernels=torch_pol),
              dataclasses.replace(rt8, kernels=torch_pol), False)):
         report = logit_parity(params, cfg, prompts, rt_ref=ref, rt_test=test,
                               max_new_tokens=8, max_len=1024)
+        if label == INT8_KV_LABEL:
+            int8_dev = report.max_logit_dev
         print(f"[parity] {cfg.name} logit_parity {label}, prompts S300 "
               f"(exact){'' if asserted else ' (reported)'}: "
               f"{json.dumps(report.to_json())}")
         check(not asserted or report.max_logit_dev <= QUANT_PARITY_TOL,
               f"{cfg.name} {label}: max_logit_dev {report.max_logit_dev} > "
               f"{QUANT_PARITY_TOL}")
+    return int8_dev
 
 
 def parity_phase(cfg, params):
     """minicpm-2b: cuda vs torch teacher-forced logits, then the port's
     ``logit_parity`` for bf16 vs int8 KV and for int8 KV under both
-    policies, on the same prompts."""
+    policies, on the same prompts. Returns bf16 vs int8 KV's
+    max_logit_dev."""
     import dataclasses
     from repro_torch.kernels.dispatch import KernelPolicy
     from repro_torch.kernels.quant import QUANT_PARITY_TOL
@@ -1474,7 +1527,7 @@ def parity_phase(cfg, params):
     rt = ModelRuntime()
     rt8 = dataclasses.replace(rt, kv_dtype="int8")
     for label, ref, test in (
-            ("bf16 KV vs int8 KV, cuda policy", rt, rt8),
+            (INT8_KV_LABEL, rt, rt8),
             ("int8 KV, torch vs cuda policy",
              dataclasses.replace(rt8, kernels=KernelPolicy.torch()), rt8)):
         report = logit_parity(params, cfg, prompts, rt_ref=ref,
@@ -1484,6 +1537,9 @@ def parity_phase(cfg, params):
         check(report.max_logit_dev <= QUANT_PARITY_TOL,
               f"{label}: max_logit_dev {report.max_logit_dev} > "
               f"{QUANT_PARITY_TOL}")
+        if label == INT8_KV_LABEL:
+            int8_dev = report.max_logit_dev
+    return int8_dev
 
 
 # ===========================================================================
@@ -1596,7 +1652,8 @@ def train_steps(label, cfg, params, counters, expect, steps, batch=TRAIN_B,
     torch policy's on the same batch. Prints the losses, the median step
     time over steps 1.. (host clock, synchronised), tokens/s, MFU against
     the H100's bf16 dense peak, the peak memory and the launches. Returns
-    (the launches, the state, the step function, a batch)."""
+    (the launches, the state, the step function, a batch, the median
+    step ms, the peak GiB)."""
     import dataclasses
     import torch
     from repro_torch.data import SyntheticLMData
@@ -1653,7 +1710,7 @@ def train_steps(label, cfg, params, counters, expect, steps, batch=TRAIN_B,
           f"launches { {k: v for k, v in launches.items() if v} }")
     check(d0 <= TRAIN_BF16_LOSS_TOL, f"{label}: bf16 step-0 loss "
           f"{losses[0]} vs torch policy {ref_loss}")
-    return launches, state, step_fn, batches[0]
+    return launches, state, step_fn, batches[0], step_ms, peak
 
 
 def train_phase(counters):
@@ -1661,8 +1718,10 @@ def train_phase(counters):
     and five bf16 AdamW steps with a profile of one, then qwen2-moe at 2
     layers (dropless: the sort-once grouped GEMMs under autograd), mamba2
     and zamba2 (its steps at B ``HYBRID_TRAIN_B``), each a gradient check
-    and two steps. Returns the launches of every cuda-policy run,
-    summed."""
+    and two steps. Returns the launches of every cuda-policy run, summed,
+    and per model the measurements ``[explore]`` reads: its config, bf16
+    batch, median step ms, peak GiB and (minicpm-2b) the device-busy ms
+    of the profiled step."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
@@ -1670,7 +1729,7 @@ def train_phase(counters):
     from repro_torch.tree import tree_leaves
 
     t_phase = time.perf_counter()
-    totals = []
+    totals, runs = [], []
     for name, layers, expect, steps, b, rt_kw in (
             ("minicpm-2b", None, {"rmsnorm", "flash_attention"}, 5, TRAIN_B,
              {}),
@@ -1697,27 +1756,169 @@ def train_phase(counters):
                                  **rt_kw))
         gc.collect()
         torch.cuda.empty_cache()
-        launches, state, step_fn, batch = train_steps(
+        launches, state, step_fn, batch, step_ms, peak = train_steps(
             label, cfg, params, counters, expect, steps, batch=b, **rt_kw)
         totals.append(launches)
+        run = dict(name=name, cfg=cfg, batch=b, wall_ms=step_ms,
+                   peak_gib=peak, device_ms=None)
         if name == "minicpm-2b":          # profile one step of the dense model
             holder = [state]
 
             def one_step():
                 holder[0], _ = step_fn(holder[0], batch)
 
-            device_profile(f"{label} bf16 train step B{TRAIN_B} "
-                           f"S{TRAIN_S}", one_step, steps=1,
-                           focus=("flash_fwd", "rmsnorm", "nvjet",
-                                  "elementwise", "reduce_kernel"))
+            run["device_ms"] = device_profile(
+                f"{label} bf16 train step B{TRAIN_B} S{TRAIN_S}", one_step,
+                steps=1, focus=("flash_fwd", "rmsnorm", "nvjet",
+                                "elementwise", "reduce_kernel"))["device_ms"]
             del holder
+        runs.append(run)
         del params, state, step_fn, batch
     train = {name: sum(t[name] for t in totals) for name in counters}
     for name in ("rmsnorm", "flash_attention", "moe_gemm", "ssd_scan"):
         check(train[name] > 0, f"train path: {name} never launched")
     print(f"[train] launches over all training runs: {train}; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
-    return train
+    return train, runs
+
+
+# ===========================================================================
+# Phase 6: the one-card model against the card; the paper's flow
+# ===========================================================================
+#: The one-card model's verdicts are exact to 1e-12 against an
+#: exhaustive pass (tests/test_torch_gpu_model.py holds them against the
+#: reference's TPU model at one chip).
+DSE_RTOL = 1e-12
+#: Paradigm 3 contains paradigms 1 and 2 as corner points; its seeded
+#: search must reach this share of the better one (the reference's bar,
+#: tests/test_dse.py).
+PARADIGM3_SHARE = 0.99
+
+
+def explore_phase(served, runs, int8_devs):
+    """No timed run: the one-card analytic model (``gpu_model``) at the
+    shapes phases 3-5 ran, beside what they measured; its feasibility
+    verdicts (every configuration run fits one card, mixtral-8x22b's
+    prefill and 24-layer qwen2-moe training do not); ``explore_gpu`` at
+    train_4k against an exhaustive pass over its 14 points; the paper's
+    paradigms 1-3 on vgg16 at KU115; the DSE's int8 accuracy proxy
+    beside the measured bf16-vs-int8 KV logit deviations."""
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.analytical import (INT8_LOGIT_DEV_PROXY,
+                                             DesignPoint, GPUModel, GPUPlan,
+                                             hbm_footprint)
+    from repro_torch.core.analytical.gpu_model import analyze
+    from repro_torch.core.dse import (benchmark_paradigm, explore_fpga,
+                                      explore_gpu)
+    from repro_torch.core.hardware import KU115
+    from repro_torch.core.workload import cnn_workload
+    from repro_torch.models.model import cache_spec
+
+    t0 = time.perf_counter()
+    # profile_model's calls: B1 S1024; 4 slots against 516 cached rows
+    shapes = {"prefill": ShapeConfig("prefill_b1_s1024", 1024, 1, "prefill"),
+              "decode": ShapeConfig("decode_b4_kv516", 516, 4, "decode",
+                                    kv_len=516)}
+    infer, train = GPUPlan(), GPUPlan(microbatches=1, remat="none")
+
+    def line(label, phase, ana, device_ms, wall_ms):
+        pred = ana.step_s * 1e3
+        dev = "n/a" if device_ms is None else f"{device_ms:.3f}"
+        ratio = "n/a" if device_ms is None else f"{device_ms / pred:.2f}x"
+        print(f"[explore] {label} {phase} predicted {pred:.3f} ms "
+              f"({ana.dominant[:-2]}) device {dev} ms wall {wall_ms:.2f} ms "
+              f"device/predicted {ratio} wall/predicted "
+              f"{wall_ms / pred:.2f}x")
+
+    for name, measured in served.items():
+        cfg = get_arch(name)
+        for phase, shape in shapes.items():
+            foot = hbm_footprint(cfg, shape, infer)
+            total = foot["total"]
+            if cfg.family == "hybrid":
+                # hbm_footprint prices K/V only for dense, moe and vlm
+                # (the reference's gap, ROADMAP.md Queue 3): add the
+                # attention groups' cache as the port lays it out
+                spec = cache_spec(cfg, shape.global_batch, shape.seq_len)
+                kv = sum(math.prod(spec[k][0]) * spec[k][1].itemsize
+                         for k in ("k", "v"))
+                total += kv
+                print(f"[explore] {name} {phase}: hbm_footprint prices no "
+                      f"K/V for the hybrid family; its {spec['k'][0][0]} "
+                      f"attention groups' bf16 K/V add {kv / 1e9:.3f} GB, "
+                      f"counted in this fit check ({total / 1e9:.2f} GB)")
+            check(total <= H100_SXM.hbm_bytes, f"{name} {phase} predicted "
+                  f"not to fit: {total / 1e9:.1f} GB")
+            line(name, phase, analyze(cfg, shape, infer),
+                 measured[phase]["device_ms"], measured[phase]["wall_ms"])
+    for run in runs:
+        cfg = run["cfg"]
+        shape = ShapeConfig(f"train_b{run['batch']}_s{TRAIN_S}", TRAIN_S,
+                            run["batch"], "train")
+        foot = hbm_footprint(cfg, shape, train)
+        label = f"{run['name']} ({cfg.n_layers} layers) B{run['batch']}"
+        check(foot["fits"], f"{label} train predicted not to fit: "
+              f"{foot['total'] / 1e9:.1f} GB")
+        line(label, "train", analyze(cfg, shape, train), run["device_ms"],
+             run["wall_ms"])
+        pred_gib = foot["total"] / 2 ** 30
+        print(f"[explore] {label} train footprint predicted {pred_gib:.2f} "
+              f"GiB, measured peak {run['peak_gib']:.2f} GiB "
+              f"(max_memory_allocated), measured/predicted "
+              f"{run['peak_gib'] / pred_gib:.2f}x")
+
+    mixtral = hbm_footprint(get_arch("mixtral-8x22b"), shapes["prefill"],
+                            infer)
+    moe24 = hbm_footprint(get_arch("qwen2-moe-a2.7b"), ShapeConfig(
+        f"train_b{TRAIN_B}_s{TRAIN_S}", TRAIN_S, TRAIN_B, "train"), train)
+    check(not mixtral["fits"], "mixtral-8x22b prefill predicted to fit")
+    check(not moe24["fits"], "24-layer qwen2-moe training predicted to fit")
+    print(f"[explore] predicted not to fit one card "
+          f"({H100_SXM.hbm_bytes / 1e9:.0f} GB): mixtral-8x22b prefill B1 "
+          f"S1024 {mixtral['total'] / 1e9:.1f} GB; qwen2-moe-a2.7b train, "
+          f"24 layers, B{TRAIN_B} S{TRAIN_S} {moe24['total'] / 1e9:.2f} GB")
+
+    shape = SHAPES["train_4k"]
+    for name in served:
+        cfg = get_arch(name)
+        res = explore_gpu(cfg, shape)
+        model = GPUModel(cfg, shape)
+        evals = [model.evaluate(DesignPoint.make(log2_m=m, quant=q))
+                 for m in range(7) for q in (0, 1)]
+        best = max([r.efficiency for r in evals if r.feasible] or [0.0])
+        check(math.isclose(res.best_fitness, best, rel_tol=DSE_RTOL)
+              or res.best_fitness == best == 0.0,
+              f"explore_gpu {name}: {res.best_fitness} vs exhaustive {best}")
+        if best > 0:
+            quant = res.search.best_point["quant"] >= 0.5
+            print(f"[explore] explore_gpu {name} train_4k: best M "
+                  f"{res.best_plan.microbatches}, "
+                  f"{'int8' if quant else 'bf16'}, fitness "
+                  f"{res.best_fitness:.4f} (roofline fraction) = exhaustive "
+                  f"best of 14; front {len(res.pareto)} points, "
+                  f"{res.search.unique_evaluations} evaluations")
+        else:
+            print(f"[explore] explore_gpu {name} train_4k: infeasible on "
+                  f"one card ({res.search.best_result.reason}); fitness 0 "
+                  f"= exhaustive best of 14")
+
+    vgg = cnn_workload("vgg16")
+    p1 = benchmark_paradigm(vgg, KU115, 1, batch=1).gops
+    p2 = benchmark_paradigm(vgg, KU115, 2, batch=1).gops
+    res = explore_fpga(vgg, KU115, batch=1, fix_batch=True, n_particles=12,
+                       n_iters=10)
+    p3 = res.best_design.gops()
+    check(p3 >= PARADIGM3_SHARE * max(p1, p2),
+          f"paradigm 3 {p3} GOP/s < {PARADIGM3_SHARE} x max({p1}, {p2})")
+    print(f"[explore] vgg16 on KU115, batch 1, analytical GOP/s: paradigm 1 "
+          f"{p1:.2f}, paradigm 2 {p2:.2f}, paradigm 3 (explore_fpga, split "
+          f"{res.best_design.sp}) {p3:.2f} >= {PARADIGM3_SHARE} x "
+          f"{max(p1, p2):.2f}")
+    print(f"[explore] INT8_LOGIT_DEV_PROXY {INT8_LOGIT_DEV_PROXY} (the DSE's "
+          f"int8 charge) vs measured bf16-vs-int8 KV max_logit_dev: "
+          + ", ".join(f"{n} {d:.4f}" for n, d in int8_devs.items()))
+    print(f"[explore] phase {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -1791,9 +1992,9 @@ def main() -> int:
           f"{cfg.param_count() / 1e9:.3f} B params in bf16, seeded init "
           f"{time.perf_counter() - t0:.1f} s")
     totals = [serve_phase(cfg, params, counters, rt)]
-    profile_phase(cfg, params, rt)
+    served_measured = {cfg.name: profile_phase(cfg, params, rt)}
     # --- phase 4 ---------------------------------------------------------
-    parity_phase(cfg, params)
+    int8_devs = {cfg.name: parity_phase(cfg, params)}
     del params
 
     # --- phases 3 and 4: qwen2-moe-a2.7b, mamba2-1.3b, zamba2-2.7b --------
@@ -1819,19 +2020,25 @@ def main() -> int:
                  "ssm": (SSD_KERNELS + ("ssd_",), ()),
                  "hybrid": (SSD_KERNELS + ("ssd_", "flash_fwd"),
                             (BF16_KERNEL,))}[mcfg.family]
-        profile_model(mcfg.name, mcfg, params, mrt, prefill_focus=focus[0],
-                      decode_focus=focus[1])
-        {"moe": moe_parity, "ssm": ssm_parity,
-         "hybrid": hybrid_parity}[mcfg.family](mcfg, params)
+        _, _, served_measured[mcfg.name] = profile_model(
+            mcfg.name, mcfg, params, mrt, prefill_focus=focus[0],
+            decode_focus=focus[1])
+        int8_dev = {"moe": moe_parity, "ssm": ssm_parity,
+                    "hybrid": hybrid_parity}[mcfg.family](mcfg, params)
+        if int8_dev is not None:
+            int8_devs[mcfg.name] = int8_dev
         del params
     served = {name: sum(t[name] for t in totals) for name in counters}
     print(f"[serve] launches over all serving runs: {served}")
     del totals
 
     # --- phase 5 ---------------------------------------------------------
-    trained = train_phase(counters)
+    trained, train_runs = train_phase(counters)
 
     # --- phase 6 ---------------------------------------------------------
+    explore_phase(served_measured, train_runs, int8_devs)
+
+    # --- phase 7 ---------------------------------------------------------
     kernels = []
     for name, e in entries.items():
         e = dict(e, ok=True,

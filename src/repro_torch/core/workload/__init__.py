@@ -1,16 +1,34 @@
-"""The Workload IR and the analytic LM front-end (the port's copy of
-``repro.core.workload``, without the CNN and JAX-trace front-ends)."""
+"""The Workload IR and its front-ends (the port's copy of
+``repro.core.workload``): the IR, the CNN zoo, the analytic LM profile
+and the registry behind ``python -m repro_torch.workloads``. The JAX
+trace front-end has no counterpart yet (ROADMAP.md, Queue 1 item 15)."""
 from repro_torch.core.workload.ir import (
     ACTIVATION_FLOP_KINDS,
     DTYPE_BYTES,
     OP_KINDS,
     WEIGHT_FLOP_KINDS,
+    ConvLayer,
     EmptyWorkloadError,
     Op,
     OpInfo,
     Workload,
     WorkloadError,
+    as_conv_layers,
     dtype_bytes,
+)
+from repro_torch.core.workload.cnn import (
+    CNN_ZOO,
+    INPUT_SIZE_CASES,
+    ZOO_DEFAULT_INPUT,
+    alexnet,
+    cnn_workload,
+    conv_case_workload,
+    resnet18,
+    resnet34,
+    vgg16_conv,
+    workload_from_conv_layers,
+    yolo_tiny,
+    zfnet,
 )
 from repro_torch.core.workload.lm import (
     lm_block_ops,
@@ -18,10 +36,28 @@ from repro_torch.core.workload.lm import (
     model_flops,
     profile_arch,
 )
+from repro_torch.core.workload.registry import (
+    get_workload,
+    list_workloads,
+    register_workload,
+    resolve_arch,
+    resolve_shape,
+)
 
 __all__ = [
-    "ACTIVATION_FLOP_KINDS", "DTYPE_BYTES", "OP_KINDS", "WEIGHT_FLOP_KINDS",
-    "EmptyWorkloadError", "Op", "OpInfo", "Workload", "WorkloadError",
-    "dtype_bytes", "lm_block_ops", "lm_workload", "model_flops",
-    "profile_arch",
+    # IR
+    "Op", "OpInfo", "Workload", "ConvLayer",
+    "WorkloadError", "EmptyWorkloadError",
+    "OP_KINDS", "WEIGHT_FLOP_KINDS", "ACTIVATION_FLOP_KINDS",
+    "DTYPE_BYTES", "dtype_bytes",
+    "as_conv_layers",
+    # CNN front-end
+    "CNN_ZOO", "ZOO_DEFAULT_INPUT", "INPUT_SIZE_CASES",
+    "vgg16_conv", "alexnet", "zfnet", "yolo_tiny", "resnet18", "resnet34",
+    "cnn_workload", "conv_case_workload", "workload_from_conv_layers",
+    # LM front-end
+    "lm_block_ops", "profile_arch", "model_flops", "lm_workload",
+    # registry
+    "get_workload", "list_workloads", "register_workload",
+    "resolve_arch", "resolve_shape",
 ]
