@@ -80,6 +80,20 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    qwen2-moe asserted in f32 at 4 layers and reported in bf16 at full
    depth (logits, argmax and routing agreement); mamba2's prefill profile
    shows each of the SSD scan's three kernels and their share;
+
+   after each model's profile, ``[trace]``: the trace front-end
+   (``repro_torch.core.workload.torch_trace``) at the profiled prefill
+   (B1 S1024) and decode step (B 4, KV 516). The trace of the call on
+   the card (the served runtime, ``cuda`` policy, launch counts set to 0
+   first; the model's kernels must launch, no other path's) must equal
+   the abstract trace on ``meta`` (``torch`` policy) op for op: kind, K,
+   N, count, FLOPs, weight bytes. Each line, ``[trace] <arch>/<prefill|
+   decode> ops <n> matmul <r> activation <r> weight-bytes <r>
+   predicted(traced) <ms> predicted(analytic) <ms> device <ms>``, gives
+   ``diff_workloads`` against the analytic profile (the weight-matmul
+   ratio asserted within 0.05) and the one-card model's prediction on
+   the traced and on the analytic workload beside the device time the
+   profile measured; the phase prints its own time;
 5. training (``[train]``), with the card emptied first: full-width
    minicpm-2b (40 layers, f32 master weights), one f32 loss and gradient
    at B 2, S 512 under the ``cuda`` and the ``torch`` policy (TF32 off,
@@ -115,7 +129,7 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    vgg16 at KU115; the DSE's int8 proxy printed beside the bf16-vs-int8
    KV ``logit_parity`` measured for minicpm-2b and zamba2-2.7b;
 7. one JSON line describing the kernels (each kernel's launches by
-   path: serve, tune and train), the card's name and power limit, and
+   path: serve, tune, train and trace), the card's name and power limit, and
    last the JSON result line.
 
 It exits non-zero without printing a result when no CUDA device is
@@ -1332,6 +1346,104 @@ def profile_phase(cfg, params, rt):
     return measured
 
 
+def served_shapes():
+    """The cells ``profile_model`` runs, as the one-card model and the
+    trace front-end name them: one 1024-token prefill, and a decode step
+    of 4 slots against 516 cached rows."""
+    from repro_torch.configs.base import ShapeConfig
+    return {"prefill": ShapeConfig("prefill_b1_s1024", 1024, 1, "prefill"),
+            "decode": ShapeConfig("decode_b4_kv516", 516, 4, "decode",
+                                  kv_len=516)}
+
+
+# ===========================================================================
+# Phase 3c: the trace front-end on the card
+# ===========================================================================
+#: Traced against analytic weight-matmul FLOPs: the reference's ``diff``
+#: bar (``--tol``).
+TRACE_MATMUL_TOL = 0.05
+
+
+def trace_keys(wl):
+    """What two traces must agree on, op for op: kind, name (K, N and
+    count), FLOPs and weight bytes."""
+    return [(o.kind, o.name, o.flops, o.weight_bytes) for o in wl.ops]
+
+
+def trace_phase(cfg, params, rt, counters, measured):
+    """``[trace]``: the trace front-end (``core.workload.torch_trace``) at
+    the cells of :func:`served_shapes`. For each: the trace of the call
+    on the card (these weights, ``rt`` as served: the ``cuda`` policy,
+    every launch count set to 0 first; the model's kernels must launch
+    and no other path's) must equal the abstract trace (``meta``, the
+    same runtime under the ``torch`` policy) op for op; its weight-matmul
+    FLOPs must be within ``TRACE_MATMUL_TOL`` of the analytic profile's
+    (qwen2-moe is served dropless: its grouped GEMMs run the K T routed
+    rows the profile counts); the one-card model's prediction on the
+    traced workload is printed beside the analytic profile's and the
+    device time ``profile_model`` measured (ms). Returns the launch
+    counts and the seconds taken."""
+    import dataclasses
+    import torch
+    from repro_torch.core.analytical import DesignPoint, GPUModel
+    from repro_torch.core.workload import (diff_workloads, lm_workload,
+                                           trace_workload)
+    from repro_torch.kernels.dispatch import TORCH_POLICY
+
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(counters, 0)
+    point = DesignPoint.make(log2_m=0, quant=0)
+    for phase, shape in served_shapes().items():
+        label = f"{cfg.name}/{phase}"
+        expect = {"rmsnorm"}
+        if cfg.family != "ssm":
+            expect.add("flash_attention" if phase == "prefill"
+                       else "decode_attention")
+        if cfg.family == "moe":
+            expect.add("moe_gemm")
+        if cfg.family in ("ssm", "hybrid") and phase == "prefill":
+            expect.add("ssd_scan")
+        for fn in counters.values():
+            fn.launches = 0
+        card = trace_workload(cfg, shape, rt=rt, params=params)
+        torch.cuda.synchronize()
+        got = {name: fn.launches for name, fn in counters.items()}
+        for name, n in got.items():
+            check((n > 0) == (name in expect), f"[trace] {label}: kernel "
+                  f"{name} launched {n} times (expected: {sorted(expect)})")
+            launches[name] += n
+        abstract = trace_workload(
+            cfg, shape, rt=dataclasses.replace(rt, kernels=TORCH_POLICY))
+        check(abstract.meta["param_bytes"] == card.meta["param_bytes"],
+              f"[trace] {label}: parameter bytes differ")
+        check(trace_keys(card) == trace_keys(abstract),
+              f"[trace] {label}: the card trace {trace_keys(card)} differs "
+              f"from the abstract trace {trace_keys(abstract)}")
+        d = diff_workloads(lm_workload(cfg, shape), card)
+        check(abs(d["matmul_ratio"] - 1.0) <= TRACE_MATMUL_TOL,
+              f"[trace] {label}: matmul_ratio {d['matmul_ratio']}")
+        priced, terms = {}, []
+        for src, wl in (("traced", card), ("analytic", None)):
+            r = GPUModel(cfg, shape, workload=wl).evaluate(point)
+            check(r.feasible and r.latency_s > 0,
+                  f"[trace] {label}: {src} prediction {r}")
+            priced[src] = r.latency_s * 1e3
+            terms.append(f"{src} compute {r.detail.compute_s * 1e3:.3f} "
+                         f"memory {r.detail.memory_s * 1e3:.3f}")
+        print(f"[trace] {label} ops {len(card.ops)} matmul "
+              f"{d['matmul_ratio']:.4f} activation "
+              f"{d['activation_ratio']:.4f} weight-bytes "
+              f"{d['weight_bytes_ratio']:.4f} predicted(traced) "
+              f"{priced['traced']:.3f} predicted(analytic) "
+              f"{priced['analytic']:.3f} device "
+              f"{measured[phase]['device_ms']:.3f}")
+        print(f"[trace] {label}: card trace == abstract trace, "
+              f"{len(card.ops)} ops ({card.meta['trace_eqns']} aten ops "
+              f"on the card, {abstract.meta['trace_eqns']} on meta); "
+              f"terms (ms) {'; '.join(terms)}; launches {got}")
+    return launches, time.perf_counter() - t0
+
+
 # ===========================================================================
 # Phase 4: logit parity, cuda vs torch policy
 # ===========================================================================
@@ -1816,10 +1928,7 @@ def explore_phase(served, runs, int8_devs):
     from repro_torch.models.model import cache_spec
 
     t0 = time.perf_counter()
-    # profile_model's calls: B1 S1024; 4 slots against 516 cached rows
-    shapes = {"prefill": ShapeConfig("prefill_b1_s1024", 1024, 1, "prefill"),
-              "decode": ShapeConfig("decode_b4_kv516", 516, 4, "decode",
-                                    kv_len=516)}
+    shapes = served_shapes()
     infer, train = GPUPlan(), GPUPlan(microbatches=1, remat="none")
 
     def line(label, phase, ana, device_ms, wall_ms):
@@ -1993,6 +2102,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     totals = [serve_phase(cfg, params, counters, rt)]
     served_measured = {cfg.name: profile_phase(cfg, params, rt)}
+    traced, t_trace = trace_phase(cfg, params, rt, counters,
+                                  served_measured[cfg.name])
     # --- phase 4 ---------------------------------------------------------
     int8_devs = {cfg.name: parity_phase(cfg, params)}
     del params
@@ -2023,6 +2134,10 @@ def main() -> int:
         _, _, served_measured[mcfg.name] = profile_model(
             mcfg.name, mcfg, params, mrt, prefill_focus=focus[0],
             decode_focus=focus[1])
+        got, dt = trace_phase(mcfg, params, mrt, counters,
+                              served_measured[mcfg.name])
+        traced = {name: traced[name] + got[name] for name in counters}
+        t_trace += dt
         int8_dev = {"moe": moe_parity, "ssm": ssm_parity,
                     "hybrid": hybrid_parity}[mcfg.family](mcfg, params)
         if int8_dev is not None:
@@ -2030,6 +2145,8 @@ def main() -> int:
         del params
     served = {name: sum(t[name] for t in totals) for name in counters}
     print(f"[serve] launches over all serving runs: {served}")
+    print(f"[trace] phase {t_trace:.1f} s (4 models x prefill and decode, "
+          f"each traced on the card and on meta); launches {traced}")
     del totals
 
     # --- phase 5 ---------------------------------------------------------
@@ -2042,10 +2159,12 @@ def main() -> int:
     kernels = []
     for name, e in entries.items():
         e = dict(e, ok=True,
-                 launches=served[name] + tuned[name] + trained[name],
+                 launches=(served[name] + tuned[name] + trained[name]
+                           + traced[name]),
                  launches_by_path={"serve": served[name],
                                    "tune": tuned[name],
-                                   "train": trained[name]})
+                                   "train": trained[name],
+                                   "trace": traced[name]})
         e.pop("shape")
         for t in (e, *(e[k] for k in SUB_ENTRIES if k in e)):
             for key in ("ms", "plain_ms", "bound_ms", "library_ms"):

@@ -174,12 +174,22 @@ class GPUModel:
     name = "h100"
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig,
-                 chip: GPUSpec = H100_SXM):
+                 chip: GPUSpec = H100_SXM,
+                 workload: Optional[Workload] = None,
+                 quant_workload: Optional[Workload] = None):
         self.cfg = cfg
         self.shape = shape
-        self.workload = lm_workload(cfg, shape)
-        self.quant_workload = lm_workload(cfg, shape, weight_dtype="int8",
-                                          kv_dtype="int8")
+        # default: the analytic LM front-end; pass a traced workload
+        # (trace_workload(cfg, shape)) to price the port's own op profile
+        self.workload = workload if workload is not None \
+            else lm_workload(cfg, shape)
+        # the int8 twin of the same profile (halved weight/KV traffic,
+        # identical flops) — evaluated when a point sets quant >= 0.5.
+        # A traced workload without an explicit quant twin falls back to
+        # the analytic int8 profile of the same (cfg, shape).
+        self.quant_workload = quant_workload if quant_workload is not None \
+            else lm_workload(cfg, shape, weight_dtype="int8",
+                             kv_dtype="int8")
         self.chip = chip
         self._model_flops = self.workload.model_flops()
 

@@ -59,10 +59,17 @@ def explore_gpu(cfg: ModelConfig, shape: ShapeConfig,
                 n_particles: int = 16, n_iters: int = 16, seed: int = 0,
                 chip: GPUSpec = H100_SXM,
                 strategy: Union[str, SearchStrategy] = "pso",
+                workload=None,
                 ) -> GPUExploreResult:
     """Search one card's plans for one (arch x shape) cell, scored on the
-    analytic LM profile of ``cfg`` at ``shape``."""
-    model = GPUModel(cfg, shape, chip=chip)
+    analytic LM profile of ``cfg`` at ``shape``.
+
+    ``workload`` overrides the op profile the model scores — pass a
+    traced :class:`~repro_torch.core.workload.Workload`
+    (``trace_workload(cfg, shape)``) to explore against the port's
+    executed ops instead of the analytic LM profile.
+    """
+    model = GPUModel(cfg, shape, chip=chip, workload=workload)
     space = gpu_design_space()
     # the reference's warm-start microbatch ladder, in both precisions
     seeds = [space.from_dict(dict(log2_m=m, quant=q))

@@ -1,7 +1,8 @@
 """The Workload IR and its front-ends (the port's copy of
-``repro.core.workload``): the IR, the CNN zoo, the analytic LM profile
-and the registry behind ``python -m repro_torch.workloads``. The JAX
-trace front-end has no counterpart yet (ROADMAP.md, Queue 1 item 15)."""
+``repro.core.workload``): the IR, the CNN zoo, the analytic LM profile,
+the trace front-end (the port's own model traced into the IR, the
+counterpart of the reference's JAX trace) and the registry behind
+``python -m repro_torch.workloads``."""
 from repro_torch.core.workload.ir import (
     ACTIVATION_FLOP_KINDS,
     DTYPE_BYTES,
@@ -36,6 +37,10 @@ from repro_torch.core.workload.lm import (
     model_flops,
     profile_arch,
 )
+from repro_torch.core.workload.torch_trace import (
+    diff_workloads,
+    trace_workload,
+)
 from repro_torch.core.workload.registry import (
     get_workload,
     list_workloads,
@@ -57,6 +62,8 @@ __all__ = [
     "cnn_workload", "conv_case_workload", "workload_from_conv_layers",
     # LM front-end
     "lm_block_ops", "profile_arch", "model_flops", "lm_workload",
+    # trace front-end
+    "trace_workload", "diff_workloads",
     # registry
     "get_workload", "list_workloads", "register_workload",
     "resolve_arch", "resolve_shape",

@@ -8,8 +8,8 @@ Three spec forms resolve through :func:`get_workload`:
 * ``"<arch>/<shape>"`` — the analytic LM front-end, e.g.
   ``"minicpm-2b/train_4k"`` (arch ids are normalized, so the
   underscore spelling ``minicpm_2b`` works too);
-* ``"trace:<arch>/<shape>"`` — a trace of the port's own model; not
-  ported yet, so it raises :class:`WorkloadError` (:data:`TRACE_PENDING`).
+* ``"trace:<arch>/<shape>"`` — the trace front-end on the same cell (a
+  trace of the port's own model, ``torch_trace``).
 
 The port's copy of the reference's ``repro.core.workload.registry``,
 over the port's ``ARCHS``/``SHAPES``. New front-ends register with :func:`register_workload` (a name + a
@@ -31,11 +31,6 @@ from repro_torch.core.workload.cnn import (
 from repro_torch.core.workload.lm import lm_workload
 
 _REGISTRY: Dict[str, Dict[str, Any]] = {}
-
-#: Why a ``trace:`` spec (and the CLI's ``diff``) is refused.
-TRACE_PENDING = (
-    "the trace front-end (a trace of the port's own model into the IR) "
-    "is not ported yet: ROADMAP.md, Queue 1 item 15, the rest of it")
 
 
 def register_workload(name: str, builder: Callable[..., Workload],
@@ -76,14 +71,21 @@ def get_workload(spec: str, **kwargs) -> Workload:
     if spec in _REGISTRY:
         return _REGISTRY[spec]["builder"](**kwargs)
     if spec.startswith("trace:"):
-        raise WorkloadError(f"{spec!r}: {TRACE_PENDING}")
+        from repro_torch.core.workload.torch_trace import trace_workload
+        body = spec[len("trace:"):]
+        if "/" not in body:
+            raise WorkloadError(
+                f"trace spec must be 'trace:<arch>/<shape>', got {spec!r}")
+        arch, shape = body.split("/", 1)
+        return trace_workload(resolve_arch(arch), resolve_shape(shape),
+                              **kwargs)
     if "/" in spec:
         arch, shape = spec.split("/", 1)
         return lm_workload(resolve_arch(arch), resolve_shape(shape),
                            **kwargs)
     raise WorkloadError(
         f"unknown workload {spec!r}; use one of {sorted(_REGISTRY)}, "
-        f"or '<arch>/<shape>' "
+        f"'<arch>/<shape>', or 'trace:<arch>/<shape>' "
         f"(see `python -m repro_torch.workloads list`)")
 
 
@@ -99,6 +101,9 @@ def list_workloads() -> List[Dict[str, str]]:
         for shape in sorted(SHAPES):
             rows.append({"name": f"{arch}/{shape}", "frontend": "lm",
                          "description": "analytic LM profile"})
+            rows.append({"name": f"trace:{arch}/{shape}",
+                         "frontend": "torch_trace",
+                         "description": "torch trace of the port's model"})
     return rows
 
 

@@ -20,11 +20,18 @@ non-``torch`` implementation runs inside a ``torch.autograd.Function``
 whose backward is the autograd of the op's ``torch`` implementation
 (kernel forward, reference backward), as the reference's
 ``_ref_backward`` does. Without one (serving) it is called directly.
+
+Every call through this seam (each :func:`dispatch`, and the fused
+calls of :func:`fused_call`) passes an installed observer
+(:func:`observe_kernels`) first: the trace front-end
+(``repro_torch.core.workload.torch_trace``) counts each kernel call
+there from its arguments' shapes, whatever the policy.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, replace
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -182,6 +189,40 @@ def ref_backward(fn: Callable, ref: Callable, *arrays: Any,
     return fn(*arrays, **kwargs)
 
 
+#: The installed kernel-call observer, or None (see :func:`observe_kernels`).
+_OBSERVER: Optional[Callable] = None
+
+
+@contextlib.contextmanager
+def observe_kernels(observer: Callable) -> Iterator[None]:
+    """Install ``observer`` for the block. Each kernel call then returns
+    ``observer(op, run, arrays, kwargs)`` in place of ``run()``, where
+    ``run`` makes the call as it stands (the policy's implementation on
+    the caller's arguments); the observer decides whether to call it."""
+    global _OBSERVER
+    prev, _OBSERVER = _OBSERVER, observer
+    try:
+        yield
+    finally:
+        _OBSERVER = prev
+
+
+def _observed(op: str, run: Callable[[], Any], arrays: Tuple,
+              kwargs: Dict[str, Any]) -> Any:
+    if _OBSERVER is None:
+        return run()
+    return _OBSERVER(op, run, arrays, kwargs)
+
+
+def fused_call(op: str, fn: Callable, ref: Callable, *arrays: Any,
+               **kwargs: Any) -> Any:
+    """A kernel entry that fuses several dispatch ops (``moe_gemm_glu``:
+    three ``moe_gemm``), named ``op`` for the observer and differentiated
+    as ``ref`` (:func:`ref_backward`)."""
+    return _observed(op, lambda: ref_backward(fn, ref, *arrays, **kwargs),
+                     arrays, kwargs)
+
+
 def dispatch(op: str, policy: Optional[KernelPolicy], *arrays: Any,
              **kwargs: Any) -> Any:
     """Route one hot-spot call through the policy's implementation.
@@ -202,8 +243,10 @@ def dispatch(op: str, policy: Optional[KernelPolicy], *arrays: Any,
                        f"registered: {sorted(table)}")
     merged = {**kwargs, **pol.params_for(op)}
     if impl == "torch":
-        return table[impl](*arrays, **merged)
-    return ref_backward(table[impl], table["torch"], *arrays, **merged)
+        return _observed(op, lambda: table[impl](*arrays, **merged),
+                         arrays, merged)
+    return _observed(op, lambda: ref_backward(
+        table[impl], table["torch"], *arrays, **merged), arrays, merged)
 
 
 # ===========================================================================

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.dispatch import (TORCH_POLICY, KernelPolicy,
-                                          dispatch, ref_backward,
+                                          dispatch, fused_call,
                                           resolve_policy)
 from repro_torch.kernels.moe_gemm import moe_gemm_glu
 from repro_torch.models.layers import ParamDef, swiglu
@@ -115,8 +115,8 @@ def _routed_grouped(p, xt: torch.Tensor, cfg: ModelConfig,
     eor = idx.reshape(T * K).to(torch.int32)                    # row -> expert
     wg, wi, wo = (p[n].to(xt.dtype) for n in ("wg", "wi", "wo"))
     if resolve_policy(policy).impl_for("moe_gemm") == "cuda":
-        y = ref_backward(moe_gemm_glu, _EXPERT_GLU_TORCH, x_rep, wg, wi, wo,
-                         eor, act=swiglu, n_experts=E)
+        y = fused_call("moe_gemm_glu", moe_gemm_glu, _EXPERT_GLU_TORCH,
+                       x_rep, wg, wi, wo, eor, act=swiglu, n_experts=E)
     else:
         y = _expert_glu(x_rep, wg, wi, wo, eor, act=swiglu, n_experts=E,
                         policy=policy)                          # (T*K, d)

@@ -6,8 +6,7 @@ of the Workload IR, the front-ends and the registry
 
 * ``list``: every registered workload and the parametric families;
 * ``show <spec>``: per-op table and totals for one workload;
-* ``diff``: the traced-vs-analytic cross-check; it waits for the trace
-  front-end (ROADMAP.md, Queue 1 item 15) and refuses until then.
+* ``diff``: the traced-vs-analytic cross-check.
 """
 from repro_torch.core.workload import (  # noqa: F401
     ConvLayer,
@@ -18,10 +17,12 @@ from repro_torch.core.workload import (  # noqa: F401
     WorkloadError,
     cnn_workload,
     conv_case_workload,
+    diff_workloads,
     get_workload,
     list_workloads,
     lm_workload,
     register_workload,
     resolve_arch,
     resolve_shape,
+    trace_workload,
 )

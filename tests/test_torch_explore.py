@@ -184,6 +184,10 @@ def test_registry_cnn_entries_match_reference():
                if r["frontend"] == "lm"]
     assert lm_rows == [f"{a}/{s}" for a in sorted(ARCHS)
                        for s in sorted(SHAPES)]
+    trace_rows = [r["name"] for r in wl.list_workloads()
+                  if r["frontend"] == "torch_trace"]
+    assert trace_rows == [f"trace:{a}/{s}" for a in sorted(ARCHS)
+                          for s in sorted(SHAPES)]
     for name in NETS:
         _same(wl.get_workload(name).ops, jwl.get_workload(name).ops)
     _same(wl.get_workload("conv_case", fmap=56, cin=64, k=3).ops,
@@ -199,8 +203,16 @@ def test_registry_resolution_and_refusals():
     for bad in ("nope", "nope/train_4k", "minicpm-2b/nope"):
         with pytest.raises(wl.WorkloadError):
             wl.get_workload(bad)
-    with pytest.raises(wl.WorkloadError, match="Queue 1 item 15"):
-        wl.get_workload("trace:minicpm-2b/train_4k")
+    traced = wl.get_workload("trace:minicpm_2b/train_4k")
+    assert traced.name == "trace:minicpm-2b/train_4k"
+    assert traced.frontend == "torch_trace"
+    assert traced.weight_flops() == pytest.approx(got.weight_flops(),
+                                                  rel=1e-9)
+    decode = wl.get_workload("trace:minicpm-2b/decode_32k", kv_len=4096)
+    assert decode.meta["kv_len"] == 4096 and decode.kind == "decode"
+    for bad in ("trace:minicpm-2b", "trace:nope/train_4k"):
+        with pytest.raises(wl.WorkloadError):
+            wl.get_workload(bad)
 
 
 def _cli(*args):
@@ -212,10 +224,13 @@ def _cli(*args):
 
 
 @pytest.mark.parametrize("args", [("list",), ("list", "--frontend", "cnn"),
+                                  ("list", "--frontend", "torch_trace"),
                                   ("show", "vgg16"),
                                   ("show", "resnet18", "--input-size", "384"),
                                   ("show", "minicpm-2b/decode_32k",
-                                   "--kv-len", "4096", "--limit", "0")])
+                                   "--kv-len", "4096", "--limit", "0"),
+                                  ("show", "trace:mamba2-1.3b/decode_32k",
+                                   "--kv-len", "4096")])
 def test_cli_list_and_show(args):
     out = _cli(*args)
     assert out.returncode == 0, out.stderr
@@ -223,10 +238,26 @@ def test_cli_list_and_show(args):
 
 
 def test_cli_refuses_diff_and_bad_flags():
-    out = _cli("diff", "--model", "minicpm-2b", "--shape", "train_4k")
-    assert out.returncode == 2 and "Queue 1 item 15" in out.stderr
+    """``diff`` exits 1 where the weight-matmul FLOPs disagree beyond
+    ``--tol``: qwen2-moe's capacity path computes ``capacity_factor``
+    times the routed rows the analytic profile counts (1.25 at 60
+    experts, top-4: ratio 1.087 over the whole model)."""
+    out = _cli("diff", "--model", "qwen2-moe-a2.7b", "--shape",
+               "prefill_32k")
+    assert out.returncode == 1 and "DISAGREE" in out.stdout, out.stderr
     out = _cli("show", "vgg16", "--kv-len", "8")
     assert out.returncode == 2
+    out = _cli("show", "trace:minicpm-2b/train_4k", "--input-size", "8")
+    assert out.returncode == 2
+
+
+def test_cli_diff_agrees_on_minicpm():
+    out = _cli("diff", "--model", "minicpm-2b", "--shape", "train_4k",
+               "--tol", "0.05")
+    assert out.returncode == 0, out.stderr
+    assert "weight-matmul FLOPs agree: traced/analytic = 1.0000" \
+        in out.stdout
+    assert "matmul.2304x122753" in out.stdout      # the lm_head row
 
 
 # ===========================================================================
