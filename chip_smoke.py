@@ -35,7 +35,14 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    scan's name their body, and the grouped GEMM's checks name the body
    of each dtype (f32: the CUDA cores); the SSD scan's bound is taken at
    the bf16 tensor-core rate (the least time the card could take), with
-   the f32 CUDA-core figure, its body's own unit, beside it;
+   the f32 CUDA-core figure, its body's own unit, beside it; then the
+   last-ported families' attention shapes, each checked in f32 and bf16
+   and timed as the ``d80`` entries are (the ``d160``, ``g12`` and
+   ``g16`` entries): stablelm-12b's head dim 160 (32 heads over 8),
+   starcoder2-3b's group of 12 and chatglm3-6b's group of 16 (D 128
+   over 2 kv heads); paged == contiguous bit for bit at G 16 and D 160
+   (bf16 and int8 KV); RMSNorm bit for bit at d 160 (stablelm's
+   qk-norm), 3584 and 4096;
 
    then the tuning path: ``run_tuning`` of the ``h100`` preset (reps 3,
    written to ``chiprun_out/calibration_h100.json``) with every launch
@@ -81,6 +88,24 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    depth (logits, argmax and routing agreement); mamba2's prefill profile
    shows each of the SSD scan's three kernels and their share;
 
+   then ``[families]``, the last-ported families at full width and
+   depth with seeded random bf16 weights, one model on the card at a
+   time: chatglm3-6b (28 layers, 2d RoPE, G 16), starcoder2-3b (30,
+   LayerNorm and GELU, G 12), stablelm-12b (40, LayerNorm, qk-norm,
+   head dim 160) and qwen2-vl-7b (28, M-RoPE, G 7) each through
+   ``ServeEngine`` and ``PagedServeEngine`` (equal streams; stablelm
+   also in int8 KV), with its attention kernels and (but for
+   starcoder2, all LayerNorm) ``rmsnorm`` launched and no other
+   path's; a prefill and a decode-step profile, ``[trace]``, and cuda
+   vs torch logits within ``LOGIT_TOL`` (stablelm's int8 KV under both
+   policies and bf16 vs int8 KV within ``QUANT_PARITY_TOL``, as
+   minicpm-2b's);
+   qwen2-vl prefilled from patch embeddings (B 1, S 1024) on M-RoPE
+   positions of a 32 x 32 grid, cuda vs torch; hubert-xlarge (48
+   layers) ``forward`` from frame embeddings at B 2, S 1024, cuda vs
+   torch, only flash (non-causal, D 80) launched, profiled, and
+   refused by ``ServeEngine``; each model's and the phase's time;
+
    after each model's profile, ``[trace]``: the trace front-end
    (``repro_torch.core.workload.torch_trace``) at the profiled prefill
    (B1 S1024) and decode step (B 4, KV 516). The trace of the call on
@@ -113,7 +138,8 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    scan must all have launched;
 6. ``[explore]``, no timed run: the one-card analytic model
    (``repro_torch.core.analytical.gpu_model``, the reference's TPU model
-   at one chip) at the shapes phases 3-5 ran: per model one line each
+   at one chip) at the shapes phases 3-5 ran (the served decoders of
+   ``[families]`` among them): per model one line each
    for the profiled prefill (B1 S1024), the profiled decode step (B 4,
    KV 516) and the training run (its B, S 512 and layers, remat none,
    M 1), ``predicted <ms> (<dominant>) device <ms> wall <ms>
@@ -123,11 +149,13 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    card (zamba2-2.7b's K/V, which the footprint leaves out for the
    hybrid family as the reference does, added and printed), mixtral-8x22b's
    prefill and 24-layer qwen2-moe training are predicted not to;
-   ``explore_gpu`` at train_4k for the four models equals an exhaustive
-   pass over its 14 points (qwen2-moe infeasible); paradigm 3
+   ``explore_gpu`` at train_4k for the served models equals an
+   exhaustive pass over its 14 points (qwen2-moe, chatglm3-6b,
+   stablelm-12b and qwen2-vl-7b infeasible); paradigm 3
    (``explore_fpga``) reaches 0.99 of the better of paradigms 1 and 2 on
    vgg16 at KU115; the DSE's int8 proxy printed beside the bf16-vs-int8
-   KV ``logit_parity`` measured for minicpm-2b and zamba2-2.7b;
+   KV ``logit_parity`` measured for minicpm-2b, zamba2-2.7b and
+   stablelm-12b;
 7. one JSON line describing the kernels (each kernel's launches by
    path: serve, tune, train and trace), the card's name and power limit, and
    last the JSON result line.
@@ -195,7 +223,13 @@ PAGE_SIZE, PAGES_PER_SEQ = 16, 64
 #: ``quant_matmul``.
 SUB_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "body")
-SUB_ENTRIES = ("d128", "d80", "prefill")
+SUB_ENTRIES = ("d128", "d80", "d160", "g12", "g16", "prefill")
+#: The attention shapes of the last-ported families, checked and timed
+#: as the ``d128`` and ``d80`` entries are: stablelm-12b's head dim 160
+#: (32 heads over 8 kv heads), starcoder2-3b's group of 12 and
+#: chatglm3-6b's group of 16 (D 128 over 2 kv heads).
+FAMILY_SHAPES = {"d160": "stablelm-12b", "g12": "starcoder2-3b",
+                 "g16": "chatglm3-6b"}
 #: The instruction of the tensor-core bodies (bf16 flash prefill, the
 #: bf16 grouped GEMM, the int8-weight matmul at T > 16); a timing's
 #: "body" names the body it ran.
@@ -380,6 +414,21 @@ def kernel_phase(cfg, moe_cfg, ssm_cfg, hyb_cfg):
         entries[name]["d80"] = {k: e[k] for k in SUB_KEYS if k in e}
     paged_equals_contiguous(hyb_cfg, gen, mask)
     bit_for_bit_at(hyb_cfg, gen, rnd)
+    # --- the last-ported families: D 160, G 12 and 16 ----------------------
+    from repro_torch.configs import get_arch
+    for key, arch in FAMILY_SHAPES.items():
+        fcfg = get_arch(arch)
+        new = {"flash_attention": flash_entry(fcfg, rnd, compare, flush,
+                                              ((1, 1024), (2, 333))),
+               "decode_attention": decode_entry(fcfg, rnd, compare, flush,
+                                                mask),
+               **decode_variants(fcfg, gen, rnd, compare, flush, mask)}
+        for name, e in new.items():
+            entries[name][key] = {k: e[k] for k in SUB_KEYS if k in e}
+    for arch in ("chatglm3-6b", "stablelm-12b"):     # G 16, D 160
+        paged_equals_contiguous(get_arch(arch), gen, mask)
+    rmsnorm_bit_for_bit(gen, rnd, {160: (4, 128, 2048, 32768),
+                                   3584: (4, 2048), 4096: (4, 2048)})
     entries["moe_gemm"] = moe_gemm_kernel(moe_cfg, gen, rnd, compare, flush)
     entries["ssd_scan"] = ssd_scan_kernel(ssm_cfg, gen, rnd, compare, flush)
     entries["quant_matmul"] = quant_matmul_kernel(cfg, gen, rnd, compare,
@@ -813,6 +862,27 @@ def paged_equals_contiguous(cfg, gen, mask):
     check(all(same), f"D {D}: paged != contiguous (bf16, int8): {same}")
     print(f"[kernels] split-KV D{D} H{H}: paged == contiguous bit for bit, "
           f"bf16 and int8 KV ok")
+
+
+def rmsnorm_bit_for_bit(gen, rnd, widths):
+    """RMSNorm equal to its plain version bit for bit at each width of
+    ``widths`` ({d: row counts}), f32 and bf16: stablelm-12b's qk-norm
+    (d 160; a decode step's 128 query rows, a prefill's 32,768),
+    qwen2-vl-7b's d_model 3584 and chatglm3-6b's 4096."""
+    import torch
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+
+    dev = torch.device("cuda")
+    for d, counts in widths.items():
+        s = torch.randn(d, generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            for rows in counts:
+                x = rnd(rows, d, dtype=dtype)
+                check(torch.equal(rmsnorm(x, s), rmsnorm_plain(x, s)),
+                      f"rmsnorm ({rows}, {d}) {dtype}: not bit for bit")
+        print(f"[kernels] rmsnorm d {d} ({', '.join(map(str, counts))} "
+              f"rows, f32 and bf16): equal to the plain version bit for "
+              f"bit ok")
 
 
 def bit_for_bit_at(cfg, gen, rnd):
@@ -1395,7 +1465,7 @@ def trace_phase(cfg, params, rt, counters, measured):
     point = DesignPoint.make(log2_m=0, quant=0)
     for phase, shape in served_shapes().items():
         label = f"{cfg.name}/{phase}"
-        expect = {"rmsnorm"}
+        expect = {"rmsnorm"} if uses_rmsnorm(cfg) else set()
         if cfg.family != "ssm":
             expect.add("flash_attention" if phase == "prefill"
                        else "decode_attention")
@@ -1616,11 +1686,12 @@ def hybrid_parity(cfg, params):
     return int8_dev
 
 
-def parity_phase(cfg, params):
-    """minicpm-2b: cuda vs torch teacher-forced logits, then the port's
-    ``logit_parity`` for bf16 vs int8 KV and for int8 KV under both
-    policies, on the same prompts. Returns bf16 vs int8 KV's
-    max_logit_dev."""
+def parity_phase(cfg, params, int8=True):
+    """cuda vs torch teacher-forced logits in bf16 within LOGIT_TOL, then
+    (``int8``) the port's ``logit_parity`` for bf16 vs int8 KV and for
+    int8 KV under both policies, on the same prompts, each within
+    QUANT_PARITY_TOL. Returns bf16 vs int8 KV's max_logit_dev, or None
+    without ``int8``."""
     import dataclasses
     from repro_torch.kernels.dispatch import KernelPolicy
     from repro_torch.kernels.quant import QUANT_PARITY_TOL
@@ -1630,9 +1701,13 @@ def parity_phase(cfg, params):
     inputs = parity_inputs(cfg, 7)
     a, b = cuda_vs_torch(params, cfg, inputs)
     dev_max = float((a - b).abs().max())
-    print(f"[parity] {cfg.name} prefill S=300 (lengths 300/177) + 8 decode "
-          f"steps, bf16: {agreement(a, b)} (tol {LOGIT_TOL})")
-    check(dev_max <= LOGIT_TOL, f"max|dlogit| {dev_max} > {LOGIT_TOL}")
+    print(f"[parity] {cfg.name} ({cfg.n_layers} layers) prefill S=300 "
+          f"(lengths 300/177) + 8 decode steps, bf16: {agreement(a, b)} "
+          f"(tol {LOGIT_TOL})")
+    check(dev_max <= LOGIT_TOL,
+          f"{cfg.name} max|dlogit| {dev_max} > {LOGIT_TOL}")
+    if not int8:
+        return None
 
     rows = inputs[0].cpu().numpy()
     prompts = [rows[0, :300], rows[1, :177]]
@@ -1644,14 +1719,200 @@ def parity_phase(cfg, params):
              dataclasses.replace(rt8, kernels=KernelPolicy.torch()), rt8)):
         report = logit_parity(params, cfg, prompts, rt_ref=ref,
                               rt_test=test, max_new_tokens=8, max_len=1024)
-        print(f"[parity] logit_parity {label}: "
+        print(f"[parity] {cfg.name} logit_parity {label}: "
               f"{json.dumps(report.to_json())}")
         check(report.max_logit_dev <= QUANT_PARITY_TOL,
-              f"{label}: max_logit_dev {report.max_logit_dev} > "
+              f"{cfg.name} {label}: max_logit_dev {report.max_logit_dev} > "
               f"{QUANT_PARITY_TOL}")
         if label == INT8_KV_LABEL:
             int8_dev = report.max_logit_dev
     return int8_dev
+
+
+# ===========================================================================
+# Phase 4b: the last-ported families
+# ===========================================================================
+#: The four decoders of the ``[families]`` phase (full width and depth),
+#: then the audio encoder.
+FAMILY_DECODERS = ("chatglm3-6b", "starcoder2-3b", "stablelm-12b",
+                   "qwen2-vl-7b")
+ENCODER = "hubert-xlarge"
+#: qwen2-vl-7b's M-RoPE prefill: one image of 32 x 32 patches.
+PATCH_GRID = 32
+
+
+def uses_rmsnorm(cfg) -> bool:
+    """Whether ``cfg``'s path runs the RMSNorm kernel: its block norms,
+    or (stablelm-12b, a LayerNorm model) its qk-norm."""
+    return cfg.norm == "rmsnorm" or cfg.qk_norm
+
+
+def counted(counters, fn):
+    """``fn()`` with every launch count set to 0 just before; returns its
+    result and the counts just after."""
+    import torch
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: c.launches for name, c in counters.items()}
+
+
+def mrope_prefill(cfg, params, counters):
+    """qwen2-vl-7b prefilled from patch embeddings (B 1, S 1024) with
+    M-RoPE positions laid out as one image: the temporal component
+    constant, height and width over a 32 x 32 grid; its last-token
+    logits cuda vs torch within LOGIT_TOL. Returns the cuda run's
+    launch counts."""
+    import torch
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.models import ModelRuntime, prefill
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    S = PATCH_GRID * PATCH_GRID
+    embeds = (torch.randn(1, S, cfg.d_model, generator=gen, device=dev)
+              * 0.02).to(torch.bfloat16)
+    i = torch.arange(S, dtype=torch.int32, device=dev)
+    pos = torch.stack([torch.zeros_like(i), i // PATCH_GRID,
+                       i % PATCH_GRID])[:, None, :]          # (3, 1, S)
+    batch = {"embeds": embeds, "positions": pos}
+    logs = {}
+    with torch.no_grad():
+        for pol in ("cuda", "torch"):
+            rt = ModelRuntime(kernels=getattr(KernelPolicy, pol)())
+            (_, lg), got = counted(counters,
+                                   lambda: prefill(params, cfg, batch, S, rt))
+            logs[pol] = lg.float()
+            if pol == "cuda":
+                launches = got
+    for name, n in launches.items():
+        check((n > 0) == (name in ("rmsnorm", "flash_attention")),
+              f"{cfg.name} M-RoPE prefill: {name} launched {n} times")
+    a, b = logs["cuda"], logs["torch"]
+    check(tuple(a.shape) == (1, cfg.vocab_size)
+          and bool(torch.isfinite(a).all()), f"{cfg.name} M-RoPE logits")
+    dev_max = float((a - b).abs().max())
+    print(f"[families] {cfg.name} prefill from patch embeddings B1 S{S}, "
+          f"M-RoPE positions of a {PATCH_GRID} x {PATCH_GRID} grid "
+          f"(temporal 0, height, width), cuda vs torch: {agreement(a, b)} "
+          f"(tol {LOGIT_TOL}); launches {launches}")
+    check(dev_max <= LOGIT_TOL, f"{cfg.name} M-RoPE prefill max|dlogit| "
+          f"{dev_max} > {LOGIT_TOL}")
+    return launches
+
+
+def encoder_run(cfg, params, counters):
+    """hubert-xlarge: ``forward`` from frame embeddings at B 2, S 1024
+    under both policies (logits within LOGIT_TOL; the cuda run launches
+    flash, non-causal at head dim 80, and no decode kernel), a device
+    profile of one forward, and ``ServeEngine`` refusing the encoder.
+    Returns the cuda run's launch counts."""
+    import torch
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.models import ModelRuntime, forward
+    from repro_torch.serve import ServeEngine
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(37)
+    embeds = (torch.randn(2, 1024, cfg.d_model, generator=gen, device=dev)
+              * 0.02).to(torch.bfloat16)
+    logs = {}
+    with torch.no_grad():
+        for pol in ("cuda", "torch"):
+            rt = ModelRuntime(kernels=getattr(KernelPolicy, pol)())
+            (lg, _), got = counted(counters, lambda: forward(
+                params, cfg, {"embeds": embeds}, rt))
+            logs[pol] = lg.float()
+            if pol == "cuda":
+                launches = got
+        rt = ModelRuntime()
+        device_profile(
+            f"{cfg.name} forward B2 S1024 (frames), non-causal",
+            lambda: forward(params, cfg, {"embeds": embeds}, rt), steps=3,
+            focus=("flash_fwd",))
+    for name, n in launches.items():
+        check((n > 0) == (name == "flash_attention"),
+              f"{cfg.name} forward: {name} launched {n} times")
+    a, b = logs["cuda"], logs["torch"]
+    check(tuple(a.shape) == (2, 1024, cfg.vocab_size)
+          and bool(torch.isfinite(a).all()), f"{cfg.name} logits")
+    dev_max = float((a - b).abs().max())
+    print(f"[families] {cfg.name} full depth ({cfg.n_layers} layers) "
+          f"forward B2 S1024 from frame embeddings, non-causal flash at D "
+          f"{cfg.head_dim}, cuda vs torch: {agreement(a, b)} (tol "
+          f"{LOGIT_TOL}); launches {launches}")
+    check(dev_max <= LOGIT_TOL, f"{cfg.name} max|dlogit| {dev_max} > "
+          f"{LOGIT_TOL}")
+    try:
+        ServeEngine(params, cfg, ModelRuntime(), n_slots=4, max_len=1024)
+    except ValueError as e:
+        print(f"[families] {cfg.name} ServeEngine refuses: {e}")
+    else:
+        check(False, f"{cfg.name}: ServeEngine accepted an encoder")
+    return launches
+
+
+def families_phase(counters):
+    """``[families]``: the four decoders at full width and depth with
+    seeded random bf16 weights, each through ``ServeEngine`` and
+    ``PagedServeEngine`` (equal streams; stablelm-12b in int8 KV too),
+    a decode-step and a prefill profile, ``[trace]``, and cuda vs torch
+    logit parity (stablelm's bf16 vs int8 KV and int8 KV under both
+    policies); qwen2-vl's M-RoPE prefill from patch embeddings;
+    hubert-xlarge's forward. Each model is freed before the next. Returns the serving launch counts,
+    the trace launch counts and seconds, the decoders' profiles for
+    ``[explore]`` and the measured bf16 vs int8 KV deviation."""
+    import gc
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import ModelRuntime, init_params
+
+    t_phase = time.perf_counter()
+    serve, traced = [], dict.fromkeys(counters, 0)
+    t_trace, measured, int8_devs = 0.0, {}, {}
+    rt = ModelRuntime()                  # bf16, cuda policy, on the card
+    for name in FAMILY_DECODERS + (ENCODER,):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cfg = get_arch(name)
+        params = init_params(cfg, seed=0, rt=rt)     # cast leaf by leaf
+        torch.cuda.synchronize()
+        print(f"[families] {name} full width: {cfg.n_layers} layers, "
+              f"{cfg.param_count() / 1e9:.3f} B params in bf16 (d_model "
+              f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} of "
+              f"{cfg.head_dim}), seeded init {time.perf_counter() - t0:.1f} "
+              f"s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB on the "
+              f"card")
+        if name == ENCODER:
+            serve.append(encoder_run(cfg, params, counters))
+        else:
+            expect = {"flash_attention"} | (
+                {"rmsnorm"} if uses_rmsnorm(cfg) else set())
+            int8 = name == "stablelm-12b"
+            serve.append(serve_pair(
+                name, cfg, params, rt, counters, expect, True,
+                kv_dtypes=(None, "int8") if int8 else (None,)))
+            _, _, measured[name] = profile_model(
+                name, cfg, params, rt, prefill_focus=("flash_fwd",),
+                decode_focus=(BF16_KERNEL,))
+            got, dt = trace_phase(cfg, params, rt, counters, measured[name])
+            traced = {k: traced[k] + got[k] for k in counters}
+            t_trace += dt
+            int8_dev = parity_phase(cfg, params, int8=int8)
+            if int8:
+                int8_devs[name] = int8_dev
+            if cfg.rope == "mrope":
+                serve.append(mrope_prefill(cfg, params, counters))
+        del params
+        torch.cuda.synchronize()
+        print(f"[families] {name}: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[families] phase {time.perf_counter() - t_phase:.1f} s")
+    totals = {k: sum(r[k] for r in serve) for k in counters}
+    return totals, traced, t_trace, measured, int8_devs
 
 
 # ===========================================================================
@@ -2143,9 +2404,17 @@ def main() -> int:
         if int8_dev is not None:
             int8_devs[mcfg.name] = int8_dev
         del params
+    # --- [families]: the last-ported families ------------------------------
+    fam_served, fam_traced, dt, fam_measured, fam_int8 = families_phase(
+        counters)
+    totals.append(fam_served)
+    traced = {name: traced[name] + fam_traced[name] for name in counters}
+    t_trace += dt
+    served_measured.update(fam_measured)
+    int8_devs.update(fam_int8)
     served = {name: sum(t[name] for t in totals) for name in counters}
     print(f"[serve] launches over all serving runs: {served}")
-    print(f"[trace] phase {t_trace:.1f} s (4 models x prefill and decode, "
+    print(f"[trace] phase {t_trace:.1f} s (8 models x prefill and decode, "
           f"each traced on the card and on meta); launches {traced}")
     del totals
 

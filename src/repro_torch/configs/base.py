@@ -2,10 +2,10 @@
 
 Pure data, no framework import. This is a copy of the reference
 package's ``repro.configs.base`` (``ModelConfig``, ``ShapeConfig``,
-``SHAPES``, ``smoke_config``): the port imports nothing of that package,
-so it carries the records it needs, ``param_count`` included. Keep the
-two in step: the parity tests build both from the same arch id and
-compare them field by field.
+``SHAPES``, ``smoke_config``, ``shape_skip_reason``): the port imports
+nothing of that package, so it carries the records it needs,
+``param_count`` included. Keep the two in step: the parity tests build
+both from the same arch id and compare them field by field.
 """
 from __future__ import annotations
 
@@ -81,8 +81,17 @@ class ModelConfig:
         return self.d_head or (self.d_model // self.n_heads)
 
     @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
     def is_encoder_only(self) -> bool:
         return not self.causal
+
+    @property
+    def subquadratic(self) -> bool:
+        """Eligible for the long_500k cell (the reference's rule)."""
+        return self.family in ("ssm", "hybrid") or self.sliding_window > 0
 
     def attention_layer_indices(self) -> Tuple[int, ...]:
         """Layer indices that run an attention block."""
@@ -197,3 +206,12 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
     if cfg.mrope_sections:
         kw["mrope_sections"] = (4, 2, 2)
     return cfg.replace(**kw)
+
+
+def shape_skip_reason(cfg: ModelConfig, shape: ShapeConfig) -> Optional[str]:
+    """The reference's rules: which (arch x shape) cells are excluded."""
+    if shape.kind == "decode" and cfg.is_encoder_only:
+        return "encoder-only architecture has no autoregressive decode step"
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return "pure full-attention arch: 524k context requires sub-quadratic attention"
+    return None

@@ -368,7 +368,7 @@ def trace_workload(cfg: Union[ModelConfig, str],
     from repro_torch.configs import get_arch, get_shape
     from repro_torch.kernels.dispatch import TORCH_POLICY
     from repro_torch.models.model import (ModelRuntime, cache_spec,
-                                          decode_step, forward)
+                                          decode_step, forward, torch_dtype)
 
     if isinstance(cfg, str):
         cfg = get_arch(cfg)
@@ -394,8 +394,13 @@ def trace_workload(cfg: Union[ModelConfig, str],
 
         traced_pass = "decode_step"
     else:
-        batch = {"tokens": torch.zeros((B, S), dtype=torch.int32,
-                                       device=dev)}
+        if cfg.frontend == "token":
+            batch = {"tokens": torch.zeros((B, S), dtype=torch.int32,
+                                           device=dev)}
+        else:                      # a stubbed patch or frame front-end
+            batch = {"embeds": torch.zeros(
+                (B, S, cfg.d_model), dtype=torch_dtype(cfg.dtype),
+                device=dev)}
 
         def fn():
             return forward(params, cfg, batch, rt)

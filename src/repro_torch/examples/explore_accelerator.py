@@ -10,10 +10,10 @@ also prints its memo-cache savings and the Pareto frontier.
 
     PYTHONPATH=src python -m repro_torch.examples.explore_accelerator
 
-The port's counterpart of ``examples/explore_accelerator.py``; its pod
-section explores stablelm-12b, which the port does not run yet
-(ROADMAP.md Queue 1 item 9), so minicpm-2b stands for the dense family.
-Nothing here runs on a device: the traces are abstract (``meta``).
+The port's counterpart of ``examples/explore_accelerator.py``: the card
+section explores the archs its pod section does (stablelm-12b,
+mixtral-8x22b, mamba2-1.3b). Nothing here runs on a device: the traces
+are abstract (``meta``).
 """
 from __future__ import annotations
 
@@ -55,7 +55,7 @@ def main() -> int:
 
     print("\n== one-card DSE across architecture families (H100) ==")
     shape = get_shape("train_4k")
-    for arch in ("minicpm-2b", "mixtral-8x22b", "mamba2-1.3b"):
+    for arch in ("stablelm-12b", "mixtral-8x22b", "mamba2-1.3b"):
         cfg = get_arch(arch)
         for label, workload in (("analytic", None),
                                 ("traced", trace_workload(cfg, shape))):

@@ -3,12 +3,11 @@
 1. pull a workload from the registry (the Workload IR every subsystem
    consumes) and benchmark the two established accelerator paradigms,
 2. explore the paper's hybrid paradigm with the two-level DSE,
-3. the same technique on one H100: profile minicpm-2b at ``train_4k``,
-   run the one-card DSE (``explore_gpu``) over its plans, print the
-   predicted roofline, and run the search again on the port's own model
-   traced into the IR (``trace:minicpm-2b/train_4k``). The reference's
-   step 3 explores chatglm3-6b on a pod; the port does not run that
-   arch yet (ROADMAP.md Queue 1 item 9),
+3. the same technique on one H100: profile chatglm3-6b at ``train_4k``
+   (the arch the reference's step 3 explores on a pod), run the
+   one-card DSE (``explore_gpu``) over its plans, print the predicted
+   roofline, and run the search again on the port's own model traced
+   into the IR (``trace:chatglm3-6b/train_4k``),
 4. close the analytic<->measured loop: microbenchmark the kernel
    dispatch ops (the tuner's ``ci`` preset on ``--device``) and evaluate
    a workload from the measured timings.
@@ -54,13 +53,13 @@ def main(argv=None) -> int:
           f"(SP={d.sp}, batch={d.batch}) — converged in {conv} iterations")
 
     print("\n== step 3: the same technique on one H100 ==")
-    cfg = get_arch("minicpm-2b")
+    cfg = get_arch("chatglm3-6b")
     shape = get_shape("train_4k")
-    lm = get_workload("minicpm-2b/train_4k")
+    lm = get_workload("chatglm3-6b/train_4k")
     print(f"workload: {lm.describe()}")
     for label, workload in (("analytic", None),
                             ("traced", get_workload(
-                                "trace:minicpm-2b/train_4k"))):
+                                "trace:chatglm3-6b/train_4k"))):
         t = explore_gpu(cfg, shape, n_particles=10, n_iters=10,
                         workload=workload)
         a = t.best_analysis

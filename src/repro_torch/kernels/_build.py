@@ -184,14 +184,18 @@ def dtype_code(t) -> int:
 
 #: The instantiations that served bf16 shapes run, as (label, pattern
 #: of ptxas' mangled name): the SSD scan's kernels at hp 64 (mamba2-1.3b
-#: and zamba2-2.7b; 64 columns a block), and RMSNorm's row-in-registers
+#: and zamba2-2.7b; 64 columns a block), RMSNorm's row-in-registers
 #: body at 16 rows or more (32 threads a row: 16 vectors of 4 a thread
-#: at d 2048, 32 at 2304, 2560 and 4096; zamba2's gated norm at d 5120,
-#: 40 vectors a thread, rereads its row) and at 4 rows (128 threads a
-#: row). The host code
-#: chooses which one a shape runs (``launch_pt`` in ``csrc/ssd_scan.cu``,
-#: ``launch`` in ``csrc/rmsnorm.cu``): a change there must be made here
-#: too. ``chip_smoke.py`` prints their registers and spills, and the card
+#: at d 2048, 32 at 2304, 2560, 3584 and 4096, 2 at stablelm-12b's
+#: qk-norm width 160; zamba2's gated norm at d 5120, 40 vectors a
+#: thread, rereads its row) and at 4 rows (128 threads a row), and the
+#: split-KV kernels past G 1 (the G-1 ones ``chip_smoke.py`` lists
+#: apart): D 128 in bucket 8 (qwen2-vl-7b's G 7, starcoder2-3b's 12 and
+#: chatglm3-6b's 16, two blocks of 6 or 8 heads), D 160 in bucket 4
+#: (stablelm-12b, bf16 and int8 KV). The host code chooses which one a
+#: shape runs (``launch_pt`` in ``csrc/ssd_scan.cu``, ``launch`` in
+#: ``csrc/rmsnorm.cu`` and ``csrc/splitkv.cuh``): a change there must be
+#: made here too. ``chip_smoke.py`` prints their registers and spills, and the card
 #: tests hold each to no spill.
 SERVED_BUILDS = (
     ("ssd_chunk_state<bf16, 64 columns>",
@@ -211,6 +215,20 @@ SERVED_BUILDS = (
      "rows)", r"rmsnorm_vecI13__nv_bfloat16Li128ELi8E"),
     ("rmsnorm_vec<bf16, 128 threads, 16 vectors> (d 5120, 4 rows)",
      r"rmsnorm_vecI13__nv_bfloat16Li128ELi16E"),
+    ("rmsnorm_vec<bf16, 32 threads, 2 vectors> (d 160, stablelm-12b's "
+     "qk-norm)", r"rmsnorm_vecI13__nv_bfloat16Li32ELi2E"),
+    ("split_rows_kernel<bf16, D 128, bucket 8, contiguous> (G 7, 12, 16)",
+     r"split_rows_kernelI13__nv_bfloat16Li128ELi8ELb0E"),
+    ("split_rows_kernel<bf16, D 128, bucket 8, paged> (G 7, 12, 16)",
+     r"split_rows_kernelI13__nv_bfloat16Li128ELi8ELb1E"),
+    ("split_rows_kernel<bf16, D 160, bucket 4, contiguous> (G 4)",
+     r"split_rows_kernelI13__nv_bfloat16Li160ELi4ELb0E"),
+    ("split_rows_kernel<bf16, D 160, bucket 4, paged> (G 4)",
+     r"split_rows_kernelI13__nv_bfloat16Li160ELi4ELb1E"),
+    ("quant_split_kernel<bf16 q, D 160, bucket 4, contiguous> (G 4)",
+     r"quant_split_kernelI13__nv_bfloat16Li160ELi4ELb0E"),
+    ("quant_split_kernel<bf16 q, D 160, bucket 4, paged> (G 4)",
+     r"quant_split_kernelI13__nv_bfloat16Li160ELi4ELb1E"),
 )
 
 

@@ -10,13 +10,14 @@
 // never replicated. Positions of q and k are both numbered from 0.
 //
 // Bound on this card: operations. At the prefill shapes of the main
-// path (S up to 1024, D 64, 80 or 128) the causal product needs ~S/2 * 4D
-// flops per query row against 4D bytes of q/out, well above the ridge.
+// path (S up to 1024, D 64, 80, 128 or 160) the causal product needs
+// ~S/2 * 4D flops per query row against 4D bytes of q/out, well above
+// the ridge.
 //
 // At D 80 (zamba2-2.7b) a third body runs in both dtypes, equal to the
 // plain version bit for bit (flash_chunked.cuh says why). At D 16, 32,
-// 64 and 128, two bodies, chosen before the launch by dtype and
-// alignment:
+// 64, 128 and 160 (stablelm-12b), two bodies, chosen before the launch
+// by dtype and alignment:
 //
 // * bf16 inputs whose pointers are 16-byte aligned (every served prefill)
 //   run flash_fwd_mma, on the tensor cores with warp-level
@@ -25,7 +26,10 @@
 //   at D 64, blocks of 128 rows (8 warps) took 0.0853-0.0863 ms against
 //   0.0837 (python -m repro_torch.bench.flash_attention, B 2, S 1024,
 //   36 heads, H100 SXM at 700 W). The Q tile arrives once by
-//   16-byte cp.async and stays in registers as A fragments (ldmatrix).
+//   16-byte cp.async and stays in registers as A fragments (ldmatrix)
+//   up to D 128; at D 160 (10 k-steps of 16: 20 output fragments of 4
+//   f32 a lane) the fragments would not fit beside the accumulators,
+//   so each K tile reloads them from shared memory with ldmatrix.
 //   K and V come in 64-key tiles through a two-stage cp.async ring in
 //   dynamic shared memory, the next tile loading while the current one
 //   is multiplied; rows past T are zero-filled by the copy itself. Rows
@@ -97,10 +101,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     sL[i] = 0.f;
   }
 
-  // acc ownership: column dcol of rows row0 + r * RPP
+  // acc ownership: column dcol of rows row0 + r * RPP, by the first
+  // RPP * D threads (all of them unless D does not divide THREADS: at
+  // D 160 threads 160..255 own none)
   constexpr int RPP = THREADS / D;
   constexpr int NACC = BQ / RPP;
   const int dcol = tid % D, row0 = tid / D;
+  const bool owner = RPP * D == THREADS || tid < RPP * D;
   float acc[NACC];
 #pragma unroll
   for (int r = 0; r < NACC; ++r) acc[r] = 0.f;
@@ -168,18 +175,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
+    if (owner) {
 #pragma unroll
-    for (int r = 0; r < NACC; ++r) acc[r] *= sA[row0 + r * RPP];
+      for (int r = 0; r < NACC; ++r) acc[r] *= sA[row0 + r * RPP];
 #pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      const float vj = sV[j * D + dcol];
+      for (int j = 0; j < BK; ++j) {
+        const float vj = sV[j * D + dcol];
 #pragma unroll
-      for (int r = 0; r < NACC; ++r)
-        acc[r] += sP[(row0 + r * RPP) * (BK + 1) + j] * vj;
+        for (int r = 0; r < NACC; ++r)
+          acc[r] += sP[(row0 + r * RPP) * (BK + 1) + j] * vj;
+      }
     }
     __syncthreads();
   }
 
+  if (!owner) return;
 #pragma unroll
   for (int r = 0; r < NACC; ++r) {
     const int i = row0 + r * RPP, s = q_start + i;
@@ -200,6 +210,7 @@ template <int D>
 struct MmaCfg {
   static constexpr int LD = D + 8;         // padded row, bf16 elements
   static constexpr int CH = D / 8;         // 16-byte chunks per row
+  static constexpr bool QREG = D <= 128;   // Q fragments kept in registers
   // sQ (MMA_BQ rows), then K and V, two stages each (MMA_BK rows)
   static constexpr size_t SMEM =
       sizeof(__nv_bfloat16) * (size_t)LD * (MMA_BQ + 4 * MMA_BK);
@@ -263,7 +274,7 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
 
   const int w_row0 = q_start + warp * 16;  // this warp's first query row
   const bool w_live = w_row0 < S;
-  uint32_t qf[D / 16][4];
+  uint32_t qf[C::QREG ? D / 16 : 1][4];
   float acc[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i)
@@ -281,7 +292,7 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (kt == kt_begin) {
+    if (C::QREG && kt == kt_begin) {
 #pragma unroll
       for (int kd = 0; kd < D / 16; ++kd)
         ldmatrix_x4(qf[kd], smem_addr(sQ + (warp * 16 + (lane & 15)) * C::LD +
@@ -298,14 +309,18 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
         s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
       for (int kd = 0; kd < D / 16; ++kd) {
+        uint32_t (&qa)[4] = qf[C::QREG ? kd : 0];
+        if constexpr (!C::QREG)
+          ldmatrix_x4(qa, smem_addr(sQ + (warp * 16 + (lane & 15)) * C::LD +
+                                    kd * 16 + (lane >> 4) * 8));
 #pragma unroll
         for (int np = 0; np < 4; ++np) {
           uint32_t bk[4];
           ldmatrix_x4(bk, smem_addr(tK + (np * 16 + (lane & 7) +
                                           ((lane >> 4) << 3)) * C::LD +
                                     kd * 16 + ((lane >> 3) & 1) * 8));
-          mma_bf16(s[2 * np], qf[kd], bk[0], bk[1]);
-          mma_bf16(s[2 * np + 1], qf[kd], bk[2], bk[3]);
+          mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+          mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
         }
       }
       const bool masked = (causal && k_start + MMA_BK - 1 > w_row0) ||
@@ -480,6 +495,7 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
     case 32: return launch_body<T, 32>(q, k, v, o, B, S, Tn, Hq, Hkv, causal, window, stream);
     case 64: return launch_body<T, 64>(q, k, v, o, B, S, Tn, Hq, Hkv, causal, window, stream);
     case 128: return launch_body<T, 128>(q, k, v, o, B, S, Tn, Hq, Hkv, causal, window, stream);
+    case 160: return launch_body<T, 160>(q, k, v, o, B, S, Tn, Hq, Hkv, causal, window, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -29,9 +29,11 @@ quant_split_kernel(const T* __restrict__ q,
                    const splitkv::Rows<int8_t, PAGED> cache,
                    const uint8_t* __restrict__ mask,
                    float* __restrict__ o_part, float* __restrict__ m_part,
-                   float* __restrict__ l_part, int G, float sm_scale) {
+                   float* __restrict__ l_part, int G, int GB,
+                   float sm_scale) {
   splitkv::split_rows<T, int8_t, D, NG, PAGED>(q, cache, mask, o_part,
-                                               m_part, l_part, G, sm_scale);
+                                               m_part, l_part, G, GB,
+                                               sm_scale);
 }
 
 // Split + merge for q/out of type T over an int8 cache. For a contiguous

@@ -10,9 +10,11 @@
 // paged_attention.py:121-129).
 //
 // Bound on this card: bytes. A valid row costs 2 * D values of K/V for
-// 4 * G * D flops, G flops per byte or less, far below the ridge; no
-// served model has G > 1. So the design is about memory-level
-// parallelism: wide, coalesced loads, all issued before any is used.
+// 4 * G * D flops, G flops per byte or less (bf16), far below the ridge
+// at every served G (1 to 16: chatglm3-6b 16, starcoder2-3b 12,
+// qwen2-vl-7b 7, stablelm-12b 4, mixtral-8x22b 6). So the design is about
+// memory-level parallelism: wide, coalesced loads, all issued before any
+// is used.
 //
 // split_rows varies in three things:
 //   * KT, the stored type: float, bf16, or int8 with one bf16 scale per
@@ -22,7 +24,13 @@
 //   * PAGED: logical row j of sequence b lives at physical page
 //     pt[b, j / ps], row j % ps, of a (P, ps, Hkv, D) pool; the block
 //     reads the page table itself;
-//   * NG, the bucket (1, 2, 4, 8) of G query heads per kv head.
+//   * NG, the bucket (1, 2, 4, 8) of the query heads a block computes.
+//     A group of G <= 8 query heads per kv head is one block's; past 8
+//     (G 12 and 16) the heads split into ceil(G / 8) equal parts, one
+//     block each (blockIdx.z), which read the same K/V rows, the second
+//     time mostly from L2. A head's arithmetic is the same whichever
+//     block computes it, and the grid doubles where Hkv is small
+//     (Hkv 2 at G 12 and 16).
 // Design:
 //   * Row metadata: thread t reads logical row t's mask bit and (paged)
 //     its page-table entry together, and puts the physical (row, kv head)
@@ -34,18 +42,25 @@
 //     consecutive columns: one 16-byte load per row and tensor at G 1
 //     (C = 8 for bf16, 4 for f32, 16 for int8); at most 8 columns at G 2
 //     and 4 at G > 2, which keeps the G x C accumulators and query values
-//     in registers. L is D / C rounded up to a power of two, so that a
-//     row's lanes sum by xor shuffles and a pass holds BK / L whole rows:
-//     at D 16-128 every lane is live; at D 80 (zamba2-2.7b) 10 of 16
-//     bf16 lanes (5 of 8 int8, 20 of 32 f32), the others idle, reading
-//     nothing and adding exact zeros. A warp covers 32 / L rows, the
-//     block its split in L passes.
+//     in registers; C doubles while D / C > 32, so a row's lanes fit one
+//     warp (D 160: C 8, two 16-byte loads for f32). L is D / C rounded up
+//     to a power of two, so that a row's lanes sum by xor shuffles and a
+//     pass holds BK / L whole rows: at D 16-128 every lane is live; at
+//     D 80 (zamba2-2.7b) 10 of 16 bf16 lanes (5 of 8 int8, 20 of 32 f32)
+//     and at D 160 (stablelm-12b) 20 of 32 (10 of 16 int8 at G 1), the
+//     others idle, reading nothing and adding exact zeros. A warp covers
+//     32 / L rows, the block its split in L passes.
 //   * Loads before use: every pass's K loads are issued before the first
 //     is used. V loads go with them while both fit in 64 registers a
 //     thread (int8 always; bf16 to D 64; f32 to D 32); past that the
 //     passes are staged: K for all passes, the dot products, then V into
 //     the registers K held, before the softmax's barriers, so V arrives
-//     under them. Masked rows are never read.
+//     under them. Where one tensor's passes would take more than 128
+//     registers (f32 at D 160), they go in groups of 64 registers: K
+//     group by group, each group's dot products before the next loads;
+//     V's first group before the softmax, the rest in the P.V pass. The
+//     passes keep their order, so the sums do not change. Masked rows
+//     are never read.
 //   * Scores: each lane's C-term dot product with q in f32; the L lanes
 //     of a row sum by xor shuffles (offsets L/2 .. 1); thread t then
 //     applies row t's K scale (int8) and 1/sqrt(D), in that order.
@@ -81,7 +96,8 @@ namespace {
 namespace splitkv {
 
 constexpr int BK = 128;   // logical rows per split == threads per block
-constexpr int MAXG = 8;   // query heads per kv head
+constexpr int MAXG = 8;   // query heads a block
+constexpr int MAX_GROUP = 16;  // query heads per kv head
 constexpr int WARPS = BK / 32;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -110,18 +126,27 @@ struct Rows {
   }
 };
 
-// Columns a lane owns for a bucket of NG query heads per kv head.
-template <typename KT, int NG>
+// Columns a lane owns for a bucket of NG query heads a block at head dim
+// D: one 16-byte load's worth, capped by NG, then doubled while a row
+// would need more than a warp's lanes.
+template <typename KT, int NG, int D>
 __host__ __device__ constexpr int lane_cols() {
   constexpr int c16 = 16 / (int)sizeof(KT);
   constexpr int cap = NG == 1 ? 16 : NG == 2 ? 8 : 4;
-  return c16 < cap ? c16 : cap;
+  int c = c16 < cap ? c16 : cap;
+  while (D / c > 32) c *= 2;
+  return c;
 }
 
 // BYTES bytes at p (BYTES-aligned) as BYTES / 4 words.
 template <int BYTES>
 __device__ __forceinline__ void load_words(const void* p, uint32_t* w) {
-  if constexpr (BYTES == 16) {
+  if constexpr (BYTES == 32) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p) + 1);
+    w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
+    w[4] = t.x; w[5] = t.y; w[6] = t.z; w[7] = t.w;
+  } else if constexpr (BYTES == 16) {
     const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
     w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
   } else if constexpr (BYTES == 8) {
@@ -159,18 +184,19 @@ __host__ __device__ constexpr int row_lanes() {
   return l;
 }
 
-// This lane's C columns of every pass's row of one tensor (row slot rs
-// of pass p is row p * RP + rs of the split); masked rows, and every row
-// of an idle lane (live false), read as zeros.
-template <int D, int C, typename KT, int L, int NW>
+// This lane's C columns of the rows of passes p0 .. p0 + PG - 1 of one
+// tensor (row slot rs of pass p is row p * RP + rs of the split, RP =
+// BK / L); masked rows, and every row of an idle lane (live false), read
+// as zeros.
+template <int D, int C, int L, typename KT, int PG, int NW>
 __device__ __forceinline__ void load_passes(const KT* __restrict__ base,
                                             const long long* srow, int rs,
-                                            int c, bool live,
-                                            uint32_t (&w)[L][NW]) {
+                                            int c, bool live, int p0,
+                                            uint32_t (&w)[PG][NW]) {
   constexpr int RP = BK / L;
 #pragma unroll
-  for (int p = 0; p < L; ++p) {
-    const long long rp = srow[p * RP + rs];
+  for (int p = 0; p < PG; ++p) {
+    const long long rp = srow[(p0 + p) * RP + rs];
     if (rp >= 0 && live) {
       load_words<NW * 4>(base + rp * D + c * C, w[p]);
     } else {
@@ -180,16 +206,17 @@ __device__ __forceinline__ void load_passes(const KT* __restrict__ base,
   }
 }
 
-// One block: split blockIdx.y of (sequence, kv head) blockIdx.x into
+// One block: split blockIdx.y of (sequence, kv head) blockIdx.x, for
+// query heads blockIdx.z * GB .. + GB - 1 of the kv head's G, into
 // o_part / m_part / l_part. The body of every split kernel.
 template <typename T, typename KT, int D, int NG, bool PAGED>
 __device__ __forceinline__ void split_rows(
     const T* __restrict__ q, const Rows<KT, PAGED>& cache,
     const uint8_t* __restrict__ mask, float* __restrict__ o_part,
-    float* __restrict__ m_part, float* __restrict__ l_part, int G,
+    float* __restrict__ m_part, float* __restrict__ l_part, int G, int GB,
     float sm_scale) {
   constexpr bool SCALED = std::is_same<KT, int8_t>::value;
-  constexpr int C = lane_cols<KT, NG>();
+  constexpr int C = lane_cols<KT, NG, D>();
   constexpr int LA = D / C;    // live lanes per row
   constexpr int L = row_lanes<D, C>();  // lanes per row
   constexpr int RP = BK / L;   // rows per pass; L passes cover the split
@@ -198,7 +225,12 @@ __device__ __forceinline__ void split_rows(
   // K and V of every pass in flight together while both fit in 64
   // registers a thread; past that V waits for the dot products
   constexpr bool STAGED = 2 * L * NW > 64;
+  // passes a group: all of them while one tensor's fit in 128 registers,
+  // else groups of 64 registers
+  constexpr int PG = L * NW <= 128 ? L : 64 / NW;
+  constexpr int NPG = L / PG;
   static_assert(D % C == 0 && L <= 32 && BYTES % 4 == 0, "lanes per row");
+  static_assert(L % PG == 0 && (NPG == 1 || STAGED), "pass groups");
   __shared__ long long srow[BK];  // (row, kv head) index; -1 if masked
   __shared__ float sp[NG][BK];    // lane-summed dot products, then p
   __shared__ float red[NG][WARPS];
@@ -208,6 +240,8 @@ __device__ __forceinline__ void split_rows(
   const int bh = blockIdx.x;  // b * Hkv + hk
   const int b = bh / Hkv, hk = bh % Hkv;
   const int split = blockIdx.y, ns = gridDim.y;
+  const int g0 = blockIdx.z * GB;         // this block's first query head
+  const int Gz = min(GB, G - g0);         // and its count
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c = tid % L, rs = tid / L;  // column slice, row slot
   const bool live = LA == L || c < LA;  // an idle lane owns no columns
@@ -237,41 +271,48 @@ __device__ __forceinline__ void split_rows(
   for (int g = 0; g < NG; ++g) {
 #pragma unroll
     for (int u = 0; u < C; ++u)
-      qr[g][u] = ((NG == 1 || g < G) && live)
-                     ? to_float(q[((long long)bh * G + g) * D + c * C + u])
+      qr[g][u] = ((NG == 1 || g < Gz) && live)
+                     ? to_float(q[((long long)bh * G + g0 + g) * D + c * C +
+                                  u])
                      : 0.f;
   }
   __syncthreads();
 
-  uint32_t kw[L][NW], vw[L][NW];
-  load_passes<D, C>(cache.k, srow, rs, c, live, kw);
-  if constexpr (!STAGED) load_passes<D, C>(cache.v, srow, rs, c, live, vw);
-
-  // dot products: lane partials, summed across the row's lanes
+  uint32_t kw[PG][NW], vw[PG][NW];
+  // dot products, group by group: lane partials, summed across the
+  // row's lanes
 #pragma unroll
-  for (int p = 0; p < L; ++p) {
-    const int jj = p * RP + rs;
-    float s[NG];
+  for (int pg = 0; pg < NPG; ++pg) {
+    load_passes<D, C, L>(cache.k, srow, rs, c, live, pg * PG, kw);
+    if constexpr (!STAGED)
+      load_passes<D, C, L>(cache.v, srow, rs, c, live, 0, vw);
 #pragma unroll
-    for (int g = 0; g < NG; ++g) s[g] = 0.f;
+    for (int pp = 0; pp < PG; ++pp) {
+      const int jj = (pg * PG + pp) * RP + rs;
+      float s[NG];
 #pragma unroll
-    for (int u = 0; u < C; ++u) {
-      const float kf = unpack<KT>(kw[p], u);
+      for (int g = 0; g < NG; ++g) s[g] = 0.f;
 #pragma unroll
-      for (int g = 0; g < NG; ++g) s[g] += qr[g][u] * kf;
-    }
+      for (int u = 0; u < C; ++u) {
+        const float kf = unpack<KT>(kw[pp], u);
 #pragma unroll
-    for (int off = L / 2; off > 0; off >>= 1) {
+        for (int g = 0; g < NG; ++g) s[g] += qr[g][u] * kf;
+      }
 #pragma unroll
-      for (int g = 0; g < NG; ++g) s[g] += __shfl_xor_sync(FULL, s[g], off);
-    }
-    if (c == 0) {
+      for (int off = L / 2; off > 0; off >>= 1) {
 #pragma unroll
-      for (int g = 0; g < NG; ++g)
-        if (NG == 1 || g < G) sp[g][jj] = s[g];
+        for (int g = 0; g < NG; ++g)
+          s[g] += __shfl_xor_sync(FULL, s[g], off);
+      }
+      if (c == 0) {
+#pragma unroll
+        for (int g = 0; g < NG; ++g)
+          if (NG == 1 || g < Gz) sp[g][jj] = s[g];
+      }
     }
   }
-  if constexpr (STAGED) load_passes<D, C>(cache.v, srow, rs, c, live, vw);
+  if constexpr (STAGED)
+    load_passes<D, C, L>(cache.v, srow, rs, c, live, 0, vw);
   __syncthreads();
 
   // split-local softmax statistics, per query head; thread tid owns row
@@ -280,7 +321,7 @@ __device__ __forceinline__ void split_rows(
 #pragma unroll
   for (int g = 0; g < NG; ++g) {
     sc[g] = RT_NEG_INF;
-    if (NG == 1 || g < G) {
+    if (NG == 1 || g < Gz) {
       if (r >= 0) {
         if constexpr (SCALED)
           sc[g] = sp[g][tid] * ksc * sm_scale;
@@ -295,7 +336,7 @@ __device__ __forceinline__ void split_rows(
 #pragma unroll
   for (int g = 0; g < NG; ++g) {
     m[g] = RT_NEG_INF;
-    if (NG == 1 || g < G) {
+    if (NG == 1 || g < Gz) {
 #pragma unroll
       for (int w = 0; w < WARPS; ++w) m[g] = fmaxf(m[g], red[g][w]);
     }
@@ -303,7 +344,7 @@ __device__ __forceinline__ void split_rows(
   __syncthreads();
 #pragma unroll
   for (int g = 0; g < NG; ++g) {
-    if (NG == 1 || g < G) {
+    if (NG == 1 || g < Gz) {
       const float p = expf(sc[g] - m[g]);
       if constexpr (SCALED)
         sp[g][tid] = p * vsc;
@@ -317,7 +358,7 @@ __device__ __forceinline__ void split_rows(
 #pragma unroll
   for (int g = 0; g < NG; ++g) {
     l[g] = 0.f;
-    if (NG == 1 || g < G) {
+    if (NG == 1 || g < Gz) {
 #pragma unroll
       for (int w = 0; w < WARPS; ++w) l[g] += red[g][w];
     }
@@ -332,16 +373,21 @@ __device__ __forceinline__ void split_rows(
     for (int u = 0; u < C; ++u) acc[g][u] = 0.f;
   }
 #pragma unroll
-  for (int p = 0; p < L; ++p) {
-    const int jj = p * RP + rs;
-    float pv[NG];
+  for (int pg = 0; pg < NPG; ++pg) {
+    if (pg > 0) load_passes<D, C, L>(cache.v, srow, rs, c, live, pg * PG, vw);
 #pragma unroll
-    for (int g = 0; g < NG; ++g) pv[g] = (NG == 1 || g < G) ? sp[g][jj] : 0.f;
+    for (int pp = 0; pp < PG; ++pp) {
+      const int jj = (pg * PG + pp) * RP + rs;
+      float pv[NG];
 #pragma unroll
-    for (int u = 0; u < C; ++u) {
-      const float vf = unpack<KT>(vw[p], u);
+      for (int g = 0; g < NG; ++g)
+        pv[g] = (NG == 1 || g < Gz) ? sp[g][jj] : 0.f;
 #pragma unroll
-      for (int g = 0; g < NG; ++g) acc[g][u] += pv[g] * vf;
+      for (int u = 0; u < C; ++u) {
+        const float vf = unpack<KT>(vw[pp], u);
+#pragma unroll
+        for (int g = 0; g < NG; ++g) acc[g][u] += pv[g] * vf;
+      }
     }
   }
 #pragma unroll
@@ -356,7 +402,7 @@ __device__ __forceinline__ void split_rows(
   if (lane < L && live) {
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
-      if (NG == 1 || g < G) {
+      if (NG == 1 || g < Gz) {
 #pragma unroll
         for (int u = 0; u < C; ++u) so[warp][g][c * C + u] = acc[g][u];
       }
@@ -364,18 +410,18 @@ __device__ __forceinline__ void split_rows(
   }
   __syncthreads();
 
-  const long long base = (long long)bh * ns + split;
-  for (int e = tid; e < G * D; e += BK) {
+  const long long base = ((long long)bh * ns + split) * G + g0;
+  for (int e = tid; e < Gz * D; e += BK) {
     const int g = e / D, d = e % D;
     float t = so[0][g][d];
 #pragma unroll
     for (int w = 1; w < WARPS; ++w) t += so[w][g][d];
-    o_part[base * G * D + e] = t;
+    o_part[base * D + e] = t;
   }
   if (tid == 0) {
-    for (int g = 0; g < G; ++g) {
-      m_part[base * G + g] = m[g];
-      l_part[base * G + g] = l[g];
+    for (int g = 0; g < Gz; ++g) {
+      m_part[base + g] = m[g];
+      l_part[base + g] = l[g];
     }
   }
 }
@@ -386,9 +432,10 @@ __global__ void __launch_bounds__(BK)
 split_rows_kernel(const T* __restrict__ q, const Rows<T, PAGED> cache,
                   const uint8_t* __restrict__ mask,
                   float* __restrict__ o_part, float* __restrict__ m_part,
-                  float* __restrict__ l_part, int G, float sm_scale) {
+                  float* __restrict__ l_part, int G, int GB,
+                  float sm_scale) {
   split_rows<T, T, D, NG, PAGED>(q, cache, mask, o_part, m_part, l_part, G,
-                                 sm_scale);
+                                 GB, sm_scale);
 }
 
 // One block per (b * Hkv + hk, g), one thread per head-dim column.
@@ -425,22 +472,27 @@ int launch_merge(const float* o_part, const float* m_part,
 
 // Split + merge for q/out of type T over a cache stored as KT (ks and vs
 // are the int8 cache's scales, else unused). pick(d, g) gives the split
-// kernel for head dim d and G bucket g, both std::integral_constant. For
-// a contiguous cache W is its length and ps, NP are unused; for a paged
-// one W = NP * ps logical rows.
+// kernel for head dim d and bucket g of the query heads a block computes,
+// both std::integral_constant: G itself up to 8, past that ceil(G / 8)
+// blocks of GB = ceil(G / ceil(G / 8)) heads (G 12: 2 x 6, G 16: 2 x 8).
+// For a contiguous cache W is its length and ps, NP are unused; for a
+// paged one W = NP * ps logical rows.
 template <typename T, typename KT, bool PAGED, typename Pick>
 int launch(Pick pick, const void* q, const void* k, const void* v,
            const void* ks, const void* vs, const void* pt, const void* mask,
            void* o_part, void* m_part, void* l_part, void* out, int B, int W,
            int Hkv, int G, int D, int ps, int NP, void* stream) {
   if (B <= 0 || W <= 0) return 0;
-  if (G < 1 || G > MAXG) return static_cast<int>(cudaErrorInvalidValue);
+  if (G < 1 || G > MAX_GROUP)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ngrp = (G + MAXG - 1) / MAXG;  // blocks a (split, kv head)
+  const int GB = (G + ngrp - 1) / ngrp;    // query heads a block
   using Kernel = decltype(pick(std::integral_constant<int, 16>{},
                                std::integral_constant<int, 1>{}));
   auto bucket = [&](auto d) -> Kernel {
-    if (G == 1) return pick(d, std::integral_constant<int, 1>{});
-    if (G == 2) return pick(d, std::integral_constant<int, 2>{});
-    if (G <= 4) return pick(d, std::integral_constant<int, 4>{});
+    if (GB == 1) return pick(d, std::integral_constant<int, 1>{});
+    if (GB == 2) return pick(d, std::integral_constant<int, 2>{});
+    if (GB <= 4) return pick(d, std::integral_constant<int, 4>{});
     return pick(d, std::integral_constant<int, 8>{});
   };
   Kernel kernel;
@@ -450,6 +502,7 @@ int launch(Pick pick, const void* q, const void* k, const void* v,
     case 64: kernel = bucket(std::integral_constant<int, 64>{}); break;
     case 80: kernel = bucket(std::integral_constant<int, 80>{}); break;
     case 128: kernel = bucket(std::integral_constant<int, 128>{}); break;
+    case 160: kernel = bucket(std::integral_constant<int, 160>{}); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   const Rows<KT, PAGED> rows{
@@ -462,9 +515,10 @@ int launch(Pick pick, const void* q, const void* k, const void* v,
   float* mp = static_cast<float*>(m_part);
   float* lp = static_cast<float*>(l_part);
   const int ns = (W + BK - 1) / BK;
-  kernel<<<dim3((unsigned)(B * Hkv), (unsigned)ns), BK, 0, s>>>(
-      static_cast<const T*>(q), rows, static_cast<const uint8_t*>(mask), op,
-      mp, lp, G, 1.0f / sqrtf((float)D));
+  kernel<<<dim3((unsigned)(B * Hkv), (unsigned)ns, (unsigned)ngrp), BK, 0,
+           s>>>(static_cast<const T*>(q), rows,
+                static_cast<const uint8_t*>(mask), op, mp, lp, G, GB,
+                1.0f / sqrtf((float)D));
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   return launch_merge<T>(op, mp, lp, out, B * Hkv, ns, G, D, s);

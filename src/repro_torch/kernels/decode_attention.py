@@ -4,9 +4,9 @@ Replaces ``src/repro/kernels/decode_attention.py``
 ``decode_attention_splitkv``. The kernel (``csrc/decode_attention.cu``)
 is the row-parallel split body of ``csrc/splitkv.cuh``: each 128-row
 split of the cache is reduced into f32 ``(o, m, l)`` partials, ``D / 8``
-lanes a bf16 row (rounded up to a power of two: 16 at D 80, 6 idle)
-with one 16-byte load each of K and V (at G 1), and a second small
-kernel merges them with LSE weights. See the sources for
+lanes a bf16 row (rounded up to a power of two: 16 at D 80, 6 idle; 32
+at D 160, 12 idle) with one 16-byte load each of K and V (at G 1), and
+a second small kernel merges them with LSE weights. See the sources for
 what bounds it and the design. The helpers below validate and allocate
 for every split-KV wrapper (contiguous, paged, int8, int8 paged), all
 four on that one body and merge.
@@ -24,10 +24,11 @@ NEG_INF = -1e30
 
 #: Logical cache rows per split (threads per block of the split kernel).
 BLOCK_K = 128
-#: Head dims the kernel is instantiated for (80: zamba2-2.7b), and the
-#: largest GQA group.
-HEAD_DIMS = (16, 32, 64, 80, 128)
-MAX_GROUP = 8
+#: Head dims the kernel is instantiated for (80: zamba2-2.7b; 160:
+#: stablelm-12b), and the largest GQA group (16: chatglm3-6b; past 8 the
+#: query heads of a kv head split over blocks of at most 8).
+HEAD_DIMS = (16, 32, 64, 80, 128, 160)
+MAX_GROUP = 16
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,

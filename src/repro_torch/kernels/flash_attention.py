@@ -19,8 +19,9 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 
-#: Head dims the kernel is instantiated for (80: zamba2-2.7b).
-HEAD_DIMS = (16, 32, 64, 80, 128)
+#: Head dims the kernel is instantiated for (80: zamba2-2.7b and
+#: hubert-xlarge; 160: stablelm-12b).
+HEAD_DIMS = (16, 32, 64, 80, 128, 160)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,

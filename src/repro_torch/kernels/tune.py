@@ -34,8 +34,7 @@ the warmup.
 Presets: ``ci`` is the reference's smoke grid (smoke archs, shrunken
 shapes), for checking the plumbing on a CPU host (``--device cpu``, the
 plain versions run; the timings mean nothing for the card). ``h100`` is
-the reference ``full`` preset's cells that the port has configs for, at
-full width and the reference shapes (S 32,768), one sequence of the
+the reference ``full`` preset's six cells, in its order, at full width and the reference shapes (S 32,768), one sequence of the
 global batch per case (``bench_batch`` 1) so the plain versions' f32
 intermediates fit the card's 80 GB.
 """
@@ -137,9 +136,19 @@ CI = TunePreset(
                 "shapes: checks schema and plumbing (CPU: plain versions)",
 )
 
+#: The reference ``full`` preset's cells, in its order.
+CELLS_FULL = (
+    ("minicpm-2b", "prefill_32k"),
+    ("minicpm-2b", "decode_32k"),
+    ("stablelm-12b", "prefill_32k"),     # head dim 160, qk-norm
+    ("mamba2-1.3b", "prefill_32k"),
+    ("qwen2-moe-a2.7b", "prefill_32k"),
+    ("mixtral-8x22b", "decode_32k"),
+)
+
 H100 = TunePreset(
     name="h100",
-    cells=CELLS_CI + (("mixtral-8x22b", "decode_32k"),),
+    cells=CELLS_FULL,
     shapes={
         "prefill_32k": get_shape("prefill_32k"),
         "decode_32k": get_shape("decode_32k"),

@@ -1,11 +1,16 @@
 """Serving launcher of the port:
 ``python -m repro_torch.launch.serve --arch minicpm-2b [--smoke] [--device cpu]``
 
-``--arch`` takes the ported archs: ``minicpm-2b`` (dense),
-``qwen2-moe-a2.7b`` and ``mixtral-8x22b`` (MoE, served dropless as the
-reference launcher does) and ``mamba2-1.3b`` (pure SSM, chunk-mode
-admission). Full-width ``mixtral-8x22b`` (~282 GB in bf16) does not fit
-one card; its ``--smoke`` config runs anywhere.
+``--arch`` takes every arch of the registry: the dense ``minicpm-2b``,
+``chatglm3-6b`` (2d RoPE), ``starcoder2-3b`` (LayerNorm, GELU MLP) and
+``stablelm-12b`` (LayerNorm, qk-norm, head dim 160), the VLM backbone
+``qwen2-vl-7b`` (M-RoPE; served on text tokens), ``qwen2-moe-a2.7b`` and
+``mixtral-8x22b`` (MoE, served dropless as the reference launcher does),
+``mamba2-1.3b`` (pure SSM) and ``zamba2-2.7b`` (hybrid; both admitted in
+chunk mode). The encoder-only ``hubert-xlarge`` has no decode step and
+exits, as the reference launcher does. Full-width ``mixtral-8x22b``
+(~282 GB in bf16) does not fit one card; its ``--smoke`` config runs
+anywhere.
 
 Scheduled continuous batching: bucketed/chunked prefill, seeded
 sampling (greedy / temperature / top-k) and cache-budget admission, over
@@ -95,6 +100,8 @@ def main(argv=None):
         raise SystemExit(str(e)) from None
     if args.smoke:
         cfg = smoke_config(cfg)
+    if cfg.is_encoder_only:
+        raise SystemExit(f"{cfg.name} is encoder-only: no decode step")
 
     if args.buckets == "exact":
         buckets = ()

@@ -1,6 +1,6 @@
-"""Shared model primitives of the port: parameter definitions, RMSNorm,
-standard RoPE, SwiGLU and the cross-entropy loss (counterpart of
-``repro.models.layers``).
+"""Shared model primitives of the port: parameter definitions, RMSNorm
+and LayerNorm, RoPE (standard, partial, 2d and M-RoPE), the activations
+and the cross-entropy loss (counterpart of ``repro.models.layers``).
 
 Parameter *definitions* (shape + initializer) are data, so ``init`` and
 the shape checks of the weight bridge derive from one source.
@@ -85,51 +85,82 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = RMSNORM_EPS,
     return dispatch("rmsnorm", policy, x, scale, eps=eps)
 
 
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm as the reference computes it: in f32, the population
+    variance, f32 scale and bias, cast back to x's dtype. No Pallas
+    kernel computes it, so these plain ops are its port."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
 def norm(x: torch.Tensor, p: Dict[str, torch.Tensor], kind: str,
          policy: Optional[KernelPolicy] = None) -> torch.Tensor:
-    if kind != "rmsnorm":
-        raise NotImplementedError(
-            f"norm {kind!r} is not ported yet (ROADMAP.md Queue 1 item 9)")
+    if kind == "layernorm":
+        return layernorm(x, p["scale"], p["bias"])
     return rmsnorm(x, p["scale"], policy=policy)
 
 
 def norm_defs(d_model: int, kind: str) -> Dict[str, ParamDef]:
-    if kind != "rmsnorm":
-        raise NotImplementedError(
-            f"norm {kind!r} is not ported yet (ROADMAP.md Queue 1 item 9)")
-    return {"scale": ParamDef((d_model,), "ones")}
+    out = {"scale": ParamDef((d_model,), "ones")}
+    if kind == "layernorm":
+        out["bias"] = ParamDef((d_model,), "zeros")
+    return out
 
 
 # ===========================================================================
-# RoPE (standard only in this slice)
+# RoPE (standard / partial / 2d / M-RoPE)
 # ===========================================================================
 def rotary_dims(cfg: ModelConfig) -> int:
     rot = int(cfg.head_dim * cfg.partial_rotary)
     return rot - (rot % 2)
 
 
-def _rope_cos_sin(positions: torch.Tensor, rot: int, theta: float
+def _rope_cos_sin(positions: torch.Tensor, rot: int, theta: float,
+                  sections: Tuple[int, ...] = ()
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables (B, S, rot/2) in f32 for (B, S) positions."""
+    """cos/sin tables (B, S, rot/2) in f32. ``positions`` is (B, S), or
+    (3, B, S) for M-RoPE, whose leading axis is (temporal, height,
+    width) and whose ``sections`` give each component's count of
+    frequency pairs; a (3, B, S) position fed to a model without M-RoPE
+    takes component 0, as the reference does."""
     half = rot // 2
     expo = torch.arange(0, half, dtype=torch.float32,
                         device=positions.device) / half
     inv_freq = 1.0 / (theta ** expo)
-    freqs = positions[..., None].float() * inv_freq
+    if sections:
+        if positions.dim() != 3 or sum(sections) != half:
+            raise ValueError(f"M-RoPE needs (3, B, S) positions and "
+                             f"sections summing to {half}; got "
+                             f"{tuple(positions.shape)}, {sections}")
+        parts, start = [], 0
+        for comp, sec in enumerate(sections):
+            parts.append(positions[comp][..., None].float()
+                         * inv_freq[start:start + sec])
+            start += sec
+        freqs = torch.cat(parts, dim=-1)
+    else:
+        if positions.dim() == 3:     # text fed to an M-RoPE-less model
+            positions = positions[0]
+        freqs = positions[..., None].float() * inv_freq
     return torch.cos(freqs), torch.sin(freqs)
 
 
 def rope_tables(positions: torch.Tensor, cfg: ModelConfig
                 ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
-    """cos/sin for ``positions``, shaped to broadcast over heads; computed
-    once per forward or decode step and shared by every layer."""
+    """cos/sin for ``positions`` ((B, S), or (3, B, S) for M-RoPE),
+    shaped to broadcast over heads; computed once per forward or decode
+    step and shared by every layer. ``2d`` (ChatGLM) is the standard
+    rotation over the first ``partial_rotary`` of each head, as the
+    reference computes it."""
     if cfg.rope == "none":
         return None
-    if cfg.rope != "standard":
-        raise NotImplementedError(
-            f"rope {cfg.rope!r} is not ported yet (ROADMAP.md Queue 1 "
-            f"item 9)")
-    cos, sin = _rope_cos_sin(positions, rotary_dims(cfg), cfg.rope_theta)
+    sections = cfg.mrope_sections if cfg.rope == "mrope" else ()
+    cos, sin = _rope_cos_sin(positions, rotary_dims(cfg), cfg.rope_theta,
+                             sections)
     return cos[:, :, None, :], sin[:, :, None, :]
 
 
@@ -157,6 +188,12 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, tables, cfg: ModelConfig
 # ===========================================================================
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The reference's ``jax.nn.gelu``, whose default is the tanh
+    approximation (``F.gelu``'s default is the exact erf form)."""
+    return F.gelu(x, approximate="tanh")
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -1,16 +1,17 @@
 """Model assembly of the port (counterpart of ``repro.models.model``):
 
-* dense / moe — stacked transformer blocks; the MoE family's FFN is
-  ``models.moe.moe_ffn`` (dropless at decode, and at prefill under
-  ``ModelRuntime.moe_dropless``);
+* dense / moe / vlm / audio — stacked transformer blocks; the MoE
+  family's FFN is ``models.moe.moe_ffn`` (dropless at decode, and at
+  prefill under ``ModelRuntime.moe_dropless``); the vlm (M-RoPE over
+  ``(3, B, S)`` positions) and audio (an encoder: non-causal, no decode)
+  families take ``batch['embeds']`` from their stubbed front-ends in
+  place of tokens, as the reference does;
 * ssm — stacked Mamba-2 blocks (``models.ssm``) with a ``{conv, ssm}``
   state cache instead of K/V;
 * hybrid (Zamba2) — the Mamba-2 stack, with a *shared* attention + FFN
   block after every ``shared_attn_period`` layers, alternating between
   ``n_shared_attn_blocks`` physical blocks; its cache holds the state of
   every layer and the K/V of every group.
-
-The vlm and audio families are not ported yet.
 
 Training takes :func:`loss_fn` (cross-entropy plus the MoE aux loss) by
 autograd through :func:`forward`; ``ModelRuntime.remat`` checkpoints
@@ -50,7 +51,8 @@ from repro_torch.kernels.quant import quantize_rows
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-from repro_torch.models.layers import ParamDef, norm, norm_defs, swiglu
+from repro_torch.models.layers import (ParamDef, gelu, norm, norm_defs,
+                                       swiglu)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -106,8 +108,8 @@ class ModelRuntime:
         return torch_dtype(self.dtype)
 
 
-#: Families the port runs; vlm and audio are queued.
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+#: Families the port runs: every family of the reference registry.
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 #: Leaves kept f32 by :func:`cast_params`: each is read from its f32
 #: master by the reference.
@@ -118,9 +120,8 @@ F32_LEAVES = ("ln1", "ln2", "ln", "final_norm", "q_norm", "k_norm", "norm",
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-            f"port runs {PORTED_FAMILIES}; vlm and audio are queued "
-            f"(ROADMAP.md Queue 1 item 9)")
+            f"family {cfg.family!r} ({cfg.name}) is not one the port "
+            f"runs: {PORTED_FAMILIES}")
 
 
 def check_device(device) -> torch.device:
@@ -269,10 +270,10 @@ def _kv_layers(cfg: ModelConfig) -> int:
 # ===========================================================================
 def _mlp(p: Dict[str, torch.Tensor], h: torch.Tensor,
          cfg: ModelConfig) -> torch.Tensor:
-    if cfg.mlp != "swiglu":
-        raise NotImplementedError(
-            f"mlp {cfg.mlp!r} is not ported yet (ROADMAP.md Queue 1 item 9)")
-    z = swiglu(h @ p["wg"].to(h.dtype), h @ p["wi"].to(h.dtype))
+    if cfg.mlp == "swiglu":
+        z = swiglu(h @ p["wg"].to(h.dtype), h @ p["wi"].to(h.dtype))
+    else:
+        z = gelu(h @ p["wi"].to(h.dtype))
     return z @ p["wo2"].to(h.dtype)
 
 
@@ -328,13 +329,29 @@ def mamba_block(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
 # ===========================================================================
 # Forward
 # ===========================================================================
-def _default_positions(B: int, S: int, device) -> torch.Tensor:
-    return torch.arange(S, dtype=torch.int32,
-                        device=device)[None, :].expand(B, S)
+def _default_positions(cfg: ModelConfig, B: int, S: int,
+                       device) -> torch.Tensor:
+    """(B, S) positions 0..S-1, broadcast to (3, B, S) for M-RoPE."""
+    pos = torch.arange(S, dtype=torch.int32, device=device)[None, :]
+    if cfg.rope == "mrope":
+        return pos[None].expand(3, B, S)
+    return pos.expand(B, S)
+
+
+def _positions(cfg: ModelConfig, batch: Dict[str, torch.Tensor], B: int,
+               S: int, device) -> torch.Tensor:
+    positions = batch.get("positions")
+    if positions is None:
+        return _default_positions(cfg, B, S, device)
+    return positions
 
 
 def _embed_in(params, batch: Dict[str, torch.Tensor],
               rt: ModelRuntime) -> torch.Tensor:
+    """The token embedding, or ``batch['embeds']`` (B, S, d) from a
+    stubbed patch or frame front-end, in ``rt.dtype``."""
+    if "embeds" in batch:
+        return batch["embeds"].to(rt.torch_dtype)
     return params["embed"].to(rt.torch_dtype)[batch["tokens"].long()]
 
 
@@ -401,14 +418,14 @@ def _run_blocks(params, cfg: ModelConfig, x, positions, rt: ModelRuntime,
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             rt: ModelRuntime = ModelRuntime()
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (logits (B, S, V) in rt.dtype, aux_loss scalar f32: the MoE
-    layers' summed load-balancing loss, else 0)."""
+    """``batch``: ``tokens`` (B, S), or ``embeds`` (B, S, d) for a patch
+    or frame front-end; ``positions`` (B, S), or (3, B, S) under M-RoPE,
+    default 0..S-1. -> (logits (B, S, V) in rt.dtype, aux_loss scalar
+    f32: the MoE layers' summed load-balancing loss, else 0)."""
     _require_ported(cfg)
     x = _embed_in(params, batch, rt)
     B, S, _ = x.shape
-    positions = batch.get("positions")
-    if positions is None:
-        positions = _default_positions(B, S, x.device)
+    positions = _positions(cfg, batch, B, S, x.device)
     x, aux = _run_blocks(params, cfg, x, positions, rt)
     x = norm(x, params["final_norm"], cfg.norm, policy=rt.kernel_policy())
     return _unembed(params, cfg, x), aux
@@ -443,10 +460,11 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """One-pass prefill: returns (primed cache, last-token logits (B, V)).
 
-    ``lengths`` (B,) marks each row's real prompt length when
-    ``batch['tokens']`` is right-padded to a bucketed length: the cache
-    position is set to the real length and the logits are gathered at
-    ``lengths - 1``. The pad keys land at cache rows ``>= length``,
+    ``batch`` holds ``tokens`` (or ``embeds``) and, optionally,
+    ``positions``, as :func:`forward` takes them. ``lengths`` (B,) marks
+    each row's real prompt length when the batch is right-padded to a
+    bucketed length: the cache position is set to the real length and
+    the logits are gathered at ``lengths - 1``. The pad keys land at cache rows ``>= length``,
     where the decode mask hides them until they are overwritten. A
     recurrent state would absorb pad tokens, so the ``ssm`` and
     ``hybrid`` families take exact-length rows (the scheduler's chunk
@@ -455,9 +473,7 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     _require_ported(cfg)
     x = _embed_in(params, batch, rt)
     B, S, _ = x.shape
-    positions = batch.get("positions")
-    if positions is None:
-        positions = _default_positions(B, S, x.device)
+    positions = _positions(cfg, batch, B, S, x.device)
     cache = init_cache(cfg, B, max_len, rt.dtype, rt.kv_dtype,
                        device=x.device)
     quant = "ks" in cache
@@ -624,7 +640,12 @@ def _decode_blocks(params, cfg: ModelConfig, cache, x, rt: ModelRuntime,
     def attend(q, kv):
         return dispatch(op, pol, q, *(t for t in kv if t is not None), *tail)
 
-    rope = None if cfg.family == "ssm" else L.rope_tables(pos[:, None], cfg)
+    rope = None
+    if cfg.family != "ssm":
+        posv = pos[:, None]                                  # (B, 1)
+        if cfg.rope == "mrope":
+            posv = posv[None].expand(3, -1, -1)              # (3, B, 1)
+        rope = L.rope_tables(posv, cfg)
     for kind, i, p in _schedule(params, cfg):
         if kind == "mamba":
             x = _mamba_decode_one(p, x, cache, i, cfg, pol)

@@ -7,6 +7,7 @@ slice), flash prefill and the four split-KV decode variants
 16, page counts that are not a split multiple, G 1-8, D 16-128 and
 zamba2-2.7b's 80, a window that is not a page multiple, a table row all
 at the null page;
+D 160 (stablelm-12b) and G 12 and 16 (starcoder2-3b, chatglm3-6b);
 paged equal to contiguous bit for bit, and for both the bf16 and the
 int8 pair whole splits without a valid row, a sequence's bits
 independent of its batch and no register spill in the served (G 1,
@@ -70,7 +71,7 @@ def test_rmsnorm_kernel(dev, dtype, rows, d):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows", [1, 2, 3, 4, 8, 16, 37, 600, 2048])
-@pytest.mark.parametrize("d", [2048, 2304, 4096, 2560, 5120])
+@pytest.mark.parametrize("d", [2048, 2304, 4096, 2560, 5120, 160, 3584])
 def test_rmsnorm_equals_the_plain_version_bit_for_bit(dev, dtype, rows, d):
     """At the served widths, at every row count (PyTorch's reduction
     changes its threads a row with the rows), the kernel sums in the
@@ -110,7 +111,9 @@ def test_rmsnorm_misaligned_slice(dev, dtype):
 @pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,window", [
     (2, 100, 4, 2, 16, True, 0), (1, 129, 4, 4, 64, True, 0),
     (1, 77, 8, 2, 128, True, 16), (2, 50, 2, 1, 32, False, 0),
-    (1, 200, 4, 4, 80, True, 0), (2, 70, 4, 2, 80, True, 24)])
+    (1, 200, 4, 4, 80, True, 0), (2, 70, 4, 2, 80, True, 24),
+    (1, 200, 8, 2, 160, True, 0), (2, 90, 4, 1, 160, True, 24),
+    (1, 77, 4, 4, 160, False, 0)])
 def test_flash_kernel(dev, dtype, B, S, Hq, Hkv, D, causal, window):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
@@ -143,9 +146,14 @@ def _flash_case(dev, g, B, S, Hq, Hkv, D, dtype=torch.bfloat16):
     (2, 1024, 4, 2, 64, True, 0),     # minicpm-2b's D, B 2
     (2, 130, 4, 2, 64, False, 0),     # not causal: every tile masked at T
     (1, 300, 2, 2, 128, True, 40),    # window on the 4-warp block
+    (1, 1024, 32, 8, 160, True, 0),   # stablelm-12b's heads, D 160, G 4
+    (2, 65, 4, 1, 160, True, 0),      # a tile and a row, D 160, G 4
+    (1, 300, 8, 2, 160, True, 40),    # D 160, window
+    (2, 130, 4, 4, 160, False, 0),    # D 160, not causal
 ])
 def test_flash_mma_kernel(dev, B, S, Hq, Hkv, D, causal, window):
-    """The bf16 tensor-core body at ragged S, every head dim, G 1-8."""
+    """The bf16 tensor-core body at ragged S, every head dim (D 160
+    reloading Q's fragments each key tile), G 1-8."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     g = torch.Generator(device=dev).manual_seed(13)
@@ -232,7 +240,12 @@ def test_flash_unaligned_bf16_view(dev):
                                           (4, 36, 36, 64, 1024),
                                           (2, 16, 2, 128, 300),
                                           (4, 32, 32, 80, 1024),
-                                          (3, 4, 2, 80, 50)])
+                                          (3, 4, 2, 80, 50),
+                                          (4, 32, 2, 128, 1024),
+                                          (2, 24, 2, 128, 300),
+                                          (4, 32, 8, 160, 1024),
+                                          (3, 4, 4, 160, 50),
+                                          (2, 16, 1, 160, 130)])
 def test_decode_kernel(dev, dtype, B, Hq, Hkv, D, W):
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain)
@@ -291,6 +304,11 @@ PAGED_CASES = [  # B, Hq, Hkv, D, ps, NP, W
     (2, 3, 3, 32, 8, 17, 130),    # G 1, D 32
     (4, 32, 32, 80, 16, 64, 1024),  # full width zamba2-2.7b, G 1, D 80
     (3, 8, 2, 80, 8, 5, 37),      # D 80, G 4, ragged last page
+    (4, 32, 2, 128, 16, 64, 1024),  # chatglm3-6b's heads, G 16
+    (3, 24, 2, 128, 8, 5, 37),    # starcoder2-3b's heads, G 12
+    (4, 32, 8, 160, 16, 64, 1024),  # stablelm-12b's heads, D 160, G 4
+    (2, 4, 4, 160, 8, 9, 70),     # D 160, G 1
+    (2, 10, 1, 160, 16, 9, 144),  # D 160, G 10: two blocks of 5
 ]
 
 
@@ -330,7 +348,12 @@ def test_quant_paged_kernel(dev, dtype, B, Hq, Hkv, D, ps, NP, W):
                                           (2, 16, 2, 128, 300),
                                           (2, 5, 5, 32, 129),
                                           (4, 32, 32, 80, 1024),
-                                          (2, 4, 2, 80, 130)])
+                                          (2, 4, 2, 80, 130),
+                                          (4, 32, 2, 128, 1024),
+                                          (2, 24, 2, 128, 300),
+                                          (4, 32, 8, 160, 1024),
+                                          (3, 4, 4, 160, 50),
+                                          (2, 16, 1, 160, 130)])
 def test_quant_kernel(dev, dtype, B, Hq, Hkv, D, W):
     from repro_torch.kernels.quant import (quant_decode_attention,
                                            quant_decode_attention_plain,
@@ -356,6 +379,10 @@ EQUAL_CASES = [  # B, Hq, Hkv, D, ps, NP, W
     (4, 32, 32, 80, 16, 64, 1024),    # zamba2-2.7b's heads, D 80
     (2, 8, 4, 80, 8, 9, 72),          # D 80, G 2
     (2, 8, 1, 80, 16, 9, 144),        # D 80, G 8
+    (4, 32, 2, 128, 16, 64, 1024),    # chatglm3-6b's heads, G 16
+    (4, 24, 2, 128, 16, 64, 1024),    # starcoder2-3b's heads, G 12
+    (4, 32, 8, 160, 16, 64, 1024),    # stablelm-12b's heads, D 160
+    (3, 4, 4, 160, 8, 5, 37),         # D 160, G 1, ragged last page
 ]
 
 
@@ -429,7 +456,8 @@ def test_quant_kernels_fully_masked_splits(dev, dtype, Hq, Hkv, D):
 
 
 @pytest.mark.parametrize("Hq,Hkv,D", [(36, 36, 64), (16, 16, 128),
-                                      (8, 1, 32)])
+                                      (8, 1, 32), (32, 2, 128),
+                                      (32, 8, 160)])
 def test_quant_kernels_rows_do_not_depend_on_their_batch(dev, Hq, Hkv, D):
     """Each sequence alone gives the bits it gives inside a batch of 4,
     contiguous and paged."""
@@ -498,7 +526,8 @@ def test_kernels_fully_masked_splits(dev, dtype, Hq, Hkv, D):
 
 
 @pytest.mark.parametrize("Hq,Hkv,D", [(36, 36, 64), (16, 16, 128),
-                                      (8, 1, 32)])
+                                      (8, 1, 32), (32, 2, 128),
+                                      (32, 8, 160)])
 def test_kernels_rows_do_not_depend_on_their_batch(dev, Hq, Hkv, D):
     """The bf16 pair: each sequence alone gives the bits it gives inside
     a batch of 4, contiguous and paged."""
@@ -525,8 +554,8 @@ def test_kernels_rows_do_not_depend_on_their_batch(dev, Hq, Hkv, D):
 
 
 @pytest.mark.parametrize("kernel,types,count", [
-    ("quant_split_kernel", r"(f|13__nv_bfloat16)", 20),  # 2 q dtypes
-    ("split_rows_kernel", r"13__nv_bfloat16", 10),      # bf16 KV
+    ("quant_split_kernel", r"(f|13__nv_bfloat16)", 24),  # 2 q dtypes
+    ("split_rows_kernel", r"13__nv_bfloat16", 12),      # bf16 KV
 ])
 def test_quant_split_kernel_has_no_spills(dev, kernel, types, count):
     """ptxas reports no spill in the split kernels' G-1 instantiations,
@@ -537,7 +566,7 @@ def test_quant_split_kernel_has_no_spills(dev, kernel, types, count):
     found = [spill for name, _, spill in _build.ptxas_entries(log)
              if re.search(kernel + r"I" + types + r"Li\d+ELi1ELb[01]E",
                           name)]
-    assert found == [0] * count        # x 5 head dims x paged
+    assert found == [0] * count        # x 6 head dims x paged
 
 
 def test_new_wrappers_reject_bad_inputs(dev):
@@ -856,8 +885,9 @@ def test_ssd_scan_equals_the_plain_version_at_zamba2_widths(dev, a_init, b,
 def test_served_scan_and_norm_bodies_have_no_spills(dev, label, pattern):
     """ptxas reports no spill in the instantiations the served shapes run
     in bf16 (``_build.SERVED_BUILDS``): the SSD scan's three kernels at
-    mamba2's widths, and RMSNorm at the served widths, prefill and decode
-    row counts."""
+    mamba2's widths, RMSNorm at the served widths, prefill and decode
+    row counts, and the split-KV kernels at the served groups past 1
+    (D 128 at G 7, 12 and 16; D 160 at G 4)."""
     import re
     log = (_build.build_library().parent / "build.log").read_text()
     found = [spill for name, _, spill in _build.ptxas_entries(log)

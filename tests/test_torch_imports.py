@@ -25,9 +25,14 @@ print(",".join(mods))
 print(len(mods), bad)
 """
 
-#: Modules the walk must reach: the trace front-end, the figures and
-#: the examples among them.
+#: Modules the walk must reach: the trace front-end, the figures, the
+#: examples and the last-ported families' configs among them.
 _NEW = ("repro_torch.core.workload.torch_trace",
+        "repro_torch.configs.chatglm3_6b",
+        "repro_torch.configs.starcoder2_3b",
+        "repro_torch.configs.stablelm_12b",
+        "repro_torch.configs.qwen2_vl_7b",
+        "repro_torch.configs.hubert_xlarge",
         "repro_torch.bench.figures.__main__",
         "repro_torch.bench.figures.common",
         "repro_torch.bench.figures.fig4_pipeline_model_error",

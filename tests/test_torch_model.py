@@ -80,10 +80,15 @@ def test_config_copy_matches_reference(smoke):
 
 
 def test_unported_arch_names_roadmap():
-    for name in JAX_ARCHS:
-        if name not in ARCHS:
-            with pytest.raises(KeyError, match="ROADMAP.md"):
-                get_arch(name)
+    """No arch of the reference is left unported: the port registers
+    exactly the reference's ten, in its order, each config equal to the
+    reference's; an unknown name raises and lists them."""
+    assert list(ARCHS) == list(JAX_ARCHS) and len(ARCHS) == 10
+    for name, ref in JAX_ARCHS.items():
+        assert dataclasses.asdict(get_arch(name)) == dataclasses.asdict(ref)
+        assert get_arch(name).param_count() == ref.param_count()
+    with pytest.raises(KeyError, match="available"):
+        get_arch("gpt-2")
 
 
 @pytest.mark.parametrize("full", [False, True])

@@ -311,10 +311,9 @@ def test_diff_workloads_report(tiny_dense):
 
 
 def test_trace_decode_and_ssm_families():
-    # decode (KV cache consumption) on a tiny dense model; the reference
-    # uses chatglm3-6b, which the port does not run yet (minicpm-2b is
-    # its dense arch)
-    cfg = smoke_config(get_arch("minicpm-2b"))
+    # decode (KV cache consumption) on a tiny dense model, as the
+    # reference's test traces it
+    cfg = smoke_config(get_arch("chatglm3-6b"))
     wl = trace_workload(cfg, ShapeConfig("d", 64, 4, "decode", kv_len=128))
     assert wl.kind == "decode"
     assert wl.meta["kv_len"] == 128

@@ -83,8 +83,12 @@ def test_lm_workload_resolves_ids_and_decode_kv_len():
     got = lm_workload("minicpm-2b", "decode_32k", kv_len=1000)
     assert [o.act_in_bytes for o in got] == [o.act_in_bytes for o in want]
     assert got.meta["kv_len"] == 1000
+    # every reference arch resolves, the last-ported ones included
+    want = jlm_workload("qwen2-vl-7b", "decode_32k")
+    got = lm_workload("qwen2-vl-7b", "decode_32k")
+    assert [o.act_in_bytes for o in got] == [o.act_in_bytes for o in want]
     with pytest.raises(KeyError):
-        lm_workload("qwen2-vl-7b", "decode_32k")
+        lm_workload("gpt-2", "decode_32k")
 
 
 # ===========================================================================
@@ -139,8 +143,9 @@ def test_h100_cases_match_reference_at_the_ports_bench_batch(arch, shape):
 
 def test_h100_quant_matmul_cases():
     """The int8-weight matmul shapes the card times: N recovered from the
-    int8 weight bytes (minicpm-2b: 3 d_ff; qwen2-moe: the merged shared
-    experts; mixtral, with no dense FFN: the QKV projection)."""
+    int8 weight bytes (minicpm-2b and stablelm-12b: 3 d_ff; qwen2-moe:
+    the merged shared experts; mixtral, with no dense FFN: the QKV
+    projection)."""
     p = tune.H100
     got = {}
     for arch, shape in p.cells:
@@ -151,6 +156,7 @@ def test_h100_quant_matmul_cases():
     assert got == {
         ("minicpm-2b", "prefill_32k"): (32768, 2304, 17280),
         ("minicpm-2b", "decode_32k"): (1, 2304, 17280),
+        ("stablelm-12b", "prefill_32k"): (32768, 5120, 41472),
         ("qwen2-moe-a2.7b", "prefill_32k"): (32768, 2048, 16896),
         ("mixtral-8x22b", "decode_32k"): (1, 6144, 8192),
     }
@@ -343,7 +349,7 @@ def test_cli_ci_on_the_cpu_writes_the_ports_file(monkeypatch, tmp_path,
 
 @pytest.mark.parametrize("argv,msg", [
     (["--preset", "ci", "--cells", "minicpm-2b"], "arch/shape"),
-    (["--preset", "ci", "--cells", "qwen2-vl-7b/decode_32k"], "qwen2-vl"),
+    (["--preset", "ci", "--cells", "gpt-2/decode_32k"], "gpt-2"),
     (["--preset", "ci", "--cells", "minicpm-2b/train_4k"], "unknown shape"),
 ])
 def test_cli_rejects_bad_cells(argv, msg, capsys):
