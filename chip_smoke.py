@@ -119,6 +119,35 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    ratio asserted within 0.05) and the one-card model's prediction on
    the traced and on the analytic workload beside the device time the
    profile measured; the phase prints its own time;
+
+   every engine run above (and each profiled prefill, and each bf16
+   training run of phase 5) also prints a ``[capacity]`` line: the
+   closed-form capacity model's features, predicted argument bytes and
+   peak (``repro_torch.analysis.capacity``: ``serve_preflight`` at the
+   engine's dtypes, which must hold the engine's parameters and cache
+   to the byte) beside the run's ``max_memory_allocated`` since
+   ``reset_peak_memory_stats`` (less what earlier phases left
+   allocated);
+
+   then ``[launch]``: ``repro_torch.launch.serve.main`` in-process on
+   full-width minicpm-2b, ``--scenario chat_burst --preflight
+   --page-size 16 --max-len 1024 --requests 8``, in bf16 and int8 KV:
+   the ``deploy[...]`` and ``preflight:`` lines printed, all 8 requests
+   served, rmsnorm, flash and the paged split-KV kernel of the KV dtype
+   launched and no other, the deploy lower bound ``tok_p50_lb_ms`` at
+   or below the measured step p50, the prefill shapes within the deploy
+   inventory, the peak in a ``[capacity]`` line; the three configs the
+   launcher must refuse (``stablelm-12b --slots 64 --max-len 8192
+   --preflight`` and ``minicpm-2b --preflight --hbm-gb 4`` naming
+   ``capacity-hbm-overflow``, ``minicpm-2b --scenario rag_long_context
+   --page-size 16 --page-budget 8 --strict`` naming
+   ``deploy-admission-deadlock``), each with ``memory_allocated``
+   unchanged; ``repro_torch.examples.serve_batched`` in f32 under the
+   ``torch`` and ``cuda`` policies (the same tokens), paged (== the
+   contiguous tokens) and int8 KV; ``repro_torch.examples.train_100m``
+   for 20 steps, then again on the same checkpoint directory for its
+   default 300, resumed from step 10, the mean of the last 10 losses
+   below the mean of the first run's first 10;
 5. training (``[train]``), with the card emptied first: full-width
    minicpm-2b (40 layers, f32 master weights), one f32 loss and gradient
    at B 2, S 512 under the ``cuda`` and the ``torch`` policy (TF32 off,
@@ -155,10 +184,13 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    (``explore_fpga``) reaches 0.99 of the better of paradigms 1 and 2 on
    vgg16 at KU115; the DSE's int8 proxy printed beside the bf16-vs-int8
    KV ``logit_parity`` measured for minicpm-2b, zamba2-2.7b and
-   stablelm-12b;
+   stablelm-12b; then ``[capacity]`` per kind (decode, prefill, train):
+   the runs, the worst relative error of the card's coefficients, and
+   every run held to ``PARITY_REL_TOL`` (0.25) and its predicted
+   argument bytes to at most its measured peak;
 7. one JSON line describing the kernels (each kernel's launches by
-   path: serve, tune, train and trace), the card's name and power limit, and
-   last the JSON result line.
+   path: serve, tune, train, trace and launch), the card's name and
+   power limit, and last the JSON result line.
 
 It exits non-zero without printing a result when no CUDA device is
 available or the repository's ``src/`` is missing.
@@ -331,6 +363,47 @@ def bound(nbytes: float, ops: float, peak: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[peak] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ===========================================================================
+# The capacity model against the card's peaks
+# ===========================================================================
+#: Every measured run's ``[capacity]`` record (the features, the predicted
+#: argument bytes and peak, the measured peak), checked at the end.
+CAPACITY = []
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def peak_start(resident: int = 0) -> int:
+    """Set the card's peak to what is allocated, just before a measured
+    run; returns the bytes allocated beyond ``resident`` (the parameters
+    or state the prediction counts), which the measurement leaves out."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() - resident
+
+
+def capacity_record(arch, kind, engine, kv_dtype, rep, other):
+    """Print and keep one ``[capacity]`` line: the prediction ``rep``
+    (a ``CapacityReport``) beside the peak since ``peak_start``, less the
+    ``other`` bytes it returned."""
+    import torch
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - other
+    rec = dict(arch=arch, kind=kind, engine=engine,
+               kv_dtype=(kv_dtype or "bf16") if kind != "train" else "-",
+               features=rep.features,
+               argument_bytes=rep.argument_bytes, peak_bytes=rep.peak_bytes,
+               measured_bytes=measured, other_bytes=other,
+               rel_err=abs(measured - rep.peak_bytes) / measured)
+    print("[capacity] " + json.dumps(rec))
+    CAPACITY.append(rec)
+    return rec
 
 
 # ===========================================================================
@@ -1076,14 +1149,33 @@ NEW_TOKENS = 32
 SYSTEM_LEN, N_SYSTEM_REQS = 512, 8
 
 
-def drive(label, eng, requests, counters, expect):
-    """Serve ``requests`` through ``eng``, every launch count set to 0
-    just before and read just after: the kernels in ``expect`` must have
-    run, the other paths' kernels must not. Returns the run's record."""
+def drive(label, make, params, requests, counters, expect):
+    """Serve ``requests`` through the engine ``make()`` builds on
+    ``params``, every launch count set to 0 just before and read just
+    after: the kernels in ``expect`` must have run, the other paths'
+    kernels must not. The capacity model's prediction for the engine
+    (``serve_preflight`` at its runtime's dtypes) must hold its
+    parameters and cache to the byte; its peak is held against the
+    run's (engine built, prefills and decode steps), in a
+    ``[capacity]`` line. Returns the run's record."""
     import numpy as np
     import torch
+    from repro_torch.analysis.capacity import serve_preflight
     from repro_torch.serve import Request
 
+    other = peak_start(tree_bytes(params))
+    eng = make()
+    paged = hasattr(eng, "pages")
+    rt = eng.rt
+    cap = serve_preflight(eng.cfg, n_slots=eng.n_slots, max_len=eng.max_len,
+                          page_size=eng.page_size if paged else None,
+                          dtype=rt.dtype, param_dtype=rt.dtype,
+                          kv_dtype=rt.kv_dtype)
+    check(cap.params_bytes == tree_bytes(eng.params)
+          and cap.cache_bytes == tree_bytes(eng.cache),
+          f"{label}: predicted params {cap.params_bytes} B and cache "
+          f"{cap.cache_bytes} B, allocated {tree_bytes(eng.params)} and "
+          f"{tree_bytes(eng.cache)}")
     for fn in counters.values():
         fn.launches = 0
     for i, prompt in enumerate(requests):
@@ -1130,9 +1222,12 @@ def drive(label, eng, requests, counters, expect):
           f"{bound_c}); kv cache {eng.kv_cache_bytes() / 2**30:.4f} GiB"
           f"{pages}")
     print(f"[serve] {label}: launches {launches}")
+    capacity_record(eng.cfg.name, "decode", "paged" if paged else
+                    "contiguous", rt.kv_dtype, cap, other)
     return dict(streams={r.rid: r.out_tokens for r in eng.finished},
                 launches=launches, stats=st, tok_s=toks / dt, p50_ms=p50,
-                p99_ms=p99, kv_bytes=eng.kv_cache_bytes())
+                p99_ms=p99, kv_bytes=eng.kv_cache_bytes(),
+                n_pages=getattr(eng, "n_pages", None))
 
 
 def serve_phase(cfg, params, counters, rt):
@@ -1146,12 +1241,14 @@ def serve_phase(cfg, params, counters, rt):
     base = {"rmsnorm", "flash_attention"}
 
     def engine(paged, run_rt, width=1, prefix=False):
+        """A builder of the run's engine, for ``drive``."""
         kw = dict(n_slots=4, max_len=1024, scheduler=Scheduler(
             cfg=cfg, max_len=1024, admit_width=width))
         if paged:
-            return PagedServeEngine(params, cfg, run_rt, page_size=PAGE_SIZE,
-                                    prefix_cache=prefix, **kw)
-        return ServeEngine(params, cfg, run_rt, **kw)
+            return lambda: PagedServeEngine(
+                params, cfg, run_rt, page_size=PAGE_SIZE,
+                prefix_cache=prefix, **kw)
+        return lambda: ServeEngine(params, cfg, run_rt, **kw)
 
     def prompts(seed):
         rng = np.random.default_rng(seed)
@@ -1162,21 +1259,20 @@ def serve_phase(cfg, params, counters, rt):
     for width in (1, 2):
         runs[f"contiguous bf16 w{width}"] = drive(
             f"contiguous bf16, admit_width={width}",
-            engine(False, rt, width), prompts(width), counters,
+            engine(False, rt, width), params, prompts(width), counters,
             base | {"decode_attention"})
     reqs = prompts(1)
     for label, paged, run_rt, kernel in (
             ("paged bf16", True, rt, "paged_decode_attention"),
             ("contiguous int8", False, rt8, "quant_decode_attention"),
             ("paged int8", True, rt8, "quant_paged_decode_attention")):
-        eng = engine(paged, run_rt)
+        runs[label] = drive(f"{label}, prefix cache off",
+                            engine(paged, run_rt), params, reqs, counters,
+                            base | {kernel})
         if paged:
             want = 257 if run_rt.kv_dtype is None else 497
-            check(eng.n_pages == want, f"{label}: equal-HBM budget "
-                  f"{eng.n_pages} pages, expected {want}")
-        runs[label] = drive(f"{label}, prefix cache off", eng, reqs,
-                            counters, base | {kernel})
-        del eng
+            check(runs[label]["n_pages"] == want, f"{label}: equal-HBM "
+                  f"budget {runs[label]['n_pages']} pages, expected {want}")
     contig = runs["contiguous bf16 w1"]["kv_bytes"]
     for label in ("paged bf16", "contiguous int8", "paged int8"):
         kvb = runs[label]["kv_bytes"]
@@ -1204,7 +1300,7 @@ def serve_phase(cfg, params, counters, rt):
         runs[f"prefix {prefix}"] = drive(
             f"shared {SYSTEM_LEN}-token prompt, paged bf16, prefix cache "
             f"{'on' if prefix else 'off'}", engine(True, rt, prefix=prefix),
-            shared, counters, base | {"paged_decode_attention"})
+            params, shared, counters, base | {"paged_decode_attention"})
     cold, warm = runs["prefix False"], runs["prefix True"]
     check(warm["stats"].prefix_hits >= 1, "prefix cache never hit")
     check(warm["stats"].prefill_tokens < cold["stats"].prefill_tokens,
@@ -1256,14 +1352,12 @@ def serve_pair(label, cfg, params, rt, counters, expect, attention,
                     params, cfg, run_rt, page_size=PAGE_SIZE,
                     prefix_cache=False, **kw),
                  f"{quant}paged_decode_attention")):
-            eng = make()
             runs[kind, tag] = drive(
-                f"{label} {kind} {tag}", eng, reqs, counters,
+                f"{label} {kind} {tag}", make, params, reqs, counters,
                 expect | ({kernel} if attention else set()))
             if cfg.family in ("ssm", "hybrid"):
-                check(eng.stats.forced_tokens > 0,
+                check(runs[kind, tag]["stats"].forced_tokens > 0,
                       f"{label} {kind}: no chunk-mode admission")
-            del eng
         check(runs["paged", tag]["streams"]
               == runs["contiguous", tag]["streams"],
               f"{label} {tag}: paged token streams differ from contiguous")
@@ -1337,6 +1431,7 @@ def profile_model(label, cfg, params, rt, prefill_focus=(),
     per phase, the unprofiled wall ms and the device-busy ms of one
     call."""
     import torch
+    from repro_torch.analysis.capacity import capacity
     from repro_torch.models import decode_step, prefill
 
     dev = torch.device("cuda")
@@ -1345,12 +1440,16 @@ def profile_model(label, cfg, params, rt, prefill_focus=(),
         toks = torch.randint(0, cfg.vocab_size, (1, 1024), generator=gen,
                              device=dev)
         prefill(params, cfg, {"tokens": toks}, 1024, rt)      # warm-up
-        torch.cuda.synchronize()
+        other = peak_start(tree_bytes(params))
         t0 = time.perf_counter()
         prefill(params, cfg, {"tokens": toks}, 1024, rt)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         print(f"[profile] {label} prefill B1 S1024: {wall_ms:.2f} ms wall")
+        capacity_record(cfg.name, "prefill", "prefill B1 S1024",
+                        rt.kv_dtype, capacity(
+                            cfg, served_shapes()["prefill"], dtype=rt.dtype,
+                            kv_dtype=rt.kv_dtype), other)
         measured = {"prefill": dict(device_profile(
             f"{label} prefill B1 S1024", lambda: prefill(
                 params, cfg, {"tokens": toks}, 1024, rt), steps=3,
@@ -1916,6 +2015,248 @@ def families_phase(counters):
 
 
 # ===========================================================================
+# [launch]: the serve launcher's gates and the two examples
+# ===========================================================================
+#: The launcher's scenario runs: full-width minicpm-2b, paged, chat_burst.
+LAUNCH_ARGS = ("--arch", "minicpm-2b", "--scenario", "chat_burst",
+               "--preflight", "--page-size", "16", "--max-len", "1024",
+               "--requests", "8")
+#: Configs the launcher must refuse before allocating, with the rule
+#: each refusal names.
+LAUNCH_REFUSALS = (
+    (("--arch", "stablelm-12b", "--slots", "64", "--max-len", "8192",
+      "--preflight"), "capacity-hbm-overflow"),
+    (("--arch", "minicpm-2b", "--preflight", "--hbm-gb", "4"),
+     "capacity-hbm-overflow"),
+    (("--arch", "minicpm-2b", "--scenario", "rag_long_context",
+      "--page-size", "16", "--page-budget", "8", "--strict"),
+     "deploy-admission-deadlock"))
+#: train_100m's two runs on one checkpoint directory: the first
+#: checkpoints at step 10 and stops at 20, the second resumes from step
+#: 10 for the example's default 300 steps. Over 20 or 50 steps this
+#: recipe's loss rises (10.55 -> 11.21 on the card; the reference's own
+#: example on the CPU 10.51 -> 11.12 over 20): lr 3e-3 after a 2-3 step
+#: warmup; it falls from step ~150 of a 300-step run.
+TRAIN_100M_STEPS = (20, 300)
+#: Losses averaged at each end of the two runs for "the loss falls".
+LOSS_WINDOW = 10
+
+
+def echoed(fn, *args):
+    """``fn(*args)`` with its standard output captured and echoed as
+    ``[launch]`` lines (but each request's tokens); returns (its result,
+    the output)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if not line.lstrip().startswith("rid="):      # per-request tokens
+            print(f"[launch]   {line[:200]}")
+    return out, text
+
+
+def expect_launches(label, launches, expect):
+    for name, n in launches.items():
+        if name in expect:
+            check(n > 0, f"{label}: kernel {name} was not launched")
+        else:
+            check(n == 0, f"{label}: kernel {name} of another path ran "
+                          f"{n} times")
+
+
+def launcher_runs(counters):
+    """``repro_torch.launch.serve.main`` in-process, full-width minicpm-2b
+    from chat_burst with ``--preflight`` (bf16 and int8 KV): every request
+    served, the paged kernel of the KV dtype launched, the deploy lower
+    bound at or below the measured step p50, the prefill shapes within
+    the deploy inventory, the measured peak in a ``[capacity]`` line;
+    then the three refusals, each naming its rule with nothing
+    allocated. Returns the launch counts."""
+    import torch
+    from repro_torch.launch import serve as launcher
+
+    runs = []
+    for kvd, kernel in ((None, "paged_decode_attention"),
+                        ("int8", "quant_paged_decode_attention")):
+        argv = list(LAUNCH_ARGS) + (["--kv-dtype", kvd] if kvd else [])
+        label = f"launcher {' '.join(argv)}"
+        gc.collect()
+        torch.cuda.empty_cache()
+        other = peak_start()
+        (out, text), launches = counted(
+            counters, lambda: echoed(launcher.main, argv))
+        check("deploy[chat_burst]: rho=" in text and "preflight: " in text,
+              f"{label}: no deploy/preflight lines")
+        check(out["served"] == 8 and out["rejected"] == 0,
+              f"{label}: served {out['served']}/8, rejected "
+              f"{out['rejected']}")
+        expect_launches(label, launches,
+                        {"rmsnorm", "flash_attention", kernel})
+        cap, drep = out["preflight"], out["deploy"]
+        # held to PARITY_REL_TOL with every other run's, in [capacity]
+        rec = capacity_record("minicpm-2b", "decode", "launcher paged", kvd,
+                              cap, other)
+        check(drep.tok_p50_lb_ms <= out["step_p50_ms"],
+              f"{label}: deploy lower bound {drep.tok_p50_lb_ms} ms over "
+              f"the measured step p50 {out['step_p50_ms']} ms")
+        check(out["stats"].prefill_compiles <= drep.compiles,
+              f"{label}: {out['stats'].prefill_compiles} prefill shapes > "
+              f"the deploy inventory {drep.compiles}")
+        print(f"[launch] minicpm-2b chat_burst paged {kvd or 'bf16'}: "
+              f"served {out['served']} requests, {out['tokens']} tokens in "
+              f"{out['seconds']:.3f} s; step p50 {out['step_p50_ms']:.2f} ms "
+              f"p99 {out['step_p99_ms']:.2f} ms >= deploy lower bound tok "
+              f"p50 {drep.tok_p50_lb_ms:.4f} ms (p99 "
+              f"{drep.tok_p99_lb_ms:.4f}, ttft {drep.ttft_lb_ms:.3f}); "
+              f"rho {drep.rho:.4f} at batch {drep.best_batch}; prefill "
+              f"shapes {out['stats'].prefill_compiles} <= inventory "
+              f"{drep.compiles}; peak predicted {cap.peak_bytes} B, "
+              f"measured {rec['measured_bytes']} B (rel err "
+              f"{rec['rel_err']:.4f}); launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        runs.append(launches)
+        del out
+    for argv, rule in LAUNCH_REFUSALS:
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        try:
+            echoed(launcher.main, list(argv))
+        except SystemExit as e:
+            msg = str(e.code)
+        else:
+            msg = ""
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        check(msg.startswith(f"[{rule}]"),
+              f"launcher {' '.join(argv)}: expected [{rule}], got {msg!r}")
+        check(after == before, f"launcher {' '.join(argv)}: {after - before}"
+                               f" B allocated by a refused config")
+        print(f"[launch] refused {' '.join(argv)}: {msg[:160]}; allocated "
+              f"{after - before} B")
+    return runs
+
+
+def example_runs(counters):
+    """``serve_batched`` on the card in f32 under both policies (the same
+    tokens; the cuda run launches flash and the contiguous split-KV
+    kernel, the torch run nothing), paged (== contiguous) and int8 KV;
+    ``train_100m`` twice on one checkpoint directory: the second run
+    resumes from the first's last checkpoint. Returns the launch
+    counts."""
+    import tempfile
+    import torch
+    from repro_torch.analysis.capacity import capacity
+    from repro_torch.ckpt import latest_step
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.examples import serve_batched, train_100m
+
+    runs, toks = [], {}
+    for name, argv, expect in (
+            ("torch", [], set()),
+            ("cuda", ["--use-kernels"],
+             {"flash_attention", "decode_attention"}),
+            ("cuda paged", ["--use-kernels", "--page-size", "8"],
+             {"flash_attention", "paged_decode_attention"}),
+            ("cuda int8", ["--use-kernels", "--kv-dtype", "int8"],
+             {"flash_attention", "quant_decode_attention"})):
+        (out, _), launches = counted(counters, lambda: echoed(
+            serve_batched.main, ["--device", "cuda"] + argv))
+        expect_launches(f"serve_batched {name}", launches, expect)
+        toks[name] = out["tokens"]
+        check(len(toks[name]) == 10, f"serve_batched {name}: "
+              f"{len(toks[name])} of 10 requests")
+        runs.append(launches)
+        print(f"[launch] serve_batched {name}: {len(toks[name])} requests, "
+              f"{sum(map(len, toks[name].values()))} tokens; launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+    check(toks["cuda"] == toks["torch"],
+          "serve_batched: cuda and torch policies' f32 tokens differ")
+    check(toks["cuda paged"] == toks["cuda"],
+          "serve_batched: paged tokens differ from contiguous")
+    print("[launch] serve_batched f32: cuda tokens == torch tokens; paged "
+          "== contiguous")
+
+    with tempfile.TemporaryDirectory(prefix="train100m_") as d:
+        res = []
+        for steps in TRAIN_100M_STEPS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            last = latest_step(d)
+            other = peak_start()
+            (out, _), launches = counted(counters, lambda: echoed(
+                train_100m.main, ["--steps", str(steps), "--ckpt-dir", d]))
+            capacity_record("train_100m", "train", f"train f32 B8 S256 "
+                            f"{steps} steps", None, capacity(
+                                train_100m.model_config(),
+                                ShapeConfig("train", 256, 8, "train")),
+                            other)
+            expect_launches(f"train_100m --steps {steps}", launches,
+                            {"rmsnorm", "flash_attention"})
+            check(out["start"] == last, f"train_100m --steps {steps}: "
+                  f"started from {out['start']}, latest checkpoint {last}")
+            check(all(math.isfinite(x) for x in out["losses"]),
+                  f"train_100m: non-finite loss {out['losses']}")
+            res.append(out)
+            runs.append(launches)
+        first, second = res
+        check(second["start"] is not None and second["start"] > 0,
+              "train_100m: the second run did not resume")
+        head = statistics.mean(first["losses"][:LOSS_WINDOW])
+        tail = statistics.mean(second["losses"][-LOSS_WINDOW:])
+        print(f"[launch] train_100m: run 1 {TRAIN_100M_STEPS[0]} steps, "
+              f"loss {first['losses'][0]:.4f} -> {first['losses'][-1]:.4f}"
+              f"; run 2 resumed from step {second['start']}, "
+              f"{TRAIN_100M_STEPS[1]} steps, loss "
+              f"{second['losses'][0]:.4f} -> {second['losses'][-1]:.4f}; "
+              f"mean of run 1's first {LOSS_WINDOW} {head:.4f}, of run 2's "
+              f"last {LOSS_WINDOW} {tail:.4f}")
+        check(tail < head, f"train_100m: the loss did not fall ({head:.4f}"
+                           f" -> {tail:.4f})")
+    return runs
+
+
+def launch_phase(counters):
+    """``[launch]``: the launcher's gates on the card, then the two
+    examples. Returns the phase's launch counts, summed."""
+    t0 = time.perf_counter()
+    runs = launcher_runs(counters) + example_runs(counters)
+    launched = {k: sum(r[k] for r in runs) for k in counters}
+    print(f"[launch] launches {launched}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launched
+
+
+def capacity_phase():
+    """``[capacity]``: every run's prediction against its measured peak,
+    per kind, held to ``PARITY_REL_TOL``, and its argument bytes to at
+    most the measured peak."""
+    from repro_torch.analysis.capacity import CALIBRATION, PARITY_REL_TOL
+    for kind in ("decode", "prefill", "train"):
+        recs = [r for r in CAPACITY if r["kind"] == kind]
+        if not recs:
+            continue
+        worst = max(recs, key=lambda r: r["rel_err"])
+        print(f"[capacity] {kind}: {len(recs)} runs; worst |measured - "
+              f"predicted| / measured {worst['rel_err']:.4f} ({worst['arch']}"
+              f" {worst['engine']} {worst['kv_dtype']}), bar "
+              f"{PARITY_REL_TOL}; coefficients {CALIBRATION[kind]}")
+        for r in recs:
+            check(r["argument_bytes"] <= r["measured_bytes"],
+                  f"capacity {r['arch']} {r['engine']}: argument bytes "
+                  f"{r['argument_bytes']} over the measured peak "
+                  f"{r['measured_bytes']}")
+            check(r["rel_err"] <= PARITY_REL_TOL,
+                  f"capacity {kind} {r['arch']} {r['engine']} "
+                  f"{r['kv_dtype']}: predicted {r['peak_bytes']} B, "
+                  f"measured {r['measured_bytes']} B, rel err "
+                  f"{r['rel_err']:.4f} > {PARITY_REL_TOL}")
+
+
+# ===========================================================================
 # Phase 5: training
 # ===========================================================================
 #: Batch and length of the train phase: B 2 for the f32 gradient checks,
@@ -2029,6 +2370,8 @@ def train_steps(label, cfg, params, counters, expect, steps, batch=TRAIN_B,
     step ms, the peak GiB)."""
     import dataclasses
     import torch
+    from repro_torch.analysis.capacity import capacity
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import SyntheticLMData
     from repro_torch.kernels.dispatch import KernelPolicy
     from repro_torch.models import ModelRuntime, loss_fn
@@ -2048,7 +2391,7 @@ def train_steps(label, cfg, params, counters, expect, steps, batch=TRAIN_B,
         schedule="wsd" if cfg.lr_schedule == "wsd" else "cosine"))
     step_fn = make_train_step(cfg, rt, tc)
     state = init_state(params)
-    torch.cuda.reset_peak_memory_stats()
+    other = peak_start(tree_bytes(state))
 
     def run():
         losses, times = [], []
@@ -2065,6 +2408,10 @@ def train_steps(label, cfg, params, counters, expect, steps, batch=TRAIN_B,
     (losses, times), launches = train_run(f"{label} bf16 steps", counters,
                                           expect, run)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    capacity_record(cfg.name, "train", f"train B{batch} S{TRAIN_S} "
+                    f"{cfg.n_layers} layers", None, capacity(
+                        cfg, ShapeConfig("train", TRAIN_S, batch, "train")),
+                    other)
     check(all(math.isfinite(x) for x in losses), f"{label}: non-finite "
           f"loss {losses}")
     d0 = abs(losses[0] - ref_loss)
@@ -2418,22 +2765,29 @@ def main() -> int:
           f"each traced on the card and on meta); launches {traced}")
     del totals
 
+    # --- [launch]: the launcher's gates and the examples --------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    launched = launch_phase(counters)
+
     # --- phase 5 ---------------------------------------------------------
     trained, train_runs = train_phase(counters)
 
     # --- phase 6 ---------------------------------------------------------
     explore_phase(served_measured, train_runs, int8_devs)
+    capacity_phase()
 
     # --- phase 7 ---------------------------------------------------------
     kernels = []
     for name, e in entries.items():
         e = dict(e, ok=True,
                  launches=(served[name] + tuned[name] + trained[name]
-                           + traced[name]),
+                           + traced[name] + launched[name]),
                  launches_by_path={"serve": served[name],
                                    "tune": tuned[name],
                                    "train": trained[name],
-                                   "trace": traced[name]})
+                                   "trace": traced[name],
+                                   "launch": launched[name]})
         e.pop("shape")
         for t in (e, *(e[k] for k in SUB_ENTRIES if k in e)):
             for key in ("ms", "plain_ms", "bound_ms", "library_ms"):

@@ -2,12 +2,14 @@
 
     <root>/kernels/calibration.json     the tuner's calibration
     <root>/bench/<name>.json            benchmark outputs
+    <root>/analysis/report.json         static-analysis findings
 
 ``<root>`` is ``$REPRO_TORCH_ARTIFACT_DIR`` when set, else
 ``./artifacts/torch`` relative to the working directory. The port never
-writes the reference's ``artifacts/kernels/calibration.json``: the two
-tuners time different implementations on different devices. The helpers
-are functions, so the variable is read at call time.
+writes the reference's ``artifacts/kernels/calibration.json`` (the two
+tuners time different implementations on different devices) nor its
+``artifacts/analysis/``. The helpers are functions, so the variable is
+read at call time.
 """
 from __future__ import annotations
 
@@ -37,3 +39,19 @@ def calibration_path() -> str:
 def bench_dir() -> str:
     """Benchmark outputs (``repro_torch.bench``)."""
     return os.path.join(artifact_root(), "bench")
+
+
+def analysis_dir() -> str:
+    """Static-analysis artifacts (``repro_torch.analysis``)."""
+    return os.path.join(artifact_root(), "analysis")
+
+
+def analysis_report_path() -> str:
+    """The findings report ``python -m repro_torch.analysis`` writes."""
+    return os.path.join(analysis_dir(), "report.json")
+
+
+def analysis_baseline_path() -> str:
+    """Where ``python -m repro_torch.analysis --write-baseline`` keeps a
+    gate-count baseline for ``--baseline`` to diff against."""
+    return os.path.join(analysis_dir(), "baseline.json")

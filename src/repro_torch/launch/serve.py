@@ -24,8 +24,21 @@ the reference launcher's f32 runtime). Prints tok/s, per-step latency
 percentiles, slot occupancy, the prefill shape count, the KV cache and
 any rejected requests, as the reference launcher does.
 
-Meshes, the preflight and scenarios come with their slices (ROADMAP.md
-Queue 1 item 13).
+``--scenario NAME`` samples the requests from the traffic scenario
+library (``repro_torch.serve.scenarios``, scaled into ``--max-len``) and
+runs ``deploy_lint`` against it; ``--preflight`` prints that lint's
+bounds and gates the config through the closed-form HBM capacity model
+(``repro_torch.analysis.capacity``, the card's 80 GB or ``--hbm-gb``),
+refusing an oversized one with ``capacity-hbm-overflow``; ``--strict``
+refuses to launch on any error-severity deploy finding (e.g.
+``deploy-admission-deadlock``). Both gates price the dtypes of the
+runtime that is then built (bf16 on the card, f32 on the CPU), and run
+before anything is allocated. ``--mesh`` waits for the multi-GPU slice
+(ROADMAP.md Queue 1 item 12): the launcher serves on one device.
+
+``main(argv)`` returns what it measured (the requests served, the step
+percentiles, the engine's stats and the two gates' reports) to an
+in-process caller.
 """
 from __future__ import annotations
 
@@ -36,10 +49,12 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.analysis.capacity import serve_preflight
+from repro_torch.analysis.deploy_lint import DeploymentSpec, deploy_preflight
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.models import ModelRuntime, init_params
 from repro_torch.serve import (PagedServeEngine, Request, Sampler,
-                               Scheduler, ServeEngine)
+                               Scheduler, ServeEngine, get_scenario)
 
 
 def main(argv=None):
@@ -88,6 +103,22 @@ def main(argv=None):
                     default=True,
                     help="share prompt-prefix pages across requests "
                          "(paged engine only)")
+    ap.add_argument("--preflight", action="store_true",
+                    help="gate the config through the closed-form HBM "
+                         "capacity model before allocating anything; "
+                         "reject oversized slots/max-len/page budgets "
+                         "(rule capacity-hbm-overflow)")
+    ap.add_argument("--hbm-gb", type=float, default=None,
+                    help="HBM budget in GiB for --preflight (default: "
+                         "the H100's 80 GB)")
+    ap.add_argument("--scenario", default=None,
+                    help="named traffic scenario (repro_torch.serve."
+                         "scenarios) to sample requests from; with "
+                         "--preflight also prints the deploy_lint bounds "
+                         "for it (scaled into --max-len if needed)")
+    ap.add_argument("--strict", action="store_true",
+                    help="refuse to launch on deploy-admission-deadlock "
+                         "(and any other error-severity deploy finding)")
     args = ap.parse_args(argv)
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -109,9 +140,67 @@ def main(argv=None):
         buckets = tuple(int(b) for b in args.buckets.split(","))
     else:
         buckets = None
+    # the runtime's compute dtype: both gates price what is then built
+    dtype = "bfloat16" if args.device == "cuda" else "float32"
 
-    rt = ModelRuntime(dtype="bfloat16" if args.device == "cuda"
-                      else "float32", attn_chunk=128, device=args.device,
+    scenario = drep = cap = None
+    if args.scenario:
+        try:
+            scenario = get_scenario(args.scenario).scaled(args.max_len)
+        except KeyError as e:
+            raise SystemExit(e.args[0]) from None
+        dep = DeploymentSpec(
+            n_slots=args.slots, max_len=args.max_len, buckets=buckets,
+            admit_width=args.admit_width, page_size=args.page_size,
+            page_budget=args.page_budget, dtype=dtype, param_dtype=dtype,
+            kv_dtypes=(args.kv_dtype,) if args.kv_dtype else (),
+            hbm_gb=args.hbm_gb)
+        drep = deploy_preflight(cfg, scenario, deployment=dep)
+        if args.preflight:
+            print(f"deploy[{scenario.name}]: rho={drep.rho:.3f} "
+                  f"(peak {drep.rho_peak:.3f}) at batch={drep.best_batch}; "
+                  f"lower bounds tok p50/p99 {drep.tok_p50_lb_ms:.3f}/"
+                  f"{drep.tok_p99_lb_ms:.3f} ms, ttft "
+                  f"{drep.ttft_lb_ms:.1f} ms; compiles {drep.compiles} "
+                  f"(bound {drep.compile_bound or 'unbounded'}); cache "
+                  f"{drep.cache_tokens} tokens")
+            for f in drep.findings:
+                print(f"  [{f.severity}] {f.rule_id}: {f.message}")
+        errors = [f for f in drep.findings if f.severity == "error"]
+        if args.strict and errors:
+            raise SystemExit(
+                f"[{errors[0].rule_id}] scenario {scenario.name!r} is "
+                f"statically infeasible on this config: "
+                f"{errors[0].message}")
+
+    if args.preflight:
+        # pure shape math before any tensor exists: an oversized config
+        # costs nothing to reject
+        cap = serve_preflight(
+            cfg, n_slots=args.slots, max_len=args.max_len,
+            page_size=args.page_size or None,
+            page_budget=args.page_budget, hbm_gb=args.hbm_gb,
+            dtype=dtype, param_dtype=dtype, kv_dtype=args.kv_dtype)
+        print(f"preflight: predicted peak "
+              f"{cap.peak_bytes / 2**30:.3f} GiB / "
+              f"{cap.hbm_bytes / 2**30:.1f} GiB "
+              f"(arguments {cap.argument_bytes / 2**30:.3f} GiB: params "
+              f"{cap.params_bytes / 2**30:.3f}, cache "
+              f"{cap.cache_bytes / 2**30:.3f}; utilization "
+              f"{cap.utilization:.2f})")
+        if args.device == "cuda":
+            total = torch.cuda.get_device_properties(0).total_memory
+            print(f"preflight: budget {cap.hbm_bytes} B; the card "
+                  f"reports {total} B")
+        if not cap.fits:
+            raise SystemExit(
+                f"[capacity-hbm-overflow] {args.slots} slots x "
+                f"{args.max_len} tokens predicts "
+                f"{cap.peak_bytes / 2**30:.2f} GiB peak, over the "
+                f"{cap.hbm_bytes / 2**30:.1f} GiB budget — shrink "
+                f"--slots/--max-len or page the cache")
+
+    rt = ModelRuntime(dtype=dtype, attn_chunk=128, device=args.device,
                       kv_dtype=args.kv_dtype, moe_dropless=True)
     # drawn and cast leaf by leaf: the f32 masters never coexist
     params = init_params(cfg, args.seed, device=args.device, rt=rt)
@@ -130,11 +219,19 @@ def main(argv=None):
     del params
 
     rng = np.random.default_rng(args.seed)
-    for i in range(args.requests):
-        plen = int(rng.integers(4, max(5, min(32, args.max_len // 2))))
-        prompt = rng.integers(0, cfg.vocab_size, plen).astype(np.int32)
-        eng.submit(Request(rid=i, prompt=prompt,
-                           max_new_tokens=args.max_new))
+    if scenario is not None:
+        # request shapes come from the scenario, so the measured run
+        # replays what deploy_preflight bounded
+        for i, (_, plen, olen) in enumerate(
+                scenario.sample_requests(args.requests, seed=args.seed)):
+            prompt = rng.integers(0, cfg.vocab_size, plen).astype(np.int32)
+            eng.submit(Request(rid=i, prompt=prompt, max_new_tokens=olen))
+    else:
+        for i in range(args.requests):
+            plen = int(rng.integers(4, max(5, min(32, args.max_len // 2))))
+            prompt = rng.integers(0, cfg.vocab_size, plen).astype(np.int32)
+            eng.submit(Request(rid=i, prompt=prompt,
+                               max_new_tokens=args.max_new))
 
     sync = torch.cuda.synchronize if args.device == "cuda" else (lambda: None)
     t0 = time.time()
@@ -175,6 +272,11 @@ def main(argv=None):
     for r in done[:4]:
         print(f"  rid={r.rid} finish={r.finish_reason} "
               f"out={r.out_tokens}")
+    return dict(served=len(done), finished=done,
+                rejected=len(eng.rejected), tokens=toks,
+                seconds=dt, step_p50_ms=float(p50), step_p99_ms=float(p99),
+                stats=st, deploy=drep, preflight=cap,
+                compile_bound=sched.max_prefill_compiles())
 
 
 if __name__ == "__main__":

@@ -26,7 +26,8 @@ print(len(mods), bad)
 """
 
 #: Modules the walk must reach: the trace front-end, the figures, the
-#: examples and the last-ported families' configs among them.
+#: examples, the last-ported families' configs, the scenario library and
+#: the static-analysis package among them.
 _NEW = ("repro_torch.core.workload.torch_trace",
         "repro_torch.configs.chatglm3_6b",
         "repro_torch.configs.starcoder2_3b",
@@ -43,7 +44,20 @@ _NEW = ("repro_torch.core.workload.torch_trace",
         "repro_torch.bench.figures.fig10_scalability",
         "repro_torch.bench.figures.fig11_dse_convergence",
         "repro_torch.examples.quickstart",
-        "repro_torch.examples.explore_accelerator")
+        "repro_torch.examples.explore_accelerator",
+        "repro_torch.examples.serve_batched",
+        "repro_torch.examples.train_100m",
+        "repro_torch.serve.scenarios",
+        "repro_torch.analysis",
+        "repro_torch.analysis.__main__",
+        "repro_torch.analysis.ast_lint",
+        "repro_torch.analysis.capacity",
+        "repro_torch.analysis.capacity_fit",
+        "repro_torch.analysis.deploy_lint",
+        "repro_torch.analysis.findings",
+        "repro_torch.analysis.prefill_compiles",
+        "repro_torch.analysis.registry",
+        "repro_torch.analysis.runner")
 
 
 def test_port_imports_without_jax_or_reference():
