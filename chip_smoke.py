@@ -44,7 +44,28 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    (bf16 and int8 KV); RMSNorm bit for bit at d 160 (stablelm's
    qk-norm), 3584 and 4096;
 
-   then the tuning path: ``run_tuning`` of the ``h100`` preset (reps 3,
+   then ``[validator]`` (under 120 s): the static kernel validator
+   (``repro_torch.analysis.kernel_validator``) over the ``h100`` tune
+   grid with no error; every case x grid point's launch plan
+   (``kernels/plan.py``) equal to the library's plan export (name, grid,
+   block, dynamic shared memory), and so for the served shapes the grid
+   does not reach (``VALIDATOR_EXTRA``: flash at D 80 and 160 and in
+   bf16, split-KV at G 12 and 16, the bf16 tensor-core bodies, RMSNorm's
+   wide body); each case launched once through its wrapper, its outputs'
+   shapes and dtypes the plan's and its real plan (the MoE case's real
+   routing) covering its outputs; one line per kernel symbol
+   (registers, static and dynamic shared memory, local bytes, threads,
+   blocks an SM), each within the card's opt-in shared memory, 65,536
+   registers a block and at least one block an SM, its static shared
+   memory the plan's; compute-sanitizer's memcheck, racecheck and
+   initcheck over ``kernel_validator --sanitize`` where the toolkit has
+   the tool and it runs on the card (a line says which, when it cannot);
+   then that target itself: every kernel once at the ``ci`` shapes, f32
+   and bf16, every buffer the wrappers allocate filled with NaN first,
+   against its plain version;
+
+   then the tuning path (``validate=True``: the validator's block
+   printed, no error): ``run_tuning`` of the ``h100`` preset (reps 3,
    written to ``chiprun_out/calibration_h100.json``) with every launch
    count set to 0 before it: every op timed under ``torch`` and
    ``cuda``, every kernel launched, the cuda output equal to the torch
@@ -187,7 +208,13 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    stablelm-12b; then ``[capacity]`` per kind (decode, prefill, train):
    the runs, the worst relative error of the card's coefficients, and
    every run held to ``PARITY_REL_TOL`` (0.25) and its predicted
-   argument bytes to at most its measured peak;
+   argument bytes to at most its measured peak; and the held-out runs
+   (``[capacity] held-out``: minicpm-2b prefills at B1 S2048, B1 S4096
+   and B2 S1024, mamba2-1.3b at B1 S2048, each after its model's
+   profile; lines ``analysis/capacity_fit.py`` does not read) against
+   the same bar without a refit, each printed as within it or missing
+   it (a miss is a finding about the model's reach, recorded in
+   ROADMAP.md Queue 3, not a failed run);
 7. one JSON line describing the kernels (each kernel's launches by
    path: serve, tune, train, trace and launch), the card's name and
    power limit, and last the JSON result line.
@@ -386,6 +413,45 @@ def peak_start(resident: int = 0) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     return torch.cuda.memory_allocated() - resident
+
+
+#: Runs the capacity fit (``analysis/capacity_fit.py``) has not seen,
+#: held to PARITY_REL_TOL with the card's CALIBRATION as it stands: each
+#: (batch, length) prefilled once after the model's profile.
+HELD_OUT = []
+HELD_OUT_PREFILLS = {"minicpm-2b": ((1, 2048), (1, 4096), (2, 1024)),
+                     "mamba2-1.3b": ((1, 2048),)}
+
+
+def held_out_prefills(cfg, params, rt):
+    """One cuda-policy prefill per HELD_OUT_PREFILLS entry of ``cfg``,
+    its peak against ``capacity()``'s prediction, printed as
+    ``[capacity] held-out {json}`` (a line the fit does not read)."""
+    import torch
+    from repro_torch.analysis.capacity import capacity
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import prefill
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for B, S in HELD_OUT_PREFILLS.get(cfg.name, ()):
+        shape = ShapeConfig(f"prefill_b{B}_s{S}", S, B, "prefill")
+        with torch.no_grad():
+            toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                 device=dev)
+            other = peak_start(tree_bytes(params))
+            cache, _ = prefill(params, cfg, {"tokens": toks}, S, rt)
+            del cache
+            torch.cuda.synchronize()
+        rep = capacity(cfg, shape, dtype=rt.dtype, kv_dtype=rt.kv_dtype)
+        measured = torch.cuda.max_memory_allocated() - other
+        rec = dict(arch=cfg.name, kind="prefill", engine=f"prefill B{B} S{S}",
+                   kv_dtype=rt.kv_dtype or "bf16", features=rep.features,
+                   argument_bytes=rep.argument_bytes,
+                   peak_bytes=rep.peak_bytes, measured_bytes=measured,
+                   other_bytes=other,
+                   rel_err=abs(measured - rep.peak_bytes) / measured)
+        print("[capacity] held-out " + json.dumps(rec))
+        HELD_OUT.append(rec)
 
 
 def capacity_record(arch, kind, engine, kv_dtype, rep, other):
@@ -1010,6 +1076,256 @@ def bit_for_bit_at(cfg, gen, rnd):
 # ===========================================================================
 # Phase 2b: the tuner and the measured model
 # ===========================================================================
+# ===========================================================================
+# Phase 2b: the static kernel validator on the card host
+# ===========================================================================
+#: The ``[validator]`` phase's budget of wall time.
+VALIDATOR_BUDGET_S = 120.0
+#: Served shapes the h100 tune preset does not reach, whose plans are held
+#: to the library's and whose kernels' attributes are read too: flash at
+#: zamba2-2.7b's D 80 (the chunked body), split-KV at G 12 and 16 and D
+#: 160, RMSNorm at zamba2's gated width (the wide body) and at 4 rows.
+VALIDATOR_EXTRA = (
+    ("prefill_attention", "zamba2-2.7b flash D 80",
+     ((1, 1024, 32, 80), (1, 1024, 32, 80), (1, 1024, 32, 80)),
+     {"causal": True, "window": 0}),
+    ("decode_attention", "starcoder2-3b split-KV G 12",
+     ((4, 24, 128), (4, 1024, 2, 128), (4, 1024, 2, 128), (4, 1024)), {}),
+    ("paged_decode_attention", "chatglm3-6b paged split-KV G 16",
+     ((4, 32, 128), (257, 16, 2, 128), (257, 16, 2, 128), (4, 64),
+      (4, 1024)), {}),
+    ("quant_decode_attention", "stablelm-12b int8 split-KV D 160",
+     ((4, 32, 160), (4, 1024, 8, 160), (4, 1024, 8, 160), (4, 1024, 8),
+      (4, 1024, 8), (4, 1024)), {}),
+    ("rmsnorm", "zamba2-2.7b gated norm d 5120", ((2048, 5120), (5120,)),
+     {}),
+    ("rmsnorm", "minicpm-2b decode rows", ((4, 2304), (2304,)), {}),
+    # the served bf16 bodies the tuner's f32 cases do not run
+    ("prefill_attention", "minicpm-2b flash bf16 (tensor cores)",
+     ((1, 1024, 36, 64), (1, 1024, 36, 64), (1, 1024, 36, 64)),
+     {"causal": True, "window": 0}),
+    ("prefill_attention", "stablelm-12b flash D 160 bf16",
+     ((1, 1024, 32, 160), (1, 1024, 8, 160), (1, 1024, 8, 160)),
+     {"causal": True, "window": 0}),
+    ("moe_gemm", "qwen2-moe-a2.7b prefill rows bf16 (tensor cores)",
+     ((4096, 2048), (60, 2048, 1408), (4096,)), {"n_experts": 60}),
+    ("quant_matmul", "minicpm-2b int8 matmul bf16, decode rows",
+     ((4, 2304), (2304, 5760), (5760,)), {}),
+    ("quant_matmul", "minicpm-2b int8 matmul bf16, prefill rows",
+     ((1024, 2304), (2304, 5760), (5760,)), {}),
+    ("ssd_scan", "mamba2-1.3b scan bf16",
+     ((1, 1024, 64, 64), (1, 1024, 64), (64,), (1, 1024, 64, 128),
+      (1, 1024, 64, 128)), {"chunk": 256}),
+)
+#: The port's kernels, as compute-sanitizer --kernel-name filters (a
+#: kernel whose name holds one of these substrings is checked).
+SANITIZE_KERNELS = ("rmsnorm", "flash_fwd", "split_rows", "quant_split",
+                    "merge_kernel", "moe_gemm", "ssd_", "quant_matmul")
+SANITIZE_TOOLS = ("memcheck", "racecheck", "initcheck")
+
+
+def extra_meta_args(op, shapes):
+    """Meta operands of a VALIDATOR_EXTRA entry in the dtypes its op
+    takes (bf16 activations and weights, int8 caches and weights with
+    their scales, int32 tables and routes, bool masks, f32 norm scales
+    and the scan's dt and A)."""
+    import torch
+    dtypes = {
+        "prefill_attention": (torch.bfloat16,) * 3,
+        "decode_attention": (torch.bfloat16,) * 3 + (torch.bool,),
+        "paged_decode_attention": (torch.bfloat16,) * 3
+        + (torch.int32, torch.bool),
+        "quant_decode_attention": (torch.bfloat16, torch.int8, torch.int8,
+                                   torch.bfloat16, torch.bfloat16,
+                                   torch.bool),
+        "rmsnorm": (torch.bfloat16, torch.float32),
+        "moe_gemm": (torch.bfloat16, torch.bfloat16, torch.int32),
+        "quant_matmul": (torch.bfloat16, torch.int8, torch.float32),
+        "ssd_scan": (torch.bfloat16, torch.float32, torch.float32,
+                     torch.bfloat16, torch.bfloat16)}[op]
+    return tuple(torch.empty(sh, dtype=dt, device="meta")
+                 for sh, dt in zip(shapes, dtypes))
+
+
+def sanitizer_runs(env):
+    """compute-sanitizer's three tools over ``kernel_validator
+    --sanitize``, filtered to the port's kernels. Where the toolkit lacks
+    the tool, or the tool refuses the card, says so on a line of its
+    own; where it runs, every tool must report no error."""
+    import os
+    import shutil
+    tool = shutil.which("compute-sanitizer") or "/usr/local/cuda/bin/" \
+        "compute-sanitizer"
+    if not os.path.exists(tool):
+        print("[validator] compute-sanitizer: not in this CUDA toolkit "
+              "(looked on PATH and in /usr/local/cuda/bin); memcheck, "
+              "racecheck and initcheck not run")
+        return "absent"
+    version = subprocess.run([tool, "--version"], capture_output=True,
+                             text=True, timeout=60).stdout.strip()
+    version = version.splitlines()[-1] if version else "unknown version"
+    target = [sys.executable, "-m", "repro_torch.analysis.kernel_validator",
+              "--sanitize"]
+    for name in SANITIZE_TOOLS:
+        run_env = dict(env)
+        if name == "initcheck":
+            run_env["PYTORCH_NO_CUDA_MEMORY_CACHING"] = "1"
+        t0 = time.perf_counter()
+        filters = [a for k in SANITIZE_KERNELS
+                   for a in ("--kernel-name", f"kns={k}")]
+        r = subprocess.run([tool, "--tool", name, *filters, *target],
+                           capture_output=True, text=True, timeout=600,
+                           env=run_env, cwd=ROOT)
+        out = r.stdout + r.stderr
+        if "Device not supported" in out:
+            print(f"[validator] compute-sanitizer ({version}) is in the "
+                  f"toolkit but refuses this card under --tool {name}: "
+                  f"\"Error: Device not supported\" (rc {r.returncode}, "
+                  f"{time.perf_counter() - t0:.1f} s); memcheck, racecheck "
+                  f"and initcheck cannot run here")
+            return "refused"
+        summary = [line for line in out.splitlines()
+                   if "SUMMARY" in line]
+        print(f"[validator] compute-sanitizer --tool {name}: rc "
+              f"{r.returncode}, {summary[-1] if summary else 'no summary'} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        check(r.returncode == 0 and summary and (
+            " 0 errors" in summary[-1] or " 0 hazards" in summary[-1]),
+            f"compute-sanitizer --tool {name}: {out[-3000:]}")
+    return "ran"
+
+
+def validator_phase():
+    """``[validator]``: the static kernel validator over the h100 tune
+    grid; every plan of every case x grid point equal to the library's
+    plan export (name, grid, block, dynamic shared memory), and so the
+    extra served shapes' (VALIDATOR_EXTRA); each case launched once
+    through its wrapper, its outputs' shapes and dtypes the plan's; per
+    kernel symbol its registers, static and dynamic shared memory and
+    blocks an SM within the card's limits (static shared memory equal to
+    the plan's); compute-sanitizer where it runs; then every kernel once
+    more with its buffers poisoned (``kernel_validator --sanitize``).
+    Returns the phase's findings count."""
+    import os
+    import torch
+    from repro_torch.analysis.kernel_validator import (check_plan,
+                                                       validate_preset)
+    from repro_torch.kernels import plan as P
+    from repro_torch.kernels import tune
+    from repro_torch.kernels.dispatch import implementations
+
+    t0 = time.perf_counter()
+    preset = tune.H100
+    findings = validate_preset(preset)
+    for f in findings:
+        print(f"[validator] {f.describe()}")
+    errors = sum(f.severity == "error" for f in findings)
+    print(f"[validator] static pass over the {preset.name} grid: "
+          f"{len(findings)} findings, {errors} errors "
+          f"({time.perf_counter() - t0:.1f} s)")
+    check(errors == 0, f"kernel validator: {errors} errors")
+
+    lib_launches = {}            # kernel -> [(plan launch, library launch)]
+
+    def against_library(label, fn, args, kw):
+        plan = fn.launch_plan(*args, **kw)
+        lib = fn.library_plan(*args, **kw)
+        check(plan.geometry() == [x.geometry() for x in lib],
+              f"{label}: plan {plan.geometry()} != library "
+              f"{[x.geometry() for x in lib]}")
+        for mine, theirs in zip(plan.launches, lib):
+            lib_launches.setdefault(mine.kernel, []).append((mine, theirs))
+        return plan
+
+    n_plans = n_calls = 0
+    for arch, shape in preset.cells:
+        for case in tune.cases_for_cell(preset.arch(arch),
+                                        preset.shape(shape),
+                                        bench_batch=preset.bench_batch,
+                                        page_sizes=preset.paged_page_sizes,
+                                        device="meta"):
+            fn = implementations(case.op)["cuda"]
+            for params in preset.grid(case.op, "cuda"):
+                kw = {**case.kwargs, **params}
+                against_library(f"{arch}/{shape} {case.op} {params}", fn,
+                                case.make_args(), kw)
+                n_plans += 1
+        # each case once through its wrapper, on the card
+        for case in tune.cases_for_cell(preset.arch(arch),
+                                        preset.shape(shape),
+                                        bench_batch=preset.bench_batch,
+                                        page_sizes=preset.paged_page_sizes,
+                                        device="cuda"):
+            fn = implementations(case.op)["cuda"]
+            args = case.make_args()
+            for params in preset.grid(case.op, "cuda"):
+                kw = {**case.kwargs, **params}
+                plan = fn.launch_plan(*args, **kw)   # the real routing
+                for launch in plan.launches:
+                    bad = check_plan(launch, label=f"{arch}/{shape}")
+                    check(not bad, f"{case.op} real plan: "
+                          f"{[f.describe() for f in bad]}")
+                out = fn(*args, **kw)
+                outs = out if isinstance(out, tuple) else (out,)
+                got = [(tuple(t.shape), t.dtype) for t in outs]
+                want = [(tuple(sh), dt) for sh, dt in plan.results]
+                check(got == want, f"{arch}/{shape} {case.op}: outputs "
+                      f"{got} != planned {want}")
+                n_calls += 1
+            del args
+        torch.cuda.synchronize()
+    for op, label, shapes, kw in VALIDATOR_EXTRA:
+        against_library(label, implementations(op)["cuda"],
+                        extra_meta_args(op, shapes), kw)
+        n_plans += 1
+    print(f"[validator] {n_plans} plans == the library's plans (name, "
+          f"grid, block, dynamic smem); {n_calls} wrapper calls, outputs "
+          f"== planned shapes and dtypes")
+
+    mismatched = []
+    for kernel, pairs in sorted(lib_launches.items()):
+        mine, theirs = max(pairs, key=lambda p: p[1].smem_dynamic)
+        a = P.kernel_attributes(theirs)
+        threads = int(math.prod(theirs.block))
+        dyn = theirs.smem_dynamic
+        print(f"[validator] {kernel:<44} registers {a['registers']:3d} "
+              f"static smem {a['smem_static']:6d} B dynamic smem {dyn:6d} B "
+              f"local {a['local_bytes']:3d} B threads {threads:4d} blocks/SM "
+              f"{a['blocks_per_sm']:2d}")
+        check(a["smem_static"] + dyn <= a["smem_optin"],
+              f"{kernel}: {a['smem_static']} + {dyn} B of shared memory > "
+              f"{a['smem_optin']}")
+        check(a["registers"] * threads <= P.REGISTERS_PER_SM,
+              f"{kernel}: {a['registers']} registers x {threads} threads")
+        check(a["blocks_per_sm"] >= 1, f"{kernel}: no block fits an SM")
+        if mine.smem_static != a["smem_static"]:
+            mismatched.append((kernel, mine.smem_static, a["smem_static"]))
+    check(not mismatched, f"plan static smem != the kernels': {mismatched}")
+    print(f"[validator] {len(lib_launches)} kernels within the card's "
+          f"limits ({a['smem_optin']} B of shared memory a block, "
+          f"{P.REGISTERS_PER_SM} registers an SM, {a['sms']} SMs); static "
+          f"smem == planned for each")
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    state = sanitizer_runs(env)
+    t1 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "repro_torch.analysis.kernel_validator",
+                        "--sanitize"], capture_output=True, text=True,
+                       timeout=600, env=env, cwd=ROOT)
+    for line in r.stdout.splitlines():
+        print(f"[validator] {line}")
+    check(r.returncode == 0, f"kernel_validator --sanitize: rc "
+          f"{r.returncode}\n{r.stdout[-2000:]}{r.stderr[-3000:]}")
+    print(f"[validator] poisoned run: every kernel once, f32 and bf16, "
+          f"outputs == plain ({time.perf_counter() - t1:.1f} s); "
+          f"compute-sanitizer: {state}")
+    dt = time.perf_counter() - t0
+    print(f"[validator] phase {dt:.1f} s (budget {VALIDATOR_BUDGET_S:.0f} s)")
+    check(dt <= VALIDATOR_BUDGET_S, f"validator phase took {dt:.1f} s")
+    return len(findings)
+
+
 def tune_close(op, got, want):
     """The tuner's cuda output against its torch output (TUNE_TOL);
     returns max |err| over the output's RMS."""
@@ -1057,7 +1373,7 @@ def tuner_phase(counters):
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
-    payload = tune.run_tuning(preset, reps=3, device="cuda")
+    payload = tune.run_tuning(preset, reps=3, validate=True, device="cuda")
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
     t_tune = time.perf_counter() - t0
@@ -1071,6 +1387,10 @@ def tuner_phase(counters):
           f"{Path(path).relative_to(ROOT)} ({payload['timer']}; "
           f"{payload['device']})")
     print(f"[tune] launches {launches}")
+    print(f"[tune] validation {payload['validation']}")
+    check(payload["validation"] is not None
+          and payload["validation"]["errors"] == 0,
+          f"tuner validation: {payload['validation']}")
     for name, n in launches.items():
         check(n > 0, f"tuner: kernel {name} was not launched")
     entries = payload["entries"]
@@ -1492,6 +1812,7 @@ def profile_phase(cfg, params, rt):
     dev = torch.device("cuda")
     toks, nxt, measured = profile_model(cfg.name, cfg, params, rt,
                                         decode_focus=(BF16_KERNEL,))
+    held_out_prefills(cfg, params, rt)
     with torch.no_grad():
         # paged int8: each slot's 64 pages, rows written through its table
         rt8 = dataclasses.replace(rt, kv_dtype="int8")
@@ -2254,6 +2575,24 @@ def capacity_phase():
                   f"{r['kv_dtype']}: predicted {r['peak_bytes']} B, "
                   f"measured {r['measured_bytes']} B, rel err "
                   f"{r['rel_err']:.4f} > {PARITY_REL_TOL}")
+    # runs the fit has not seen: a miss is a finding about the model's
+    # reach, reported against the same bar (ROADMAP.md Queue 3), not a
+    # fault of the run
+    check(len(HELD_OUT) >= 3, f"capacity: {len(HELD_OUT)} held-out runs")
+    misses = 0
+    for r in HELD_OUT:
+        within = r["rel_err"] <= PARITY_REL_TOL
+        misses += not within
+        print(f"[capacity] held-out {r['arch']} {r['engine']}: predicted "
+              f"{r['peak_bytes']} B, measured {r['measured_bytes']} B, "
+              f"|measured - predicted| / measured {r['rel_err']:.4f} "
+              f"{'within' if within else 'MISSES'} the bar "
+              f"{PARITY_REL_TOL} (no refit)")
+        check(r["argument_bytes"] <= r["measured_bytes"],
+              f"capacity held-out {r['arch']} {r['engine']}: argument "
+              f"bytes {r['argument_bytes']} over the measured peak")
+    print(f"[capacity] held-out: {len(HELD_OUT)} runs, {misses} past "
+          f"{PARITY_REL_TOL}; coefficients {CALIBRATION['prefill']}")
 
 
 # ===========================================================================
@@ -2694,6 +3033,7 @@ def main() -> int:
                 "quant_matmul": quant_matmul}
     # --- phase 2 ---------------------------------------------------------
     entries = kernel_phase(cfg, moe_cfg, ssm_cfg, hyb_cfg)
+    validator_phase()
     tuned = tuner_phase(counters)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2742,6 +3082,7 @@ def main() -> int:
         _, _, served_measured[mcfg.name] = profile_model(
             mcfg.name, mcfg, params, mrt, prefill_focus=focus[0],
             decode_focus=focus[1])
+        held_out_prefills(mcfg, params, mrt)
         got, dt = trace_phase(mcfg, params, mrt, counters,
                               served_measured[mcfg.name])
         traced = {name: traced[name] + got[name] for name in counters}

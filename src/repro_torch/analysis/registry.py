@@ -5,15 +5,19 @@ An :class:`AnalysisPass` is a named callable ``run(ctx) -> [Finding]``
 declaring which rule ids it can emit — the runner uses the declaration
 to skip passes entirely when ``--rules`` filters them out.
 
-The port carries the passes it has: the repo AST lint and the
-deployment-feasibility lint, and the id of the capacity gate behind
-``launch/serve.py --preflight``. The reference's kernel validator, jaxpr
-lint, contract checker, SPMD lint, liveness walk and sharding
-propagation have no counterpart yet (ROADMAP.md Queue 1 item 14).
+The port carries five passes: the kernel validator (launch plans of the
+Hopper kernels over the tune grids), the contract checker, the
+buffer-liveness walk, the repo AST lint and the deployment-feasibility
+lint, and the id of the capacity gate behind ``launch/serve.py
+--preflight``. The reference's jaxpr lint, SPMD/compile lint and
+sharding propagation wait for a compiled step and the multi-GPU slice
+(ROADMAP.md Queue 1 items 12 and 14).
 
 Presets: ``ci`` lints the reference ``ci`` preset's two smoke archs at
-its ``max_len`` and page size; ``h100`` lints every arch that serves on
-one card at full width, at a serving ``max_len`` against the card's HBM.
+its ``max_len`` and page size and validates the ``ci`` tune grid;
+``h100`` lints every arch that serves on one card at full width, at a
+serving ``max_len`` against the card's HBM, and validates the ``h100``
+tune grid. Both hold a block to the card's shared memory, 227 KiB.
 """
 from __future__ import annotations
 
@@ -27,6 +31,30 @@ from repro_torch.analysis.findings import Finding
 # --list-rules; the reference's text.
 # ---------------------------------------------------------------------------
 RULES: Dict[str, str] = {
+    # kernel validator (launch plans of the Hopper kernels)
+    "kernel-grid-coverage": "grid x output tile map must cover every "
+                            "output tile",
+    "kernel-write-race": "two blocks write one output tile without "
+                         "declared accumulation",
+    "kernel-smem-budget": "a block's static + dynamic shared memory "
+                          "exceeds the 227 KiB opt-in limit, or its "
+                          "threads 1,024, or gridDim.y/.z 65,535",
+    "kernel-missing-vjp": "non-torch impl is not differentiable: no torch "
+                          "reference to borrow a backward pass from, or "
+                          "its autograd fails",
+    "kernel-dtype-parity": "impl output shapes/dtypes disagree with the "
+                           "torch reference",
+    "kernel-trace-error": "impl's launch plan fails at a tune-grid shape",
+    # contract checker
+    "contract-cache-axes": "cache leaf missing from (or rank-mismatched "
+                           "with) CACHE_AXES/PAGED_CACHE_AXES",
+    "contract-axis-unresolvable": "logical axis name resolves against no "
+                                  "sharding recipe (silent replication)",
+    "contract-dispatch-ref": "dispatch op without a torch reference impl",
+    "contract-tune-grid": "registered impl absent from a tune preset's "
+                          "block-size grids (never swept/calibrated)",
+    "contract-calib-kind": "dispatch op missing from "
+                           "MeasuredModel.CALIB_OP_KIND",
     # repo AST lint (shipped bug classes)
     "ast-salted-hash": "builtin hash() on a persisted/cross-process key "
                        "(PYTHONHASHSEED makes it per-process)",
@@ -37,6 +65,8 @@ RULES: Dict[str, str] = {
     # capacity
     "capacity-hbm-overflow": "predicted per-device peak HBM exceeds the "
                              "chip budget (the --preflight gate)",
+    "capacity-spec-drift": "the closed-form capacity model drifted from "
+                           "the live runtime/model contracts it mirrors",
     # deployment feasibility (scenario library x serving config)
     "deploy-admission-deadlock": "a request shape within max_len needs "
                                  "more pages than the pool holds: the "
@@ -62,6 +92,10 @@ RULES: Dict[str, str] = {
 }
 
 
+#: Shared memory a block may opt in to on sm_90 (227 KiB).
+SMEM_BUDGET_BYTES = 232448
+
+
 @dataclass(frozen=True)
 class AnalysisPreset:
     """Scale point of one analysis run: the archs linted (their smoke
@@ -73,6 +107,8 @@ class AnalysisPreset:
     max_len: int = 64
     page_size: int = 8
     smoke: bool = True
+    tune_preset: str = "ci"              # kernels validated at this grid
+    smem_budget_bytes: int = SMEM_BUDGET_BYTES
     description: str = ""
 
 
@@ -83,11 +119,11 @@ H100_ARCHS = ("minicpm-2b", "qwen2-moe-a2.7b", "mamba2-1.3b", "zamba2-2.7b",
 
 PRESETS: Dict[str, AnalysisPreset] = {
     "ci": AnalysisPreset(
-        name="ci", archs=("minicpm-2b", "mamba2-1.3b"),
+        name="ci", archs=("minicpm-2b", "mamba2-1.3b"), tune_preset="ci",
         description="dense/SSM smoke configs (seconds)"),
     "h100": AnalysisPreset(
         name="h100", archs=H100_ARCHS, max_len=4096, page_size=16,
-        smoke=False,
+        smoke=False, tune_preset="h100",
         description="every arch that serves on one card, full width"),
 }
 

@@ -71,6 +71,27 @@ SIGNATURES = {
                     _I, _P),
     # x, w_q, scale, out, T, K, N, dtype, stream
     "rt_quant_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # the plan exports (csrc/plan.cuh): the launch function's sizes, then
+    # an RtLaunch array and its capacity; each returns the launch count
+    # rows, d, dtype, scale_aligned
+    "rt_rmsnorm_plan": (_L, _I, _I, _I, _P, _I),
+    # B, S, T, Hq, D, chunk, dtype, aligned
+    "rt_flash_attention_plan": (_I, _I, _I, _I, _I, _I, _I, _I, _P, _I),
+    # B, W, Hkv, G, D, dtype
+    "rt_decode_attention_plan": (_I, _I, _I, _I, _I, _I, _P, _I),
+    "rt_quant_decode_attention_plan": (_I, _I, _I, _I, _I, _I, _P, _I),
+    # B, NP, ps, Hkv, G, D, dtype
+    "rt_paged_decode_attention_plan": (_I, _I, _I, _I, _I, _I, _I, _P, _I),
+    "rt_quant_paged_decode_attention_plan": (_I, _I, _I, _I, _I, _I, _I, _P,
+                                             _I),
+    # nb, f, dtype
+    "rt_moe_gemm_plan": (_I, _I, _I, _P, _I),
+    # b, S, nh, hp, N, L, dtype
+    "rt_ssd_scan_plan": (_I, _I, _I, _I, _I, _I, _I, _P, _I),
+    # T, K, N, dtype
+    "rt_quant_matmul_plan": (_I, _I, _I, _I, _P, _I),
+    # kernel, block threads, dynamic smem, out[8]
+    "rt_kernel_attributes": (_P, _I, ctypes.c_ulonglong, _P),
 }
 
 #: dtype codes shared with ``csrc/common.cuh``.
@@ -193,9 +214,9 @@ def dtype_code(t) -> int:
 #: apart): D 128 in bucket 8 (qwen2-vl-7b's G 7, starcoder2-3b's 12 and
 #: chatglm3-6b's 16, two blocks of 6 or 8 heads), D 160 in bucket 4
 #: (stablelm-12b, bf16 and int8 KV). The host code chooses which one a
-#: shape runs (``launch_pt`` in ``csrc/ssd_scan.cu``, ``launch`` in
-#: ``csrc/rmsnorm.cu`` and ``csrc/splitkv.cuh``): a change there must be
-#: made here too. ``chip_smoke.py`` prints their registers and spills, and the card
+#: shape runs (``dispatch`` in ``csrc/ssd_scan.cu``, ``csrc/rmsnorm.cu``
+#: and ``csrc/splitkv.cuh``; the launch plans of ``kernels/plan.py``
+#: name the same instantiations): a change there must be made here too. ``chip_smoke.py`` prints their registers and spills, and the card
 #: tests hold each to no spill.
 SERVED_BUILDS = (
     ("ssd_chunk_state<bf16, 64 columns>",

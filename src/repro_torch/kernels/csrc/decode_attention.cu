@@ -36,3 +36,16 @@ extern "C" int rt_decode_attention(const void* q, const void* k,
         D, 0, 0, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// The launches rt_decode_attention makes (split, then merge): the count,
+// at most cap of them written to out; a negative CUDA error code where it
+// would refuse.
+extern "C" int rt_decode_attention_plan(int B, int W, int Hkv, int G, int D,
+                                        int dtype, RtLaunch* out, int cap) {
+  if (dtype == RT_BF16)
+    return splitkv::plan_same<__nv_bfloat16, false>(B, W, Hkv, G, D, out,
+                                                    cap);
+  if (dtype == RT_F32)
+    return splitkv::plan_same<float, false>(B, W, Hkv, G, D, out, cap);
+  return -static_cast<int>(cudaErrorInvalidValue);
+}

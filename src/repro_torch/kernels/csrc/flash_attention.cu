@@ -56,6 +56,7 @@
 #include "common.cuh"
 #include "flash_chunked.cuh"
 #include "mma.cuh"
+#include "plan.cuh"
 
 namespace {
 
@@ -430,75 +431,104 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Launch plans and the body choice
+// ---------------------------------------------------------------------------
+// CUDA-core body: one block per (b * Hq + h, BQ query rows).
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int Tn, int Hq, int Hkv, int causal, int window,
-           cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<D>();
-  auto kern = flash_fwd_kernel<T, D>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid((unsigned)(B * Hq), (unsigned)((S + BQ - 1) / BQ));
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Tn, Hq, Hkv,
-      1.0f / sqrtf((float)D), causal, window);
-  return static_cast<int>(cudaGetLastError());
+RtLaunch plan_simt(int B, int S, int Hq) {
+  return rt_plan((const void*)flash_fwd_kernel<T, D>,
+                 dim3((unsigned)(B * Hq), (unsigned)((S + BQ - 1) / BQ)),
+                 dim3(THREADS), sizeof(float) * smem_floats<D>(),
+                 "flash_fwd_kernel<%s,%d>", rt_tname<T>(), D);
 }
 
+// Tensor-core body: one block per (b * Hq + h, MMA_BQ query rows), the
+// query tiles in reverse order.
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int Tn, int Hq, int Hkv, int causal, int window,
-               cudaStream_t stream) {
-  using C = MmaCfg<D>;
-  auto kern = flash_fwd_mma<D>;
-  if (C::SMEM > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid((unsigned)(B * Hq), (unsigned)((S + MMA_BQ - 1) / MMA_BQ));
-  kern<<<grid, MMA_THREADS, C::SMEM, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      S, Tn, Hq, Hkv, 1.0f / sqrtf((float)D), causal, window);
-  return static_cast<int>(cudaGetLastError());
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+RtLaunch plan_mma(int B, int S, int Hq) {
+  return rt_plan((const void*)flash_fwd_mma<D>,
+                 dim3((unsigned)(B * Hq),
+                      (unsigned)((S + MMA_BQ - 1) / MMA_BQ)),
+                 dim3(MMA_THREADS), MmaCfg<D>::SMEM, "flash_fwd_mma<%d>", D);
 }
 
 // The tensor-core body for aligned bf16, else the CUDA-core body.
-template <typename T, int D>
-int launch_body(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int Tn, int Hq, int Hkv, int causal, int window,
-                cudaStream_t stream) {
-  if (sizeof(T) == 2 && aligned16(q) && aligned16(k) && aligned16(v) &&
-      aligned16(o))
-    return launch_mma<D>(q, k, v, o, B, S, Tn, Hq, Hkv, causal, window,
-                         stream);
-  return launch<T, D>(q, k, v, o, B, S, Tn, Hq, Hkv, causal, window, stream);
+template <typename T, int D, class Op>
+int body(int B, int S, int Hq, bool aligned, const Op& op) {
+  if constexpr (sizeof(T) == 2) {
+    if (aligned) return op(plan_mma<D>(B, S, Hq), &flash_fwd_mma<D>);
+  }
+  return op(plan_simt<T, D>(B, S, Hq), &flash_fwd_kernel<T, D>);
 }
 
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int S, int Tn, int Hq, int Hkv, int D, int causal, int window,
-             int chunk, cudaStream_t stream) {
+// The body a call runs, handed to op with its plan (Run launches it,
+// RecordPlan records it). D 80 runs the plain version's chunked order at
+// `chunk` capped at Tn; aligned: q, k, v and out are 16-byte aligned.
+template <typename T, class Op>
+int dispatch(int B, int S, int Tn, int Hq, int D, int chunk, bool aligned,
+             const Op& op) {
   switch (D) {
-    case 80: return chunked::launch<T, 80>(q, k, v, o, B, S, Tn, Hq, Hkv, causal, window, chunk, stream);
-    case 16: return launch_body<T, 16>(q, k, v, o, B, S, Tn, Hq, Hkv, causal, window, stream);
-    case 32: return launch_body<T, 32>(q, k, v, o, B, S, Tn, Hq, Hkv, causal, window, stream);
-    case 64: return launch_body<T, 64>(q, k, v, o, B, S, Tn, Hq, Hkv, causal, window, stream);
-    case 128: return launch_body<T, 128>(q, k, v, o, B, S, Tn, Hq, Hkv, causal, window, stream);
-    case 160: return launch_body<T, 160>(q, k, v, o, B, S, Tn, Hq, Hkv, causal, window, stream);
+    case 80: {
+      if (chunk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+      const int c = chunk > Tn ? Tn : chunk;
+      return op(chunked::plan<T, 80>(B, S, Hq, c),
+                &chunked::flash_fwd_chunked<T, 80>, c);
+    }
+    case 16: return body<T, 16>(B, S, Hq, aligned, op);
+    case 32: return body<T, 32>(B, S, Hq, aligned, op);
+    case 64: return body<T, 64>(B, S, Hq, aligned, op);
+    case 128: return body<T, 128>(B, S, Hq, aligned, op);
+    case 160: return body<T, 160>(B, S, Hq, aligned, op);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+template <typename T>
+using Kernel = void (*)(const T*, const T*, const T*, T*, int, int, int, int,
+                        float, int, int);
+template <typename T>
+using ChunkedKernel = void (*)(const T*, const T*, const T*, T*, int, int,
+                               int, int, float, int, int, int, int, int);
+
+template <typename T>
+struct Run {
+  const void *q, *k, *v;
+  void* o;
+  int B, S, Tn, Hq, Hkv, D, causal, window;
+  cudaStream_t stream;
+
+  int operator()(const RtLaunch& p, Kernel<T> kern) const {
+    const int e = rt_smem_optin(p);
+    if (e) return e;
+    kern<<<rt_grid(p), rt_block(p), p.smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), S, Tn, Hq, Hkv,
+        1.0f / sqrtf((float)D), causal, window);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int operator()(const RtLaunch& p, ChunkedKernel<T> kern, int chunk) const {
+    const int e = rt_smem_optin(p);
+    if (e) return e;
+    const long long R = (long long)B * Hq * S;     // rows of the plain p
+    const int last = Tn % chunk ? Tn % chunk : chunk;
+    kern<<<rt_grid(p), rt_block(p), p.smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), S, Tn, Hq, Hkv,
+        (float)(1.0 / sqrt((double)D)), causal, window, chunk,
+        chunked::aten_lanes(R, chunk), chunked::aten_lanes(R, last));
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+struct RecordPlan {
+  RtPlanSink* sink;
+  template <typename K, typename... Rest>
+  int operator()(const RtLaunch& p, K, Rest...) const {
+    sink->add(p);
+    return 0;
+  }
+};
 
 }  // namespace
 
@@ -508,11 +538,35 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
                                   int chunk, int dtype, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool al = rt_aligned16(q) && rt_aligned16(k) && rt_aligned16(v) &&
+                  rt_aligned16(o);
   if (dtype == RT_BF16)
-    return launch_d<__nv_bfloat16>(q, k, v, o, B, S, Tn, Hq, Hkv, D, causal,
-                                   window, chunk, s);
+    return dispatch<__nv_bfloat16>(
+        B, S, Tn, Hq, D, chunk, al,
+        Run<__nv_bfloat16>{q, k, v, o, B, S, Tn, Hq, Hkv, D, causal, window,
+                           s});
   if (dtype == RT_F32)
-    return launch_d<float>(q, k, v, o, B, S, Tn, Hq, Hkv, D, causal, window,
-                           chunk, s);
+    return dispatch<float>(
+        B, S, Tn, Hq, D, chunk, al,
+        Run<float>{q, k, v, o, B, S, Tn, Hq, Hkv, D, causal, window, s});
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The launches rt_flash_attention makes (aligned: q, k, v and out 16-byte
+// aligned, as fresh allocations are): the count, at most cap of them
+// written to out; a negative CUDA error code where it would refuse.
+extern "C" int rt_flash_attention_plan(int B, int S, int Tn, int Hq, int D,
+                                       int chunk, int dtype, int aligned,
+                                       RtLaunch* out, int cap) {
+  if (B <= 0 || S <= 0) return 0;
+  RtPlanSink sink{out, cap, 0};
+  const RecordPlan op{&sink};
+  int e;
+  if (dtype == RT_BF16)
+    e = dispatch<__nv_bfloat16>(B, S, Tn, Hq, D, chunk, aligned != 0, op);
+  else if (dtype == RT_F32)
+    e = dispatch<float>(B, S, Tn, Hq, D, chunk, aligned != 0, op);
+  else
+    e = static_cast<int>(cudaErrorInvalidValue);
+  return e ? -e : sink.n;
 }

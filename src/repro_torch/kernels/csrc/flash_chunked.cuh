@@ -45,6 +45,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "plan.cuh"
 
 namespace {
 namespace chunked {
@@ -276,31 +277,18 @@ flash_fwd_chunked(const T* __restrict__ q, const T* __restrict__ k,
       orow[cg + CG * u] = from_float<T>(__fdiv_rn(acc[u], den));
 }
 
-// Launches the body for q (B, S, Hq, D), k/v (B, Tn, Hkv, D) with the
-// plain version's chunk (capped at Tn, as it caps it).
+// The launch of the body for q (B, S, Hq, D), k/v (B, Tn, Hkv, D) with the
+// plain version's chunk, already capped at Tn (as it caps it): one block
+// of THREADS per (b * Hq + h, QR query rows), the Q rows, one chunk's
+// scores and one K/V tile in dynamic shared memory.
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int Tn, int Hq, int Hkv, int causal, int window, int chunk,
-           cudaStream_t stream) {
-  if (chunk <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (chunk > Tn) chunk = Tn;
+RtLaunch plan(int B, int S, int Hq, int chunk) {
   const size_t smem = sizeof(float) *
       ((size_t)QR * D + (size_t)QR * (chunk + 1) + KT * (D + 1) + 2 * QR);
-  auto kern = flash_fwd_chunked<T, D>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const long long R = (long long)B * Hq * S;     // rows of the plain p
-  const int last = Tn % chunk ? Tn % chunk : chunk;
-  const dim3 grid((unsigned)(B * Hq), (unsigned)((S + QR - 1) / QR));
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Tn, Hq, Hkv,
-      (float)(1.0 / sqrt((double)D)), causal, window, chunk,
-      aten_lanes(R, chunk), aten_lanes(R, last));
-  return static_cast<int>(cudaGetLastError());
+  return rt_plan((const void*)flash_fwd_chunked<T, D>,
+                 dim3((unsigned)(B * Hq), (unsigned)((S + QR - 1) / QR)),
+                 dim3(THREADS), smem, "flash_fwd_chunked<%s,%d>",
+                 rt_tname<T>(), D);
 }
 
 }  // namespace chunked

@@ -77,6 +77,7 @@
 //   sum runs over k in order 0..d-1 here too.
 #include "common.cuh"
 #include "mma.cuh"
+#include "plan.cuh"
 
 namespace {
 
@@ -158,17 +159,6 @@ moe_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
       if (n < f) orow[n] = from_float<T>(acc[i][j]);
     }
   }
-}
-
-template <typename T>
-int launch(const void* x, const void* w, const void* be, const void* rows,
-           void* out, int nb, int d, int f, int E, cudaStream_t s) {
-  const dim3 grid((unsigned)nb, (unsigned)((f + BN - 1) / BN));
-  moe_gemm_kernel<T><<<grid, NT, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const int*>(be), static_cast<const int*>(rows),
-      static_cast<T*>(out), d, f, E);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -353,27 +343,75 @@ moe_gemm_mma(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+// ---------------------------------------------------------------------------
+// Launch plans and the body choice
+// ---------------------------------------------------------------------------
+// f32: one block of NT per (64-row block, BN columns).
+RtLaunch plan_simt(int nb, int f) {
+  return rt_plan((const void*)moe_gemm_kernel<float>,
+                 dim3((unsigned)nb, (unsigned)((f + BN - 1) / BN)), dim3(NT),
+                 0, "moe_gemm_kernel<f32>");
 }
 
-int launch_mma(const void* x, const void* w, const void* be,
-               const void* rows, void* out, int nb, int d, int f, int E,
-               cudaStream_t s) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      moe_gemm_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)MMA_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const bool xvec = d % 8 == 0 && aligned16(x);
-  const bool wvec = f % 8 == 0 && aligned16(w);
-  const bool ovec = f % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 4 == 0;
-  const dim3 grid((unsigned)nb, (unsigned)((f + MMA_BN - 1) / MMA_BN));
-  moe_gemm_mma<<<grid, MMA_THREADS, MMA_SMEM, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const int*>(be), static_cast<const int*>(rows),
-      static_cast<bf16*>(out), nb, d, f, E, xvec, wvec, ovec);
-  return static_cast<int>(cudaGetLastError());
+// bf16: one CTA of MMA_THREADS per (64-row block, MMA_BN columns); the CTA
+// of an odd position in its expert's group returns, the even one covers
+// the next block of the group too.
+RtLaunch plan_mma(int nb, int f) {
+  return rt_plan((const void*)moe_gemm_mma,
+                 dim3((unsigned)nb, (unsigned)((f + MMA_BN - 1) / MMA_BN)),
+                 dim3(MMA_THREADS), MMA_SMEM, "moe_gemm_mma");
 }
+
+using SimtKernel = void (*)(const float*, const float*, const int*,
+                            const int*, float*, int, int, int);
+using MmaKernel = void (*)(const bf16*, const bf16*, const int*, const int*,
+                           bf16*, int, int, int, int, bool, bool, bool);
+
+// The body is chosen by dtype alone; handed to op with its plan.
+template <class Op>
+int dispatch(int dtype, int nb, int f, const Op& op) {
+  if (dtype == RT_BF16) return op(plan_mma(nb, f), MmaKernel(&moe_gemm_mma));
+  if (dtype == RT_F32)
+    return op(plan_simt(nb, f), SimtKernel(&moe_gemm_kernel<float>));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+struct Run {
+  const void *x, *w, *be, *rows;
+  void* out;
+  int nb, d, f, E;
+  cudaStream_t s;
+
+  int operator()(const RtLaunch& p, SimtKernel kern) const {
+    kern<<<rt_grid(p), rt_block(p), p.smem, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w),
+        static_cast<const int*>(be), static_cast<const int*>(rows),
+        static_cast<float*>(out), d, f, E);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int operator()(const RtLaunch& p, MmaKernel kern) const {
+    const int err = rt_smem_optin(p);
+    if (err) return err;
+    const bool xvec = d % 8 == 0 && rt_aligned16(x);
+    const bool wvec = f % 8 == 0 && rt_aligned16(w);
+    const bool ovec =
+        f % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 4 == 0;
+    kern<<<rt_grid(p), rt_block(p), p.smem, s>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+        static_cast<const int*>(be), static_cast<const int*>(rows),
+        static_cast<bf16*>(out), nb, d, f, E, xvec, wvec, ovec);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+struct RecordPlan {
+  RtPlanSink* sink;
+  template <typename K>
+  int operator()(const RtLaunch& p, K) const {
+    sink->add(p);
+    return 0;
+  }
+};
 
 }  // namespace
 
@@ -382,10 +420,17 @@ extern "C" int rt_moe_gemm(const void* x, const void* w,
                            void* out, int nb, int d, int f, int E, int dtype,
                            void* stream) {
   if (nb <= 0 || f <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == RT_BF16)
-    return launch_mma(x, w, block_expert, block_rows, out, nb, d, f, E, s);
-  if (dtype == RT_F32)
-    return launch<float>(x, w, block_expert, block_rows, out, nb, d, f, E, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(dtype, nb, f,
+                  Run{x, w, block_expert, block_rows, out, nb, d, f, E,
+                      static_cast<cudaStream_t>(stream)});
+}
+
+// The launch rt_moe_gemm makes: the count, at most cap written to out; a
+// negative CUDA error code where it would refuse.
+extern "C" int rt_moe_gemm_plan(int nb, int f, int dtype, RtLaunch* out,
+                                int cap) {
+  if (nb <= 0 || f <= 0) return 0;
+  RtPlanSink sink{out, cap, 0};
+  const int e = dispatch(dtype, nb, f, RecordPlan{&sink});
+  return e ? -e : sink.n;
 }

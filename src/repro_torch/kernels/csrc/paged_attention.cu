@@ -38,3 +38,18 @@ extern "C" int rt_paged_decode_attention(
         B, NP * ps, Hkv, G, D, ps, NP, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// The launches rt_paged_decode_attention makes (split, then merge): the
+// count, at most cap of them written to out; a negative CUDA error code
+// where it would refuse.
+extern "C" int rt_paged_decode_attention_plan(int B, int NP, int ps, int Hkv,
+                                              int G, int D, int dtype,
+                                              RtLaunch* out, int cap) {
+  if (ps <= 0) return -static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == RT_BF16)
+    return splitkv::plan_same<__nv_bfloat16, true>(B, NP * ps, Hkv, G, D,
+                                                   out, cap);
+  if (dtype == RT_F32)
+    return splitkv::plan_same<float, true>(B, NP * ps, Hkv, G, D, out, cap);
+  return -static_cast<int>(cudaErrorInvalidValue);
+}

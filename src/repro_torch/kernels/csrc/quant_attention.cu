@@ -36,6 +36,14 @@ quant_split_kernel(const T* __restrict__ q,
                                                sm_scale);
 }
 
+template <typename T, bool PAGED>
+struct Pick {
+  template <typename Dc, typename Gc>
+  auto operator()(Dc, Gc) const {
+    return &quant_split_kernel<T, Dc::value, Gc::value, PAGED>;
+  }
+};
+
 // Split + merge for q/out of type T over an int8 cache. For a contiguous
 // cache W is its length and ps, NP are unused; for a paged one W = NP * ps
 // logical rows.
@@ -44,13 +52,16 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* pt, const void* mask, void* o_part,
            void* m_part, void* l_part, void* out, int B, int W, int Hkv,
            int G, int D, int ps, int NP, void* stream) {
-  auto pick = [](auto d, auto g) {
-    return &quant_split_kernel<T, decltype(d)::value, decltype(g)::value,
-                               PAGED>;
-  };
   return splitkv::launch<T, int8_t, PAGED>(
-      pick, q, k, v, ks, vs, pt, mask, o_part, m_part, l_part, out, B, W,
-      Hkv, G, D, ps, NP, stream);
+      Pick<T, PAGED>{}, "quant_split_kernel", q, k, v, ks, vs, pt, mask,
+      o_part, m_part, l_part, out, B, W, Hkv, G, D, ps, NP, stream);
+}
+
+template <typename T, bool PAGED>
+int plan(int B, int W, int Hkv, int G, int D, RtLaunch* out, int cap) {
+  return splitkv::plan<T, int8_t, PAGED>(Pick<T, PAGED>{},
+                                         "quant_split_kernel", B, W, Hkv, G,
+                                         D, out, cap);
 }
 
 }  // namespace quant_splitkv
@@ -87,4 +98,32 @@ extern "C" int rt_quant_paged_decode_attention(
         q, k_pages, v_pages, ks, vs, page_table, mask, o_part, m_part,
         l_part, out, B, NP * ps, Hkv, G, D, ps, NP, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The launches of rt_quant_decode_attention and
+// rt_quant_paged_decode_attention (split, then merge): the count, at most
+// cap of them written to out; a negative CUDA error code where the call
+// would refuse.
+extern "C" int rt_quant_decode_attention_plan(int B, int W, int Hkv, int G,
+                                              int D, int dtype, RtLaunch* out,
+                                              int cap) {
+  if (dtype == RT_BF16)
+    return quant_splitkv::plan<__nv_bfloat16, false>(B, W, Hkv, G, D, out,
+                                                     cap);
+  if (dtype == RT_F32)
+    return quant_splitkv::plan<float, false>(B, W, Hkv, G, D, out, cap);
+  return -static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int rt_quant_paged_decode_attention_plan(int B, int NP, int ps,
+                                                    int Hkv, int G, int D,
+                                                    int dtype, RtLaunch* out,
+                                                    int cap) {
+  if (ps <= 0) return -static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == RT_BF16)
+    return quant_splitkv::plan<__nv_bfloat16, true>(B, NP * ps, Hkv, G, D,
+                                                    out, cap);
+  if (dtype == RT_F32)
+    return quant_splitkv::plan<float, true>(B, NP * ps, Hkv, G, D, out, cap);
+  return -static_cast<int>(cudaErrorInvalidValue);
 }

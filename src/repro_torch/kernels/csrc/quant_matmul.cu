@@ -64,6 +64,7 @@
 //   (python -m repro_torch.bench.quant_matmul, each tile built alone).
 #include "common.cuh"
 #include "mma.cuh"
+#include "plan.cuh"
 
 namespace {
 
@@ -195,21 +196,6 @@ quant_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
       if (n < N) orow[n] = from_float<T>(acc[i][j] * scale[n]);
     }
   }
-}
-
-template <typename T>
-int launch(const void* x, const void* w, const void* scale, void* out,
-           int n_rows, int K, int N, cudaStream_t s) {
-  constexpr int BM = NTY * TM, BN = NTX * TN;
-  const bool vec = N % WVEC == 0 &&
-                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  const dim3 grid((unsigned)((N + BN - 1) / BN),
-                  (unsigned)((n_rows + BM - 1) / BM));
-  quant_matmul_kernel<T><<<grid, NT, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(scale), static_cast<T*>(out), n_rows, K, N,
-      vec);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -437,37 +423,84 @@ quant_matmul_mma(const T* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+// ---------------------------------------------------------------------------
+// Launch plans and the body choice
+// ---------------------------------------------------------------------------
+// Decode tile: one block of NT per (BN columns, BM rows).
+template <typename T>
+RtLaunch plan_simt(int n_rows, int N) {
+  constexpr int BM = NTY * TM, BN = NTX * TN;
+  return rt_plan((const void*)quant_matmul_kernel<T>,
+                 dim3((unsigned)((N + BN - 1) / BN),
+                      (unsigned)((n_rows + BM - 1) / BM)),
+                 dim3(NT), 0, "quant_matmul_kernel<%s>", rt_tname<T>());
 }
 
+// Tensor-core tile: one block of MMA_THREADS per (MMA_BN columns, X::BM
+// rows), the cp.async ring in dynamic shared memory.
 template <typename T>
-int launch_mma(const void* x, const void* w, const void* scale, void* out,
-               int n_rows, int K, int N, cudaStream_t s) {
+RtLaunch plan_mma(int n_rows, int N) {
   using X = XTile<T>;
-  auto kern = quant_matmul_mma<T>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)X::SMEM);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const bool xvec = (K * sizeof(T)) % 16 == 0 && aligned16(x);
-  const bool wvec = N % 16 == 0 && aligned16(w);
-  const bool ovec = (N * sizeof(T)) % 16 == 0 && aligned16(out);
-  const dim3 grid((unsigned)((N + MMA_BN - 1) / MMA_BN),
-                  (unsigned)((n_rows + X::BM - 1) / X::BM));
-  kern<<<grid, MMA_THREADS, X::SMEM, s>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(scale), static_cast<T*>(out), n_rows, K, N,
-      xvec, wvec, ovec);
-  return static_cast<int>(cudaGetLastError());
+  return rt_plan((const void*)quant_matmul_mma<T>,
+                 dim3((unsigned)((N + MMA_BN - 1) / MMA_BN),
+                      (unsigned)((n_rows + X::BM - 1) / X::BM)),
+                 dim3(MMA_THREADS), X::SMEM, "quant_matmul_mma<%s>",
+                 rt_tname<T>());
+}
+
+// Decode (n_rows <= 16): 16 x 64 tiles on the CUDA cores; else the
+// tensor cores. Handed to op with its plan.
+template <typename T, class Op>
+int dispatch(int n_rows, int N, const Op& op) {
+  if (n_rows <= NTY)
+    return op(plan_simt<T>(n_rows, N), &quant_matmul_kernel<T>);
+  return op(plan_mma<T>(n_rows, N), &quant_matmul_mma<T>);
 }
 
 template <typename T>
-int dispatch_tile(const void* x, const void* w, const void* scale, void* out,
-                  int n_rows, int K, int N, cudaStream_t s) {
-  if (n_rows <= NTY)  // decode: 16 x 64 tiles on the CUDA cores
-    return launch<T>(x, w, scale, out, n_rows, K, N, s);
-  return launch_mma<T>(x, w, scale, out, n_rows, K, N, s);
-}
+using SimtKernel = void (*)(const T*, const int8_t*, const float*, T*, int,
+                            int, int, bool);
+template <typename T>
+using MmaKernel = void (*)(const T*, const int8_t*, const float*, T*, int,
+                           int, int, bool, bool, bool);
+
+template <typename T>
+struct Run {
+  const void *x, *w, *scale;
+  void* out;
+  int n_rows, K, N;
+  cudaStream_t s;
+
+  int operator()(const RtLaunch& p, SimtKernel<T> kern) const {
+    const bool vec = N % WVEC == 0 && rt_aligned16(w);
+    kern<<<rt_grid(p), rt_block(p), p.smem, s>>>(
+        static_cast<const T*>(x), static_cast<const int8_t*>(w),
+        static_cast<const float*>(scale), static_cast<T*>(out), n_rows, K, N,
+        vec);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int operator()(const RtLaunch& p, MmaKernel<T> kern) const {
+    const int e = rt_smem_optin(p);
+    if (e) return e;
+    const bool xvec = (K * sizeof(T)) % 16 == 0 && rt_aligned16(x);
+    const bool wvec = N % 16 == 0 && rt_aligned16(w);
+    const bool ovec = (N * sizeof(T)) % 16 == 0 && rt_aligned16(out);
+    kern<<<rt_grid(p), rt_block(p), p.smem, s>>>(
+        static_cast<const T*>(x), static_cast<const int8_t*>(w),
+        static_cast<const float*>(scale), static_cast<T*>(out), n_rows, K, N,
+        xvec, wvec, ovec);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+struct RecordPlan {
+  RtPlanSink* sink;
+  template <typename K>
+  int operator()(const RtLaunch& p, K) const {
+    sink->add(p);
+    return 0;
+  }
+};
 
 }  // namespace
 
@@ -477,8 +510,28 @@ extern "C" int rt_quant_matmul(const void* x, const void* w, const void* scale,
   if (n_rows <= 0 || N <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == RT_BF16)
-    return dispatch_tile<__nv_bfloat16>(x, w, scale, out, n_rows, K, N, s);
+    return dispatch<__nv_bfloat16>(
+        n_rows, N, Run<__nv_bfloat16>{x, w, scale, out, n_rows, K, N, s});
   if (dtype == RT_F32)
-    return dispatch_tile<float>(x, w, scale, out, n_rows, K, N, s);
+    return dispatch<float>(n_rows, N,
+                           Run<float>{x, w, scale, out, n_rows, K, N, s});
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The launch rt_quant_matmul makes: the count, at most cap written to
+// out; a negative CUDA error code where it would refuse.
+extern "C" int rt_quant_matmul_plan(int n_rows, int K, int N, int dtype,
+                                    RtLaunch* out, int cap) {
+  (void)K;
+  if (n_rows <= 0 || N <= 0) return 0;
+  RtPlanSink sink{out, cap, 0};
+  const RecordPlan op{&sink};
+  int e;
+  if (dtype == RT_BF16)
+    e = dispatch<__nv_bfloat16>(n_rows, N, op);
+  else if (dtype == RT_F32)
+    e = dispatch<float>(n_rows, N, op);
+  else
+    e = static_cast<int>(cudaErrorInvalidValue);
+  return e ? -e : sink.n;
 }

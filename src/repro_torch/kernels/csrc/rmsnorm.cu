@@ -50,6 +50,7 @@
 //   loads, the second read of the row for the write served by L1/L2.
 #include "common.cuh"
 #include "mma.cuh"
+#include "plan.cuh"
 
 namespace {
 
@@ -260,40 +261,45 @@ __global__ void rmsnorm_scalar(const T* __restrict__ x,
   for (int i = threadIdx.x; i < d; i += blockDim.x)
     orow[i] = from_float<T>(to_float(xr[i]) * r * scale[i]);
 }
-
+// ---------------------------------------------------------------------------
+// Launch plans and the body choice
+// ---------------------------------------------------------------------------
 template <typename T, int TPR, int VPL>
-int launch_vec(const void* x, const void* scale, void* out, long long rows,
-               int d, float factor, float eps, bool vec, cudaStream_t s) {
+RtLaunch plan_vec(long long rows) {
   constexpr int THREADS = TPR > 256 ? TPR : 256;
   constexpr int RPB = THREADS / TPR;
-  rmsnorm_vec<T, TPR, VPL><<<(unsigned)((rows + RPB - 1) / RPB), THREADS, 0,
-                             s>>>(
-      static_cast<const T*>(x), static_cast<const float*>(scale),
-      static_cast<T*>(out), rows, d, factor, eps, vec);
-  return static_cast<int>(cudaGetLastError());
+  return rt_plan((const void*)rmsnorm_vec<T, TPR, VPL>,
+                 dim3((unsigned)((rows + RPB - 1) / RPB)), dim3(THREADS), 0,
+                 "rmsnorm_vec<%s,%d,%d>", rt_tname<T>(), TPR, VPL);
+}
+
+template <typename T, int TPR>
+RtLaunch plan_wide(long long rows) {
+  constexpr int THREADS = TPR > 256 ? TPR : 256;
+  constexpr int RPB = THREADS / TPR;
+  return rt_plan((const void*)rmsnorm_wide<T, TPR>,
+                 dim3((unsigned)((rows + RPB - 1) / RPB)), dim3(THREADS), 0,
+                 "rmsnorm_wide<%s,%d>", rt_tname<T>(), TPR);
+}
+
+template <typename T>
+RtLaunch plan_scalar(long long rows, int d) {
+  const int threads = d >= 2048 ? 256 : (d >= 512 ? 128 : 32);
+  return rt_plan((const void*)rmsnorm_scalar<T>, dim3((unsigned)rows),
+                 dim3(threads), 0, "rmsnorm_scalar<%s>", rt_tname<T>());
 }
 
 // VPL rounded up to a power of 2 (the extra vectors idle); past MAX_VPL
 // the row-rereading body.
-template <typename T, int TPR>
-int launch_vpl(int vpl, const void* x, const void* scale, void* out,
-               long long rows, int d, float factor, float eps, bool vec,
-               cudaStream_t s) {
-  if (vpl > MAX_VPL) {
-    constexpr int THREADS = TPR > 256 ? TPR : 256;
-    constexpr int RPB = THREADS / TPR;
-    rmsnorm_wide<T, TPR><<<(unsigned)((rows + RPB - 1) / RPB), THREADS, 0,
-                           s>>>(
-        static_cast<const T*>(x), static_cast<const float*>(scale),
-        static_cast<T*>(out), rows, d, factor, eps, vec);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (vpl <= 1) return launch_vec<T, TPR, 1>(x, scale, out, rows, d, factor, eps, vec, s);
-  if (vpl <= 2) return launch_vec<T, TPR, 2>(x, scale, out, rows, d, factor, eps, vec, s);
-  if (vpl <= 4) return launch_vec<T, TPR, 4>(x, scale, out, rows, d, factor, eps, vec, s);
-  if (vpl <= 8) return launch_vec<T, TPR, 8>(x, scale, out, rows, d, factor, eps, vec, s);
-  if (vpl <= 16) return launch_vec<T, TPR, 16>(x, scale, out, rows, d, factor, eps, vec, s);
-  return launch_vec<T, TPR, 32>(x, scale, out, rows, d, factor, eps, vec, s);
+template <typename T, int TPR, class Op>
+int vpl_body(int vpl, long long rows, const Op& op) {
+  if (vpl > MAX_VPL) return op(plan_wide<T, TPR>(rows), &rmsnorm_wide<T, TPR>);
+  if (vpl <= 1) return op(plan_vec<T, TPR, 1>(rows), &rmsnorm_vec<T, TPR, 1>);
+  if (vpl <= 2) return op(plan_vec<T, TPR, 2>(rows), &rmsnorm_vec<T, TPR, 2>);
+  if (vpl <= 4) return op(plan_vec<T, TPR, 4>(rows), &rmsnorm_vec<T, TPR, 4>);
+  if (vpl <= 8) return op(plan_vec<T, TPR, 8>(rows), &rmsnorm_vec<T, TPR, 8>);
+  if (vpl <= 16) return op(plan_vec<T, TPR, 16>(rows), &rmsnorm_vec<T, TPR, 16>);
+  return op(plan_vec<T, TPR, 32>(rows), &rmsnorm_vec<T, TPR, 32>);
 }
 
 long long last_pow2(long long n) {
@@ -306,9 +312,11 @@ bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-template <typename T>
-int launch(const void* x, const void* scale, void* out, long long rows, int d,
-           float eps, cudaStream_t s) {
+// The body a call of rows x d runs (scale_aligned: the scale is 16-byte
+// aligned), handed to op with its plan: Run launches it, RecordPlan
+// records it.
+template <typename T, class Op>
+int dispatch(long long rows, int d, bool scale_aligned, const Op& op) {
   // PyTorch's block for the plain version's reduction (Reduce.cuh
   // set_block_dimension on d / 4 vectors by rows outputs): height
   // min(last_pow2(rows), 16), width min(last_pow2(d / 4) capped at 512,
@@ -322,24 +330,59 @@ int launch(const void* x, const void* scale, void* out, long long rows, int d,
   const int vpl = (int)((nvec + tpr - 1) / tpr);
   const int split_at = 16 * height < 256 ? 16 * height : 256;
   if (d % 4 == 0 && d >= 128 && tpr >= 32 &&
-      (d + tpr - 1) / tpr < split_at && aligned(scale, 16)) {
+      (d + tpr - 1) / tpr < split_at && scale_aligned) {
+    switch (tpr) {
+      case 32: return vpl_body<T, 32>(vpl, rows, op);
+      case 64: return vpl_body<T, 64>(vpl, rows, op);
+      case 128: return vpl_body<T, 128>(vpl, rows, op);
+      case 256: return vpl_body<T, 256>(vpl, rows, op);
+      default: return vpl_body<T, 512>(vpl, rows, op);
+    }
+  }
+  return op(plan_scalar<T>(rows, d), &rmsnorm_scalar<T>);
+}
+
+template <typename T>
+using VecKernel = void (*)(const T*, const float*, T*, long long, int, float,
+                           float, bool);
+template <typename T>
+using ScalarKernel = void (*)(const T*, const float*, T*, int, float);
+
+template <typename T>
+struct Run {
+  const void* x;
+  const void* scale;
+  void* out;
+  long long rows;
+  int d;
+  float eps;
+  cudaStream_t s;
+
+  int operator()(const RtLaunch& p, VecKernel<T> kern) const {
     const bool vec =
         aligned(x, 4 * sizeof(T)) && aligned(out, 4 * sizeof(T));
     const float factor = (float)rows / (float)(rows * d);
-    switch (tpr) {
-      case 32: return launch_vpl<T, 32>(vpl, x, scale, out, rows, d, factor, eps, vec, s);
-      case 64: return launch_vpl<T, 64>(vpl, x, scale, out, rows, d, factor, eps, vec, s);
-      case 128: return launch_vpl<T, 128>(vpl, x, scale, out, rows, d, factor, eps, vec, s);
-      case 256: return launch_vpl<T, 256>(vpl, x, scale, out, rows, d, factor, eps, vec, s);
-      default: return launch_vpl<T, 512>(vpl, x, scale, out, rows, d, factor, eps, vec, s);
-    }
+    kern<<<rt_grid(p), rt_block(p), p.smem, s>>>(
+        static_cast<const T*>(x), static_cast<const float*>(scale),
+        static_cast<T*>(out), rows, d, factor, eps, vec);
+    return static_cast<int>(cudaGetLastError());
   }
-  const int threads = d >= 2048 ? 256 : (d >= 512 ? 128 : 32);
-  rmsnorm_scalar<T><<<(unsigned)rows, threads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const float*>(scale),
-      static_cast<T*>(out), d, eps);
-  return static_cast<int>(cudaGetLastError());
-}
+  int operator()(const RtLaunch& p, ScalarKernel<T> kern) const {
+    kern<<<rt_grid(p), rt_block(p), p.smem, s>>>(
+        static_cast<const T*>(x), static_cast<const float*>(scale),
+        static_cast<T*>(out), d, eps);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+struct RecordPlan {
+  RtPlanSink* sink;
+  template <typename K>
+  int operator()(const RtLaunch& p, K) const {
+    sink->add(p);
+    return 0;
+  }
+};
 
 }  // namespace
 
@@ -348,8 +391,30 @@ extern "C" int rt_rmsnorm(const void* x, const void* scale, void* out,
                           void* stream) {
   if (rows <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool sa = aligned(scale, 16);
   if (dtype == RT_BF16)
-    return launch<__nv_bfloat16>(x, scale, out, rows, d, eps, s);
-  if (dtype == RT_F32) return launch<float>(x, scale, out, rows, d, eps, s);
+    return dispatch<__nv_bfloat16>(
+        rows, d, sa, Run<__nv_bfloat16>{x, scale, out, rows, d, eps, s});
+  if (dtype == RT_F32)
+    return dispatch<float>(rows, d, sa,
+                           Run<float>{x, scale, out, rows, d, eps, s});
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The launches rt_rmsnorm makes for rows x d (scale_aligned: the scale is
+// 16-byte aligned, as the wrapper's f32 copy is): the count, at most cap
+// of them written to out; a negative CUDA error code if it would refuse.
+extern "C" int rt_rmsnorm_plan(long long rows, int d, int dtype,
+                               int scale_aligned, RtLaunch* out, int cap) {
+  if (rows <= 0) return 0;
+  RtPlanSink sink{out, cap, 0};
+  const RecordPlan op{&sink};
+  int e;
+  if (dtype == RT_BF16)
+    e = dispatch<__nv_bfloat16>(rows, d, scale_aligned != 0, op);
+  else if (dtype == RT_F32)
+    e = dispatch<float>(rows, d, scale_aligned != 0, op);
+  else
+    e = static_cast<int>(cudaErrorInvalidValue);
+  return e ? -e : sink.n;
 }

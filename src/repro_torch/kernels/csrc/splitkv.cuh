@@ -91,6 +91,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "plan.cuh"
 
 namespace {
 namespace splitkv {
@@ -459,40 +460,30 @@ __global__ void merge_kernel(const float* __restrict__ o_part,
       from_float<T>(acc / fmaxf(l_all, 1e-30f));
 }
 
-// The merge of ns splits' partials for BH = B * Hkv (sequence, kv head)
-// pairs into out.
-template <typename T>
-int launch_merge(const float* o_part, const float* m_part,
-                 const float* l_part, void* out, int BH, int ns, int G,
-                 int D, cudaStream_t stream) {
-  merge_kernel<T><<<dim3((unsigned)BH, (unsigned)G), D, 0, stream>>>(
-      o_part, m_part, l_part, static_cast<T*>(out), ns, G, D);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Split + merge for q/out of type T over a cache stored as KT (ks and vs
-// are the int8 cache's scales, else unused). pick(d, g) gives the split
-// kernel for head dim d and bucket g of the query heads a block computes,
-// both std::integral_constant: G itself up to 8, past that ceil(G / 8)
-// blocks of GB = ceil(G / ceil(G / 8)) heads (G 12: 2 x 6, G 16: 2 x 8).
-// For a contiguous cache W is its length and ps, NP are unused; for a
-// paged one W = NP * ps logical rows.
-template <typename T, typename KT, bool PAGED, typename Pick>
-int launch(Pick pick, const void* q, const void* k, const void* v,
-           const void* ks, const void* vs, const void* pt, const void* mask,
-           void* o_part, void* m_part, void* l_part, void* out, int B, int W,
-           int Hkv, int G, int D, int ps, int NP, void* stream) {
+// The two launches of a call for q/out of type T over a cache stored as KT,
+// handed to op with the split kernel: pick(d, g) gives the split kernel
+// for head dim d and bucket g of the query heads a block computes, both
+// std::integral_constant: G itself up to 8, past that ceil(G / 8) blocks
+// of GB = ceil(G / ceil(G / 8)) heads (G 12: 2 x 6, G 16: 2 x 8). The
+// split kernel runs one block of BK threads per (b * Hkv + hk, split of BK
+// rows, part of the group); the merge one block of D threads per
+// (b * Hkv + hk, query head of the group). `family` names the split
+// kernel in its plan.
+template <typename T, typename KT, bool PAGED, typename Pick, class Op>
+int dispatch(Pick pick, const char* family, int B, int W, int Hkv, int G,
+             int D, const Op& op) {
   if (B <= 0 || W <= 0) return 0;
   if (G < 1 || G > MAX_GROUP)
     return static_cast<int>(cudaErrorInvalidValue);
   const int ngrp = (G + MAXG - 1) / MAXG;  // blocks a (split, kv head)
   const int GB = (G + ngrp - 1) / ngrp;    // query heads a block
+  const int NG = GB == 1 ? 1 : GB == 2 ? 2 : GB <= 4 ? 4 : 8;
   using Kernel = decltype(pick(std::integral_constant<int, 16>{},
                                std::integral_constant<int, 1>{}));
   auto bucket = [&](auto d) -> Kernel {
-    if (GB == 1) return pick(d, std::integral_constant<int, 1>{});
-    if (GB == 2) return pick(d, std::integral_constant<int, 2>{});
-    if (GB <= 4) return pick(d, std::integral_constant<int, 4>{});
+    if (NG == 1) return pick(d, std::integral_constant<int, 1>{});
+    if (NG == 2) return pick(d, std::integral_constant<int, 2>{});
+    if (NG == 4) return pick(d, std::integral_constant<int, 4>{});
     return pick(d, std::integral_constant<int, 8>{});
   };
   Kernel kernel;
@@ -505,38 +496,108 @@ int launch(Pick pick, const void* q, const void* k, const void* v,
     case 160: kernel = bucket(std::integral_constant<int, 160>{}); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Rows<KT, PAGED> rows{
-      static_cast<const KT*>(k), static_cast<const KT*>(v),
-      static_cast<const __nv_bfloat16*>(ks),
-      static_cast<const __nv_bfloat16*>(vs), static_cast<const int*>(pt),
-      W, Hkv, ps, NP};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* op = static_cast<float*>(o_part);
-  float* mp = static_cast<float*>(m_part);
-  float* lp = static_cast<float*>(l_part);
   const int ns = (W + BK - 1) / BK;
-  kernel<<<dim3((unsigned)(B * Hkv), (unsigned)ns, (unsigned)ngrp), BK, 0,
-           s>>>(static_cast<const T*>(q), rows,
-                static_cast<const uint8_t*>(mask), op, mp, lp, G, GB,
-                1.0f / sqrtf((float)D));
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return launch_merge<T>(op, mp, lp, out, B * Hkv, ns, G, D, s);
+  const RtLaunch split = rt_plan(
+      (const void*)kernel, dim3((unsigned)(B * Hkv), (unsigned)ns,
+                                (unsigned)ngrp),
+      dim3(BK), 0, "%s<%s,%d,%d,%s>", family, rt_tname<T>(), D, NG,
+      PAGED ? "paged" : "contiguous");
+  const RtLaunch merge = rt_plan(
+      (const void*)merge_kernel<T>, dim3((unsigned)(B * Hkv), (unsigned)G),
+      dim3((unsigned)D), 0, "merge_kernel<%s>", rt_tname<T>());
+  return op(split, kernel, merge, GB);
+}
+
+// Launches split + merge over the cache rows; ks and vs are the int8
+// cache's scales, else unused. For a contiguous cache W is its length and
+// ps, NP are unused; for a paged one W = NP * ps logical rows.
+template <typename T, typename KT, bool PAGED>
+struct Run {
+  const void *q, *k, *v, *ks, *vs, *pt, *mask;
+  void *o_part, *m_part, *l_part, *out;
+  int W, Hkv, G, D, ps, NP;
+  cudaStream_t s;
+
+  template <typename Kernel>
+  int operator()(const RtLaunch& split, Kernel kernel, const RtLaunch& merge,
+                 int GB) const {
+    const Rows<KT, PAGED> rows{
+        static_cast<const KT*>(k), static_cast<const KT*>(v),
+        static_cast<const __nv_bfloat16*>(ks),
+        static_cast<const __nv_bfloat16*>(vs), static_cast<const int*>(pt),
+        W, Hkv, ps, NP};
+    float* op = static_cast<float*>(o_part);
+    float* mp = static_cast<float*>(m_part);
+    float* lp = static_cast<float*>(l_part);
+    kernel<<<rt_grid(split), rt_block(split), split.smem, s>>>(
+        static_cast<const T*>(q), rows, static_cast<const uint8_t*>(mask),
+        op, mp, lp, G, GB, 1.0f / sqrtf((float)D));
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    merge_kernel<T><<<rt_grid(merge), rt_block(merge), merge.smem, s>>>(
+        op, mp, lp, static_cast<T*>(out), (int)split.grid[1], G, D);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+struct RecordPlan {
+  RtPlanSink* sink;
+  template <typename Kernel>
+  int operator()(const RtLaunch& split, Kernel, const RtLaunch& merge,
+                 int) const {
+    sink->add(split);
+    sink->add(merge);
+    return 0;
+  }
+};
+
+// Split + merge for q/out of type T over a cache stored as KT.
+template <typename T, typename KT, bool PAGED, typename Pick>
+int launch(Pick pick, const char* family, const void* q, const void* k,
+           const void* v, const void* ks, const void* vs, const void* pt,
+           const void* mask, void* o_part, void* m_part, void* l_part,
+           void* out, int B, int W, int Hkv, int G, int D, int ps, int NP,
+           void* stream) {
+  const Run<T, KT, PAGED> run{q, k, v, ks, vs, pt, mask, o_part, m_part,
+                              l_part, out, W, Hkv, G, D, ps, NP,
+                              static_cast<cudaStream_t>(stream)};
+  return dispatch<T, KT, PAGED>(pick, family, B, W, Hkv, G, D, run);
+}
+
+// The launches of a call, for a plan export: the count, at most cap
+// written to out; a negative CUDA error code where the call would refuse.
+template <typename T, typename KT, bool PAGED, typename Pick>
+int plan(Pick pick, const char* family, int B, int W, int Hkv, int G, int D,
+         RtLaunch* out, int cap) {
+  RtPlanSink sink{out, cap, 0};
+  const int e = dispatch<T, KT, PAGED>(pick, family, B, W, Hkv, G, D,
+                                       RecordPlan{&sink});
+  return e ? -e : sink.n;
 }
 
 // The bf16/f32 pair's kernels (T = KT).
+template <typename T, bool PAGED>
+struct SamePick {
+  template <typename Dc, typename Gc>
+  auto operator()(Dc, Gc) const {
+    return &split_rows_kernel<T, Dc::value, Gc::value, PAGED>;
+  }
+};
+
 template <typename T, bool PAGED>
 int launch_same(const void* q, const void* k, const void* v, const void* pt,
                 const void* mask, void* o_part, void* m_part, void* l_part,
                 void* out, int B, int W, int Hkv, int G, int D, int ps,
                 int NP, void* stream) {
-  auto pick = [](auto d, auto g) {
-    return &split_rows_kernel<T, decltype(d)::value, decltype(g)::value,
-                              PAGED>;
-  };
-  return launch<T, T, PAGED>(pick, q, k, v, nullptr, nullptr, pt, mask,
-                             o_part, m_part, l_part, out, B, W, Hkv, G, D,
-                             ps, NP, stream);
+  return launch<T, T, PAGED>(SamePick<T, PAGED>{}, "split_rows_kernel", q, k,
+                             v, nullptr, nullptr, pt, mask, o_part, m_part,
+                             l_part, out, B, W, Hkv, G, D, ps, NP, stream);
+}
+
+template <typename T, bool PAGED>
+int plan_same(int B, int W, int Hkv, int G, int D, RtLaunch* out, int cap) {
+  return plan<T, T, PAGED>(SamePick<T, PAGED>{}, "split_rows_kernel", B, W,
+                           Hkv, G, D, out, cap);
 }
 
 }  // namespace splitkv

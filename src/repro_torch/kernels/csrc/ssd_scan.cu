@@ -53,6 +53,7 @@
 // bf16 values one ulp and the logits 0.64-0.95 against the bar of 0.25
 // (PERF.md §6).
 #include "common.cuh"
+#include "plan.cuh"
 
 namespace {
 
@@ -454,75 +455,109 @@ ssd_chunk_out(const T* __restrict__ x, const float* __restrict__ dt,
 // ---------------------------------------------------------------------------
 constexpr size_t SMEM_MAX = 232448;
 
-template <typename K>
-int smem_attr(K kern, size_t smem) {
-  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  return 0;
-}
-
-int launch_pass(float* states, const float* acs, float* hout, int b, int nh,
-                int hp, int N, int L, int nc, cudaStream_t s) {
-  const int hpN = hp * N;                 // a multiple of 16
-  const dim3 grid((unsigned)(b * nh), (unsigned)((hpN / 8 + PASS_THREADS - 1) /
-                                                 PASS_THREADS));
-  ssd_state_pass<<<grid, PASS_THREADS, 0, s>>>(states, acs, hout, hpN, L, nc);
-  return static_cast<int>(cudaGetLastError());
+// Steps 1 and 3: one block of THREADS per (b * nh, chunk, slice of PT
+// columns of hp), the tiles in dynamic shared memory.
+template <typename T, int PPT>
+RtLaunch plan_state(int b, int nh, int hp, int N, int L, int nc) {
+  constexpr int PT = 16 * PPT;
+  return rt_plan((const void*)ssd_chunk_state<T, PPT>,
+                 dim3((unsigned)(b * nh), (unsigned)nc, (unsigned)(hp / PT)),
+                 dim3(THREADS), sizeof(float) * (state_floats<PT>(L, N) + 4),
+                 "ssd_chunk_state<%s,%d>", rt_tname<T>(), PPT);
 }
 
 template <typename T, int PPT>
-int launch(const void* x, const void* dt, const void* A, const void* B,
-              const void* C, void* y, void* h, float* states, float* acs,
-              int b, int S, int nh, int hp, int N, int L, int nc,
-              cudaStream_t s) {
+RtLaunch plan_out(int b, int nh, int hp, int N, int L, int nc) {
   constexpr int PT = 16 * PPT;
-  const T* xt = static_cast<const T*>(x);
-  const T* Bt = static_cast<const T*>(B);
-  const float* dtf = static_cast<const float*>(dt);
-  const dim3 grid((unsigned)(b * nh), (unsigned)nc, (unsigned)(hp / PT));
+  return rt_plan((const void*)ssd_chunk_out<T, PPT>,
+                 dim3((unsigned)(b * nh), (unsigned)nc, (unsigned)(hp / PT)),
+                 dim3(THREADS), sizeof(float) * (out_floats<PT>(L, N) + 4),
+                 "ssd_chunk_out<%s,%d>", rt_tname<T>(), PPT);
+}
 
-  auto kstate = ssd_chunk_state<T, PPT>;
-  const size_t smem_state = sizeof(float) * (state_floats<PT>(L, N) + 4);
-  int e = smem_attr(kstate, smem_state);
-  if (e) return e;
-  kstate<<<grid, THREADS, smem_state, s>>>(
-      xt, dtf, static_cast<const float*>(A), Bt, states, acs, S, nh, hp, N, L,
-      nc);
-  e = static_cast<int>(cudaGetLastError());
-  if (e) return e;
+// Step 2: one thread per (b * nh, 8 state elements).
+RtLaunch plan_pass(int b, int nh, int hp, int N) {
+  const int hpN = hp * N;                 // a multiple of 16
+  return rt_plan((const void*)ssd_state_pass,
+                 dim3((unsigned)(b * nh),
+                      (unsigned)((hpN / 8 + PASS_THREADS - 1) /
+                                 PASS_THREADS)),
+                 dim3(PASS_THREADS), 0, "ssd_state_pass");
+}
 
-  e = launch_pass(states, acs, static_cast<float*>(h), b, nh, hp, N, L, nc,
-                  s);
-  if (e) return e;
+// The three launches of a call, handed to op with steps 1 and 3's
+// kernels: 64 columns a block where hp allows, else 32, else 16. A block
+// past the card's shared memory is refused.
+template <typename T, int PPT, class Op>
+int steps(int b, int nh, int hp, int N, int L, int nc, const Op& op) {
+  const RtLaunch st = plan_state<T, PPT>(b, nh, hp, N, L, nc);
+  const RtLaunch out = plan_out<T, PPT>(b, nh, hp, N, L, nc);
+  if (st.smem > SMEM_MAX || out.smem > SMEM_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return op(st, &ssd_chunk_state<T, PPT>, plan_pass(b, nh, hp, N), out,
+            &ssd_chunk_out<T, PPT>);
+}
 
-  auto kout = ssd_chunk_out<T, PPT>;
-  const size_t smem_out = sizeof(float) * (out_floats<PT>(L, N) + 4);
-  e = smem_attr(kout, smem_out);
-  if (e) return e;
-  kout<<<grid, THREADS, smem_out, s>>>(
-      xt, dtf, Bt, static_cast<const T*>(C), states, acs, static_cast<T*>(y),
-      S, nh, hp, N, L, nc);
-  return static_cast<int>(cudaGetLastError());
+template <typename T, class Op>
+int dispatch(int b, int nh, int hp, int N, int L, int nc, const Op& op) {
+  if (hp % 64 == 0) return steps<T, 4>(b, nh, hp, N, L, nc, op);
+  if (hp % 32 == 0) return steps<T, 2>(b, nh, hp, N, L, nc, op);
+  return steps<T, 1>(b, nh, hp, N, L, nc, op);
 }
 
 template <typename T>
-int launch_pt(const void* x, const void* dt, const void* A, const void* B,
-                 const void* C, void* y, void* h, float* states, float* acs,
-                 int b, int S, int nh, int hp, int N, int L, int nc,
-                 cudaStream_t s) {
-  if (hp % 64 == 0)
-    return launch<T, 4>(x, dt, A, B, C, y, h, states, acs, b, S, nh, hp, N,
-                           L, nc, s);
-  if (hp % 32 == 0)
-    return launch<T, 2>(x, dt, A, B, C, y, h, states, acs, b, S, nh, hp, N,
-                           L, nc, s);
-  return launch<T, 1>(x, dt, A, B, C, y, h, states, acs, b, S, nh, hp, N,
-                         L, nc, s);
-}
+using StateKernel = void (*)(const T*, const float*, const float*, const T*,
+                             float*, float*, int, int, int, int, int, int);
+template <typename T>
+using OutKernel = void (*)(const T*, const float*, const T*, const T*,
+                           const float*, const float*, T*, int, int, int, int,
+                           int, int);
+
+template <typename T>
+struct Run {
+  const void *x, *dt, *A, *B, *C;
+  void *y, *h;
+  float *states, *acs;
+  int S, nh, hp, N, L, nc;
+  cudaStream_t s;
+
+  int operator()(const RtLaunch& ps, StateKernel<T> kstate,
+                 const RtLaunch& pp, const RtLaunch& po,
+                 OutKernel<T> kout) const {
+    const T* xt = static_cast<const T*>(x);
+    const T* Bt = static_cast<const T*>(B);
+    const float* dtf = static_cast<const float*>(dt);
+    int e = rt_smem_optin(ps);
+    if (e) return e;
+    kstate<<<rt_grid(ps), rt_block(ps), ps.smem, s>>>(
+        xt, dtf, static_cast<const float*>(A), Bt, states, acs, S, nh, hp, N,
+        L, nc);
+    e = static_cast<int>(cudaGetLastError());
+    if (e) return e;
+    ssd_state_pass<<<rt_grid(pp), rt_block(pp), pp.smem, s>>>(
+        states, acs, static_cast<float*>(h), hp * N, L, nc);
+    e = static_cast<int>(cudaGetLastError());
+    if (e) return e;
+    e = rt_smem_optin(po);
+    if (e) return e;
+    kout<<<rt_grid(po), rt_block(po), po.smem, s>>>(
+        xt, dtf, Bt, static_cast<const T*>(C), states, acs,
+        static_cast<T*>(y), S, nh, hp, N, L, nc);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+struct RecordPlan {
+  RtPlanSink* sink;
+  template <typename K1, typename K2>
+  int operator()(const RtLaunch& ps, K1, const RtLaunch& pp,
+                 const RtLaunch& po, K2) const {
+    sink->add(ps);
+    sink->add(pp);
+    sink->add(po);
+    return 0;
+  }
+};
 
 }  // namespace
 
@@ -539,10 +574,33 @@ extern "C" int rt_ssd_scan(const void* x, const void* dt, const void* A,
   float* states = static_cast<float*>(ws);
   float* acs = states + (long long)b * nh * nc * hp * N;
   if (dtype == RT_BF16)
-    return launch_pt<__nv_bfloat16>(x, dt, A, B, C, y, h, states, acs, b,
-                                       S, nh, hp, N, L, nc, s);
+    return dispatch<__nv_bfloat16>(
+        b, nh, hp, N, L, nc,
+        Run<__nv_bfloat16>{x, dt, A, B, C, y, h, states, acs, S, nh, hp, N,
+                           L, nc, s});
   if (dtype == RT_F32)
-    return launch_pt<float>(x, dt, A, B, C, y, h, states, acs, b, S, nh,
-                               hp, N, L, nc, s);
+    return dispatch<float>(b, nh, hp, N, L, nc,
+                           Run<float>{x, dt, A, B, C, y, h, states, acs, S,
+                                      nh, hp, N, L, nc, s});
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The three launches rt_ssd_scan makes: the count, at most cap written to
+// out; a negative CUDA error code where it would refuse.
+extern "C" int rt_ssd_scan_plan(int b, int S, int nh, int hp, int N, int L,
+                                int dtype, RtLaunch* out, int cap) {
+  if (b <= 0 || S <= 0 || nh <= 0) return 0;
+  if (L <= 0 || N <= 0 || hp <= 0 || hp % 16)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  const int nc = (S + L - 1) / L;
+  RtPlanSink sink{out, cap, 0};
+  const RecordPlan op{&sink};
+  int e;
+  if (dtype == RT_BF16)
+    e = dispatch<__nv_bfloat16>(b, nh, hp, N, L, nc, op);
+  else if (dtype == RT_F32)
+    e = dispatch<float>(b, nh, hp, N, L, nc, op);
+  else
+    e = static_cast<int>(cudaErrorInvalidValue);
+  return e ? -e : sink.n;
 }

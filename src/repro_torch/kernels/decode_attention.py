@@ -16,9 +16,11 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import plan as P
 
 NEG_INF = -1e30
 
@@ -122,3 +124,78 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 decode_attention.launches = 0
+
+#: Query heads a block of the split kernel computes at most.
+MAXG = 8
+
+
+def splitkv_plan(family: str, B: int, W: int, Hkv: int, G: int, D: int,
+                 dtype: torch.dtype, *, paged: bool) -> P.KernelPlan:
+    """The two launches of a split-KV call (``csrc/splitkv.cuh``
+    ``dispatch``), for q (B, Hkv * G, D) of ``dtype`` over ``W`` logical
+    rows: the split kernel ``family`` (``split_rows_kernel`` or
+    ``quant_split_kernel``), one block of :data:`BLOCK_K` threads per
+    (b * Hkv + hk, split of BLOCK_K rows, part of the group of at most 8
+    heads), writing its ``o``, ``m`` and ``l`` partials; then the merge,
+    one block of D threads per (b * Hkv + hk, query head), writing the
+    output. Raises where the wrappers refuse."""
+    tn = P.type_name(dtype)
+    Hq = Hkv * G
+    if G < 1 or G > MAX_GROUP:
+        raise ValueError(f"{family}: Hq={Hq}, Hkv={Hkv}: the group must "
+                         f"divide and be <= {MAX_GROUP}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{family}: head dim {D} not in {HEAD_DIMS}")
+    results = (((B, Hq, D), dtype),)
+    if B <= 0 or W <= 0:
+        return P.KernelPlan((), results)
+    ngrp = P.cdiv(G, MAXG)
+    GB = P.cdiv(G, ngrp)
+    NG = 1 if GB == 1 else 2 if GB == 2 else 4 if GB <= 4 else 8
+    ns = P.cdiv(W, BLOCK_K)
+    BH = B * Hkv
+
+    def parts(bx, by, bz):
+        return [(bx, by, bz, np.zeros_like(bx))]
+
+    def stats(bx, by, bz):
+        return [(bx, by, bz)]
+
+    split = P.Launch(
+        f"{family}<{tn},{D},{NG},{'paged' if paged else 'contiguous'}>",
+        P.grid3(BH, ns, ngrp), P.grid3(BLOCK_K),
+        # srow (BK long longs), sp (NG x BK), red (NG x 4 warps) and so
+        # (4 warps x NG x D) floats
+        8 * BLOCK_K + 4 * NG * BLOCK_K + 16 * NG + 16 * NG * D, 0,
+        (P.Output("o_part", (BH, ns, G, D), torch.float32, (1, 1, GB, D),
+                  parts),
+         P.Output("m_part", (BH, ns, G), torch.float32, (1, 1, GB), stats),
+         P.Output("l_part", (BH, ns, G), torch.float32, (1, 1, GB), stats)))
+    merge = P.Launch(
+        f"merge_kernel<{tn}>", P.grid3(BH, G), P.grid3(D), 0, 0,
+        (P.Output("out", (B, Hq, D), dtype, (1, 1, D),
+                  lambda bx, by, bz: [(bx, by, np.zeros_like(bx))],
+                  view=(BH, G, D)),))
+    return P.KernelPlan((split, merge), results)
+
+
+def launch_plan(B: int, W: int, Hq: int, Hkv: int, D: int,
+                dtype: torch.dtype) -> P.KernelPlan:
+    """What :func:`decode_attention` launches for q (B, Hq, D) over a
+    (B, W, Hkv, D) cache of ``dtype``."""
+    _check_group("decode_attention", Hq, Hkv)
+    return splitkv_plan("split_rows_kernel", B, W, Hkv, Hq // Hkv, D, dtype,
+                        paged=False)
+
+
+def library_plan(B: int, W: int, Hq: int, Hkv: int, D: int,
+                 dtype: torch.dtype):
+    """The library's plan of the same call (``rt_decode_attention_plan``)."""
+    return P.library_plan("rt_decode_attention_plan", B, W, Hkv, Hq // Hkv,
+                          D, P.dtype_code(dtype))
+
+
+def _check_group(op: str, Hq: int, Hkv: int) -> None:
+    if Hkv <= 0 or Hq % Hkv:
+        raise ValueError(f"{op}: Hq={Hq}, Hkv={Hkv}: the group must divide "
+                         f"and be <= {MAX_GROUP}")

@@ -13,9 +13,11 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import plan as P
 
 NEG_INF = -1e30
 
@@ -103,3 +105,63 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+#: Query rows a block of the CUDA-core and tensor-core bodies, and of the
+#: D-80 body (csrc/flash_attention.cu BQ / MMA_BQ, csrc/flash_chunked.cuh
+#: QR), and its key tile.
+BQ, CHUNKED_QR, CHUNKED_KT = 64, 32, 32
+
+
+def launch_plan(B: int, S: int, T: int, Hq: int, Hkv: int, D: int,
+                dtype: torch.dtype, *, chunk: int = 512,
+                aligned: bool = True) -> P.KernelPlan:
+    """What :func:`flash_attention` launches for q (B, S, Hq, D) and k/v
+    (B, T, Hkv, D) of ``dtype`` (``csrc/flash_attention.cu``
+    ``dispatch``): at D 80 the plain version's chunked order, 32 query
+    rows a block; else, for bf16 whose pointers are 16-byte aligned
+    (``aligned``, as fresh allocations are), the tensor-core body, 64
+    rows a block in reverse order along S; else the CUDA-core body. One
+    block column per (b * Hq + h)."""
+    tn = P.type_name(dtype)
+    if Hkv <= 0 or Hq % Hkv:
+        raise ValueError(f"flash_attention: Hq={Hq} not a multiple of "
+                         f"Hkv={Hkv}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    results = (((B, S, Hq, D), dtype),)
+    if B <= 0 or S <= 0:
+        return P.KernelPlan((), results)
+    if D == 80:
+        if chunk <= 0:
+            raise ValueError(f"flash_attention: chunk {chunk} < 1")
+        c = min(chunk, T)
+        rows, name, threads, reverse = (CHUNKED_QR,
+                                        f"flash_fwd_chunked<{tn},80>", 256,
+                                        False)
+        smem = 4 * (CHUNKED_QR * D + CHUNKED_QR * (c + 1)
+                    + CHUNKED_KT * (D + 1) + 2 * CHUNKED_QR)
+    elif dtype == torch.bfloat16 and aligned:
+        rows, name, threads, reverse = BQ, f"flash_fwd_mma<{D}>", 128, True
+        smem = 2 * (D + 8) * (BQ + 4 * 64)
+    else:
+        rows, name, threads, reverse = (BQ, f"flash_fwd_kernel<{tn},{D}>",
+                                        256, False)
+        smem = 4 * (BQ * D + 32 * (D + 1) + 32 * D + BQ * 33 + 3 * BQ)
+    ny = P.cdiv(S, rows)
+
+    def tiles(bx, by, bz):
+        q_tile = ny - 1 - by if reverse else by
+        return [(bx // Hq, q_tile, bx % Hq, np.zeros_like(bx))]
+
+    out = P.Output("out", (B, S, Hq, D), dtype, (1, rows, 1, D), tiles)
+    return P.KernelPlan((P.Launch(name, P.grid3(B * Hq, ny),
+                                  P.grid3(threads), 0, smem, (out,)),),
+                        results)
+
+
+def library_plan(B: int, S: int, T: int, Hq: int, Hkv: int, D: int,
+                 dtype: torch.dtype, *, chunk: int = 512,
+                 aligned: bool = True):
+    """The library's plan of the same call (``rt_flash_attention_plan``)."""
+    return P.library_plan("rt_flash_attention_plan", B, S, T, Hq, D,
+                          int(chunk), P.dtype_code(dtype), int(aligned))

@@ -25,9 +25,11 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import plan as P
 
 #: Rows per block of the sorted layout: the kernel's one block height.
 BLOCK_M = 64
@@ -153,9 +155,14 @@ def moe_gemm_plain(x: torch.Tensor, w: torch.Tensor,
                    n_experts: int) -> torch.Tensor:
     """x (T, d); w (E, d, f); expert_of_row (T,) -> (T, f): the rows of
     each expert present times its weights, f32 products cast to x's
-    dtype."""
+    dtype. On ``meta``, where there is no routing to loop over, the
+    reference's gather ``einsum(x, w[expert_of_row])``: the same shapes,
+    dtype and autograd."""
     del n_experts
     eor = expert_of_row.long()
+    if x.device.type == "meta":
+        return torch.einsum("td,tdf->tf", x.float(),
+                            w[eor].float()).to(x.dtype)
     out = x.new_empty((x.shape[0], w.shape[-1]))
     for e in torch.unique(eor).tolist():
         idx = torch.nonzero(eor == e)[:, 0]
@@ -202,3 +209,113 @@ def moe_gemm_glu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     h = act(grouped_gemm_padded(x_pad, w_gate, be, rows),
             grouped_gemm_padded(x_pad, w_up, be, rows))
     return grouped_gemm_padded(h, w_down, be, rows)[inv]
+
+
+#: Output columns a block of the f32 body and of the bf16 tensor-core
+#: body (``csrc/moe_gemm.cu`` BN, MMA_BN).
+SIMT_COLS, MMA_COLS = 64, 128
+
+
+def balanced_routing(T: int, E: int) -> np.ndarray:
+    """Row t routed to expert t mod E: the routing a plan assumes where
+    the data is not known (``meta`` tensors)."""
+    return np.arange(T, dtype=np.int64) % max(E, 1)
+
+
+def layout_of(expert_of_row, E: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(block_expert, block_rows) of :func:`sorted_layout` for this
+    routing, on the host: each expert's rows fill ``ceil(size / BLOCK_M)``
+    blocks from the top, in expert order; the blocks past the last group
+    name expert E and hold no row."""
+    eor = np.asarray(expert_of_row, dtype=np.int64).reshape(-1)
+    T = eor.shape[0]
+    sizes = np.bincount(eor, minlength=E)[:E]
+    nb = P.cdiv(T, BLOCK_M) + (E - 1)
+    be = np.full(nb, E, dtype=np.int64)
+    rows = np.zeros(nb, dtype=np.int64)
+    i = 0
+    for e, n in enumerate(sizes.tolist()):
+        for r in range(P.cdiv(n, BLOCK_M)):
+            be[i], rows[i] = e, min(BLOCK_M, n - r * BLOCK_M)
+            i += 1
+    return be, rows
+
+
+def launch_plan(nb: int, d: int, f: int, E: int, dtype: torch.dtype,
+                block_expert=None, block_rows=None) -> P.KernelPlan:
+    """What :func:`grouped_gemm_padded` launches for ``nb`` blocks of
+    :data:`BLOCK_M` rows of d (``dtype``) against (E, d, f) weights
+    (``csrc/moe_gemm.cu`` ``dispatch``, by dtype alone): f32 one block a
+    (row block, 64 columns); bf16 one CTA a (row block, 128 columns), where
+    the CTA at an even position of its expert's group also writes the
+    group's next block and the odd one returns. A block with no real row
+    writes nothing, and its rows are never read: given the layout
+    (``block_expert``, ``block_rows``) the output tiles map exactly; without
+    it, every block is taken to hold rows of its own expert."""
+    tn = P.type_name(dtype)
+    Tp = nb * BLOCK_M
+    results = (((Tp, f), dtype),)
+    if nb <= 0:
+        raise ValueError(f"moe_gemm: block height {Tp}/{nb}, not {BLOCK_M}")
+    if f <= 0:
+        return P.KernelPlan((), results)
+    if block_expert is None:
+        be = np.arange(nb, dtype=np.int64) % max(E, 1)
+        rows = np.full(nb, BLOCK_M, dtype=np.int64)
+    else:
+        be = np.asarray(block_expert, dtype=np.int64).reshape(-1)
+        rows = np.asarray(block_rows, dtype=np.int64).reshape(-1)
+    live = (rows > 0) & (be >= 0) & (be < E)
+    if dtype == torch.bfloat16:
+        cols, threads, name, static = MMA_COLS, 256, "moe_gemm_mma", 0
+        smem = 2 * 3 * (2 * BLOCK_M * 72 + 64 * (MMA_COLS + 8))
+        # position of each block in its expert's run of blocks
+        start = np.ones(nb, dtype=bool)
+        start[1:] = be[1:] != be[:-1]
+        first = np.maximum.accumulate(np.where(start, np.arange(nb), 0))
+        even = (np.arange(nb) - first) % 2 == 0
+        pair = np.zeros(nb, dtype=bool)
+        pair[:-1] = be[1:] == be[:-1]
+        own = np.where(live & even, np.arange(nb), -1)
+        nxt = np.where(live & even & pair, np.arange(nb) + 1, -1)
+
+        def tiles(bx, by, bz):
+            return [(own[bx], by), (nxt[bx], by)]
+    else:
+        cols, threads, name, smem = SIMT_COLS, 256, f"moe_gemm_kernel<{tn}>", 0
+        static = 2 * 4 * 64 * (64 + 4)
+        own = np.where(live, np.arange(nb), -1)
+
+        def tiles(bx, by, bz):
+            return [(own[bx], by)]
+
+    ncol = P.cdiv(f, cols)
+    required = np.repeat((rows > 0)[:, None], ncol, axis=1)
+    out = P.Output("out", (Tp, f), dtype, (BLOCK_M, cols), tiles,
+                   required=required)
+    return P.KernelPlan((P.Launch(name, P.grid3(nb, ncol), P.grid3(threads),
+                                  static, smem, (out,)),), results)
+
+
+def library_plan(nb: int, d: int, f: int, E: int, dtype: torch.dtype,
+                 block_expert=None, block_rows=None):
+    """The library's plan of the same call (``rt_moe_gemm_plan``)."""
+    return P.library_plan("rt_moe_gemm_plan", nb, f, P.dtype_code(dtype))
+
+
+def moe_gemm_plan(T: int, d: int, f: int, E: int, dtype: torch.dtype,
+                  expert_of_row=None) -> P.KernelPlan:
+    """What :func:`moe_gemm` launches for x (T, d) of ``dtype`` routed by
+    ``expert_of_row`` (a host array, or None for :func:`balanced_routing`)
+    over E experts: the grouped GEMM over the sorted layout's static
+    bound of blocks; the rows gathered back are (T, f)."""
+    if expert_of_row is None:
+        expert_of_row = balanced_routing(T, E)
+    be, rows = layout_of(expert_of_row, E)
+    plan = launch_plan(len(be), d, f, E, dtype, be, rows)
+    return P.KernelPlan(plan.launches, (((T, f), dtype),))
+
+
+def moe_gemm_library_plan(T: int, d: int, f: int, E: int,
+                          dtype: torch.dtype, expert_of_row=None):
+    return library_plan(P.cdiv(T, BLOCK_M) + E - 1, d, f, E, dtype)

@@ -14,9 +14,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention import (check_input, check_query,
+from repro_torch.kernels import plan as P
+from repro_torch.kernels.decode_attention import (_check_group, check_input,
+                                                  check_query,
                                                   decode_attention_plain,
-                                                  splitkv_buffers)
+                                                  splitkv_buffers,
+                                                  splitkv_plan)
 
 
 def gather_pages(pages: torch.Tensor, page_table: torch.Tensor
@@ -70,3 +73,22 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_decode_attention.launches = 0
+
+
+def launch_plan(B: int, NP: int, ps: int, Hq: int, Hkv: int, D: int,
+                dtype: torch.dtype) -> P.KernelPlan:
+    """What :func:`paged_decode_attention` launches for q (B, Hq, D) over
+    tables of ``NP`` pages of ``ps`` rows (Hkv kv heads, ``dtype``)."""
+    _check_group("paged_decode_attention", Hq, Hkv)
+    if ps <= 0:
+        raise ValueError(f"paged_decode_attention: page size {ps}")
+    return splitkv_plan("split_rows_kernel", B, NP * ps, Hkv, Hq // Hkv, D,
+                        dtype, paged=True)
+
+
+def library_plan(B: int, NP: int, ps: int, Hq: int, Hkv: int, D: int,
+                 dtype: torch.dtype):
+    """The library's plan of the same call
+    (``rt_paged_decode_attention_plan``)."""
+    return P.library_plan("rt_paged_decode_attention_plan", B, NP, ps, Hkv,
+                          Hq // Hkv, D, P.dtype_code(dtype))

@@ -23,9 +23,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention import (check_input, check_query,
+from repro_torch.kernels import plan as P
+from repro_torch.kernels.decode_attention import (_check_group, check_input,
+                                                  check_query,
                                                   decode_attention_plain,
-                                                  splitkv_buffers)
+                                                  splitkv_buffers,
+                                                  splitkv_plan)
 from repro_torch.kernels.paged_attention import gather_pages
 
 #: Declared tolerance for the max abs logit deviation of the int8-KV
@@ -192,3 +195,78 @@ def quant_paged_decode_attention(q, k_pages, v_pages, k_scales, v_scales,
 quant_matmul.launches = 0
 quant_decode_attention.launches = 0
 quant_paged_decode_attention.launches = 0
+
+
+#: Rows a block of the int8-weight matmul's decode tile (T <= 16 runs it)
+#: and its columns; columns a block of the tensor-core tile.
+QMM_DECODE_ROWS, QMM_DECODE_COLS, QMM_MMA_COLS = 16, 64, 128
+
+
+def quant_matmul_plan(T: int, K: int, N: int,
+                      dtype: torch.dtype) -> P.KernelPlan:
+    """What :func:`quant_matmul` launches for x (T, K) of ``dtype`` and
+    an int8 (K, N) weight (``csrc/quant_matmul.cu`` ``dispatch``): at
+    T <= 16 the CUDA-core decode tile, 16 x 64 outputs a block; past it
+    the tensor-core tile, 128 columns by 128 rows (bf16) or 64 (f32), its
+    cp.async ring in dynamic shared memory."""
+    tn = P.type_name(dtype)
+    results = (((T, N), dtype),)
+    if T <= 0 or N <= 0:
+        return P.KernelPlan((), results)
+    if T <= QMM_DECODE_ROWS:
+        bm, bn, threads = QMM_DECODE_ROWS, QMM_DECODE_COLS, 256
+        name, static, smem = f"quant_matmul_kernel<{tn}>", \
+            4 * 64 * (bm + 4) + 4 * 64 * (bn + 4), 0
+    else:
+        bm = 128 if dtype == torch.bfloat16 else 64
+        bn, threads, static = QMM_MMA_COLS, 256, 0
+        name = f"quant_matmul_mma<{tn}>"
+        # three stages of an x tile (bm x 72) and an int8 weight tile
+        # (64 x 144 bytes)
+        smem = 3 * (dtype.itemsize * bm * 72 + 64 * 144)
+    out = P.Output("out", (T, N), dtype, (bm, bn),
+                   lambda bx, by, bz: [(by, bx)])
+    return P.KernelPlan((P.Launch(name, P.grid3(P.cdiv(N, bn),
+                                                P.cdiv(T, bm)),
+                                  P.grid3(threads), static, smem, (out,)),),
+                        results)
+
+
+def quant_matmul_library_plan(T: int, K: int, N: int, dtype: torch.dtype):
+    """The library's plan of the same call (``rt_quant_matmul_plan``)."""
+    return P.library_plan("rt_quant_matmul_plan", T, K, N,
+                          P.dtype_code(dtype))
+
+
+def quant_decode_attention_plan(B: int, W: int, Hq: int, Hkv: int, D: int,
+                                dtype: torch.dtype) -> P.KernelPlan:
+    """What :func:`quant_decode_attention` launches for q (B, Hq, D) of
+    ``dtype`` over an int8 (B, W, Hkv, D) cache."""
+    _check_group("quant_decode_attention", Hq, Hkv)
+    return splitkv_plan("quant_split_kernel", B, W, Hkv, Hq // Hkv, D,
+                        dtype, paged=False)
+
+
+def quant_decode_attention_library_plan(B: int, W: int, Hq: int, Hkv: int,
+                                        D: int, dtype: torch.dtype):
+    return P.library_plan("rt_quant_decode_attention_plan", B, W, Hkv,
+                          Hq // Hkv, D, P.dtype_code(dtype))
+
+
+def quant_paged_decode_attention_plan(B: int, NP: int, ps: int, Hq: int,
+                                      Hkv: int, D: int, dtype: torch.dtype
+                                      ) -> P.KernelPlan:
+    """What :func:`quant_paged_decode_attention` launches for q (B, Hq, D)
+    of ``dtype`` over tables of ``NP`` int8 pages of ``ps`` rows."""
+    _check_group("quant_paged_decode_attention", Hq, Hkv)
+    if ps <= 0:
+        raise ValueError(f"quant_paged_decode_attention: page size {ps}")
+    return splitkv_plan("quant_split_kernel", B, NP * ps, Hkv, Hq // Hkv, D,
+                        dtype, paged=True)
+
+
+def quant_paged_decode_attention_library_plan(B: int, NP: int, ps: int,
+                                              Hq: int, Hkv: int, D: int,
+                                              dtype: torch.dtype):
+    return P.library_plan("rt_quant_paged_decode_attention_plan", B, NP, ps,
+                          Hkv, Hq // Hkv, D, P.dtype_code(dtype))

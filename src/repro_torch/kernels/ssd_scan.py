@@ -13,10 +13,12 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import plan as P
 
 
 def _segsum_decay(a_cs: torch.Tensor) -> torch.Tensor:
@@ -137,3 +139,75 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 ssd_scan.launches = 0
+
+
+#: Threads of steps 1 and 3 and of the pass; state elements a pass thread
+#: owns; rows of a sub-tile and its padded row (``csrc/ssd_scan.cu``).
+SSD_THREADS, PASS_THREADS, PASS_ELEMS, SSD_TS, SSD_LS = 256, 64, 8, 64, 68
+
+
+def launch_plan(b: int, S: int, nh: int, hp: int, N: int,
+                dtype: torch.dtype, *, chunk: int = 128) -> P.KernelPlan:
+    """What :func:`ssd_scan` launches for x (b, S, nh, hp) of ``dtype``
+    and B/C of state N (``csrc/ssd_scan.cu`` ``dispatch``): step 1 one
+    block per (b * nh, chunk, slice of PT = 64, 32 or 16 columns of hp),
+    writing the chunk's state and (slice 0) its cumulative sum into the
+    workspace; step 2 one thread per 8 state elements of a (b * nh),
+    rewriting each chunk's state in place to the state it starts from and
+    writing the final state; step 3 as step 1, writing y."""
+    tn = P.type_name(dtype)
+    if hp % 16 or chunk < 1 or hp <= 0 or N <= 0:
+        raise ValueError(f"ssd_scan: head dim {hp} is not a multiple of "
+                         f"16, or chunk {chunk} < 1")
+    results = (((b, S, nh, hp), dtype), ((b, nh, hp, N), torch.float32))
+    if b <= 0 or S <= 0 or nh <= 0:
+        return P.KernelPlan((), results)
+    L = min(chunk, S)
+    nc = P.cdiv(S, L)
+    ppt = 4 if hp % 64 == 0 else 2 if hp % 32 == 0 else 1
+    PT = 16 * ppt
+    n4 = P.cdiv(N, 4) * 4
+    smem_state = 4 * (2 * L + SSD_TS * (n4 + 4) + SSD_TS * PT + 4)
+    smem_out = 4 * (2 * L + 2 * N * SSD_LS + SSD_TS * PT + SSD_TS * SSD_LS
+                    + 4)
+    if max(smem_state, smem_out) > P.SMEM_OPTIN_BYTES:
+        raise ValueError(f"ssd_scan: chunk {L} at state {N} needs "
+                         f"{max(smem_state, smem_out)} B of shared memory a "
+                         f"block, past {P.SMEM_OPTIN_BYTES}")
+    BH, hpN = b * nh, hp * N
+    grid = P.grid3(BH, nc, hp // PT)
+    npass = P.cdiv(hpN // PASS_ELEMS, PASS_THREADS)
+    pass_cols = PASS_THREADS * PASS_ELEMS
+
+    def zero(a):
+        return np.zeros_like(a)
+
+    states = P.Output("states", (BH, nc, hp, N), torch.float32,
+                      (1, 1, PT, N),
+                      lambda bx, by, bz: [(bx, by, bz, zero(bx))])
+    acs = P.Output("acs", (BH, nc, L), torch.float32, (1, 1, L),
+                   lambda bx, by, bz: [(np.where(bz == 0, bx, -1), by,
+                                        zero(bx))])
+    step1 = P.Launch(f"ssd_chunk_state<{tn},{ppt}>", grid,
+                     P.grid3(SSD_THREADS), 0, smem_state, (states, acs))
+    step2 = P.Launch(
+        "ssd_state_pass", P.grid3(BH, npass), P.grid3(PASS_THREADS), 0, 0,
+        (P.Output("states", (BH, nc, hp, N), torch.float32,
+                  (1, nc, pass_cols),
+                  lambda bx, by, bz: [(bx, zero(bx), by)],
+                  view=(BH, nc, hpN)),
+         P.Output("h", (b, nh, hp, N), torch.float32, (1, pass_cols),
+                  lambda bx, by, bz: [(bx, by)], view=(BH, hpN))))
+    step3 = P.Launch(
+        f"ssd_chunk_out<{tn},{ppt}>", grid, P.grid3(SSD_THREADS), 0,
+        smem_out,
+        (P.Output("y", (b, S, nh, hp), dtype, (1, L, 1, PT),
+                  lambda bx, by, bz: [(bx // nh, by, bx % nh, bz)]),))
+    return P.KernelPlan((step1, step2, step3), results)
+
+
+def library_plan(b: int, S: int, nh: int, hp: int, N: int,
+                 dtype: torch.dtype, *, chunk: int = 128):
+    """The library's plan of the same call (``rt_ssd_scan_plan``)."""
+    return P.library_plan("rt_ssd_scan_plan", b, S, nh, hp, N,
+                          min(chunk, S), P.dtype_code(dtype))

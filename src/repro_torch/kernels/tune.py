@@ -60,12 +60,8 @@ from repro_torch.configs import get_arch, get_shape, smoke_config
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.analytical.measured import CALIBRATION_VERSION
 from repro_torch.core.workload import Workload, lm_workload
-from repro_torch.kernels.dispatch import KERNEL_OPS, implementations
-
-#: The static kernel validator of the reference (``validate=True``) has
-#: no Hopper counterpart yet.
-VALIDATOR_PENDING = ("the static kernel validator has no Hopper "
-                     "counterpart yet (ROADMAP.md Queue 1 item 14)")
+from repro_torch.kernels.dispatch import (KERNEL_OPS, KernelValidationError,
+                                          implementations)
 
 
 # ===========================================================================
@@ -101,16 +97,18 @@ class TunePreset:
 
 
 def _grids(prefill_chunks, ssd_chunks):
-    """The port's grids. A ``torch`` grid carries the reference's ``xla``
-    grid (the plain versions honour ``chunk``). A ``cuda`` grid names only
-    what the kernel honours: ``ssd_scan``'s chunk; every other kernel has
-    a fixed tile (``({},)``, the default)."""
+    """The port's grids: a row for every registered (op, impl). A
+    ``torch`` grid carries the reference's ``xla`` grid (the plain
+    versions honour ``chunk``). A ``cuda`` grid names only what the
+    kernel honours: ``ssd_scan``'s chunk; every other kernel has a fixed
+    tile, one point with no parameter (``({},)``)."""
+    fixed = ({},)
     ssd = tuple({"chunk": c} for c in ssd_chunks)
-    return {
-        "prefill_attention": {"torch": tuple({"chunk": c}
-                                             for c in prefill_chunks)},
-        "ssd_scan": {"torch": ssd, "cuda": ssd},
-    }
+    grids = {op: {"torch": fixed, "cuda": fixed} for op in KERNEL_OPS}
+    grids["prefill_attention"]["torch"] = tuple({"chunk": c}
+                                                for c in prefill_chunks)
+    grids["ssd_scan"] = {"torch": ssd, "cuda": ssd}
+    return grids
 
 
 CELLS_CI = (
@@ -526,9 +524,15 @@ def run_tuning(preset: TunePreset,
                device: Any = "cuda",
                log: Callable[[str], None] = print) -> Dict[str, Any]:
     """Run the sweep on ``device``; returns the calibration payload (not
-    yet written). ``validate=True`` raises: :data:`VALIDATOR_PENDING`."""
-    if validate:
-        raise NotImplementedError(VALIDATOR_PENDING)
+    yet written).
+
+    ``validate=True`` first runs the static kernel validator
+    (``repro_torch.analysis.kernel_validator``) over the same cells x
+    grids about to be timed, on ``meta``: a calibration that blesses a racy or oversized launch is worse than
+    none. Its findings land in the payload's ``validation`` block; error
+    findings raise :class:`KernelValidationError` before any timing
+    runs. The CLI turns this on by default (``--no-validate`` opts out);
+    library callers opt in."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_tuning: no CUDA device on this host; the "
@@ -536,6 +540,19 @@ def run_tuning(preset: TunePreset,
                            "plain versions, for checking the plumbing)")
     if reps is not None:
         preset = dataclasses.replace(preset, reps=reps)
+    validation: Optional[Dict[str, Any]] = None
+    if validate:
+        from repro_torch.analysis.kernel_validator import validate_preset
+        findings = validate_preset(preset, cells=cells)
+        for f in findings:
+            log(f"[tune/{preset.name}] {f.describe()}")
+        errors = [f for f in findings if f.severity == "error"]
+        validation = {"findings": len(findings), "errors": len(errors),
+                      "rules": sorted({f.rule_id for f in findings})}
+        if errors:
+            raise KernelValidationError(
+                f"{len(errors)} kernel-validator errors over the "
+                f"{preset.name} grid; not timing broken kernels")
     on_card = dev.type == "cuda"
     entries: List[Dict[str, Any]] = []
     for arch_name, shape_name in (cells or preset.cells):
@@ -565,7 +582,7 @@ def run_tuning(preset: TunePreset,
         "cells": [list(c) for c in (cells or preset.cells)],
         "entries": entries,
         "policy": aggregate_policy(entries),
-        "validation": None,
+        "validation": validation,
     }
     if on_card:
         payload["device"] = _card_record()
@@ -596,6 +613,9 @@ def main(argv=None) -> int:
                     help=f"output path (default {calibration_path()})")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the inputs live and the cases run")
+    ap.add_argument("--no-validate", action="store_true",
+                    help="skip the static kernel validator that runs "
+                         "before timing")
     args = ap.parse_args(argv)
 
     preset = TUNE_PRESETS[args.preset]
@@ -624,10 +644,16 @@ def main(argv=None) -> int:
               "(--device cpu runs the plain versions, for checking the "
               "plumbing)", file=sys.stderr)
         return 2
-    print(f"[tune/{preset.name}] static kernel validator: not run "
-          f"({VALIDATOR_PENDING})")
-    payload = run_tuning(preset, cells=cells, reps=args.reps,
-                         device=args.device)
+    try:
+        payload = run_tuning(preset, cells=cells, reps=args.reps,
+                             validate=not args.no_validate,
+                             device=args.device)
+    except KernelValidationError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    if payload["validation"] is not None:
+        print(f"[tune/{preset.name}] static kernel validator: "
+              f"{payload['validation']}")
     path = write_calibration(payload, args.out)
     print(f"\n[tune/{preset.name}] {len(payload['entries'])} entries -> "
           f"{path} ({payload['timer']})")

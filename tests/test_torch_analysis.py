@@ -497,9 +497,14 @@ def test_ast_lint_covers_the_port_and_is_clean():
     assert rep.findings == [], [f.describe() for f in rep.findings]
 
 
+#: The port's five passes.
+PASSES = {"kernel_validator", "contracts", "ast_lint", "liveness",
+          "deploy_lint"}
+
+
 def test_clean_tree_ci_preset():
     rep = run_analysis("ci", root=REPO)
-    assert set(rep.passes) == {"ast_lint", "deploy_lint"}
+    assert set(rep.passes) == PASSES
     assert rep.findings == [], [f.describe() for f in rep.findings]
     assert rep.exit_code(strict=True) == 0
     with pytest.raises(KeyError, match="unknown rule"):
@@ -525,7 +530,7 @@ def test_cli_exit_codes_and_list_rules(tmp_path):
     assert r.returncode == 0, r.stdout + r.stderr
     payload = json.load(open(tmp_path / "analysis" / "report.json"))
     assert payload["counts"] == {"error": 0, "warning": 0, "info": 0}
-    assert set(payload["passes"]) == {"ast_lint", "deploy_lint"}
+    assert set(payload["passes"]) == PASSES
     assert _cli(["--rules", "no-such-rule"], tmp_path).returncode == 2
     out = tmp_path / "elsewhere.json"
     r = _cli(["--rules", "deploy-slo-infeasible", "--output", str(out),

@@ -1236,3 +1236,55 @@ def test_remat_recomputes_the_kernels_and_keeps_the_gradients(dev, arch):
             assert ran[k] == 2 * base[k], (remat, ran)
         assert torch.equal(loss, out["none"][0])
         assert _grads_rel(grads, out["none"][2]) < 1e-6, remat
+
+
+def _meta(*specs):
+    return tuple(torch.empty(sh, dtype=dt, device="meta") for sh, dt in specs)
+
+
+_BF, _F32, _I8 = torch.bfloat16, torch.float32, torch.int8
+#: One case per kernel: (op, operands as (shape, dtype), call kwargs).
+_PLAN_CASES = (
+    ("rmsnorm", (((2048, 2304), _BF), ((2304,), _F32)), {}),
+    ("prefill_attention", (((1, 700, 36, 64), _BF),) * 3,
+     {"causal": True, "window": 0}),
+    ("decode_attention", (((4, 24, 128), _BF), ((4, 1000, 2, 128), _BF),
+                          ((4, 1000, 2, 128), _BF), ((4, 1000), torch.bool)),
+     {}),
+    ("paged_decode_attention",
+     (((4, 36, 64), _F32), ((65, 16, 36, 64), _F32),
+      ((65, 16, 36, 64), _F32), ((4, 16), torch.int32),
+      ((4, 256), torch.bool)), {}),
+    ("quant_decode_attention",
+     (((4, 32, 160), _BF), ((4, 300, 8, 160), _I8), ((4, 300, 8, 160), _I8),
+      ((4, 300, 8), _BF), ((4, 300, 8), _BF), ((4, 300), torch.bool)), {}),
+    ("quant_paged_decode_attention",
+     (((2, 32, 128), _BF), ((17, 16, 2, 128), _I8), ((17, 16, 2, 128), _I8),
+      ((17, 16, 2), _BF), ((17, 16, 2), _BF), ((2, 8), torch.int32),
+      ((2, 128), torch.bool)), {}),
+    ("moe_gemm", (((1000, 2048), _BF), ((60, 2048, 1408), _BF),
+                  ((1000,), torch.int32)), {"n_experts": 60}),
+    ("quant_matmul", (((37, 2300), _F32), ((2300, 1000), _I8),
+                      ((1000,), _F32)), {}),
+    ("ssd_scan", (((2, 700, 8, 64), _BF), ((2, 700, 8), _F32), ((8,), _F32),
+                  ((2, 700, 8, 32), _BF), ((2, 700, 8, 32), _BF)),
+     {"chunk": 256}),
+)
+
+
+@pytest.mark.parametrize("op,specs,kw", _PLAN_CASES,
+                         ids=[c[0] for c in _PLAN_CASES])
+def test_launch_plan_equals_the_librarys(dev, op, specs, kw):
+    """The Python plan of one case per kernel equals the library's plan
+    export (name, grid, block, dynamic shared memory), and each kernel's
+    static shared memory the compiled kernel's."""
+    from repro_torch.kernels import plan as P
+    from repro_torch.kernels.dispatch import implementations
+    fn = implementations(op)["cuda"]
+    args = _meta(*specs)
+    plan = fn.launch_plan(*args, **kw)
+    lib = fn.library_plan(*args, **kw)
+    assert plan.geometry() == [x.geometry() for x in lib]
+    for mine, theirs in zip(plan.launches, lib):
+        assert P.kernel_attributes(theirs)["smem_static"] == \
+            mine.smem_static, mine.kernel

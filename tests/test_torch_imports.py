@@ -26,8 +26,9 @@ print(len(mods), bad)
 """
 
 #: Modules the walk must reach: the trace front-end, the figures, the
-#: examples, the last-ported families' configs, the scenario library and
-#: the static-analysis package among them.
+#: examples, the last-ported families' configs, the scenario library,
+#: the static-analysis package (the kernel validator, the contract
+#: checker and the liveness walk among them) and the launch plans.
 _NEW = ("repro_torch.core.workload.torch_trace",
         "repro_torch.configs.chatglm3_6b",
         "repro_torch.configs.starcoder2_3b",
@@ -57,7 +58,11 @@ _NEW = ("repro_torch.core.workload.torch_trace",
         "repro_torch.analysis.findings",
         "repro_torch.analysis.prefill_compiles",
         "repro_torch.analysis.registry",
-        "repro_torch.analysis.runner")
+        "repro_torch.analysis.runner",
+        "repro_torch.analysis.kernel_validator",
+        "repro_torch.analysis.contracts",
+        "repro_torch.analysis.liveness",
+        "repro_torch.kernels.plan")
 
 
 def test_port_imports_without_jax_or_reference():

@@ -162,6 +162,26 @@ def test_h100_quant_matmul_cases():
     }
 
 
+def test_grids_carry_an_explicit_row_per_impl_and_the_sweep_is_unchanged():
+    """Every registered (op, impl) has its own grid row (the contract
+    checker reads ``preset.grids`` literally), a fixed-tile kernel's row
+    being one point with no parameter: so the sweep times the same
+    params it timed when those rows were left to ``grid``'s default."""
+    for p in (tune.CI, tune.H100):
+        for op in D.KERNEL_OPS:
+            assert set(p.grids[op]) == set(D.implementations(op)), op
+            for impl in p.grids[op]:
+                assert p.grid(op, impl) == tuple(p.grids[op][impl])
+                assert len(p.grid(op, impl)) >= 1
+            if op not in ("prefill_attention", "ssd_scan"):
+                assert p.grids[op] == {"torch": ({},), "cuda": ({},)}, op
+    assert tune.CI.grids["prefill_attention"] == {
+        "torch": ({"chunk": 64}, {"chunk": 128}), "cuda": ({},)}
+    assert tune.H100.grids["ssd_scan"] == {
+        "torch": ({"chunk": 128}, {"chunk": 256}),
+        "cuda": ({"chunk": 128}, {"chunk": 256})}
+
+
 def test_h100_grids_name_only_what_the_kernels_honour():
     """A cuda grid lists only parameters its kernel reads (the SSD scan's
     chunk); a torch grid carries the reference's xla grid."""
@@ -341,7 +361,8 @@ def test_cli_ci_on_the_cpu_writes_the_ports_file(monkeypatch, tmp_path,
                     "--cells", "minicpm-2b/decode_32k"])
     assert rc == 0
     out = capsys.readouterr().out
-    assert "validator: not run" in out and "Queue 1 item 14" in out
+    assert ("static kernel validator: {'findings': 0, 'errors': 0, "
+            "'rules': []}") in out
     payload = load_calibration(str(tmp_path / "kernels" /
                                    "calibration.json"))
     assert payload["cells"] == [["minicpm-2b", "decode_32k"]]
@@ -364,8 +385,11 @@ def test_tuner_refuses_without_a_card_and_has_no_validator(monkeypatch,
     assert "no CUDA device" in capsys.readouterr().err
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tune.run_tuning(tune.CI, device="cuda")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        tune.run_tuning(tune.CI, validate=True, device="cpu")
+    # validate=True is taken (the validator runs on meta); timing still
+    # needs the card
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tune.run_tuning(tune.CI, validate=True, device="cuda")
+    assert not hasattr(tune, "VALIDATOR_PENDING")
 
 
 def test_quant_matmul_bench_refuses_without_a_card(monkeypatch, capsys):
