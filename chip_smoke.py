@@ -169,6 +169,29 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    for 20 steps, then again on the same checkpoint directory for its
    default 300, resumed from step 10, the mean of the last 10 losses
    below the mean of the first run's first 10;
+
+   then ``[sharded]``: the sharded engines (``repro_torch.serve.
+   sharded``) on meshes whose ranks, one process each
+   (``launch.mesh.run_mesh``), share the card over gloo (NCCL refuses two
+   ranks on one device); the weights are drawn here once and each rank
+   copies its blocks of them over CUDA IPC, and the kernel library built
+   in phase 1 is loaded by every rank. Full-width minicpm-2b (bf16) at
+   mesh (1, 2) through the contiguous and paged engines, bf16 and int8
+   KV; full-width chatglm3-6b (bf16, contiguous) at (1, 4), its
+   vocabulary split over the ranks and each rank holding the one K/V
+   head its 8 query heads read; each run teacher-forced (4 prompts of
+   300 + 8 tokens: the prefills' and the 8 decode steps' logits within
+   ``LOGIT_TOL`` of the one-device engine's, argmax agreement printed)
+   and serving the [serve] prompts (8 new tokens each; token agreement
+   and step p50 beside one device's); smoke minicpm-2b in f32 at (2, 4),
+   the reference test's prompts, contiguous and paged with the prefix
+   cache: tokens equal to one device's, the prefix cache hit. On every
+   rank: its tokens equal rank 0's, its parameter and cache bytes equal
+   to ``serve_preflight(mesh=...)``'s to the byte, its
+   ``max_memory_allocated`` at most that plus its largest parameter
+   block, and each mesh's kernels (minicpm-2b: RMSNorm, flash and the
+   four split-KV decode kernels) launched and no other; the launches of
+   every rank's runs are summed into the ``sharded`` path;
 5. training (``[train]``), with the card emptied first: full-width
    minicpm-2b (40 layers, f32 master weights), one f32 loss and gradient
    at B 2, S 512 under the ``cuda`` and the ``torch`` policy (TF32 off,
@@ -177,8 +200,10 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    five bf16 AdamW steps of ``make_train_step`` at B 4, S 512 on
    ``SyntheticLMData`` with the WSD schedule (finite losses, step 0
    within 0.02 of the ``torch`` policy's; step time, tokens/s, MFU, peak
-   memory) and a device profile of one step; then qwen2-moe-a2.7b at
-   full width and 2 layers, dropless (the sort-once grouped GEMMs under
+   memory) and a device profile of one step, then two bf16 steps at B 2,
+   S 768, a batch and length ``CALIBRATION`` was not fitted on
+   (``[capacity] held-out train``, held to the same bar without a
+   refit); then qwen2-moe-a2.7b at full width and 2 layers, dropless (the sort-once grouped GEMMs under
    autograd), mamba2-1.3b at full width and zamba2-2.7b at full width
    (its bf16 steps at B 2: AdamW's f32 state of 2.5 B parameters takes
    40 GB), each the same gradient check and two bf16 steps. Each
@@ -216,8 +241,8 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    it (a miss is a finding about the model's reach, recorded in
    ROADMAP.md Queue 3, not a failed run);
 7. one JSON line describing the kernels (each kernel's launches by
-   path: serve, tune, train, trace and launch), the card's name and
-   power limit, and last the JSON result line.
+   path: serve, tune, train, trace, launch and sharded), the card's name
+   and power limit, and last the JSON result line.
 
 It exits non-zero without printing a result when no CUDA device is
 available or the repository's ``src/`` is missing.
@@ -421,6 +446,10 @@ def peak_start(resident: int = 0) -> int:
 HELD_OUT = []
 HELD_OUT_PREFILLS = {"minicpm-2b": ((1, 2048), (1, 4096), (2, 1024)),
                      "mamba2-1.3b": ((1, 2048),)}
+#: (batch, length) of minicpm-2b's held-out bf16 training run: the fit
+#: took B 4 S 512 (and the other models' runs); B 2 S 768 moves every
+#: feature (tokens x 0.75, scores x 0.75).
+HELD_OUT_TRAIN = (2, 768)
 
 
 def held_out_prefills(cfg, params, rt):
@@ -2551,6 +2580,346 @@ def launch_phase(counters):
     return launched
 
 
+# ===========================================================================
+# [sharded]: serving on a mesh of ranks that share the card
+# ===========================================================================
+#: New tokens of each served [serve] prompt on a mesh (the one-device
+#: runs of [serve] take NEW_TOKENS): every step of a shared-card mesh
+#: crosses gloo once a layer and a half, through host memory.
+SHARDED_NEW = 8
+#: Teacher-forced prompts: each prefills SHARDED_PREFILL tokens (the
+#: scheduler's one bucket), then SHARDED_FORCED decode steps feed the
+#: rest, every slot's logits captured at each.
+SHARDED_PREFILL, SHARDED_FORCED = 300, 8
+#: Seconds one mesh's spawn may take, its runs included.
+SHARDED_TIMEOUT = 600
+#: A rank's transient allocations over its parameters and cache, beside
+#: its largest parameter block: the caching allocator rounds every block
+#: up to 512 B, and a smoke-size step holds a few hundred small tensors
+#: (a full-width rank's largest block, 0.5-0.8 GB, dwarfs it).
+SHARDED_SLACK = 2 ** 20
+#: The kernels each mesh's runs must launch on every rank.
+SHARDED_KERNELS = ("rmsnorm", "flash_attention", "decode_attention",
+                   "paged_decode_attention", "quant_decode_attention",
+                   "quant_paged_decode_attention")
+
+
+def kernel_counters():
+    """Every kernel wrapper by its name; each counts its launches."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gemm import grouped_gemm_padded
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.quant import (quant_decode_attention,
+                                           quant_matmul,
+                                           quant_paged_decode_attention)
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
+            "decode_attention": decode_attention,
+            "paged_decode_attention": paged_decode_attention,
+            "quant_decode_attention": quant_decode_attention,
+            "quant_paged_decode_attention": quant_paged_decode_attention,
+            "moe_gemm": grouped_gemm_padded, "ssd_scan": ssd_scan,
+            "quant_matmul": quant_matmul}
+
+
+def mesh_run(make, run):
+    """One run of [sharded] through the engine ``make(scheduler)``
+    builds: ``run['requests']`` served; with ``run['teacher']`` the
+    logits of every prefill and of every decode step captured as the
+    host samples them (the requests then end after their forced tail).
+    Returns the tokens, the captured logits, the step times, the stats
+    and the engine's bytes."""
+    import torch
+    from repro_torch.serve import Request, Scheduler
+    sched = Scheduler(cfg=run["cfg"], max_len=run["kw"]["max_len"],
+                      buckets=run.get("buckets"))
+    eng = make(sched)
+    caught = []
+    if run.get("teacher"):
+        host = eng._host_logits
+
+        def capture(logits, prefill=False):
+            arr = host(logits, prefill)
+            caught.append(arr)
+            return arr
+        eng._host_logits = capture
+    for r in run["requests"]:
+        eng.submit(Request(**r))
+    steps = []
+    while eng.queue or any(s is not None for s in eng.slots):
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    check(len(eng.finished) == len(run["requests"]) and not eng.rejected,
+          f"{run['label']}: served {len(eng.finished)}")
+    from repro_torch.tree import tree_leaves
+    leaves = [t.numel() * t.element_size() for t in tree_leaves(eng.params)]
+    return dict(tokens={r.rid: list(r.out_tokens) for r in eng.finished},
+                logits=caught, steps_ms=steps,
+                prefix_hits=eng.stats.prefix_hits,
+                params_bytes=tree_bytes(eng.params),
+                cache_bytes=tree_bytes(eng.cache), largest_leaf=max(leaves))
+
+
+def sharded_rank(mesh, params, cfg, runs):
+    """One rank of a [sharded] mesh (``run_mesh`` spawns it; the parent
+    built the kernel library, this process loads it): each run on this
+    rank's blocks of ``params`` (the parent's tensors, read over CUDA
+    IPC), every launch count set to 0 before it and read after, the
+    rank's peak since the engine was built. Rank 0 returns the captured
+    logits."""
+    import torch
+    from repro_torch.serve import (ShardedPagedServeEngine,
+                                   ShardedServeEngine)
+    counters = kernel_counters()
+    # cuBLAS takes its workspace (about 32 MiB on the card) from the caching
+    # allocator at a process's first product and keeps it: taken here,
+    # before any peak is measured
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.ones(8, 8, device=mesh.device, dtype=dt)
+        (x @ x).sum().item()
+    del x
+    out = []
+    for run in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for c in counters.values():
+            c.launches = 0
+        cls = ShardedPagedServeEngine if run["paged"] \
+            else ShardedServeEngine
+        rec = mesh_run(lambda sched: cls(params, cfg, run["rt"], mesh,
+                                         scheduler=sched, **run["kw"]), run)
+        torch.cuda.synchronize()
+        rec.update(rank=mesh.rank, backend=mesh.backend,
+                   coords=dict(mesh.coords), label=run["label"],
+                   peak=torch.cuda.max_memory_allocated() - base,
+                   launches={k: c.launches for k, c in counters.items()})
+        if mesh.rank != 0:
+            rec["logits"] = None
+        out.append(rec)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_runs(cfg, rt, *, teacher: bool, served, kvs=(None,),
+                 layouts=(False, True), n_slots=4, max_len=1024, page=16):
+    """The run list of one mesh: per KV dtype and layout (contiguous,
+    paged), a teacher-forced run (4 prompts of SHARDED_PREFILL +
+    SHARDED_FORCED tokens) when ``teacher``, and ``served``'s requests."""
+    import dataclasses
+    import numpy as np
+    runs = []
+    rng = np.random.default_rng(17)
+    forced = [dict(rid=i, prompt=rng.integers(
+        0, cfg.vocab_size, SHARDED_PREFILL + SHARDED_FORCED).astype(
+            np.int32), max_new_tokens=1) for i in range(n_slots)]
+    for kv in kvs:
+        run_rt = dataclasses.replace(rt, kv_dtype=kv)
+        for paged in layouts:
+            kw = dict(n_slots=n_slots, max_len=max_len)
+            if paged:
+                kw["page_size"] = page
+            name = (f"{'paged' if paged else 'contiguous'} "
+                    f"{kv or rt.dtype}")
+            base = dict(cfg=cfg, rt=run_rt, paged=paged, kw=kw)
+            if teacher:
+                runs.append(dict(base, label=f"{name} teacher-forced",
+                                 teacher=True, requests=forced,
+                                 buckets=(SHARDED_PREFILL,)))
+            runs.append(dict(base, label=f"{name} served",
+                             requests=served))
+    return runs
+
+
+def one_device_runs(params, cfg, runs):
+    """The same runs through the one-device engines (the reference the
+    mesh is held to; their launches count on no path)."""
+    from repro_torch.serve import PagedServeEngine, ServeEngine
+    out = []
+    for run in runs:
+        cls = PagedServeEngine if run["paged"] else ServeEngine
+        out.append(mesh_run(lambda sched: cls(params, cfg, run["rt"],
+                                              scheduler=sched, **run["kw"]),
+                            run))
+    return out
+
+
+def sharded_mesh(title, mesh, cfg, params, runs, expect, logit_tol=None,
+                 equal_tokens=False):
+    """One mesh of [sharded]: the runs on every rank, each held to the
+    one-device engine's (logits within ``logit_tol``, or tokens equal),
+    every rank's bytes to the capacity prediction, its peak to that
+    plus its largest leaf, and ``expect``'s kernels launched on every
+    rank. Returns the launches summed over ranks and runs."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis.capacity import serve_preflight
+    from repro_torch.launch.mesh import run_mesh
+    t0 = time.perf_counter()
+    want = one_device_runs(params, cfg, runs)
+    t_one = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranks = run_mesh(sharded_rank, mesh, params, cfg, runs,
+                     timeout=SHARDED_TIMEOUT)
+    t_mesh = time.perf_counter() - t0
+    sizes = {"data": mesh[0], "model": mesh[1]}
+    backend = ranks[0][0]["backend"]
+    print(f"[sharded] {title}: mesh {mesh[0]}x{mesh[1]} (data, model), "
+          f"{len(ranks)} ranks on {torch.cuda.device_count()} card(s) over "
+          f"{backend} (all_reduce / all_gather / broadcast of CUDA tensors, "
+          f"staged by gloo through host memory); spawn and runs "
+          f"{t_mesh:.1f} s, one-device runs {t_one:.1f} s")
+    total = {}
+    for i, run in enumerate(runs):
+        recs = [r[i] for r in ranks]
+        rank0, ref = recs[0], want[i]
+        for r in recs[1:]:
+            check(r["tokens"] == rank0["tokens"], f"{title} {run['label']}:"
+                  f" rank {r['rank']} served other tokens than rank 0")
+        line = f"[sharded] {title} {run['label']}:"
+        if run.get("teacher"):
+            dev = max(float(np.abs(a - b).max())
+                      for a, b in zip(rank0["logits"], ref["logits"]))
+            check(len(rank0["logits"]) == len(ref["logits"])
+                  == len(run["requests"]) + SHARDED_FORCED,
+                  f"{title} {run['label']}: captured "
+                  f"{len(rank0['logits'])} logits")
+            a = np.concatenate([x.argmax(-1) for x in rank0["logits"]])
+            b = np.concatenate([x.argmax(-1) for x in ref["logits"]])
+            line += (f" logits of {len(run['requests'])} prefills + "
+                     f"{SHARDED_FORCED} decode steps, max |mesh - one "
+                     f"device| {dev:.4f} (tol {logit_tol}); argmax agree "
+                     f"{int((a == b).sum())}/{a.size}")
+            check(dev <= logit_tol, f"{title} {run['label']}: logits "
+                  f"{dev:.4f} from one device, tol {logit_tol}")
+        else:
+            same = sum(x == y for rid in ref["tokens"]
+                       for x, y in zip(rank0["tokens"][rid],
+                                       ref["tokens"][rid]))
+            n = sum(len(v) for v in ref["tokens"].values())
+            line += (f" tokens equal to one device at {same}/{n}; step p50 "
+                     f"{statistics.median(rank0['steps_ms']):.2f} ms (one "
+                     f"device {statistics.median(ref['steps_ms']):.2f} ms) "
+                     f"over {len(rank0['steps_ms'])} steps")
+            if equal_tokens:
+                check(rank0["tokens"] == ref["tokens"], f"{title} "
+                      f"{run['label']}: tokens differ from one device")
+            if run["paged"]:
+                line += (f"; prefix hits {rank0['prefix_hits']} (one "
+                         f"device {ref['prefix_hits']})")
+        rt = run["rt"]
+        cap = serve_preflight(cfg, n_slots=run["kw"]["n_slots"],
+                              max_len=run["kw"]["max_len"],
+                              page_size=run["kw"].get("page_size"),
+                              mesh=sizes, dtype=rt.dtype,
+                              param_dtype=rt.dtype, kv_dtype=rt.kv_dtype)
+        pred = cap.params_bytes + cap.cache_bytes
+        for r in recs:
+            check(r["params_bytes"] == cap.params_bytes
+                  and r["cache_bytes"] == cap.cache_bytes,
+                  f"{title} {run['label']} rank {r['rank']}: params "
+                  f"{r['params_bytes']} B, cache {r['cache_bytes']} B, "
+                  f"predicted {cap.params_bytes} and {cap.cache_bytes}")
+            check(r["peak"] <= pred + r["largest_leaf"] + SHARDED_SLACK,
+                  f"{title} {run['label']} rank {r['rank']}: peak "
+                  f"{r['peak']} B past {pred} + {r['largest_leaf']} + "
+                  f"{SHARDED_SLACK}")
+            for k, n in r["launches"].items():
+                total[k] = total.get(k, 0) + n
+        print(line + f"; per rank params {cap.params_bytes} B + cache "
+              f"{cap.cache_bytes} B = predicted, peaks "
+              f"{[r['peak'] for r in recs]} B <= {pred} + largest leaf "
+              f"{recs[0]['largest_leaf']} B + {SHARDED_SLACK} B (calibrated "
+              f"peak {cap.peak_bytes} B)")
+    for rank in ranks:
+        launched = {k for rec in rank for k, n in rec["launches"].items()
+                    if n}
+        check(set(expect) <= launched, f"{title}: rank {rank[0]['rank']} "
+              f"launched {sorted(launched)}, not all of {sorted(expect)}")
+        check(not launched - set(expect), f"{title}: rank "
+              f"{rank[0]['rank']} launched another path's "
+              f"{sorted(launched - set(expect))}")
+    print(f"[sharded] {title}: every rank launched {sorted(expect)}; "
+          f"launches over ranks and runs "
+          f"{ {k: v for k, v in total.items() if v} }")
+    return total
+
+
+def sharded_phase(counters):
+    """``[sharded]``: the sharded engines on meshes whose ranks share the
+    card over gloo: full-width minicpm-2b at (1, 2) in bf16 (contiguous
+    and paged, bf16 and int8 KV), full-width chatglm3-6b at (1, 4) in
+    bf16 (its vocabulary split over the ranks, each rank holding the one
+    K/V head of its 8 query heads), smoke minicpm-2b at (2, 4) in f32
+    (tokens equal to one device, the prefix cache hit). Returns the
+    launches summed over every rank's runs."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.launch.mesh import pick_backend
+    from repro_torch.models import ModelRuntime, init_params
+
+    t_phase = time.perf_counter()
+    print(f"[sharded] backend rule: {torch.cuda.device_count()} card(s), "
+          f"ranks 2/4/8 -> {pick_backend(2)}/{pick_backend(4)}/"
+          f"{pick_backend(8)} (nccl only when every rank has a card: it "
+          f"refuses two ranks on one device, 'Duplicate GPU detected')")
+    totals = []
+    rt = ModelRuntime()                   # bf16, cuda policy
+    for name, mesh, kvs, layouts in (
+            ("minicpm-2b", (1, 2), (None, "int8"), (False, True)),
+            ("chatglm3-6b", (1, 4), (None,), (False,))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_arch(name)
+        params = init_params(cfg, seed=0, rt=rt)    # cast leaf by leaf
+        rng = np.random.default_rng(1)
+        served = [dict(rid=i, prompt=rng.integers(0, cfg.vocab_size, n)
+                       .astype(np.int32), max_new_tokens=SHARDED_NEW)
+                  for i, n in enumerate(PROMPT_LENS)]
+        runs = sharded_runs(cfg, rt, teacher=True, served=served, kvs=kvs,
+                            layouts=layouts)
+        expect = {"rmsnorm", "flash_attention", "decode_attention"}
+        if name == "minicpm-2b":
+            expect = set(SHARDED_KERNELS)
+        totals.append(sharded_mesh(f"{name} full width bf16", mesh, cfg,
+                                   params, runs, expect,
+                                   logit_tol=LOGIT_TOL))
+        del params
+    # smoke minicpm-2b in f32 at (2, 4): the reference test's prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = smoke_config(get_arch("minicpm-2b"))
+    f32 = ModelRuntime(dtype="float32")
+    params = init_params(cfg, seed=0, device="cuda")
+    contiguous = [dict(rid=i, prompt=(np.arange(3 + i) * 3 + i).astype(
+        np.int32) % cfg.vocab_size, max_new_tokens=6) for i in range(6)]
+    rng = np.random.default_rng(0)
+    system = rng.integers(0, cfg.vocab_size, 16)
+    shared = [dict(rid=i, prompt=np.concatenate([system, rng.integers(
+        0, cfg.vocab_size, 3 + i)]).astype(np.int32), max_new_tokens=6)
+        for i in range(6)]
+    runs = (sharded_runs(cfg, f32, teacher=False, served=contiguous,
+                         layouts=(False,), max_len=64, page=8)
+            + sharded_runs(cfg, f32, teacher=False, served=shared,
+                           layouts=(True,), max_len=64, page=8))
+    totals.append(sharded_mesh(
+        "smoke minicpm-2b f32", (2, 4), cfg, params, runs,
+        {"rmsnorm", "flash_attention", "decode_attention",
+         "paged_decode_attention"}, equal_tokens=True))
+    del params
+    sharded = {k: sum(t.get(k, 0) for t in totals) for k in counters}
+    print(f"[sharded] launches over all meshes {sharded}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return sharded
+
+
 def capacity_phase():
     """``[capacity]``: every run's prediction against its measured peak,
     per kind, held to ``PARITY_REL_TOL``, and its argument bytes to at
@@ -2578,12 +2947,15 @@ def capacity_phase():
     # runs the fit has not seen: a miss is a finding about the model's
     # reach, reported against the same bar (ROADMAP.md Queue 3), not a
     # fault of the run
-    check(len(HELD_OUT) >= 3, f"capacity: {len(HELD_OUT)} held-out runs")
+    kinds = [r["kind"] for r in HELD_OUT]
+    check(kinds.count("prefill") >= 3 and kinds.count("train") >= 1,
+          f"capacity: held-out runs {kinds}")
     misses = 0
     for r in HELD_OUT:
         within = r["rel_err"] <= PARITY_REL_TOL
         misses += not within
-        print(f"[capacity] held-out {r['arch']} {r['engine']}: predicted "
+        print(f"[capacity] held-out {r['kind']} {r['arch']} {r['engine']}:"
+              f" predicted "
               f"{r['peak_bytes']} B, measured {r['measured_bytes']} B, "
               f"|measured - predicted| / measured {r['rel_err']:.4f} "
               f"{'within' if within else 'MISSES'} the bar "
@@ -2591,8 +2963,10 @@ def capacity_phase():
         check(r["argument_bytes"] <= r["measured_bytes"],
               f"capacity held-out {r['arch']} {r['engine']}: argument "
               f"bytes {r['argument_bytes']} over the measured peak")
-    print(f"[capacity] held-out: {len(HELD_OUT)} runs, {misses} past "
-          f"{PARITY_REL_TOL}; coefficients {CALIBRATION['prefill']}")
+    print(f"[capacity] held-out: {len(HELD_OUT)} runs ({kinds.count('prefill')}"
+          f" prefill, {kinds.count('train')} train), {misses} past "
+          f"{PARITY_REL_TOL}; coefficients prefill {CALIBRATION['prefill']}"
+          f", train {CALIBRATION['train']}")
 
 
 # ===========================================================================
@@ -2697,16 +3071,18 @@ def grad_check(label, cfg, params, counters, expect, **rt_kw):
 
 
 def train_steps(label, cfg, params, counters, expect, steps, batch=TRAIN_B,
-                **rt_kw):
+                seq=TRAIN_S, held_out=False, **rt_kw):
     """``steps`` bf16 AdamW steps of ``make_train_step`` on the f32
     masters (the launcher's runtime: remat none, the config's schedule),
-    B ``batch``, S ``TRAIN_S``, on ``SyntheticLMData``'s lcg batches:
+    B ``batch``, S ``seq``, on ``SyntheticLMData``'s lcg batches:
     every loss finite, step 0's within ``TRAIN_BF16_LOSS_TOL`` of the
     torch policy's on the same batch. Prints the losses, the median step
     time over steps 1.. (host clock, synchronised), tokens/s, MFU against
-    the H100's bf16 dense peak, the peak memory and the launches. Returns
-    (the launches, the state, the step function, a batch, the median
-    step ms, the peak GiB)."""
+    the H100's bf16 dense peak, the peak memory and the launches; the
+    peak against the capacity model in a ``[capacity]`` line, or with
+    ``held_out`` a ``[capacity] held-out train`` line the fit does not
+    read. Returns (the launches, the state, the step function, a batch,
+    the median step ms, the peak GiB)."""
     import dataclasses
     import torch
     from repro_torch.analysis.capacity import capacity
@@ -2719,7 +3095,7 @@ def train_steps(label, cfg, params, counters, expect, steps, batch=TRAIN_B,
     from repro_torch.tree import tree_leaves
 
     rt = ModelRuntime(dtype="bfloat16", remat="none", **rt_kw)
-    data = SyntheticLMData(TRAIN_S, batch, cfg.vocab_size, seed=9)
+    data = SyntheticLMData(seq, batch, cfg.vocab_size, seed=9)
     batches = [{k: torch.from_numpy(v).cuda() for k, v in
                 data.batch_at(i).items()} for i in range(steps)]
     with torch.no_grad():
@@ -2747,19 +3123,28 @@ def train_steps(label, cfg, params, counters, expect, steps, batch=TRAIN_B,
     (losses, times), launches = train_run(f"{label} bf16 steps", counters,
                                           expect, run)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    capacity_record(cfg.name, "train", f"train B{batch} S{TRAIN_S} "
-                    f"{cfg.n_layers} layers", None, capacity(
-                        cfg, ShapeConfig("train", TRAIN_S, batch, "train")),
-                    other)
+    engine = f"train B{batch} S{seq} {cfg.n_layers} layers"
+    rep = capacity(cfg, ShapeConfig("train", seq, batch, "train"))
+    if held_out:
+        measured = torch.cuda.max_memory_allocated() - other
+        rec = dict(arch=cfg.name, kind="train", engine=engine, kv_dtype="-",
+                   features=rep.features, argument_bytes=rep.argument_bytes,
+                   peak_bytes=rep.peak_bytes, measured_bytes=measured,
+                   other_bytes=other,
+                   rel_err=abs(measured - rep.peak_bytes) / measured)
+        print("[capacity] held-out train " + json.dumps(rec))
+        HELD_OUT.append(rec)
+    else:
+        capacity_record(cfg.name, "train", engine, None, rep, other)
     check(all(math.isfinite(x) for x in losses), f"{label}: non-finite "
           f"loss {losses}")
     d0 = abs(losses[0] - ref_loss)
     n_params = sum(t.numel() for t in tree_leaves(params))
     step_ms = statistics.median(times[1:])
-    tok_s = batch * TRAIN_S / step_ms * 1e3
-    mfu = 6 * n_params * batch * TRAIN_S / (step_ms / 1e3) \
+    tok_s = batch * seq / step_ms * 1e3
+    mfu = 6 * n_params * batch * seq / (step_ms / 1e3) \
         / PEAK_OPS["bf16_tensor"]
-    print(f"[train] {label} bf16 AdamW, B{batch} S{TRAIN_S}, {tc.opt.schedule}"
+    print(f"[train] {label} bf16 AdamW, B{batch} S{seq}, {tc.opt.schedule}"
           f": loss by step {' '.join(f'{x:.4f}' for x in losses)}; step 0 "
           f"vs torch policy {ref_loss:.4f} (|d| {d0:.4f}, tol "
           f"{TRAIN_BF16_LOSS_TOL}); step ms {' '.join(f'{t:.1f}' for t in times)}"
@@ -2830,7 +3215,16 @@ def train_phase(counters):
                 f"{label} bf16 train step B{TRAIN_B} S{TRAIN_S}", one_step,
                 steps=1, focus=("flash_fwd", "rmsnorm", "nvjet",
                                 "elementwise", "reduce_kernel"))["device_ms"]
-            del holder
+            del holder, state, step_fn
+            gc.collect()
+            torch.cuda.empty_cache()
+            # a batch and length CALIBRATION was not fitted on
+            got = train_steps(f"{label} held out", cfg, params, counters,
+                              expect, 2, batch=HELD_OUT_TRAIN[0],
+                              seq=HELD_OUT_TRAIN[1], held_out=True)
+            totals.append(got[0])
+            state, step_fn = got[1], got[2]
+            del got
         runs.append(run)
         del params, state, step_fn, batch
     train = {name: sum(t[name] for t in totals) for name in counters}
@@ -2985,15 +3379,6 @@ def main() -> int:
         return 2
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.moe_gemm import grouped_gemm_padded
-    from repro_torch.kernels.paged_attention import paged_decode_attention
-    from repro_torch.kernels.quant import (quant_decode_attention,
-                                           quant_matmul,
-                                           quant_paged_decode_attention)
-    from repro_torch.kernels.rmsnorm import rmsnorm
-    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.models import ModelRuntime, cast_params, init_params
 
     # f32 comparisons must be full f32 (the defaults, set explicitly)
@@ -3024,13 +3409,7 @@ def main() -> int:
     cfg = get_arch("minicpm-2b")
     moe_cfg, ssm_cfg = get_arch("qwen2-moe-a2.7b"), get_arch("mamba2-1.3b")
     hyb_cfg = get_arch("zamba2-2.7b")
-    counters = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
-                "decode_attention": decode_attention,
-                "paged_decode_attention": paged_decode_attention,
-                "quant_decode_attention": quant_decode_attention,
-                "quant_paged_decode_attention": quant_paged_decode_attention,
-                "moe_gemm": grouped_gemm_padded, "ssd_scan": ssd_scan,
-                "quant_matmul": quant_matmul}
+    counters = kernel_counters()
     # --- phase 2 ---------------------------------------------------------
     entries = kernel_phase(cfg, moe_cfg, ssm_cfg, hyb_cfg)
     validator_phase()
@@ -3111,6 +3490,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     launched = launch_phase(counters)
 
+    # --- [sharded]: the sharded engines on meshes sharing the card ---------
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = sharded_phase(counters)
+
     # --- phase 5 ---------------------------------------------------------
     trained, train_runs = train_phase(counters)
 
@@ -3123,12 +3507,14 @@ def main() -> int:
     for name, e in entries.items():
         e = dict(e, ok=True,
                  launches=(served[name] + tuned[name] + trained[name]
-                           + traced[name] + launched[name]),
+                           + traced[name] + launched[name]
+                           + sharded[name]),
                  launches_by_path={"serve": served[name],
                                    "tune": tuned[name],
                                    "train": trained[name],
                                    "trace": traced[name],
-                                   "launch": launched[name]})
+                                   "launch": launched[name],
+                                   "sharded": sharded[name]})
         e.pop("shape")
         for t in (e, *(e[k] for k in SUB_ENTRIES if k in e)):
             for key in ("ms", "plain_ms", "bound_ms", "library_ms"):

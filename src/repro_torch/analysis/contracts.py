@@ -9,10 +9,10 @@ nothing enforces them at runtime until something corrupts silently:
   right rank: the serving engines splice caches *by declared axis*, so an
   undeclared leaf is a KeyError at serve time.
 * **Axis resolvability** — every logical axis name used by the cache
-  and parameter trees must be a key in every sharding recipe's rules
-  (:func:`check_axis_resolvable`). The port has no sharding recipes
-  until the multi-GPU slice (ROADMAP.md Queue 1 item 12), so the live
-  pass does not call it yet.
+  and parameter trees (``CACHE_AXES``, ``PAGED_CACHE_AXES`` and each
+  arch's ``axes_tree``) must be a key in every sharding recipe's rules
+  (``dist.sharding.RECIPES``; :func:`check_axis_resolvable`):
+  ``Recipe.spec_for`` silently replicates a name it does not know.
 * **Dispatch closure** — every op in the kernel dispatch table needs a
   ``torch`` reference (the backward donor and parity oracle), a row in
   both tune presets' grids for each of its impls (or it is never
@@ -24,7 +24,7 @@ without touching live tables; ``run_pass`` wires in the live ones.
 """
 from __future__ import annotations
 
-from typing import Any, List, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Tuple
 
 from repro_torch.analysis.findings import Finding, Location
 from repro_torch.analysis.registry import AnalysisContext, register_pass
@@ -131,16 +131,34 @@ def check_dispatch_closure(ops: Tuple[str, ...],
 # ---------------------------------------------------------------------------
 # Live-tree pass
 # ---------------------------------------------------------------------------
+def param_axis_names(cfg) -> Dict[str, Tuple]:
+    """``{leaf path: logical axes}`` of an arch's parameter tree."""
+    from repro_torch.models.model import axes_tree
+
+    out: Dict[str, Tuple] = {}
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{path}['{k}']")
+        else:
+            out[path] = tuple(tree or ())
+
+    walk(axes_tree(cfg), "")
+    return out
+
+
 @register_pass(
     "contracts",
-    rules=("contract-cache-axes", "contract-dispatch-ref",
-           "contract-tune-grid", "contract-calib-kind"),
-    description="cache-axis declarations, dispatch/tune/calibration "
-                "closure (recipe resolvability waits for the multi-GPU "
-                "slice)")
+    rules=("contract-cache-axes", "contract-axis-unresolvable",
+           "contract-dispatch-ref", "contract-tune-grid",
+           "contract-calib-kind"),
+    description="cache-axis declarations, recipe resolvability, "
+                "dispatch/tune/calibration closure")
 def run_pass(ctx: AnalysisContext) -> List[Finding]:
-    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.configs import ARCHS, get_arch, smoke_config
     from repro_torch.core.analytical.measured import CALIB_OP_KIND
+    from repro_torch.dist.sharding import RECIPES
     from repro_torch.kernels.dispatch import KERNEL_OPS, implementations
     from repro_torch.kernels.tune import TUNE_PRESETS
     from repro_torch.models.model import (CACHE_AXES, PAGED_CACHE_AXES,
@@ -162,6 +180,15 @@ def run_pass(ctx: AnalysisContext) -> List[Finding]:
                                  kv_dtype=kvd),
                 PAGED_CACHE_AXES, axes_name="PAGED_CACHE_AXES",
                 symbol=f"paged_cache_spec/{arch}")
+
+    findings += check_axis_resolvable(CACHE_AXES, RECIPES,
+                                      source="CACHE_AXES")
+    findings += check_axis_resolvable(PAGED_CACHE_AXES, RECIPES,
+                                      source="PAGED_CACHE_AXES")
+    for arch in ARCHS:
+        findings += check_axis_resolvable(
+            param_axis_names(get_arch(arch)), RECIPES,
+            source=f"axes_tree/{arch}")
 
     table = {op: implementations(op) for op in KERNEL_OPS}
     findings += check_dispatch_closure(KERNEL_OPS, table, TUNE_PRESETS,

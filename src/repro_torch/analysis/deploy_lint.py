@@ -12,9 +12,13 @@ per-token and per-prefill latencies
 (``core.analytical.gpu_model.analyze`` on ``H100_SXM``, one microbatch,
 no remat). No devices, no execution: every verdict is closed-form
 shape/latency math, fast enough (<100 ms per (config, scenario) pair)
-to run before the launcher allocates anything. ``DeploymentSpec.mesh``
-takes one device only until the multi-GPU slice (ROADMAP.md Queue 1
-item 12).
+to run before the launcher allocates anything. On a mesh
+(``DeploymentSpec.mesh``, ``deploy_preflight(mesh=)``) the bytes are
+per device as the reference divides them (parameters over ``model``,
+the cache over ``data`` x ``model``, the SSM state over ``data``), and
+each latency bound is the one-card bound over the device count: no
+placement moves less than its share of the bytes and operations, so
+that stays a lower bound.
 
 Rules
 -----
@@ -36,8 +40,8 @@ Rules
     stable on average but the arrival process's peak rate drives the
     best operating point past the saturation knee (M/G/1 wait bound).
 ``deploy-capacity-overflow`` (error)
-    static allocation (params + KV pool + SSM state) or the scenario's
-    concurrency demand exceeds the card's HBM.
+    static allocation (params + KV pool + SSM state, per device) or the
+    scenario's concurrency demand exceeds each card's HBM.
 
 All latency figures are *lower bounds* (service time only, zero
 queueing, zero host overhead), so ``static p50 <= measured p50`` is a
@@ -47,6 +51,7 @@ scenario runs.
 from __future__ import annotations
 
 import json
+import math
 import os
 import time
 from dataclasses import dataclass, field
@@ -96,13 +101,13 @@ class DeploymentSpec:
     dtype: str = "bfloat16"                      # runtime compute dtype
     param_dtype: str = "bfloat16"
     kv_dtypes: Tuple[str, ...] = ()              # () -> (dtype,)
-    mesh: Optional[Dict[str, int]] = None        # one device only
+    mesh: Optional[Dict[str, int]] = None        # None -> one device
     hbm_gb: Optional[float] = None               # None -> chip HBM
     forced_decode_frac: float = 0.5              # bucket-gap threshold K
     saturation_rho: float = 0.85                 # queue-saturation knee
 
     def __post_init__(self):
-        mesh_sizes(self.mesh)          # refuses more than one device
+        mesh_sizes(self.mesh)          # a dict of axis sizes, or None
 
     def kv_variants(self) -> Tuple[str, ...]:
         return tuple(self.kv_dtypes) or (self.dtype,)
@@ -145,23 +150,25 @@ PLAN = GPUPlan(microbatches=1, remat="none")
 
 
 def _decode_step_s(cfg: ModelConfig, batch: int, ctx: int, dep,
-                   kv_dtype: str, plan: GPUPlan, chip: GPUSpec) -> float:
+                   kv_dtype: str, plan: GPUPlan, chip: GPUSpec,
+                   devices: int = 1) -> float:
     ctx = max(1, int(ctx))
     shape = ShapeConfig("deploy_decode", seq_len=ctx,
                         global_batch=max(1, int(batch)), kind="decode",
                         kv_len=ctx)
     wl = lm_workload(cfg, shape, weight_dtype=dep.param_dtype,
                      kv_dtype=kv_dtype)
-    return analyze(wl, plan, chip=chip).step_s
+    return analyze(wl, plan, chip=chip).step_s / devices
 
 
 def _prefill_s(cfg: ModelConfig, length: int, width: int, dep,
-               kv_dtype: str, plan: GPUPlan, chip: GPUSpec) -> float:
+               kv_dtype: str, plan: GPUPlan, chip: GPUSpec,
+               devices: int = 1) -> float:
     shape = ShapeConfig("deploy_prefill", seq_len=max(1, int(length)),
                         global_batch=max(1, int(width)), kind="prefill")
     wl = lm_workload(cfg, shape, weight_dtype=dep.param_dtype,
                      kv_dtype=kv_dtype)
-    return analyze(wl, plan, chip=chip).step_s
+    return analyze(wl, plan, chip=chip).step_s / devices
 
 
 def _page_count(tokens: int, page_size: int) -> int:
@@ -352,7 +359,7 @@ def _rule_compiles(cfg, sched, scen, dep, loc) -> Tuple[List[Finding],
 
 
 def _queue_rules(cfg, sched, scen, dep, kv_dtype, plan, chip,
-                 loc) -> Tuple[List[Finding], dict]:
+                 loc, devices: int = 1) -> Tuple[List[Finding], dict]:
     """M/G/B stability + latency lower bounds over admissible batches."""
     window = sched.window
     slo = scen.slo
@@ -365,7 +372,7 @@ def _queue_rules(cfg, sched, scen, dep, kv_dtype, plan, chip,
     for p, _ in p_pts:
         ap = sched.plan(p)
         pre[p] = (_prefill_s(cfg, ap.prefill_len, dep.admit_width, dep,
-                             kv_dtype, plan, chip),
+                             kv_dtype, plan, chip, devices),
                   max(0, p - ap.prefill_len))
     out_mean = scen.output_lens.mean
     ctx_mean = min(window, scen.prompt_lens.mean + out_mean / 2.0)
@@ -376,9 +383,9 @@ def _queue_rules(cfg, sched, scen, dep, kv_dtype, plan, chip,
     closest: Optional[dict] = None     # best margin overall, for reporting
     for batch in range(1, max(1, dep.n_slots) + 1):
         t_dec = _decode_step_s(cfg, batch, ctx_mean, dep, kv_dtype,
-                               plan, chip)
+                               plan, chip, devices)
         t_dec99 = _decode_step_s(cfg, batch, ctx_p99, dep, kv_dtype,
-                                 plan, chip)
+                                 plan, chip, devices)
         es = es2 = 0.0
         for p, wp in p_pts:
             t_pre, forced = pre[p]
@@ -447,10 +454,13 @@ def _queue_rules(cfg, sched, scen, dep, kv_dtype, plan, chip,
 
 def _rule_capacity(cfg, sched, scen, dep, kv_dtype, sizes, hbm_bytes,
                    metrics, loc) -> Tuple[List[Finding], int, float]:
-    """Bytes on the card: static allocation and Little's-law demand."""
+    """Per-device bytes (the reference's division): static allocation
+    and Little's-law demand."""
+    dp = max(1, sizes.get("data", 1))
+    ms = max(1, sizes.get("model", 1))
     window = sched.window
     n_attn = len(cfg.attention_layer_indices())
-    params = dtype_bytes(dep.param_dtype) * cfg.param_count()
+    params = dtype_bytes(dep.param_dtype) * cfg.param_count() / ms
     kv_elem = dtype_bytes(kv_dtype) \
         + (2.0 if kv_dtype == "int8" else 0.0) / max(cfg.head_dim, 1)
     kv_per_token = n_attn * cfg.n_kv_heads * cfg.head_dim * 2 * kv_elem
@@ -459,12 +469,12 @@ def _rule_capacity(cfg, sched, scen, dep, kv_dtype, sizes, hbm_bytes,
             * dep.page_size
     else:
         cache_tokens = dep.n_slots * window
-    cache_bytes = cache_tokens * kv_per_token
+    cache_bytes = cache_tokens * kv_per_token / (dp * ms)
     ssm_bytes = 0.0
     if cfg.ssm is not None:
         s = cfg.ssm
         ssm_bytes = (cfg.n_layers * dep.n_slots * s.n_heads(cfg.d_model)
-                     * s.head_dim * s.d_state * 4)
+                     * s.head_dim * s.d_state * 4) / dp
     alloc = params + cache_bytes + ssm_bytes
     demand = scen.arrival.rate_rps * metrics["service_s"]   # Little's law
     demand_tokens = min(demand, dep.n_slots) * min(
@@ -475,14 +485,14 @@ def _rule_capacity(cfg, sched, scen, dep, kv_dtype, sizes, hbm_bytes,
             rule_id="deploy-capacity-overflow", severity="error",
             location=loc,
             message=(
-                f"static allocation {alloc / 2**30:.3f} GiB on the card "
+                f"static allocation {alloc / 2**30:.3f} GiB per device "
                 f"(params {params / 2**30:.3f} + cache "
                 f"{cache_bytes / 2**30:.3f} + state "
                 f"{ssm_bytes / 2**30:.3f}) exceeds the "
-                f"{hbm_bytes / 2**30:.2f} GiB HBM budget "
-                f"(kv_dtype={kv_dtype})"),
-            suggestion=("shrink n_slots/max_len/page budget or quantize "
-                        "KV")))
+                f"{hbm_bytes / 2**30:.2f} GiB HBM budget at mesh "
+                f"{dict(sizes)} (kv_dtype={kv_dtype})"),
+            suggestion=("shrink n_slots/max_len/page budget, quantize "
+                        "KV, or shard wider")))
     elif demand_tokens > cache_tokens:
         findings.append(Finding(
             rule_id="deploy-capacity-overflow", severity="error",
@@ -504,7 +514,8 @@ def deploy_preflight(cfg: ModelConfig, scenario, mesh=None, *,
                      deployment: Optional[DeploymentSpec] = None,
                      chip: Optional[GPUSpec] = None) -> DeployReport:
     """Statically lint one (config, scenario, deployment) point on one
-    card (``chip``, default ``H100_SXM``).
+    card or, with ``mesh`` (or ``DeploymentSpec.mesh``), on each device
+    of a mesh of such cards (``chip``, default ``H100_SXM``).
 
     ``scenario`` is a :class:`Scenario` or a library name. Closed-form:
     nothing is allocated, so the launcher runs it before the model.
@@ -531,7 +542,8 @@ def deploy_preflight(cfg: ModelConfig, scenario, mesh=None, *,
     for kv in dep.kv_variants():
         findings.extend(_rule_deadlock(cfg, sched, scenario, dep, kv, loc))
     qf, metrics = _queue_rules(cfg, sched, scenario, dep, kv_primary,
-                               plan, chip, loc)
+                               plan, chip, loc,
+                               math.prod(sizes.values()))
     findings.extend(qf)
     cache_tokens, alloc = 0, 0.0
     for kv in dep.kv_variants():

@@ -6,12 +6,14 @@ declaring which rule ids it can emit — the runner uses the declaration
 to skip passes entirely when ``--rules`` filters them out.
 
 The port carries five passes: the kernel validator (launch plans of the
-Hopper kernels over the tune grids), the contract checker, the
+Hopper kernels over the tune grids), the contract checker (recipe
+resolvability over ``dist.sharding.RECIPES`` among its rules), the
 buffer-liveness walk, the repo AST lint and the deployment-feasibility
 lint, and the id of the capacity gate behind ``launch/serve.py
---preflight``. The reference's jaxpr lint, SPMD/compile lint and
-sharding propagation wait for a compiled step and the multi-GPU slice
-(ROADMAP.md Queue 1 items 12 and 14).
+--preflight``. The reference's jaxpr lint waits for a compiled step and
+its sharding propagation for training's distributed half (ROADMAP.md
+Queue 1 items 12 and 14); its SPMD/compile lint reads XLA's dry-run,
+which the port does not have.
 
 Presets: ``ci`` lints the reference ``ci`` preset's two smoke archs at
 its ``max_len`` and page size and validates the ``ci`` tune grid;

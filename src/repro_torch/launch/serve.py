@@ -33,8 +33,21 @@ refusing an oversized one with ``capacity-hbm-overflow``; ``--strict``
 refuses to launch on any error-severity deploy finding (e.g.
 ``deploy-admission-deadlock``). Both gates price the dtypes of the
 runtime that is then built (bf16 on the card, f32 on the CPU), and run
-before anything is allocated. ``--mesh`` waits for the multi-GPU slice
-(ROADMAP.md Queue 1 item 12): the launcher serves on one device.
+before anything is allocated.
+
+``--mesh DxM`` serves on a (data, model) mesh of D x M ranks, one
+process each (``launch.mesh.run_mesh``), through
+:class:`~repro_torch.serve.sharded.ShardedServeEngine` (or its paged
+twin) under the ``decode`` recipe: weights tensor-parallel over
+``model``, slots over ``data``. The weights are drawn once, here, and
+each rank copies its blocks of them; on the card the kernel library is
+built here and the ranks load it. Rank ``r`` runs on ``cuda:{r %
+device_count}``: on one card the ranks share it over ``gloo``, on D x M
+cards each has its own over ``nccl`` (``--device cpu``: ``gloo`` on the
+CPU). ``--preflight`` and ``--hbm-gb`` then price each device. Rank 0's
+run is the one reported, and every rank must have served the same
+tokens. The families on a mesh are ``dense`` and ``vlm``; the launcher
+refuses the others there.
 
 ``main(argv)`` returns what it measured (the requests served, the step
 percentiles, the engine's stats and the two gates' reports) to an
@@ -52,9 +65,62 @@ import torch
 from repro_torch.analysis.capacity import serve_preflight
 from repro_torch.analysis.deploy_lint import DeploymentSpec, deploy_preflight
 from repro_torch.configs import get_arch, smoke_config
+from repro_torch.dist.sharding import check_mesh_family
+from repro_torch.launch.mesh import run_mesh
 from repro_torch.models import ModelRuntime, init_params
 from repro_torch.serve import (PagedServeEngine, Request, Sampler,
-                               Scheduler, ServeEngine, get_scenario)
+                               Scheduler, ServeEngine,
+                               ShardedPagedServeEngine, ShardedServeEngine,
+                               get_scenario)
+
+
+def parse_mesh(text: str):
+    """``DxM`` -> ((D, M), {"data": D, "model": M})."""
+    try:
+        d, m = (int(x) for x in text.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh {text!r}: expected DxM, e.g. 2x4") \
+            from None
+    if d < 1 or m < 1:
+        raise SystemExit(f"--mesh {text!r}: both sizes must be >= 1")
+    return (d, m), {"data": d, "model": m}
+
+
+def _drive(eng, requests, device: str) -> dict:
+    """Submit ``requests`` and step ``eng`` until all are served; what
+    the report reads, as host data."""
+    for r in requests:
+        eng.submit(Request(**r))
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t0 = time.time()
+    step_s = []
+    while eng.queue or any(s is not None for s in eng.slots):
+        t1 = time.time()
+        eng.step()
+        sync()
+        step_s.append(time.time() - t1)
+    paged = isinstance(eng, PagedServeEngine)
+    return dict(
+        seconds=time.time() - t0, step_s=step_s, finished=eng.finished,
+        rejected=eng.rejected, stats=eng.stats,
+        kv_cache_bytes=eng.kv_cache_bytes(),
+        n_pages=eng.n_pages if paged else None,
+        live_pages=eng.pages.live_pages if paged else None,
+        free_pages=eng.pages.free_pages if paged else None,
+        prefix_hit_rate=eng.prefix_hit_rate if paged else None,
+        evictions=eng.pages.evictions if paged else None)
+
+
+def _mesh_rank(mesh, params, cfg, rt, engine_kw, paged: bool, requests,
+               device: str) -> dict:
+    """One rank of ``--mesh``: the sharded engine over this rank's
+    blocks of ``params``, driven as the one-device launcher drives."""
+    cls = ShardedPagedServeEngine if paged else ShardedServeEngine
+    eng = cls(params, cfg, rt, mesh, **engine_kw)
+    run = _drive(eng, requests, device)
+    run.update(backend=mesh.backend, rank=mesh.rank,
+               tokens={r.rid: list(r.out_tokens) for r in run["finished"]})
+    return run
 
 
 def main(argv=None):
@@ -103,14 +169,18 @@ def main(argv=None):
                     default=True,
                     help="share prompt-prefix pages across requests "
                          "(paged engine only)")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM device mesh, e.g. 2x4 -> (data, model): one "
+                         "process a rank, the sharded engines under the "
+                         "decode recipe (dense and vlm archs)")
     ap.add_argument("--preflight", action="store_true",
                     help="gate the config through the closed-form HBM "
                          "capacity model before allocating anything; "
                          "reject oversized slots/max-len/page budgets "
                          "(rule capacity-hbm-overflow)")
     ap.add_argument("--hbm-gb", type=float, default=None,
-                    help="HBM budget in GiB for --preflight (default: "
-                         "the H100's 80 GB)")
+                    help="per-device HBM budget in GiB for --preflight "
+                         "(default: the H100's 80 GB)")
     ap.add_argument("--scenario", default=None,
                     help="named traffic scenario (repro_torch.serve."
                          "scenarios) to sample requests from; with "
@@ -142,6 +212,13 @@ def main(argv=None):
         buckets = None
     # the runtime's compute dtype: both gates price what is then built
     dtype = "bfloat16" if args.device == "cuda" else "float32"
+    mesh_shape = sizes = None
+    if args.mesh:
+        mesh_shape, sizes = parse_mesh(args.mesh)
+        try:
+            check_mesh_family(cfg, sizes)
+        except NotImplementedError as e:
+            raise SystemExit(str(e)) from None
 
     scenario = drep = cap = None
     if args.scenario:
@@ -154,7 +231,7 @@ def main(argv=None):
             admit_width=args.admit_width, page_size=args.page_size,
             page_budget=args.page_budget, dtype=dtype, param_dtype=dtype,
             kv_dtypes=(args.kv_dtype,) if args.kv_dtype else (),
-            hbm_gb=args.hbm_gb)
+            mesh=sizes, hbm_gb=args.hbm_gb)
         drep = deploy_preflight(cfg, scenario, deployment=dep)
         if args.preflight:
             print(f"deploy[{scenario.name}]: rho={drep.rho:.3f} "
@@ -179,11 +256,12 @@ def main(argv=None):
         cap = serve_preflight(
             cfg, n_slots=args.slots, max_len=args.max_len,
             page_size=args.page_size or None,
-            page_budget=args.page_budget, hbm_gb=args.hbm_gb,
+            page_budget=args.page_budget, mesh=sizes, hbm_gb=args.hbm_gb,
             dtype=dtype, param_dtype=dtype, kv_dtype=args.kv_dtype)
+        where = f" per device of mesh {sizes}" if sizes else ""
         print(f"preflight: predicted peak "
               f"{cap.peak_bytes / 2**30:.3f} GiB / "
-              f"{cap.hbm_bytes / 2**30:.1f} GiB "
+              f"{cap.hbm_bytes / 2**30:.1f} GiB{where} "
               f"(arguments {cap.argument_bytes / 2**30:.3f} GiB: params "
               f"{cap.params_bytes / 2**30:.3f}, cache "
               f"{cap.cache_bytes / 2**30:.3f}; utilization "
@@ -196,9 +274,9 @@ def main(argv=None):
             raise SystemExit(
                 f"[capacity-hbm-overflow] {args.slots} slots x "
                 f"{args.max_len} tokens predicts "
-                f"{cap.peak_bytes / 2**30:.2f} GiB peak, over the "
+                f"{cap.peak_bytes / 2**30:.2f} GiB peak{where}, over the "
                 f"{cap.hbm_bytes / 2**30:.1f} GiB budget — shrink "
-                f"--slots/--max-len or page the cache")
+                f"--slots/--max-len, page the cache or shard wider")
 
     rt = ModelRuntime(dtype=dtype, attn_chunk=128, device=args.device,
                       kv_dtype=args.kv_dtype, moe_dropless=True)
@@ -210,46 +288,56 @@ def main(argv=None):
                       top_k=args.top_k, seed=args.seed)
     kw = dict(n_slots=args.slots, max_len=args.max_len, sampler=sampler,
               scheduler=sched, overflow=args.overflow, eos_id=args.eos)
-    if args.page_size > 0:
-        eng = PagedServeEngine(params, cfg, rt, page_size=args.page_size,
-                               page_budget=args.page_budget,
-                               prefix_cache=args.prefix_cache, **kw)
-    else:
-        eng = ServeEngine(params, cfg, rt, **kw)
-    del params
+    paged = args.page_size > 0
+    if paged:
+        kw.update(page_size=args.page_size, page_budget=args.page_budget,
+                  prefix_cache=args.prefix_cache)
 
     rng = np.random.default_rng(args.seed)
+    requests = []
     if scenario is not None:
         # request shapes come from the scenario, so the measured run
         # replays what deploy_preflight bounded
         for i, (_, plen, olen) in enumerate(
                 scenario.sample_requests(args.requests, seed=args.seed)):
             prompt = rng.integers(0, cfg.vocab_size, plen).astype(np.int32)
-            eng.submit(Request(rid=i, prompt=prompt, max_new_tokens=olen))
+            requests.append(dict(rid=i, prompt=prompt, max_new_tokens=olen))
     else:
         for i in range(args.requests):
             plen = int(rng.integers(4, max(5, min(32, args.max_len // 2))))
             prompt = rng.integers(0, cfg.vocab_size, plen).astype(np.int32)
-            eng.submit(Request(rid=i, prompt=prompt,
-                               max_new_tokens=args.max_new))
+            requests.append(dict(rid=i, prompt=prompt,
+                                 max_new_tokens=args.max_new))
 
-    sync = torch.cuda.synchronize if args.device == "cuda" else (lambda: None)
-    t0 = time.time()
-    step_s = []
-    while eng.queue or any(s is not None for s in eng.slots):
-        t1 = time.time()
-        eng.step()
-        sync()
-        step_s.append(time.time() - t1)
-    dt = time.time() - t0
-    done = eng.finished
+    backend = None
+    if mesh_shape is not None:
+        if args.device == "cuda":
+            from repro_torch.kernels import _build
+            _build.library()           # built once, here; the ranks load it
+        runs = run_mesh(_mesh_rank, mesh_shape, params, cfg, rt, kw, paged,
+                        requests, args.device, devices=args.device)
+        del params
+        for r in runs[1:]:
+            if r["tokens"] != runs[0]["tokens"]:
+                raise RuntimeError(f"rank {r['rank']} served other tokens "
+                                   f"than rank 0")
+        run, backend = runs[0], runs[0]["backend"]
+    else:
+        eng = (PagedServeEngine if paged else ServeEngine)(params, cfg, rt,
+                                                           **kw)
+        del params
+        run = _drive(eng, requests, args.device)
+    done, dt, step_s = run["finished"], run["seconds"], run["step_s"]
 
     toks = sum(len(r.out_tokens) for r in done)
-    st = eng.stats
+    st = run["stats"]
     p50, p99 = (np.percentile(step_s, (50, 99)) * 1e3
                 if step_s else (float("nan"),) * 2)
     where = (torch.cuda.get_device_name(0) if args.device == "cuda"
              else "cpu")
+    if mesh_shape is not None:
+        where += (f", mesh {mesh_shape[0]}x{mesh_shape[1]} (data, model) "
+                  f"over {backend}, rank 0 reported")
     print(f"served {len(done)}/{args.requests} requests, {toks} tokens "
           f"in {dt:.1f}s ({toks / dt:.1f} tok/s on {where})")
     print(f"  step latency p50/p99 {p50:.1f}/{p99:.1f} ms; slot "
@@ -257,26 +345,28 @@ def main(argv=None):
           f"{st.prefill_compiles} (bound "
           f"{sched.max_prefill_compiles() or 'unbounded'}); "
           f"forced prompt tokens {st.forced_tokens}")
-    print(f"  kv cache {eng.kv_cache_bytes() / 2**20:.1f} MiB "
+    per = " per device" if mesh_shape is not None else ""
+    print(f"  kv cache {run['kv_cache_bytes'] / 2**20:.1f} MiB{per} "
           f"({rt.kv_dtype or rt.dtype}), utilization "
           f"{st.kv_utilization:.2f}, max in-flight {st.max_active}")
-    if args.page_size > 0:
-        print(f"  paged: {eng.n_pages} pages of {args.page_size} tokens, "
-              f"{eng.pages.live_pages} live / {eng.pages.free_pages} free; "
-              f"prefix hits {st.prefix_hits} ({st.prefix_hit_tokens} "
-              f"tokens, hit rate {eng.prefix_hit_rate:.2f}), evictions "
-              f"{eng.pages.evictions}")
-    if eng.rejected:
-        print(f"  rejected {len(eng.rejected)}: "
-              f"{[(r.rid, r.finish_reason) for r in eng.rejected]}")
+    if paged:
+        print(f"  paged: {run['n_pages']} pages of {args.page_size} "
+              f"tokens, {run['live_pages']} live / {run['free_pages']} "
+              f"free; prefix hits {st.prefix_hits} ({st.prefix_hit_tokens} "
+              f"tokens, hit rate {run['prefix_hit_rate']:.2f}), evictions "
+              f"{run['evictions']}")
+    if run["rejected"]:
+        print(f"  rejected {len(run['rejected'])}: "
+              f"{[(r.rid, r.finish_reason) for r in run['rejected']]}")
     for r in done[:4]:
         print(f"  rid={r.rid} finish={r.finish_reason} "
               f"out={r.out_tokens}")
     return dict(served=len(done), finished=done,
-                rejected=len(eng.rejected), tokens=toks,
+                rejected=len(run["rejected"]), tokens=toks,
                 seconds=dt, step_p50_ms=float(p50), step_p99_ms=float(p99),
                 stats=st, deploy=drep, preflight=cap,
-                compile_bound=sched.max_prefill_compiles())
+                compile_bound=sched.max_prefill_compiles(),
+                mesh=sizes, backend=backend)
 
 
 if __name__ == "__main__":

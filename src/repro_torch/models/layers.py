@@ -2,8 +2,9 @@
 and LayerNorm, RoPE (standard, partial, 2d and M-RoPE), the activations
 and the cross-entropy loss (counterpart of ``repro.models.layers``).
 
-Parameter *definitions* (shape + initializer) are data, so ``init`` and
-the shape checks of the weight bridge derive from one source.
+Parameter *definitions* (shape + initializer + logical axes) are data,
+so ``init``, the shape checks of the weight bridge and the sharding
+placement (``dist.sharding``) derive from one source.
 """
 from __future__ import annotations
 
@@ -27,6 +28,14 @@ class ParamDef:
     shape: Tuple[int, ...]
     init: str = "fan_in"                # fan_in | embed | zeros | ones | const
     scale: float = 1.0                  # std multiplier; the value of const
+    #: logical sharding axes, one per dim (the reference's names; None =
+    #: replicated); a recipe maps them onto mesh axes
+    axes: Optional[Tuple[Optional[str], ...]] = None
+
+    def __post_init__(self):
+        if self.axes is not None and len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} do not match shape "
+                             f"{self.shape}")
 
 
 DefTree = Union[ParamDef, Dict[str, "DefTree"]]
@@ -55,6 +64,13 @@ def init_from_defs(defs: DefTree, seed: int, device, path: str = "",
                 for k, v in defs.items()}
     out = _init_leaf(defs, seed, device, path)
     return out if cast is None else cast(path, out)
+
+
+def axes_from_defs(defs: DefTree):
+    """The tree of each leaf's logical axes (the defs' own tree)."""
+    if isinstance(defs, dict):
+        return {k: axes_from_defs(v) for k, v in defs.items()}
+    return defs.axes
 
 
 def _init_leaf(d: ParamDef, seed: int, device, path: str) -> torch.Tensor:
@@ -105,9 +121,9 @@ def norm(x: torch.Tensor, p: Dict[str, torch.Tensor], kind: str,
 
 
 def norm_defs(d_model: int, kind: str) -> Dict[str, ParamDef]:
-    out = {"scale": ParamDef((d_model,), "ones")}
+    out = {"scale": ParamDef((d_model,), "ones", axes=(None,))}
     if kind == "layernorm":
-        out["bias"] = ParamDef((d_model,), "zeros")
+        out["bias"] = ParamDef((d_model,), "zeros", axes=(None,))
     return out
 
 

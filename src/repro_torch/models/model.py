@@ -34,6 +34,18 @@ it. The paged cache (a pool of pages per layer plus per-slot page
 tables, ``paged_cache_spec``) serves :class:`~repro_torch.serve.paged.
 PagedServeEngine`. ``ModelRuntime.kv_dtype='int8'`` stores either cache
 quantized per (token, kv head), with bf16 scale side-bands ``ks``/``vs``.
+
+Under a mesh (``dist.sharding.use_mesh`` + ``axis_rules``, as the
+sharded engines run) :func:`forward`, :func:`prefill`,
+:func:`decode_step` and :func:`decode_step_paged` take their
+tensor-parallel forms, Megatron-style, on this rank's blocks of the
+parameters (``dist.sharding.Placement``): ``wq``/``wk``/``wv``/``wg``/
+``wi`` split by columns, ``wo``/``wo2`` by rows and summed over
+``model`` after; an embedding split over the vocabulary looks up its
+rows masked and sums over ``model``, and the unembedding gathers the
+vocabulary. The cache specs give this rank's block (its K/V heads, its
+slots over ``data``). With no mesh every function runs its one-device
+form: the same launches and the same bits.
 """
 from __future__ import annotations
 
@@ -46,6 +58,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import Placement, active_placement
 from repro_torch.kernels.dispatch import KernelPolicy, dispatch
 from repro_torch.kernels.quant import quantize_rows
 from repro_torch.models import layers as L
@@ -140,30 +153,31 @@ def check_device(device) -> torch.device:
 def _attn_defs(cfg: ModelConfig, n: int) -> Dict[str, Any]:
     d, hd = cfg.d_model, cfg.head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
-    s = (n,)
+    s, sx = (n,), ("layers",)
 
     def stacked(defs):
-        return {k: ParamDef(s + v.shape, v.init, v.scale)
+        return {k: ParamDef(s + v.shape, v.init, v.scale, sx + v.axes)
                 for k, v in defs.items()}
 
     defs: Dict[str, Any] = {
         "ln1": stacked(norm_defs(d, cfg.norm)),
-        "wq": ParamDef(s + (d, nq * hd)),
-        "wk": ParamDef(s + (d, nkv * hd)),
-        "wv": ParamDef(s + (d, nkv * hd)),
-        "wo": ParamDef(s + (nq * hd, d)),
+        "wq": ParamDef(s + (d, nq * hd), axes=sx + ("embed", "heads")),
+        "wk": ParamDef(s + (d, nkv * hd), axes=sx + ("embed", "kv_heads")),
+        "wv": ParamDef(s + (d, nkv * hd), axes=sx + ("embed", "kv_heads")),
+        "wo": ParamDef(s + (nq * hd, d), axes=sx + ("heads", "embed")),
         "ln2": stacked(norm_defs(d, cfg.norm)),
     }
     if cfg.qk_norm:
-        defs["q_norm"] = ParamDef(s + (hd,), "ones")
-        defs["k_norm"] = ParamDef(s + (hd,), "ones")
+        defs["q_norm"] = ParamDef(s + (hd,), "ones", axes=sx + (None,))
+        defs["k_norm"] = ParamDef(s + (hd,), "ones", axes=sx + (None,))
     if cfg.moe is not None:
         defs["moe"] = MOE.moe_defs(cfg, stack=s)
     elif cfg.d_ff:
         if cfg.mlp == "swiglu":
-            defs["wg"] = ParamDef(s + (d, cfg.d_ff))
-        defs["wi"] = ParamDef(s + (d, cfg.d_ff))
-        defs["wo2"] = ParamDef(s + (cfg.d_ff, d))
+            defs["wg"] = ParamDef(s + (d, cfg.d_ff),
+                                  axes=sx + ("embed", "ffn"))
+        defs["wi"] = ParamDef(s + (d, cfg.d_ff), axes=sx + ("embed", "ffn"))
+        defs["wo2"] = ParamDef(s + (cfg.d_ff, d), axes=sx + ("ffn", "embed"))
     return defs
 
 
@@ -171,16 +185,17 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
     _require_ported(cfg)
     d, v = cfg.d_model, cfg.vocab_size
     defs: Dict[str, Any] = {
-        "embed": ParamDef((v, d), "embed"),
+        "embed": ParamDef((v, d), "embed", axes=("vocab", "embed")),
         "final_norm": norm_defs(d, cfg.norm),
     }
     if not cfg.tie_embeddings:
-        defs["lm_head"] = ParamDef((d, v))
+        defs["lm_head"] = ParamDef((d, v), axes=("embed", "vocab"))
     if cfg.family in ("ssm", "hybrid"):
         n = (cfg.n_layers,)
         defs["blocks"] = {
             "ssm": SSM.ssm_defs(cfg, stack=n),
-            "ln": {k: ParamDef(n + p.shape, p.init)
+            "ln": {k: ParamDef(n + p.shape, p.init,
+                               axes=("layers",) + p.axes)
                    for k, p in norm_defs(d, cfg.norm).items()},
         }
         if cfg.family == "hybrid":
@@ -190,10 +205,26 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
     return defs
 
 
-def _cast_leaf(path, leaf: torch.Tensor, rt: ModelRuntime) -> torch.Tensor:
+def axes_tree(cfg: ModelConfig):
+    """Every parameter's logical axes, in the parameter tree's shape (the
+    reference's ``axes_tree``): what a sharding recipe maps onto a
+    mesh."""
+    return L.axes_from_defs(param_defs(cfg))
+
+
+def leaf_dtype(path, rt: ModelRuntime) -> torch.dtype:
+    """The dtype :func:`cast_params` gives the leaf at ``path`` (its keys,
+    or a ``"['a']['b']"`` string): f32 for the :data:`F32_LEAVES`, else
+    ``rt.dtype``."""
+    if isinstance(path, str):
+        path = re.findall(r"\['([^']*)'\]", path)
     keep = any(p in F32_LEAVES for p in path)
+    return torch.float32 if keep else rt.torch_dtype
+
+
+def _cast_leaf(path, leaf: torch.Tensor, rt: ModelRuntime) -> torch.Tensor:
     return leaf.to(device=check_device(rt.device),
-                   dtype=torch.float32 if keep else rt.torch_dtype)
+                   dtype=leaf_dtype(path, rt))
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
@@ -206,7 +237,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     cast = None
     if rt is not None:
         def cast(path, leaf):
-            return _cast_leaf(re.findall(r"\['([^']*)'\]", path), leaf, rt)
+            return _cast_leaf(path, leaf, rt)
     return L.init_from_defs(param_defs(cfg), seed, check_device(device),
                             cast=cast)
 
@@ -268,21 +299,31 @@ def _kv_layers(cfg: ModelConfig) -> int:
 # ===========================================================================
 # Blocks
 # ===========================================================================
+def _row_parallel(y: torch.Tensor, pl: Optional[Placement],
+                  split: bool) -> torch.Tensor:
+    """A row-parallel product's partial sum, summed over ``model`` where
+    the leaf is split (one device: ``y`` as it is)."""
+    return pl.reduce_model(y) if pl is not None and split else y
+
+
 def _mlp(p: Dict[str, torch.Tensor], h: torch.Tensor,
-         cfg: ModelConfig) -> torch.Tensor:
+         cfg: ModelConfig, pl: Optional[Placement] = None) -> torch.Tensor:
     if cfg.mlp == "swiglu":
         z = swiglu(h @ p["wg"].to(h.dtype), h @ p["wi"].to(h.dtype))
     else:
         z = gelu(h @ p["wi"].to(h.dtype))
-    return z @ p["wo2"].to(h.dtype)
+    return _row_parallel(z @ p["wo2"].to(h.dtype), pl,
+                         pl is not None and pl.ffn_split)
 
 
 def _attn_proj(p, h, cfg: ModelConfig, policy=None):
+    """q (B, S, Hq, hd), k and v (B, S, Hkv, hd): the head counts are
+    the weights' own (a rank's heads under a mesh)."""
     B, S, _ = h.shape
     hd = cfg.head_dim
-    q = (h @ p["wq"].to(h.dtype)).reshape(B, S, cfg.n_heads, hd)
-    k = (h @ p["wk"].to(h.dtype)).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (h @ p["wv"].to(h.dtype)).reshape(B, S, cfg.n_kv_heads, hd)
+    q = (h @ p["wq"].to(h.dtype)).reshape(B, S, -1, hd)
+    k = (h @ p["wk"].to(h.dtype)).reshape(B, S, -1, hd)
+    v = (h @ p["wv"].to(h.dtype)).reshape(B, S, -1, hd)
     if cfg.qk_norm:
         q = L.rmsnorm(q, p["q_norm"], policy=policy)
         k = L.rmsnorm(k, p["k_norm"], policy=policy)
@@ -290,17 +331,27 @@ def _attn_proj(p, h, cfg: ModelConfig, policy=None):
 
 
 def _ffn(p, h: torch.Tensor, cfg: ModelConfig, pol, dropless: bool,
-         token_chunk: int = 0) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+         token_chunk: int = 0, pl: Optional[Placement] = None
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The block's FFN on (B, S, d): the MoE layer (with its aux loss) or
     the dense MLP (aux None)."""
     if cfg.moe is not None:
         return MOE.moe_ffn(p["moe"], h, cfg, dropless=dropless,
                            token_chunk=token_chunk, policy=pol)
-    return _mlp(p, h, cfg), None
+    return _mlp(p, h, cfg, pl), None
+
+
+def _attn_out(o: torch.Tensor, p, x: torch.Tensor,
+              pl: Optional[Placement]) -> torch.Tensor:
+    """The attention output projection, summed over ``model`` where the
+    heads are split."""
+    return _row_parallel(o @ p["wo"].to(x.dtype), pl,
+                         pl is not None and pl.heads_split)
 
 
 def attn_block(p: Dict[str, Any], x: torch.Tensor, rope,
-               cfg: ModelConfig, rt: ModelRuntime):
+               cfg: ModelConfig, rt: ModelRuntime,
+               pl: Optional[Placement] = None):
     """Pre-norm attention + FFN block. Returns (x, aux or None, (k, v));
     k/v are post-RoPE, exactly what the decode cache stores."""
     pol = rt.kernel_policy()
@@ -310,9 +361,9 @@ def attn_block(p: Dict[str, Any], x: torch.Tensor, rope,
     o = dispatch("prefill_attention", pol, q, k, v, causal=cfg.causal,
                  window=cfg.sliding_window, chunk=rt.attn_chunk)
     o = o.reshape(x.shape[0], x.shape[1], -1)
-    x = x + o @ p["wo"].to(x.dtype)
+    x = x + _attn_out(o, p, x, pl)
     h2 = norm(x, p["ln2"], cfg.norm, policy=pol)
-    y, aux = _ffn(p, h2, cfg, pol, rt.moe_dropless, rt.moe_chunk)
+    y, aux = _ffn(p, h2, cfg, pol, rt.moe_dropless, rt.moe_chunk, pl)
     return x + y, aux, (k, v)
 
 
@@ -346,19 +397,42 @@ def _positions(cfg: ModelConfig, batch: Dict[str, torch.Tensor], B: int,
     return positions
 
 
+def _lookup(params, tokens: torch.Tensor, rt: ModelRuntime,
+            pl: Optional[Placement] = None) -> torch.Tensor:
+    """The embedding rows of ``tokens`` in ``rt.dtype``. Split over the
+    vocabulary, each rank looks up the tokens its rows hold (zeros
+    elsewhere) and the ranks' rows are summed over ``model``: exactly one
+    is non-zero, so the sum is exact."""
+    emb = params["embed"].to(rt.torch_dtype)
+    if pl is None or not pl.vocab_split:
+        return emb[tokens.long()]
+    t = tokens.long() - pl.vocab_start
+    hit = (t >= 0) & (t < emb.shape[0])
+    x = emb[t.clamp(0, emb.shape[0] - 1)] * hit[..., None].to(emb.dtype)
+    return pl.reduce_model(x)
+
+
 def _embed_in(params, batch: Dict[str, torch.Tensor],
-              rt: ModelRuntime) -> torch.Tensor:
+              rt: ModelRuntime, pl: Optional[Placement] = None
+              ) -> torch.Tensor:
     """The token embedding, or ``batch['embeds']`` (B, S, d) from a
     stubbed patch or frame front-end, in ``rt.dtype``."""
     if "embeds" in batch:
         return batch["embeds"].to(rt.torch_dtype)
-    return params["embed"].to(rt.torch_dtype)[batch["tokens"].long()]
+    return _lookup(params, batch["tokens"], rt, pl)
 
 
-def _unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _unembed(params, cfg: ModelConfig, x: torch.Tensor,
+             pl: Optional[Placement] = None) -> torch.Tensor:
+    """Logits over the whole vocabulary: a rank's columns, gathered over
+    ``model`` where the vocabulary is split."""
     if cfg.tie_embeddings:
-        return x @ params["embed"].to(x.dtype).t()
-    return x @ params["lm_head"].to(x.dtype)
+        logits = x @ params["embed"].to(x.dtype).t()
+    else:
+        logits = x @ params["lm_head"].to(x.dtype)
+    if pl is not None and pl.vocab_split:
+        logits = pl.gather_model(logits, -1)
+    return logits
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -389,7 +463,7 @@ def _remat(fn, rt: ModelRuntime):
 
 
 def _run_blocks(params, cfg: ModelConfig, x, positions, rt: ModelRuntime,
-                on_layer=None):
+                on_layer=None, pl: Optional[Placement] = None):
     """Every block in :func:`_schedule`'s order, each under ``rt.remat``
     (the reference remats a hybrid group whole; the gradients are the
     same); ``on_layer(i, material)`` receives each block's cache
@@ -399,7 +473,7 @@ def _run_blocks(params, cfg: ModelConfig, x, positions, rt: ModelRuntime,
     rope = None if cfg.family == "ssm" else L.rope_tables(positions, cfg)
 
     def attn(p, x_):
-        x_, a, kv = attn_block(p, x_, rope, cfg, rt)
+        x_, a, kv = attn_block(p, x_, rope, cfg, rt, pl)
         return x_, kv, a
 
     def mamba(p, x_):
@@ -423,12 +497,13 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     default 0..S-1. -> (logits (B, S, V) in rt.dtype, aux_loss scalar
     f32: the MoE layers' summed load-balancing loss, else 0)."""
     _require_ported(cfg)
-    x = _embed_in(params, batch, rt)
+    pl = active_placement(cfg)
+    x = _embed_in(params, batch, rt, pl)
     B, S, _ = x.shape
     positions = _positions(cfg, batch, B, S, x.device)
-    x, aux = _run_blocks(params, cfg, x, positions, rt)
+    x, aux = _run_blocks(params, cfg, x, positions, rt, pl=pl)
     x = norm(x, params["final_norm"], cfg.norm, policy=rt.kernel_policy())
-    return _unembed(params, cfg, x), aux
+    return _unembed(params, cfg, x, pl), aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -468,14 +543,17 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     where the decode mask hides them until they are overwritten. A
     recurrent state would absorb pad tokens, so the ``ssm`` and
     ``hybrid`` families take exact-length rows (the scheduler's chunk
-    mode).
+    mode). Under a mesh every rank prefills every row (the batch stays
+    whole: the engine splices each row into the rank that holds its
+    slot) on its own heads.
     """
     _require_ported(cfg)
-    x = _embed_in(params, batch, rt)
+    pl = active_placement(cfg)
+    x = _embed_in(params, batch, rt, pl)
     B, S, _ = x.shape
     positions = _positions(cfg, batch, B, S, x.device)
     cache = init_cache(cfg, B, max_len, rt.dtype, rt.kv_dtype,
-                       device=x.device)
+                       device=x.device, whole_batch=True)
     quant = "ks" in cache
 
     def on_layer(i, material):
@@ -492,7 +570,7 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         _fill_kv_window(cache["k"][i], k)
         _fill_kv_window(cache["v"][i], v)
 
-    x, _ = _run_blocks(params, cfg, x, positions, rt, on_layer)
+    x, _ = _run_blocks(params, cfg, x, positions, rt, on_layer, pl)
     if lengths is None:
         cache["pos"].fill_(S)
     else:
@@ -502,7 +580,7 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     x_last = x[torch.arange(B, device=x.device), idx][:, None, :]
     x = norm(x_last, params["final_norm"], cfg.norm,
              policy=rt.kernel_policy())
-    return cache, _unembed(params, cfg, x)[:, 0]
+    return cache, _unembed(params, cfg, x, pl)[:, 0]
 
 
 # ===========================================================================
@@ -535,23 +613,34 @@ def _kv_spec(shape: Tuple[int, ...], kvd: str):
     return spec
 
 
+def _placed(cfg: ModelConfig, spec, axes, whole_batch: bool = False):
+    """``spec`` at this rank's block shapes under the ambient mesh (as it
+    is on one device); ``whole_batch`` keeps the batch dim whole."""
+    pl = active_placement(cfg)
+    if pl is None:
+        return spec
+    return pl.local_spec(spec, axes, ("batch",) if whole_batch else ())
+
+
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
-               dtype: str = "bfloat16", kv_dtype: Optional[str] = None
+               dtype: str = "bfloat16", kv_dtype: Optional[str] = None,
+               whole_batch: bool = False
                ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """{name: (shape, dtype)} of the contiguous decode cache: K/V for the
     attention blocks (``kv_dtype`` overrides their storage dtype, default
     ``dtype``; the hybrid's one per group), the recurrent state for the
     ``ssm`` and ``hybrid`` families (``conv`` in ``dtype``, ``ssm`` in
-    f32)."""
+    f32). Under a mesh, this rank's block of each leaf (its K/V heads,
+    and its slots unless ``whole_batch``)."""
     _require_ported(cfg)
     spec = {"pos": ((batch,), torch.int32)}
     if cfg.family in ("ssm", "hybrid"):
         spec.update(_state_spec(cfg, batch, dtype))
-    if cfg.family == "ssm":
-        return spec
-    W = _cache_window(cfg, max_len)
-    kv = (_kv_layers(cfg), batch, W, cfg.n_kv_heads, cfg.head_dim)
-    return dict(spec, **_kv_spec(kv, kv_dtype or dtype))
+    if cfg.family != "ssm":
+        W = _cache_window(cfg, max_len)
+        kv = (_kv_layers(cfg), batch, W, cfg.n_kv_heads, cfg.head_dim)
+        spec.update(_kv_spec(kv, kv_dtype or dtype))
+    return _placed(cfg, spec, CACHE_AXES, whole_batch)
 
 
 def _state_spec(cfg: ModelConfig, batch: int, dtype: str):
@@ -575,11 +664,11 @@ CACHE_AXES = {
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: str = "bfloat16", kv_dtype: Optional[str] = None,
-               device="cuda"):
+               device="cuda", whole_batch: bool = False):
     dev = check_device(device)
     return {k: torch.zeros(s, dtype=d, device=dev)
             for k, (s, d) in cache_spec(cfg, batch, max_len, dtype,
-                                        kv_dtype).items()}
+                                        kv_dtype, whole_batch).items()}
 
 
 def _store_kv(kv, idx, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -598,20 +687,28 @@ def _store_kv(kv, idx, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _attn_decode_one(p, x, kv, idx, attend, rope, cfg: ModelConfig,
-                     rt: ModelRuntime):
+                     rt: ModelRuntime, pl: Optional[Placement] = None,
+                     rows=None):
     """One-layer attention for one token. x: (B, d). The new K/V row is
     written in place at ``idx`` of the layer's cache ``kv`` *before*
-    attention; ``attend(q, kv)`` is the attention over that cache."""
+    attention; ``attend(q, kv)`` is the attention over that cache.
+    ``rows``, when given, maps the new K/V rows to the rows ``idx``
+    addresses (a pool every rank over ``data`` holds whole takes every
+    rank's rows)."""
     B = x.shape[0]
     pol = rt.kernel_policy()
     h = norm(x, p["ln1"], cfg.norm, policy=pol)[:, None, :]   # (B,1,d)
     q, k, v = _attn_proj(p, h, cfg, policy=pol)
     q, k = L.apply_rope(q, k, rope, cfg)
-    _store_kv(kv, idx, k[:, 0], v[:, 0])
+    k, v = k[:, 0], v[:, 0]
+    if rows is not None:
+        k, v = rows(k), rows(v)
+    _store_kv(kv, idx, k, v)
     o = attend(q[:, 0], kv)
-    x = x + o.reshape(B, -1) @ p["wo"].to(x.dtype)
+    x = x + _attn_out(o.reshape(B, -1), p, x, pl)
     h2 = norm(x, p["ln2"], cfg.norm, policy=pol)
-    return x + _ffn(p, h2[:, None, :], cfg, pol, dropless=True)[0][:, 0]
+    return x + _ffn(p, h2[:, None, :], cfg, pol, dropless=True,
+                    pl=pl)[0][:, 0]
 
 
 def _mamba_decode_one(p, x, cache, i: int, cfg: ModelConfig, pol):
@@ -627,7 +724,8 @@ def _mamba_decode_one(p, x, cache, i: int, cfg: ModelConfig, pol):
 
 def _decode_blocks(params, cfg: ModelConfig, cache, x, rt: ModelRuntime,
                    names=(), pos=None, idx=None, op: str = "",
-                   tail=()) -> torch.Tensor:
+                   tail=(), pl: Optional[Placement] = None,
+                   rows=None) -> torch.Tensor:
     """Every block for one token in :func:`_schedule`'s order, then the
     final norm and the unembedding. Mamba-2 layer i updates its state in
     the cache; attention block i's cache is ``cache[n][i]`` for the
@@ -651,9 +749,9 @@ def _decode_blocks(params, cfg: ModelConfig, cache, x, rt: ModelRuntime,
             x = _mamba_decode_one(p, x, cache, i, cfg, pol)
             continue
         kv = tuple(cache[n][i] if n in cache else None for n in names)
-        x = _attn_decode_one(p, x, kv, idx, attend, rope, cfg, rt)
+        x = _attn_decode_one(p, x, kv, idx, attend, rope, cfg, rt, pl, rows)
     x = norm(x[:, None, :], params["final_norm"], cfg.norm, policy=pol)
-    return _unembed(params, cfg, x)[:, 0]
+    return _unembed(params, cfg, x, pl)[:, 0]
 
 
 def decode_step(params, cfg: ModelConfig, cache: Dict[str, torch.Tensor],
@@ -661,10 +759,11 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, torch.Tensor],
                 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """tokens: (B,) -> (cache, logits (B, V)). The cache is updated in
     place (K/V rows and the recurrent state, and ``pos + 1``) and
-    returned."""
+    returned. Under a mesh: this rank's slots and heads."""
     _require_ported(cfg)
+    pl = active_placement(cfg)
     pos = cache["pos"]
-    x = params["embed"].to(rt.torch_dtype)[tokens.long()]      # (B, d)
+    x = _lookup(params, tokens, rt, pl)                          # (B, d)
     if cfg.family == "ssm":
         logits = _decode_blocks(params, cfg, cache, x, rt)
         pos += 1
@@ -674,7 +773,8 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, torch.Tensor],
     mask = torch.arange(W, device=pos.device)[None, :] <= pos[:, None]
     op = "quant_decode_attention" if "ks" in cache else "decode_attention"
     logits = _decode_blocks(params, cfg, cache, x, rt,
-                            ("k", "v", "ks", "vs"), pos, idx, op, (mask,))
+                            ("k", "v", "ks", "vs"), pos, idx, op, (mask,),
+                            pl)
     pos += 1
     return cache, logits
 
@@ -695,7 +795,8 @@ def paged_cache_spec(cfg: ModelConfig, n_slots: int, n_pages: int,
     ``(L, n_pages, page_size, Hkv, hd)`` pools addressed through per-slot
     page tables ``pt (n_slots, ceil(W / page_size))``, and under int8 the
     pooled scales ``ks``/``vs (L, n_pages, page_size, Hkv)``; L counts
-    the attention blocks (the hybrid's groups). Physical page 0 is the
+    the attention blocks (the hybrid's groups). Under a mesh, this
+    rank's block (its K/V heads of every page, its slots' tables). Physical page 0 is the
     null page: unowned table entries point at it and retired slots write
     their masked decode rows into it. Recurrent state (``ssm``,
     ``hybrid``) stays contiguous per slot; the ``ssm`` family has no KV
@@ -707,12 +808,13 @@ def paged_cache_spec(cfg: ModelConfig, n_slots: int, n_pages: int,
     if cfg.family in ("ssm", "hybrid"):
         spec.update(_state_spec(cfg, n_slots, dtype))
     if cfg.family == "ssm":
-        return spec
+        return _placed(cfg, spec, PAGED_CACHE_AXES)
     shape = (_kv_layers(cfg), n_pages, page_size, cfg.n_kv_heads,
              cfg.head_dim)
     kv = _kv_spec(shape, kv_dtype or dtype)
-    return dict(spec, kp=kv["k"], vp=kv["v"],
+    spec = dict(spec, kp=kv["k"], vp=kv["v"],
                 **{n: kv[n] for n in ("ks", "vs") if n in kv})
+    return _placed(cfg, spec, PAGED_CACHE_AXES)
 
 
 #: Logical axes of the paged cache: the pools have no batch axis (the
@@ -784,12 +886,16 @@ def decode_step_paged(params, cfg: ModelConfig,
     under int8); the hybrid's Mamba-2 layers update their contiguous
     state as :func:`decode_step` does. Updated in place and returned.
     The ``ssm`` family has no pages: it decodes as :func:`decode_step`
-    does."""
+    does. Under a mesh the pools are whole over ``data`` while the slots
+    split: each step's new K/V rows (and their addresses) are gathered
+    over ``data`` and written into every rank's pool, so the pools stay
+    equal and a shared prefix page reads the same rows everywhere."""
     _require_ported(cfg)
     if cfg.family == "ssm":
         return decode_step(params, cfg, cache, tokens, rt)
+    pl = active_placement(cfg)
     pos, pt = cache["pos"], cache["pt"]
-    x = params["embed"].to(rt.torch_dtype)[tokens.long()]      # (B, d)
+    x = _lookup(params, tokens, rt, pl)                          # (B, d)
     W, ps = window, page_size
     row = (pos % W).long()
     phys = torch.gather(pt, 1, (row // ps)[:, None])[:, 0].long()
@@ -797,8 +903,12 @@ def decode_step_paged(params, cfg: ModelConfig,
     mask = (ar <= pos[:, None]) & (ar < W)
     op = ("quant_paged_decode_attention" if "ks" in cache
           else "paged_decode_attention")
+    idx, rows = (phys, row % ps), None
+    if pl is not None and pl.batch_split:
+        idx = (pl.gather_batch(phys), pl.gather_batch(row % ps))
+        rows = pl.gather_batch
     logits = _decode_blocks(params, cfg, cache, x, rt,
-                            ("kp", "vp", "ks", "vs"), pos, (phys, row % ps),
-                            op, (pt, mask))
+                            ("kp", "vp", "ks", "vs"), pos, idx,
+                            op, (pt, mask), pl, rows)
     pos += 1
     return cache, logits

@@ -37,18 +37,27 @@ def moe_defs(cfg: ModelConfig, stack: Tuple[int, ...] = ()) -> Dict:
     """Parameter defs for one MoE FFN (optionally layer-stacked)."""
     m = cfg.moe
     d = cfg.d_model
+    sx = ("layers",) * len(stack)
     defs = {
-        "router": ParamDef(stack + (d, m.n_experts)),
-        "wi": ParamDef(stack + (m.n_experts, d, m.d_expert)),
-        "wg": ParamDef(stack + (m.n_experts, d, m.d_expert)),
-        "wo": ParamDef(stack + (m.n_experts, m.d_expert, d)),
+        "router": ParamDef(stack + (d, m.n_experts),
+                           axes=sx + (None, "experts")),
+        "wi": ParamDef(stack + (m.n_experts, d, m.d_expert),
+                       axes=sx + ("experts", "embed", "expert_ffn")),
+        "wg": ParamDef(stack + (m.n_experts, d, m.d_expert),
+                       axes=sx + ("experts", "embed", "expert_ffn")),
+        "wo": ParamDef(stack + (m.n_experts, m.d_expert, d),
+                       axes=sx + ("experts", "expert_ffn", "embed")),
     }
     if m.n_shared_experts:
         ff_sh = m.n_shared_experts * (m.d_shared_expert or m.d_expert)
-        defs["shared_wi"] = ParamDef(stack + (d, ff_sh))
-        defs["shared_wg"] = ParamDef(stack + (d, ff_sh))
-        defs["shared_wo"] = ParamDef(stack + (ff_sh, d))
-        defs["shared_gate"] = ParamDef(stack + (d, 1))
+        defs["shared_wi"] = ParamDef(stack + (d, ff_sh),
+                                     axes=sx + ("embed", "ffn"))
+        defs["shared_wg"] = ParamDef(stack + (d, ff_sh),
+                                     axes=sx + ("embed", "ffn"))
+        defs["shared_wo"] = ParamDef(stack + (ff_sh, d),
+                                     axes=sx + ("ffn", "embed"))
+        defs["shared_gate"] = ParamDef(stack + (d, 1),
+                                       axes=sx + (None, None))
     return defs
 
 

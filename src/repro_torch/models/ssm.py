@@ -31,16 +31,24 @@ def ssm_dims(cfg: ModelConfig) -> Dict[str, int]:
 def ssm_defs(cfg: ModelConfig, stack: Tuple[int, ...] = ()) -> Dict:
     dims = ssm_dims(cfg)
     d = cfg.d_model
+    sx = ("layers",) * len(stack)
     return {
-        "in_proj": ParamDef(stack + (d, dims["proj_dim"])),
+        "in_proj": ParamDef(stack + (d, dims["proj_dim"]),
+                            axes=sx + ("embed", "ssm_inner")),
         "conv_w": ParamDef(stack + (dims["d_conv"], dims["conv_dim"]),
-                           "fan_in", 1.0),
-        "conv_b": ParamDef(stack + (dims["conv_dim"],), "zeros"),
-        "A_log": ParamDef(stack + (dims["nh"],), "const", 0.0),  # A = -1
-        "D": ParamDef(stack + (dims["nh"],), "ones"),
-        "dt_bias": ParamDef(stack + (dims["nh"],), "zeros"),
-        "norm": ParamDef(stack + (dims["di"],), "ones"),
-        "out_proj": ParamDef(stack + (dims["di"], d)),
+                           "fan_in", 1.0, axes=sx + (None, "ssm_inner")),
+        "conv_b": ParamDef(stack + (dims["conv_dim"],), "zeros",
+                           axes=sx + ("ssm_inner",)),
+        "A_log": ParamDef(stack + (dims["nh"],), "const", 0.0,  # A = -1
+                          axes=sx + ("ssm_heads",)),
+        "D": ParamDef(stack + (dims["nh"],), "ones",
+                      axes=sx + ("ssm_heads",)),
+        "dt_bias": ParamDef(stack + (dims["nh"],), "zeros",
+                            axes=sx + ("ssm_heads",)),
+        "norm": ParamDef(stack + (dims["di"],), "ones",
+                         axes=sx + ("ssm_inner",)),
+        "out_proj": ParamDef(stack + (dims["di"], d),
+                             axes=sx + ("ssm_inner", "embed")),
     }
 
 

@@ -1,6 +1,7 @@
 """Serving stack of the port: continuous batching over a contiguous or a
-paged KV cache, with prefix caching and the int8 KV cache, and the
-traffic scenario library the launcher and ``deploy_lint`` share."""
+paged KV cache, with prefix caching and the int8 KV cache, on one device
+or on a mesh (the sharded engines), and the traffic scenario library the
+launcher and ``deploy_lint`` share."""
 from repro_torch.serve.engine import EngineStats, Request, ServeEngine
 from repro_torch.serve.paged import (NULL_PAGE, PagedKVCache,
                                      PagedServeEngine, PagesExhausted,
@@ -10,9 +11,12 @@ from repro_torch.serve.sampling import Sampler
 from repro_torch.serve.scenarios import (SCENARIOS, ArrivalSpec, LengthDist,
                                          Scenario, SLOSpec, get_scenario)
 from repro_torch.serve.scheduler import AdmissionPlan, Scheduler
+from repro_torch.serve.sharded import (ShardedPagedServeEngine,
+                                       ShardedServeEngine)
 
 __all__ = ["AdmissionPlan", "ArrivalSpec", "EngineStats", "LengthDist",
            "NULL_PAGE", "PagedKVCache", "PagedServeEngine", "PagesExhausted",
            "ParityReport", "Request", "SCENARIOS", "SLOSpec", "Sampler",
-           "Scenario", "Scheduler", "ServeEngine", "get_scenario",
-           "logit_parity", "prefix_page_keys"]
+           "Scenario", "Scheduler", "ServeEngine", "ShardedPagedServeEngine",
+           "ShardedServeEngine", "get_scenario", "logit_parity",
+           "prefix_page_keys"]

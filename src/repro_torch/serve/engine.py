@@ -13,12 +13,16 @@ Requests over the cache budget are rejected, truncated or refused at
 :meth:`ServeEngine.run` raises when requests remain unserved. The cache
 hooks (``_init_cache``, ``_decode``, ``_cache_axes``, ``_release_slot``,
 ``_allocated_tokens``) are where :class:`~repro_torch.serve.paged.
-PagedServeEngine` swaps in its page pool.
+PagedServeEngine` swaps in its page pool; the placement hooks
+(``_place_cache``, ``_ctx``, ``_local_slots``, ``_host_logits``) are
+where :class:`~repro_torch.serve.sharded.ShardedServeEngine` puts the
+cache on a mesh.
 """
 from __future__ import annotations
 
 import logging
 from collections import Counter
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -100,6 +104,8 @@ def _splice(cache: Dict[str, torch.Tensor], single: Dict[str, torch.Tensor],
     rows = list(rows) if rows is not None else list(range(len(slots)))
     if len(rows) != len(slots):
         raise ValueError(f"rows/slots length mismatch: {rows} vs {slots}")
+    if not slots:
+        return cache
     for name, big in cache.items():
         leaf_axes = axes.get(name)
         if leaf_axes is None or "batch" not in leaf_axes:
@@ -154,7 +160,8 @@ class ServeEngine:
                 f"max_len={max_len}")
         self.overflow = overflow
         self.eos_id = eos_id
-        self.cache = self._init_cache()
+        with self._ctx():
+            self.cache = self._place_cache(self._init_cache())
         self.slots: List[Optional[Request]] = [None] * n_slots
         self.last_tokens = np.zeros((n_slots,), np.int32)
         self.queue: List[Request] = []
@@ -166,6 +173,29 @@ class ServeEngine:
         # host-side per-slot context length, for the KV-utilization
         # stats: no device sync on the hot path
         self._host_pos = np.zeros((n_slots,), np.int64)
+
+    # -------------------------------------------------------- placement hooks
+    def _place_cache(self, cache):
+        """The sharded engines check the cache against their mesh; one
+        device keeps it as built."""
+        return cache
+
+    def _ctx(self):
+        """Ambient context every device call runs under (the mesh and
+        the recipe for the sharded engines; nothing here)."""
+        return nullcontext()
+
+    def _local_slots(self, slots) -> Tuple[List[int], List[int]]:
+        """(the cache rows of ``slots`` this device holds, their positions
+        in ``slots``): every slot, here."""
+        slots = list(slots)
+        return slots, list(range(len(slots)))
+
+    def _host_logits(self, logits: torch.Tensor,
+                     prefill: bool = False) -> np.ndarray:
+        """Logits as the host samples them (f32 numpy); ``prefill`` marks
+        a prefill's rows."""
+        return logits.float().cpu().numpy()
 
     # ------------------------------------------------------------ cache hooks
     def _init_cache(self) -> Dict[str, torch.Tensor]:
@@ -274,20 +304,22 @@ class ServeEngine:
         key = (P, width)
         if key not in self.stats.prefill_traces:
             self.stats.prefill_traces[key] += 1
-        with torch.no_grad():
+        with torch.no_grad(), self._ctx():
             single, logits = prefill(
                 self.params, self.cfg,
                 {"tokens": torch.from_numpy(toks).to(self.device)},
                 self.max_len, self.rt,
                 lengths=torch.from_numpy(lengths).to(self.device))
+            logits_np = self._host_logits(logits, prefill=True)
         self.stats.prefills += 1
         self.stats.prefill_tokens += width * P
-        return single, logits.float().cpu().numpy()
+        return single, logits_np
 
     def _admit_group(self, group: List[Request], plan: AdmissionPlan,
                      slots: List[int]):
         single, logits_np = self._prefill_group(group, plan)
-        _splice(self.cache, single, slots, rows=range(len(group)),
+        local, rows = self._local_slots(slots)
+        _splice(self.cache, single, local, rows=rows,
                 axes=self._cache_axes())
         for j, (req, slot) in enumerate(zip(group, slots)):
             self._finish_admit(req, slot, plan, logits_np[j])
@@ -347,10 +379,10 @@ class ServeEngine:
         self.stats.live_token_steps += self._live_tokens(active)
         self.stats.alloc_token_steps += self._allocated_tokens(active)
         self.stats.max_active = max(self.stats.max_active, len(active))
-        with torch.no_grad():
+        with torch.no_grad(), self._ctx():
             logits = self._decode(
                 torch.from_numpy(self.last_tokens).to(self.device))
-            logits_np = logits.float().cpu().numpy()
+            logits_np = self._host_logits(logits)
         for slot in active:
             self._host_pos[slot] += 1
             if self._tails[slot]:

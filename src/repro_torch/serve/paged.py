@@ -394,9 +394,10 @@ class PagedServeEngine(ServeEngine):
         recurrent state) into ``slots`` as the contiguous engine does;
         only the KV rows page."""
         names = [n for n in ("pos", "conv", "ssm") if n in self.cache]
+        local, rows = self._local_slots(slots)
         _splice({n: self.cache[n] for n in names},
-                {n: single[n] for n in names}, slots,
-                rows=range(len(slots)), axes=self._cache_axes())
+                {n: single[n] for n in names}, local, rows=rows,
+                axes=self._cache_axes())
 
     def _admit_prefix_hit(self, req: Request, slot: int,
                           shared: List[int]):
@@ -410,7 +411,8 @@ class PagedServeEngine(ServeEngine):
         private = self.pages.alloc(need - len(shared))
         self._slot_pages[slot] = (shared, private)
         self._set_page_table([slot], [shared + private])
-        self.cache["pos"][slot] = shared_len
+        for row in self._local_slots([slot])[0]:
+            self.cache["pos"][row] = shared_len
         self.stats.prefix_hits += 1
         self.stats.prefix_hit_tokens += shared_len
         plan = AdmissionPlan("chunk", shared_len)
@@ -465,10 +467,14 @@ class PagedServeEngine(ServeEngine):
 
     def _set_page_table(self, slots: List[int], rows):
         """Write ``rows`` (ragged lists of physical pages) into the
-        device page table in place, null-padded to the table width."""
+        device page table in place, null-padded to the table width (the
+        table rows this device holds)."""
+        slots, keep = self._local_slots(slots)
+        if not slots:
+            return
         table = np.zeros((len(slots), self._npp), np.int32)
-        for i, row in enumerate(rows):
-            table[i, : len(row)] = row
+        for i, j in enumerate(keep):
+            table[i, : len(rows[j])] = rows[j]
         idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
         self.cache["pt"][idx] = torch.from_numpy(table).to(self.device)
 

@@ -8,8 +8,8 @@
   swapped);
 * the live pass is clean on the port, and a seeded removal of one
   ``CACHE_AXES`` entry, or of a tune grid row, fires its rule;
-* ``contract-axis-unresolvable`` is not among the live pass's rules (the
-  port has no sharding recipes until the multi-GPU slice).
+* ``contract-axis-unresolvable`` is among the live pass's rules, as in
+  the reference (the recipes are ``dist.sharding.RECIPES``).
 """
 import types
 
@@ -103,10 +103,21 @@ def test_live_pass_is_clean():
 
 
 def test_live_pass_declares_no_recipe_rule():
+    """The live pass declares the recipe rule now that the port has its
+    recipes (``dist.sharding.RECIPES``), and the reference's five rules
+    exactly; ``tests/test_torch_sharding.py`` holds it clean over them
+    and fires it on a seeded unknown axis."""
     rules = all_passes()["contracts"].rules
-    assert "contract-axis-unresolvable" not in rules
-    assert set(rules) == {"contract-cache-axes", "contract-dispatch-ref",
-                          "contract-tune-grid", "contract-calib-kind"}
+    assert "contract-axis-unresolvable" in rules
+    assert set(rules) == {"contract-cache-axes", "contract-axis-unresolvable",
+                          "contract-dispatch-ref", "contract-tune-grid",
+                          "contract-calib-kind"}
+    assert rules == jcontracts_rules()
+
+
+def jcontracts_rules():
+    import repro.analysis.registry as jreg
+    return jreg.all_passes()["contracts"].rules
 
 
 @pytest.mark.parametrize("leaf", ["k", "ks", "conv", "ssm", "pos"])

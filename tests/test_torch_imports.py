@@ -28,7 +28,9 @@ print(len(mods), bad)
 #: Modules the walk must reach: the trace front-end, the figures, the
 #: examples, the last-ported families' configs, the scenario library,
 #: the static-analysis package (the kernel validator, the contract
-#: checker and the liveness walk among them) and the launch plans.
+#: checker and the liveness walk among them), the launch plans, and the
+#: mesh: the sharding recipes and placement, the mesh and its spawner,
+#: the sharded engines.
 _NEW = ("repro_torch.core.workload.torch_trace",
         "repro_torch.configs.chatglm3_6b",
         "repro_torch.configs.starcoder2_3b",
@@ -62,7 +64,10 @@ _NEW = ("repro_torch.core.workload.torch_trace",
         "repro_torch.analysis.kernel_validator",
         "repro_torch.analysis.contracts",
         "repro_torch.analysis.liveness",
-        "repro_torch.kernels.plan")
+        "repro_torch.kernels.plan",
+        "repro_torch.dist.sharding",
+        "repro_torch.launch.mesh",
+        "repro_torch.serve.sharded")
 
 
 def test_port_imports_without_jax_or_reference():

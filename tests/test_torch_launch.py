@@ -9,6 +9,8 @@ error-severity deploy finding. The three refusals ``chip_smoke.py``
 drives on the card run here with their full-width configs (pure shape
 math): each must exit naming its rule before a parameter is drawn
 (``init_params`` is replaced by a function that fails the test).
+``--mesh 2x2`` serves the one-device tokens over four CPU ranks, and
+refuses a family the mesh forms do not cover.
 ``serve_batched`` gives the same greedy tokens under both kernel
 policies, paged == contiguous; ``train_100m`` resumes from its latest
 checkpoint.
@@ -103,6 +105,36 @@ def test_strict_serves_a_feasible_scenario():
 def test_unknown_scenario_exits():
     with pytest.raises(SystemExit, match="known"):
         launcher.main(SMOKE + ["--scenario", "no_such_traffic"])
+
+
+@pytest.mark.parametrize("page_size", [0, 8])
+def test_mesh_serves_the_one_device_tokens(capsys, page_size):
+    """``--mesh 2x2 --device cpu``: four ranks over gloo serve the tokens
+    the one-device launcher serves; the preflight prices each device."""
+    argv = SMOKE + ["--requests", "4", "--max-new", "6", "--max-len", "64",
+                    "--page-size", str(page_size), "--preflight"]
+    one = launcher.main(argv)
+    out = launcher.main(argv + ["--mesh", "2x2"])
+    text = capsys.readouterr().out
+    assert "mesh 2x2 (data, model) over gloo" in text
+    assert "per device of mesh" in text
+    assert out["backend"] == "gloo" and out["mesh"] == {"data": 2,
+                                                         "model": 2}
+    assert {r.rid: r.out_tokens for r in out["finished"]} == \
+        {r.rid: r.out_tokens for r in one["finished"]}
+    cfg = smoke_config(get_arch("minicpm-2b"))
+    assert out["preflight"] == serve_preflight(
+        cfg, n_slots=4, max_len=64, page_size=page_size or None,
+        mesh={"data": 2, "model": 2}, dtype="float32")
+    assert out["preflight"].params_bytes < one["preflight"].params_bytes
+
+
+def test_mesh_refusals(no_alloc):
+    with pytest.raises(SystemExit, match="next slice"):
+        launcher.main(["--arch", "mamba2-1.3b", "--smoke", "--device",
+                       "cpu", "--mesh", "1x2"])
+    with pytest.raises(SystemExit, match="DxM"):
+        launcher.main(SMOKE + ["--mesh", "2by2"])
 
 
 # ===========================================================================
