@@ -99,7 +99,8 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    a shared attention block at head dim 80 after every 6, chunk-mode
    admission): each model through ``ServeEngine`` and
    ``PagedServeEngine`` with equal streams (zamba2 in bf16 and int8 KV,
-   four engines), ``moe_gemm`` launched only in the MoE runs,
+   four engines; the two recurrent models served at 16 and 18 layers,
+   ``SERVE_RECURRENT_LAYERS``), ``moe_gemm`` launched only in the MoE runs,
    ``ssd_scan`` only in the SSM and hybrid runs and no attention kernel
    in the SSM runs; a prefill and a decode-step profile; and
    cuda-vs-torch parity: mamba2 and zamba2 in bf16 under the same
@@ -175,9 +176,11 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    (``launch.mesh.run_mesh``), share the card over gloo (NCCL refuses two
    ranks on one device); the weights are drawn here once and each rank
    copies its blocks of them over CUDA IPC, and the kernel library built
-   in phase 1 is loaded by every rank. Full-width minicpm-2b (bf16) at
+   in phase 1 is loaded by every rank. Full-width minicpm-2b (bf16; 6 of
+   its 40 layers, to make room for ``[sharded-train]``) at
    mesh (1, 2) through the contiguous and paged engines, bf16 and int8
-   KV; full-width chatglm3-6b (bf16, contiguous) at (1, 4), its
+   KV; full-width chatglm3-6b (bf16, contiguous; 7 of its 28 layers)
+   at (1, 4), its
    vocabulary split over the ranks and each rank holding the one K/V
    head its 8 query heads read; each run teacher-forced (4 prompts of
    300 + 8 tokens: the prefills' and the 8 decode steps' logits within
@@ -192,6 +195,36 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    block, and each mesh's kernels (minicpm-2b: RMSNorm, flash and the
    four split-KV decode kernels) launched and no other; the launches of
    every rank's runs are summed into the ``sharded`` path;
+
+   then ``[sharded-train]``: the sharded train step (``train.loop``
+   under a recipe, driven on each rank by ``train.sharded.mesh_train``)
+   on meshes whose ranks share the card over gloo, every mesh run held
+   to the one-device train step on the same weights and global batches
+   (cuda policy, remat none, f32 masters). Full-width minicpm-2b cut to
+   4 layers under IS at (2, 2) (its weights split over ``data`` too):
+   two f32 AdamW steps at B 4, S 256, each step's loss within
+   ``TRAIN_LOSS_RTOL`` and gradient norm within ``TRAIN_GRAD_RTOL`` of
+   one device's, step 0's gradient blocks of every rank within
+   ``TRAIN_GRAD_RTOL`` of one device's largest gradient; a bf16 step
+   within ``TRAIN_BF16_LOSS_TOL`` of one device's; its f32 state saved
+   from the mesh (each rank writing the blocks it owns). Full-width
+   chatglm3-6b cut to 4 layers under WS at (1, 4) (each K/V head held by
+   two ranks, the vocabulary split) against one device as above; the
+   minicpm-2b checkpoint restored onto one device (every leaf equal to
+   its file bit for bit) and onto (1, 4) WS (saved again from there:
+   every file equal to the one read, byte for byte), one more step on
+   each, held together; GPipe on
+   a (stage, data) mesh of (4, 1) at the reference test's shapes (8 tanh
+   layers of 16, 6 microbatches of 2, f32): outputs within 1e-5 of the
+   sequential form's, gradients within ``TRAIN_GRAD_RTOL`` of autograd
+   through it. On every rank: its scalars equal rank 0's, its state
+   bytes equal ``capacity(kind="train", mesh=..., recipe=...)``'s
+   (parameters x 3 + 4; its peak printed beside them), RMSNorm and
+   flash launched and no other kernel; the launches are summed into the
+   ``sharded_train`` path. Then the train launcher in-process on smoke
+   minicpm-2b, ``--mesh 2x2 --recipe IS --steps 10`` with a checkpoint
+   directory and its resume on ``--mesh 1x2 --recipe WS`` (finite
+   losses, every rank's equal to rank 0's, the restore printed);
 5. training (``[train]``), with the card emptied first: full-width
    minicpm-2b (40 layers, f32 master weights), one f32 loss and gradient
    at B 2, S 512 under the ``cuda`` and the ``torch`` policy (TF32 off,
@@ -241,8 +274,8 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    it (a miss is a finding about the model's reach, recorded in
    ROADMAP.md Queue 3, not a failed run);
 7. one JSON line describing the kernels (each kernel's launches by
-   path: serve, tune, train, trace, launch and sharded), the card's name
-   and power limit, and last the JSON result line.
+   path: serve, tune, train, trace, launch, sharded and sharded_train),
+   the card's name and power limit, and last the JSON result line.
 
 It exits non-zero without printing a result when no CUDA device is
 available or the repository's ``src/`` is missing.
@@ -1494,6 +1527,13 @@ def tuner_phase(counters):
 # ===========================================================================
 PROMPT_LENS = (12, 700, 37, 300, 150, 64, 511, 90)
 NEW_TOKENS = 32
+#: Depths of the recurrent models in their serving runs (widths uncut;
+#: their profiles, traces and parity stay at full depth): chunk-mode
+#: admission steps every prompt token through every layer, ~350 host-
+#: bound steps a run, so zamba2-2.7b's four runs and mamba2-1.3b's two
+#: took 202 s of the script at 54 and 48 layers. Cut to make room for
+#: [sharded-train] in the run's time limit.
+SERVE_RECURRENT_LAYERS = {"mamba2-1.3b": 16, "zamba2-2.7b": 18}
 #: Shared-system-prompt trace: one 512-token prompt + tails of 8-40.
 SYSTEM_LEN, N_SYSTEM_REQS = 512, 8
 
@@ -2598,6 +2638,12 @@ SHARDED_TIMEOUT = 600
 #: up to 512 B, and a smoke-size step holds a few hundred small tensors
 #: (a full-width rank's largest block, 0.5-0.8 GB, dwarfs it).
 SHARDED_SLACK = 2 ** 20
+#: Depth of a [sharded] model cut to make room for [sharded-train] in the
+#: run's time limit: minicpm-2b's eight (1, 2) runs, the phase's longest
+#: (a shared-card step crosses gloo one and a half times a layer), at 6
+#: of its 40 layers, and chatglm3-6b's (1, 4) runs at 7 of its 28;
+#: widths uncut.
+SHARDED_LAYERS = {"minicpm-2b": 6, "chatglm3-6b": 7}
 #: The kernels each mesh's runs must launch on every rank.
 SHARDED_KERNELS = ("rmsnorm", "flash_attention", "decode_attention",
                    "paged_decode_attention", "quant_decode_attention",
@@ -2622,6 +2668,16 @@ def kernel_counters():
             "quant_paged_decode_attention": quant_paged_decode_attention,
             "moe_gemm": grouped_gemm_padded, "ssd_scan": ssd_scan,
             "quant_matmul": quant_matmul}
+
+
+def take_cublas_workspace(device) -> None:
+    """cuBLAS takes its workspace (about 32 MiB on the card) from the
+    caching allocator at a process's first product and keeps it: taken
+    here, before any peak is measured."""
+    import torch
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.ones(8, 8, device=device, dtype=dt)
+        (x @ x).sum().item()
 
 
 def mesh_run(make, run):
@@ -2675,13 +2731,7 @@ def sharded_rank(mesh, params, cfg, runs):
     from repro_torch.serve import (ShardedPagedServeEngine,
                                    ShardedServeEngine)
     counters = kernel_counters()
-    # cuBLAS takes its workspace (about 32 MiB on the card) from the caching
-    # allocator at a process's first product and keeps it: taken here,
-    # before any peak is measured
-    for dt in (torch.float32, torch.bfloat16):
-        x = torch.ones(8, 8, device=mesh.device, dtype=dt)
-        (x @ x).sum().item()
-    del x
+    take_cublas_workspace(mesh.device)
     out = []
     for run in runs:
         torch.cuda.synchronize()
@@ -2853,12 +2903,15 @@ def sharded_mesh(title, mesh, cfg, params, runs, expect, logit_tol=None,
 
 def sharded_phase(counters):
     """``[sharded]``: the sharded engines on meshes whose ranks share the
-    card over gloo: full-width minicpm-2b at (1, 2) in bf16 (contiguous
-    and paged, bf16 and int8 KV), full-width chatglm3-6b at (1, 4) in
+    card over gloo: full-width minicpm-2b (6 of 40 layers,
+    ``SHARDED_LAYERS``) at (1, 2) in bf16 (contiguous
+    and paged, bf16 and int8 KV), full-width chatglm3-6b (7 of 28
+    layers) at (1, 4) in
     bf16 (its vocabulary split over the ranks, each rank holding the one
     K/V head of its 8 query heads), smoke minicpm-2b at (2, 4) in f32
     (tokens equal to one device, the prefix cache hit). Returns the
     launches summed over every rank's runs."""
+    import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import get_arch, smoke_config
@@ -2878,6 +2931,8 @@ def sharded_phase(counters):
         gc.collect()
         torch.cuda.empty_cache()
         cfg = get_arch(name)
+        cfg = dataclasses.replace(
+            cfg, n_layers=SHARDED_LAYERS.get(name, cfg.n_layers))
         params = init_params(cfg, seed=0, rt=rt)    # cast leaf by leaf
         rng = np.random.default_rng(1)
         served = [dict(rid=i, prompt=rng.integers(0, cfg.vocab_size, n)
@@ -2918,6 +2973,463 @@ def sharded_phase(counters):
     print(f"[sharded] launches over all meshes {sharded}; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     return sharded
+
+
+# ===========================================================================
+# [sharded-train]: training on a mesh of ranks that share the card
+# ===========================================================================
+#: Depths of the full-width models trained on a mesh (widths uncut): the
+#: mesh and its one-device reference run one after the other on the card,
+#: and a shared-card IS step gathers every layer over gloo (5.6 s a step
+#: at 8 layers, 4.1-6.5 s at 6: the embedding's gather and sum do not
+#: shrink with depth), so minicpm-2b runs 4 of its 40 layers.
+SHARDED_TRAIN_LAYERS = {"minicpm-2b": 4, "chatglm3-6b": 4}
+#: The global batch and length of every [sharded-train] step.
+SHARDED_TRAIN_B, SHARDED_TRAIN_S = 4, 256
+#: Seconds one mesh's spawn may take, its runs included.
+SHARDED_TRAIN_TIMEOUT = 600
+#: The kernels every rank's train runs must launch, and no other.
+SHARDED_TRAIN_KERNELS = ("rmsnorm", "flash_attention")
+#: GPipe at the reference test's shapes (tests/test_multidevice.py):
+#: layers, stages, microbatches, microbatch rows, width.
+GPIPE_SHAPE = (8, 4, 6, 2, 16)
+
+
+def _gpipe_stage(local_w, h):
+    import torch
+    for wi in local_w:
+        h = torch.tanh(h @ wi)
+    return h
+
+
+def gpipe_rank(mesh, w, x):
+    """GPipe on a (stage, data) mesh of (4, 1) over this process group:
+    this rank's stage block of ``w``, the outputs on every rank and the
+    gradient of ``sum(out ** 2)`` in the block."""
+    import torch
+    from repro_torch.dist.pipeline import pipeline_apply, stage_split
+    from repro_torch.launch.mesh import make_mesh
+    n_stages = GPIPE_SHAPE[1]
+    pipe = make_mesh((n_stages, 1), ("stage", "data"), devices=str(mesh.device))
+    s = pipe.coords["stage"]
+    block = stage_split(w.to(pipe.device), n_stages)[s:s + 1]
+    block = block.clone().requires_grad_()
+    t0 = time.perf_counter()
+    out = pipeline_apply(_gpipe_stage, pipe, n_stages)(block,
+                                                       x.to(pipe.device))
+    (g,) = torch.autograd.grad((out ** 2).sum(), [block])
+    torch.cuda.synchronize()
+    return dict(label="gpipe", rank=mesh.rank, stage=s, out=out.detach().cpu(),
+                grad=g[0].cpu(), ms=(time.perf_counter() - t0) * 1e3)
+
+
+def sharded_train_rank(mesh, runs, gpipe=None):
+    """One rank of a [sharded-train] mesh (``run_mesh`` spawns it; the
+    parent built the kernel library, this process loads it): each run
+    through ``train.sharded.mesh_train`` on this rank's blocks of the
+    parent's tensors (read over CUDA IPC), every launch count set to 0
+    before it and read after, the rank's peak since it began; then,
+    with ``gpipe`` (its weights and input), GPipe over the same ranks."""
+    import torch
+    from repro_torch.train.sharded import mesh_train
+    counters = kernel_counters()
+    take_cublas_workspace(mesh.device)
+    out = []
+    for run in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for c in counters.values():
+            c.launches = 0
+        rec = mesh_train(mesh, [run])[0]
+        torch.cuda.synchronize()
+        rec.update(label=run["label"],
+                   peak=torch.cuda.max_memory_allocated() - base,
+                   launches={k: c.launches for k, c in counters.items()})
+        out.append(rec)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if gpipe is not None:
+        out.append(gpipe_rank(mesh, *gpipe))
+    return out
+
+
+def sharded_train_batches(cfg, n):
+    """``n`` global lcg batches of ``SyntheticLMData`` (B
+    ``SHARDED_TRAIN_B``, S ``SHARDED_TRAIN_S``), on the host."""
+    from repro_torch.data import SyntheticLMData
+    data = SyntheticLMData(SHARDED_TRAIN_S, SHARDED_TRAIN_B, cfg.vocab_size,
+                           seed=11)
+    return [data.batch_at(i) for i in range(n)]
+
+
+def sharded_train_tc(cfg):
+    from repro_torch.train import AdamWConfig, TrainConfig
+    return TrainConfig(opt=AdamWConfig(
+        peak_lr=1e-3, warmup_steps=2, total_steps=10,
+        schedule="wsd" if cfg.lr_schedule == "wsd" else "cosine"))
+
+
+def one_device_train(cfg, params, batches, dtype, grads=False, state=None):
+    """The one-device reference of a mesh run: its train step (cuda
+    policy, remat none) on a copy of ``params`` (or on ``state``) over
+    ``batches``; with ``grads`` step 0's gradients first. Its launches
+    count on no path."""
+    import torch
+    from repro_torch.models import ModelRuntime
+    from repro_torch.train.loop import init_state, make_train_step
+    from repro_torch.tree import tree_map
+    rt = ModelRuntime(dtype=dtype, remat="none")
+    step = make_train_step(cfg, rt, sharded_train_tc(cfg))
+    dev = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+           for b in batches]
+    out = dict(loss=[], grad_norm=[], step_ms=[], grads=None)
+    if grads:
+        out["grads"] = step.grads(params, dev[0])[2]
+    if state is None:
+        state = init_state(tree_map(torch.clone, params))
+    for b in dev:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def held_to_one_device(title, recs, ref, grads=True):
+    """Every rank's losses and gradient norms equal rank 0's; rank 0's
+    within ``TRAIN_LOSS_RTOL`` / ``TRAIN_GRAD_RTOL`` of one device's per
+    step, step 0's gradient blocks of every rank within
+    ``TRAIN_GRAD_RTOL`` of one device's, each leaf held to its own
+    largest gradient. Returns the line's numbers and the worst leaf."""
+    r0 = recs[0]
+    for r in recs[1:]:
+        check(r["loss"] == r0["loss"] and r["grad_norm"] == r0["grad_norm"],
+              f"{title}: rank {r['rank']} reported other scalars than "
+              f"rank 0")
+    dl = max(abs(a - b) / abs(b) for a, b in zip(r0["loss"], ref["loss"]))
+    dn = max(abs(a - b) / abs(b)
+             for a, b in zip(r0["grad_norm"], ref["grad_norm"]))
+    check(dl < TRAIN_LOSS_RTOL, f"{title}: loss {r0['loss']} vs one device "
+          f"{ref['loss']}, rel {dl:.3e}")
+    check(dn < TRAIN_GRAD_RTOL, f"{title}: grad norm {r0['grad_norm']} vs "
+          f"one device {ref['grad_norm']}, rel {dn:.3e}")
+    out = dict(loss_rel=dl, norm_rel=dn)
+    if grads:
+        worst = max((r["grad_dev"] for r in recs), key=lambda d: d["rel"])
+        check(worst["rel"] < TRAIN_GRAD_RTOL, f"{title}: step-0 gradient "
+              f"of {worst['leaf']} {worst['rel']:.3e} of that leaf's "
+              f"largest from one device")
+        out["grad_rel"], out["grad_leaf"] = worst["rel"], worst["leaf"]
+    return out
+
+
+def sharded_train_mesh(title, mesh, runs, refs, gpipe=None):
+    """One mesh of [sharded-train]: its runs on every rank (GPipe after
+    them with ``gpipe``), each held to its one-device reference
+    (``refs[i]``: None for no comparison), every rank's state bytes to
+    the sharded capacity model's, ``SHARDED_TRAIN_KERNELS`` launched on
+    every rank and no other kernel. Returns (the launches summed over
+    ranks and runs, every rank's records)."""
+    import torch
+    from repro_torch.analysis.capacity import capacity
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import run_mesh
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    ranks = run_mesh(sharded_train_rank, mesh, runs, gpipe,
+                     timeout=SHARDED_TRAIN_TIMEOUT)
+    sizes = {"data": mesh[0], "model": mesh[1]}
+    print(f"[sharded-train] {title}: mesh {mesh[0]}x{mesh[1]} (data, model), "
+          f"{len(ranks)} ranks on {torch.cuda.device_count()} card(s) over "
+          f"{ranks[0][0]['backend']}; spawn and runs "
+          f"{time.perf_counter() - t0:.1f} s; the parent held "
+          f"{held / 2**30:.2f} GiB")
+    total = {}
+    for i, run in enumerate(runs):
+        recs = [r[i] for r in ranks]
+        cfg, r0 = run["cfg"], recs[0]
+        rep = capacity(cfg, ShapeConfig("train", SHARDED_TRAIN_S,
+                                        SHARDED_TRAIN_B, "train"),
+                       mesh=sizes, recipe=run["recipe"])
+        want = rep.params_bytes * 3 + 4
+        for r in recs:
+            check(r["state_bytes"] == want, f"{title} {run['label']} rank "
+                  f"{r['rank']}: state {r['state_bytes']} B, predicted "
+                  f"{want} B")
+            launched = {k for k, n in r["launches"].items() if n}
+            check(launched == set(SHARDED_TRAIN_KERNELS),
+                  f"{title} {run['label']} rank {r['rank']}: launched "
+                  f"{sorted(launched)}, not {SHARDED_TRAIN_KERNELS}")
+            check(all(math.isfinite(x) for x in r["loss"]),
+                  f"{title} {run['label']}: non-finite loss {r['loss']}")
+            for k, n in r["launches"].items():
+                total[k] = total.get(k, 0) + n
+        line = (f"[sharded-train] {title} {run['label']} ({cfg.n_layers} "
+                f"layers, recipe {run['recipe']}): loss by step "
+                f"{' '.join(f'{x:.6f}' for x in r0['loss'])}, grad norm "
+                f"{' '.join(f'{x:.6f}' for x in r0['grad_norm'])}")
+        ref = refs[i]
+        if ref is not None and run.get("bf16_step0"):
+            d0 = abs(r0["loss"][0] - ref["loss"][0])
+            check(d0 <= TRAIN_BF16_LOSS_TOL, f"{title} {run['label']}: "
+                  f"step-0 loss {r0['loss'][0]} vs one device "
+                  f"{ref['loss'][0]}")
+            line += (f"; step 0 vs one device {ref['loss'][0]:.6f} (|d| "
+                     f"{d0:.6f}, tol {TRAIN_BF16_LOSS_TOL})")
+        elif ref is not None:
+            got = held_to_one_device(f"{title} {run['label']}", recs, ref,
+                                     grads="grad_dev" in r0)
+            line += (f"; one device loss "
+                     f"{' '.join(f'{x:.6f}' for x in ref['loss'])}: |dloss|"
+                     f"/|loss| {got['loss_rel']:.3e} (tol "
+                     f"{TRAIN_LOSS_RTOL:g}), grad norm rel "
+                     f"{got['norm_rel']:.3e}")
+            if "grad_rel" in got:
+                line += (f", step-0 gradients max|dg|/max|g| per leaf "
+                         f"over every rank's blocks, worst "
+                         f"{got['grad_rel']:.3e} at {got['grad_leaf']} "
+                         f"(tol {TRAIN_GRAD_RTOL:g})")
+        if "restore_s" in r0:
+            line += (f"; restored in "
+                     f"{max(r['restore_s'] for r in recs):.1f} s")
+        if "save_s" in r0:
+            line += (f"; saved from the mesh in "
+                     f"{max(r['save_s'] for r in recs):.1f} s")
+        mesh_ms = statistics.median(r0["step_ms"])
+        line += (f"; step ms {' '.join(f'{t:.1f}' for t in r0['step_ms'])} "
+                 f"(median {mesh_ms:.1f}")
+        if ref is not None:
+            line += f"; one device {statistics.median(ref['step_ms']):.1f}"
+        line += (f"); per rank state {want} B = predicted (params "
+                 f"{rep.params_bytes} x 3 + 4), peaks "
+                 f"{[r['peak'] for r in recs]} B; launches per rank "
+                 f"{[{k: v for k, v in r['launches'].items() if v} for r in recs]}")
+        print(line)
+    return total, ranks
+
+
+def same_bytes(a, b, chunk=1 << 28) -> bool:
+    """Whether files ``a`` and ``b`` hold the same bytes (read in chunks
+    of ``chunk`` bytes)."""
+    import numpy as np
+    x = np.memmap(a, dtype=np.uint8, mode="r")
+    y = np.memmap(b, dtype=np.uint8, mode="r")
+    return x.size == y.size and all(
+        np.array_equal(x[i:i + chunk], y[i:i + chunk])
+        for i in range(0, x.size, chunk))
+
+
+def launcher_mesh_runs():
+    """The train launcher in-process on smoke minicpm-2b: ``--mesh 2x2
+    --recipe IS --steps 10`` with a checkpoint directory, then a resume
+    on ``--mesh 1x2 --recipe WS``; its printed lines echoed."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from repro_torch.launch import train as launcher
+    d = tempfile.mkdtemp(prefix="sharded_train_launch-")
+    try:
+        base = ["--arch", "minicpm-2b", "--smoke", "--steps", "10",
+                "--ckpt-dir", d]
+        outs = []
+        for extra in (["--mesh", "2x2", "--recipe", "IS"],
+                      ["--mesh", "1x2", "--recipe", "WS"]):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                got = launcher.main(base + extra)
+            dt = time.perf_counter() - t0
+            for ln in buf.getvalue().splitlines():
+                print(f"[sharded-train] launcher {' '.join(extra)}: {ln}")
+            print(f"[sharded-train] launcher {' '.join(extra)}: {dt:.1f} s")
+            check(len(got["losses"]) == 10 and all(
+                math.isfinite(x) for x in got["losses"]),
+                f"launcher {extra}: losses {got['losses']}")
+            outs.append((buf.getvalue(), got))
+        check(outs[0][1]["restored"] is None
+              and outs[1][1]["restored"] == 10
+              and "restoring from step 10" in outs[1][0],
+              "launcher: the resume on 1x2 did not restore step 10")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def sharded_train_phase(counters):
+    """``[sharded-train]``: the sharded train step on meshes whose ranks
+    share the card over gloo. Full-width minicpm-2b (4 layers) under IS
+    at (2, 2): two f32 AdamW steps against one device's (losses, gradient
+    norms, step 0's gradients) and a bf16 step (against one device's),
+    its state saved from the mesh; full-width chatglm3-6b (4 layers)
+    under WS at (1, 4) (its K/V heads shared by rank pairs, its
+    vocabulary split) against one device and GPipe on a (stage, data)
+    mesh of (4, 1) against the sequential form in one spawn; the
+    minicpm-2b checkpoint restored onto one device and, in a spawn of its
+    own, onto (1, 4) WS (bits equal to the files; one more step each,
+    held together); the train launcher's
+    ``--mesh`` run and its resume on another mesh. Returns the launches
+    summed over every rank's train runs."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.ckpt import restore
+    from repro_torch.ckpt.checkpoint import _fname, _keystr, read_leaf
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import pick_backend
+    from repro_torch.models import ModelRuntime, init_params
+    from repro_torch.tree import tree_items
+
+    t_phase = time.perf_counter()
+    print(f"[sharded-train] backend rule: {torch.cuda.device_count()} "
+          f"card(s), ranks 4 -> {pick_backend(4)} (nccl only when every "
+          f"rank has a card); the parent holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; {smi_line()}")
+    f32 = ModelRuntime(dtype="float32", remat="none")
+    bf16 = ModelRuntime(dtype="bfloat16", remat="none")
+    totals = []
+    tmp = tempfile.mkdtemp(prefix="sharded_train-")
+    try:
+        # --- minicpm-2b at (2, 2) IS: f32, bf16, the checkpoint ----------
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(get_arch("minicpm-2b"),
+                                  n_layers=SHARDED_TRAIN_LAYERS["minicpm-2b"])
+        params = init_params(cfg, seed=0, device="cuda")          # f32
+        batches = sharded_train_batches(cfg, 3)
+        tc = sharded_train_tc(cfg)
+        t0 = time.perf_counter()
+        ref32 = one_device_train(cfg, params, batches[:2], "float32",
+                                 grads=True)
+        ref16 = one_device_train(cfg, params, batches[:1], "bfloat16")
+        print(f"[sharded-train] minicpm-2b one device (f32 gradients + 2 "
+              f"steps, bf16 1 step): {time.perf_counter() - t0:.1f} s")
+        common = dict(cfg=cfg, params=params, tc=tc, recipe="IS")
+        runs = [dict(common, label="minicpm-2b f32", rt=f32,
+                     batches=batches[:2], ref_grads=ref32["grads"],
+                     save=(tmp, 2)),
+                dict(common, label="minicpm-2b bf16", rt=bf16,
+                     batches=batches[:1], bf16_step0=True)]
+        got, _ = sharded_train_mesh("full width, (2, 2)", (2, 2), runs,
+                                    [ref32, ref16])
+        totals.append(got)
+        del ref32, runs, common
+        gc.collect()
+        # the checkpoint onto one device: the files' bits, one more step
+        like = {"params": params, "opt": {"mu": params, "nu": params,
+                                          "step": torch.zeros(
+                                              (), dtype=torch.int32,
+                                              device="cuda")}}
+        state = restore(tmp, 2, like)
+        with open(Path(tmp) / "step_00000002" / "manifest.json") as f:
+            manifest = json.load(f)["leaves"]
+        for keys, leaf in tree_items(state):
+            name = _fname(_keystr(keys))
+            want = read_leaf(str(Path(tmp) / "step_00000002" /
+                                 f"{name}.npy"), manifest[name]["dtype"])
+            check(torch.equal(leaf.cpu(), want), f"one-device restore: "
+                  f"{keys} differs from the file")
+        one_restored = one_device_train(cfg, params, batches[2:], "float32",
+                                        state=state)
+        del state, like, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[sharded-train] minicpm-2b checkpoint (saved from (2, 2) "
+              f"IS at step 2) restored onto one device: every leaf == its "
+              f"file, bit for bit; step 2 loss {one_restored['loss'][0]:.6f}"
+              f" grad norm {one_restored['grad_norm'][0]:.6f}")
+
+        # --- chatglm3-6b at (1, 4) WS, the restore onto (1, 4), GPipe -------
+        gcfg = dataclasses.replace(
+            get_arch("chatglm3-6b"),
+            n_layers=SHARDED_TRAIN_LAYERS["chatglm3-6b"])
+        gparams = init_params(gcfg, seed=0, device="cuda")
+        gbatches = sharded_train_batches(gcfg, 2)
+        t0 = time.perf_counter()
+        gref = one_device_train(gcfg, gparams, gbatches, "float32",
+                                grads=True)
+        print(f"[sharded-train] chatglm3-6b one device (f32 gradients + 2 "
+              f"steps): {time.perf_counter() - t0:.1f} s")
+        n_layers, _, n_micro, mb, d = GPIPE_SHAPE
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        w = torch.randn(n_layers, d, d, device="cuda", generator=gen) * 0.2
+        x = torch.randn(n_micro, mb, d, device="cuda", generator=gen)
+        runs = [dict(cfg=gcfg, params=gparams, tc=sharded_train_tc(gcfg),
+                     recipe="WS", label="chatglm3-6b f32", rt=f32,
+                     batches=gbatches, ref_grads=gref["grads"])]
+        got, ranks = sharded_train_mesh("full width, (1, 4)", (1, 4), runs,
+                                        [gref], gpipe=(w, x))
+        totals.append(got)
+        del gref, gparams, runs
+        # GPipe against the sequential form under autograd
+        wl = w.clone().requires_grad_()
+        h = x
+        for wi in wl:
+            h = torch.tanh(h @ wi)
+        (g_seq,) = torch.autograd.grad((h ** 2).sum(), [wl])
+        h = h.detach()
+        pipes = [r[-1] for r in ranks]
+        per = n_layers // GPIPE_SHAPE[1]
+        g_pipe = torch.zeros_like(g_seq)
+        dout = 0.0
+        for r in pipes:
+            dout = max(dout, float((r["out"].cuda() - h).abs().max()))
+            check(torch.allclose(r["out"].cuda(), h, atol=1e-5, rtol=1e-5),
+                  f"gpipe: rank {r['rank']}'s outputs differ from the "
+                  f"sequential form by {dout:.3e}")
+            g_pipe[r["stage"] * per:(r["stage"] + 1) * per] = r["grad"]
+        dg = float((g_pipe - g_seq).abs().max() / g_seq.abs().max())
+        check(dg < TRAIN_GRAD_RTOL, f"gpipe: gradients {dg:.3e} of the "
+              f"largest from the sequential form's")
+        print(f"[sharded-train] gpipe (stage, data) (4, 1), {n_layers} tanh "
+              f"layers of {d}, {n_micro} microbatches of {mb}, f32: outputs "
+              f"max|pipe - sequential| {dout:.3e} (atol/rtol 1e-5), "
+              f"gradients max|dg|/max|g| {dg:.3e} (tol {TRAIN_GRAD_RTOL:g}); "
+              f"{max(r['ms'] for r in pipes):.1f} ms forward and backward")
+        del w, x, wl, h, g_seq, g_pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # --- the minicpm-2b checkpoint onto (1, 4) WS -------------------
+        # a spawn of its own, once the parent's chatglm3-6b tensors are
+        # freed: each rank holds the whole 122,753-row embedding (its
+        # vocabulary does not divide over 4) with its moments
+        resaved = os.path.join(tmp, "resaved")
+        runs = [dict(cfg=cfg, params=None, tc=tc, recipe="WS", rt=f32,
+                     label="minicpm-2b f32 restored from (2, 2) IS at step "
+                           "2, one step", restore=(tmp, 2),
+                     save_restored=resaved, batches=batches[2:])]
+        got, _ = sharded_train_mesh("full width, (1, 4)", (1, 4), runs,
+                                    [one_restored])
+        totals.append(got)
+        step_dir = "step_00000002"
+        names = sorted(os.listdir(os.path.join(tmp, step_dir)))
+        check(names == sorted(os.listdir(os.path.join(resaved, step_dir))),
+              "elastic: the checkpoints hold other files")
+        differ = [n for n in names if not same_bytes(
+            os.path.join(tmp, step_dir, n), os.path.join(resaved, step_dir,
+                                                          n))]
+        check(not differ, f"elastic: the (1, 4) WS blocks saved again "
+              f"differ from the (2, 2) IS checkpoint in {differ}")
+        print(f"[sharded-train] elastic: the (2, 2) IS checkpoint read onto "
+              f"(1, 4) WS and saved again from there: all {len(names)} "
+              f"files equal, byte for byte")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launcher_mesh_runs()
+    trained = {k: sum(t.get(k, 0) for t in totals) for k in counters}
+    print(f"[sharded-train] launches over every rank's train runs "
+          f"{ {k: v for k, v in trained.items() if v} }; phase "
+          f"{time.perf_counter() - t_phase:.1f} s; {smi_line()}")
+    return trained
 
 
 def capacity_phase():
@@ -3377,6 +3889,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available; this script runs only "
               "on an NVIDIA GPU", file=sys.stderr)
         return 2
+    import dataclasses
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
     from repro_torch.models import ModelRuntime, cast_params, init_params
@@ -3451,9 +3964,17 @@ def main() -> int:
               f"init {time.perf_counter() - t0:.1f} s, "
               f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
         hybrid = mcfg.family == "hybrid"
+        scfg, sparams, label = mcfg, params, mcfg.name
+        if mcfg.name in SERVE_RECURRENT_LAYERS:
+            scfg = dataclasses.replace(
+                mcfg, n_layers=SERVE_RECURRENT_LAYERS[mcfg.name])
+            sparams = init_params(scfg, seed=0, rt=mrt)
+            label = (f"{mcfg.name} ({scfg.n_layers} of {mcfg.n_layers} "
+                     f"layers)")
         totals.append(serve_pair(
-            mcfg.name, mcfg, params, mrt, counters, expect, attention,
+            label, scfg, sparams, mrt, counters, expect, attention,
             kv_dtypes=(None, "int8") if hybrid else (None,)))
+        del sparams
         focus = {"moe": (("moe_gemm",), ("moe_gemm", BF16_KERNEL)),
                  "ssm": (SSD_KERNELS + ("ssd_",), ()),
                  "hybrid": (SSD_KERNELS + ("ssd_", "flash_fwd"),
@@ -3495,6 +4016,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded = sharded_phase(counters)
 
+    # --- [sharded-train]: the sharded train step on meshes sharing the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_train = sharded_train_phase(counters)
+
     # --- phase 5 ---------------------------------------------------------
     trained, train_runs = train_phase(counters)
 
@@ -3508,13 +4034,14 @@ def main() -> int:
         e = dict(e, ok=True,
                  launches=(served[name] + tuned[name] + trained[name]
                            + traced[name] + launched[name]
-                           + sharded[name]),
+                           + sharded[name] + sharded_train[name]),
                  launches_by_path={"serve": served[name],
                                    "tune": tuned[name],
                                    "train": trained[name],
                                    "trace": traced[name],
                                    "launch": launched[name],
-                                   "sharded": sharded[name]})
+                                   "sharded": sharded[name],
+                                   "sharded_train": sharded_train[name]})
         e.pop("shape")
         for t in (e, *(e[k] for k in SUB_ENTRIES if k in e)):
             for key in ("ms", "plain_ms", "bound_ms", "library_ms"):

@@ -1,3 +1,4 @@
-from repro_torch.data.pipeline import SyntheticLMData, host_shard
+from repro_torch.data.pipeline import (SyntheticLMData, host_shard,
+                                       make_global_batch)
 
-__all__ = ["SyntheticLMData", "host_shard"]
+__all__ = ["SyntheticLMData", "host_shard", "make_global_batch"]

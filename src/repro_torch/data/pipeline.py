@@ -13,14 +13,15 @@ Two modes:
 
 Batch ``step`` on host ``h`` is a pure function of (seed, step, h), so a
 restart from a checkpoint sees the batches it would have seen. Batches
-are numpy on the host; the train loop moves them to the device. The
-reference's ``make_global_batch`` (a jax mesh) waits for the multi-GPU
-slice (ROADMAP.md Queue 1 item 12).
+are numpy on the host; the train loop moves them to the device. On a
+mesh every rank makes the same global batch and
+:func:`make_global_batch` keeps this rank's rows (its block over the
+data axes) on its device.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -92,3 +93,36 @@ def host_shard(batch: Dict[str, np.ndarray], host_id: int,
         per = x.shape[0] // n_hosts
         return x[host_id * per:(host_id + 1) * per]
     return {k: slc(v) for k, v in batch.items()}
+
+
+def batch_dim(name: str, ndim: int) -> int:
+    """The batch dim of a batch leaf: 1 for M-RoPE positions (3, B, S),
+    else 0."""
+    return 1 if name == "positions" and ndim == 3 else 0
+
+
+def make_global_batch(batch: Dict[str, np.ndarray], mesh,
+                      batch_axes: Sequence[str] = ("pod", "data"),
+                      ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a global batch (every rank holds the same
+    host batch), split over those of ``batch_axes`` the mesh has, in
+    their order, on the mesh's device: the counterpart of the
+    reference's ``make_global_batch``, whose arrays carry the same rows
+    on each device. A positions leaf of M-RoPE (3, B, S) splits its
+    dim 1."""
+    axes = [a for a in batch_axes if a in mesh.sizes]
+    n, idx = 1, 0
+    for a in axes:
+        idx = idx * mesh.sizes[a] + mesh.coords[a]
+        n *= mesh.sizes[a]
+
+    def rows(name, x):
+        x = torch.as_tensor(x)
+        dim = batch_dim(name, x.dim())
+        if x.shape[dim] % n:
+            raise ValueError(f"batch leaf {name!r} has {x.shape[dim]} rows:"
+                             f" they do not split over {axes} ({n} ranks)")
+        per = x.shape[dim] // n
+        return x.narrow(dim, idx * per, per).to(mesh.device)
+
+    return {k: rows(k, v) for k, v in batch.items()}

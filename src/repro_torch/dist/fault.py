@@ -1,14 +1,15 @@
 """Fault-tolerance hooks of the port (counterpart of
-``repro.dist.fault``): straggler detection and a wedged-step watchdog.
-The reference's elastic mesh re-planning (``pow2_mesh_shape``) waits for
-the multi-GPU slice (ROADMAP.md Queue 1 item 12)."""
+``repro.dist.fault``): straggler detection, a wedged-step watchdog and
+the elastic re-plan of a (data, model) mesh after devices are lost
+(:func:`pow2_mesh_shape`; ``ckpt.restore_elastic`` then reads a
+checkpoint onto the new mesh)."""
 from __future__ import annotations
 
 import threading
 import time
 from dataclasses import dataclass
 from statistics import median as _median
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -107,3 +108,18 @@ class Watchdog:
             if self._timer is not None:
                 self._timer.cancel()
                 self._timer = None
+
+
+def pow2_mesh_shape(chips: int, max_model: int = 16) -> Tuple[int, int]:
+    """Re-plan a (data, model) mesh after elastic chip loss: the largest
+    power-of-two subset of survivors, with the model axis capped (TP
+    beyond ~16 ways is collective-bound — the paper's Table-1-style
+    bound on the design space)."""
+    assert chips >= 1
+    total = 1
+    while total * 2 <= chips:
+        total *= 2
+    mp = 1
+    while mp * 2 <= min(max_model, total):
+        mp *= 2
+    return total // mp, mp

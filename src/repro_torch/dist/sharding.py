@@ -22,14 +22,26 @@ columns). When the query heads do not divide over ``model`` the
 attention stays whole on every rank. The specs and the drops stay the
 reference's; only the bytes of those leaves depart from them
 (``tests/test_torch_sharding.py`` pins which).
+
+For training the placement also says where each gradient must be
+summed: over ``model`` where a replicated tensor enters a split region
+(:meth:`Placement.enter_model`), over the ranks that hold one K/V head
+(:meth:`Placement.enter_kv`, a subgroup of ``model``), over ``data``
+where a leaf is split over ``data`` (IS: :meth:`Placement.gather_data`
+gathers it for its layer, and its backward sums) and how many ranks
+hold a copy of each block (:meth:`Placement.copies`, the global norm's
+weight). :meth:`Placement.local_to_global` assembles a whole leaf from
+every rank's block, and :class:`TreeLayout` does so for a tree (a
+train state, a checkpoint).
 """
 from __future__ import annotations
 
+import itertools
 import math
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 AxisEntry = Optional[Union[str, Tuple[str, ...]]]
 Spec = Tuple[AxisEntry, ...]
@@ -309,9 +321,14 @@ def check_mesh_family(cfg, sizes: Dict[str, int]) -> None:
     if math.prod(sizes.values()) > 1 and cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) on mesh {sizes}: the sharded "
-            f"engines cover {MESH_FAMILIES}; MoE, SSM and hybrid models on "
-            f"a mesh come with training's distributed half (ROADMAP.md "
-            f"Queue 1 item 12, the next slice)")
+            f"engines and the sharded train step cover {MESH_FAMILIES}; "
+            f"MoE, SSM, hybrid and audio models on a mesh come with the "
+            f"next slice of ROADMAP.md Queue 1 item 12")
+
+
+def active_mesh():
+    """The ambient mesh (``use_mesh``), or None."""
+    return _ACTIVE.mesh
 
 
 def active_placement(cfg) -> Optional["Placement"]:
@@ -364,6 +381,7 @@ class Placement:
         self.vocab_start = r * self.vocab_size if self.vocab_split else 0
         self.ffn_split = bool(cfg.d_ff) and self._over_model(
             ("ffn", "embed"), (cfg.d_ff, cfg.d_model))
+        self._peers = None
 
     def _over_model(self, axes, shape) -> bool:
         """Whether the recipe splits the leading dim over ``model``."""
@@ -381,13 +399,15 @@ class Placement:
     # ------------------------------------------------------------- blocks
     def slices(self, axes: Sequence[Optional[str]], shape: Tuple[int, ...],
                path: Optional[str] = None,
-               whole: Tuple[str, ...] = ()) -> Tuple[slice, ...]:
+               whole: Tuple[str, ...] = (),
+               record: bool = True) -> Tuple[slice, ...]:
         """This rank's block of a leaf with logical ``axes``: the
         recipe's sanitized spec, but the attention heads by the head
-        plan; dims whose logical axis is in ``whole`` stay whole."""
+        plan; dims whose logical axis is in ``whole`` stay whole. Drops
+        are recorded unless ``record`` is False."""
         axes = tuple(axes or (None,) * len(shape))
-        spec = sanitize_spec(self.recipe.spec_for(axes), shape, self.sizes,
-                             path=path)
+        spec = _sanitize(self.recipe.spec_for(axes), tuple(shape),
+                         self.sizes, path, record)
         spec = tuple(spec) + (None,) * (len(shape) - len(spec))
         out = []
         for dim, name, entry in zip(shape, axes, spec):
@@ -428,13 +448,121 @@ class Placement:
         return {k: (self.local_shape(axes[k], s, k, whole), d)
                 for k, (s, d) in spec.items()}
 
+    # --------------------------------------------------------- every rank
+    def peers(self) -> List["Placement"]:
+        """The host-only placement of every rank, in rank order (the
+        ranks of ``mesh.rank_coords``, or coordinate order for a dict)."""
+        if self._peers is None:
+            coords = getattr(self.mesh, "rank_coords", None)
+            if coords is None:
+                names = list(self.sizes)
+                coords = [dict(zip(names, c)) for c in itertools.product(
+                    *(range(self.sizes[a]) for a in names))]
+            self._peers = [Placement(self.cfg, self.recipe, self.sizes, c)
+                           for c in coords]
+        return self._peers
+
+    def copies(self, axes, shape) -> int:
+        """How many ranks hold a block equal to this rank's (every
+        block of a leaf has the same count): the world over the number
+        of distinct blocks."""
+        shape = tuple(shape)
+        blocks = {tuple((s.start, s.stop) for s in
+                        p.slices(axes, shape, record=False))
+                  for p in self.peers()}
+        return len(self.peers()) // len(blocks)
+
+    def owns(self, axes, shape) -> bool:
+        """Whether this rank is the first (lowest rank) of those holding
+        a block equal to its own: the one that writes it."""
+        shape = tuple(shape)
+        mine = self.slices(axes, shape, record=False)
+        rank = getattr(self.mesh, "rank", 0)
+        return next(r for r, p in enumerate(self.peers())
+                    if p.slices(axes, shape, record=False) == mine) == rank
+
+    def split_dim(self, axes, shape, axis: str = "data") -> Optional[int]:
+        """The dim of a leaf that the recipe splits over mesh axis
+        ``axis``, or None when it is whole over it."""
+        if self.sizes.get(axis, 1) == 1:
+            return None
+        axes = tuple(axes or (None,) * len(shape))
+        spec = _sanitize(self.recipe.spec_for(axes), tuple(shape),
+                         self.sizes, None, record=False)
+        for i, entry in enumerate(spec):
+            if axis in _parts(entry) and axes[i] not in ("heads",
+                                                         "kv_heads"):
+                return i
+        return None
+
+    def local_to_global(self, block, axes, shape):
+        """The whole leaf of ``shape`` from every rank's ``block`` (a
+        collective: every rank calls it and gets the whole leaf). Each
+        rank's block lands at its own slices: a K/V head or a whole
+        attention held by several ranks lands once per holder, so this
+        is no concatenation."""
+        import torch
+
+        shape = tuple(shape)
+        out = torch.empty(shape, dtype=block.dtype, device=block.device)
+        for peer, part in zip(self.peers(),
+                              self.mesh.world_gather(block)):
+            out[peer.slices(axes, shape, record=False)] = part
+        return out
+
+    def kv_groups(self) -> Tuple[Tuple[int, ...], ...]:
+        """The global ranks that hold one K/V block together: equal
+        coordinates on every axis but ``model`` and the same K/V heads
+        (2 K/V heads over 4 model ranks: ranks 0-1 and 2-3)."""
+        groups: Dict[Tuple, List[int]] = {}
+        for r, peer in enumerate(self.peers()):
+            key = tuple((a, c) for a, c in sorted(peer.coords.items())
+                        if a != "model") + (peer.kv_start,)
+            groups.setdefault(key, []).append(r)
+        return tuple(tuple(g) for g in groups.values())
+
+    @property
+    def kv_shared(self) -> bool:
+        """Whether other ranks hold this rank's K/V heads too."""
+        return self.heads_split and self.cfg.n_kv_heads < self.model
+
     # -------------------------------------------------------- collectives
     def reduce_model(self, t):
-        """The sum of ``t`` over ``model`` (a row-parallel product)."""
-        return self.mesh.all_reduce(t, "model")
+        """The sum of ``t`` over ``model`` (a row-parallel product): g,
+        whose backward is the identity."""
+        return self.mesh.sum(t, "model")
 
     def gather_model(self, t, dim: int):
-        return self.mesh.all_gather(t, "model", dim)
+        """Every ``model`` rank's ``t`` on ``dim`` (the logits over the
+        vocabulary); the backward takes this rank's slice of the
+        gradient and never sums it: every rank computes the same loss
+        from the same gathered tensor."""
+        return self.mesh.gather(t, "model", dim)
+
+    def enter_model(self, t):
+        """f: ``t`` (whole on every ``model`` rank) entering a split
+        region; the backward sums its gradient over ``model``. The
+        identity when no gradient is taken."""
+        import torch
+        if not torch.is_grad_enabled():
+            return t
+        return self.mesh.enter(t, "model")
+
+    def enter_kv(self, t):
+        """f over the ranks that hold this rank's K/V heads (``wk``,
+        ``wv``: each holder's gradient carries only its own query heads'
+        share)."""
+        import torch
+        if not (torch.is_grad_enabled() and self.kv_shared):
+            return t
+        group = self.mesh.subgroup(self.kv_groups())
+        return t if group is None else self.mesh.enter(t, group=group)
+
+    def gather_data(self, t, dim: int):
+        """A weight split over ``data`` on ``dim``, gathered whole for
+        its layer; the backward sums the gradient over ``data`` and
+        keeps this rank's block (a reduce-scatter)."""
+        return self.mesh.gather(t, "data", dim, reduce=True)
 
     def gather_batch(self, t, dim: int = 0):
         """``t``'s rows of every rank that holds other slots (the batch
@@ -500,3 +628,80 @@ def shard_tree(tree, axes_tree, recipe: Recipe, mesh, cfg,
                            device=device).copy_(block)
 
     return _map(place, tree, axes_tree)
+
+
+class TreeLayout:
+    """Where every leaf of a tree lives on a mesh: ``axes`` and
+    ``shapes`` mirror the tree (each leaf's logical axes and whole
+    shape; a leaf with no axes is whole on every rank), ``pl`` is this
+    rank's live :class:`Placement`. What a checkpoint reads and writes
+    on a mesh."""
+
+    def __init__(self, pl: Placement, axes, shapes):
+        self.pl, self.axes, self.shapes = pl, axes, shapes
+
+    @property
+    def writer(self) -> bool:
+        """Whether this rank writes what the mesh saves (rank 0)."""
+        return getattr(self.pl.mesh, "rank", 0) == 0
+
+    def _walk(self, fn, tree, axes, shapes):
+        if isinstance(tree, dict):
+            return {k: self._walk(fn, tree[k], axes[k], shapes[k])
+                    for k in sorted(tree)}
+        shape = tuple(shapes)
+        return fn(tree, axes or (None,) * len(shape), shape)
+
+    def slices(self):
+        """This rank's index tuple of every leaf (``restore_elastic``'s
+        ``shardings``)."""
+        return self._walk(
+            lambda _, ax, shape: self.pl.slices(ax, shape, record=False),
+            self.shapes, self.axes, self.shapes)
+
+    def copies(self):
+        """How many ranks hold each leaf's block (:meth:`Placement.
+        copies`)."""
+        return self._walk(lambda _, ax, shape: self.pl.copies(ax, shape),
+                          self.shapes, self.axes, self.shapes)
+
+    def blocks(self, tree, path: Tuple[str, ...] = (), axes=None,
+               shapes=None):
+        """``(keys, block, axes, shape, slices, owned)`` for every leaf
+        of ``tree`` (this rank's blocks), in sorted key order: ``slices``
+        place the block in the whole leaf of ``shape``, and ``owned`` is
+        whether this rank writes it (:meth:`Placement.owns`)."""
+        axes = self.axes if axes is None else axes
+        shapes = self.shapes if shapes is None else shapes
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from self.blocks(tree[k], path + (k,), axes[k],
+                                       shapes[k])
+            return
+        shape = tuple(shapes)
+        ax = axes or (None,) * len(shape)
+        yield (path, tree, ax, shape, self.pl.slices(ax, shape, record=False),
+               self.pl.owns(ax, shape))
+
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh (none on a host-only one)."""
+        wait = getattr(self.pl.mesh, "barrier", None)
+        if wait is not None:
+            wait()
+
+    def gather(self, tree):
+        """Every leaf whole, on the host, in ``tree``'s structure (this
+        rank's blocks): a collective, leaf by leaf in sorted key order,
+        so a rank's device never holds more than one whole leaf."""
+        out: Dict[str, Any] = {}
+        for keys, block, ax, shape, _, _ in self.blocks(tree):
+            block = block.detach()
+            if self.pl.copies(ax, shape) == len(self.pl.peers()):
+                whole = block.to("cpu", copy=True)
+            else:
+                whole = self.pl.local_to_global(block, ax, shape).cpu()
+            node = out
+            for k in keys[:-1]:
+                node = node.setdefault(k, {})
+            node[keys[-1]] = whole
+        return out

@@ -66,24 +66,12 @@ from repro_torch.analysis.capacity import serve_preflight
 from repro_torch.analysis.deploy_lint import DeploymentSpec, deploy_preflight
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.dist.sharding import check_mesh_family
-from repro_torch.launch.mesh import run_mesh
+from repro_torch.launch.mesh import parse_mesh, run_mesh
 from repro_torch.models import ModelRuntime, init_params
 from repro_torch.serve import (PagedServeEngine, Request, Sampler,
                                Scheduler, ServeEngine,
                                ShardedPagedServeEngine, ShardedServeEngine,
                                get_scenario)
-
-
-def parse_mesh(text: str):
-    """``DxM`` -> ((D, M), {"data": D, "model": M})."""
-    try:
-        d, m = (int(x) for x in text.lower().split("x"))
-    except ValueError:
-        raise SystemExit(f"--mesh {text!r}: expected DxM, e.g. 2x4") \
-            from None
-    if d < 1 or m < 1:
-        raise SystemExit(f"--mesh {text!r}: both sizes must be >= 1")
-    return (d, m), {"data": d, "model": m}
 
 
 def _drive(eng, requests, device: str) -> dict:

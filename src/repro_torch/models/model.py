@@ -46,10 +46,24 @@ rows masked and sums over ``model``, and the unembedding gathers the
 vocabulary. The cache specs give this rank's block (its K/V heads, its
 slots over ``data``). With no mesh every function runs its one-device
 form: the same launches and the same bits.
+
+Under autograd (the sharded train step) every collective has its
+gradient: each sum over ``model`` (g) is the identity backward; an f
+(``Placement.enter_model``) stands exactly where a g does, on the
+replicated tensor a column-split product reads (the normed ``h`` before
+``wq``/``wk``/``wv``, ``h2`` before ``wg``/``wi``, ``x`` before a
+vocabulary-split unembedding) and on the qk-norm scales, so each
+input's gradient is summed over ``model`` once; ``wk``/``wv`` enter
+through an f over the ranks that hold the same K/V heads. Where the
+attention stays whole on every rank there is neither. Under a recipe
+that splits ``embed`` over ``data`` (IS) each leaf split over ``data``
+is gathered whole just before its layer runs, inside the remat region,
+one layer at a time; the gather's backward sums over ``data``.
 """
 from __future__ import annotations
 
 import re
+import weakref
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -308,6 +322,8 @@ def _row_parallel(y: torch.Tensor, pl: Optional[Placement],
 
 def _mlp(p: Dict[str, torch.Tensor], h: torch.Tensor,
          cfg: ModelConfig, pl: Optional[Placement] = None) -> torch.Tensor:
+    if pl is not None and pl.ffn_split:
+        h = pl.enter_model(h)
     if cfg.mlp == "swiglu":
         z = swiglu(h @ p["wg"].to(h.dtype), h @ p["wi"].to(h.dtype))
     else:
@@ -316,17 +332,25 @@ def _mlp(p: Dict[str, torch.Tensor], h: torch.Tensor,
                          pl is not None and pl.ffn_split)
 
 
-def _attn_proj(p, h, cfg: ModelConfig, policy=None):
+def _attn_proj(p, h, cfg: ModelConfig, policy=None,
+               pl: Optional[Placement] = None):
     """q (B, S, Hq, hd), k and v (B, S, Hkv, hd): the head counts are
     the weights' own (a rank's heads under a mesh)."""
     B, S, _ = h.shape
     hd = cfg.head_dim
+    wk, wv = p["wk"], p["wv"]
+    qn, kn = p.get("q_norm"), p.get("k_norm")
+    if pl is not None and pl.heads_split:
+        h = pl.enter_model(h)
+        wk, wv = pl.enter_kv(wk), pl.enter_kv(wv)
+        if cfg.qk_norm:
+            qn, kn = pl.enter_model(qn), pl.enter_model(kn)
     q = (h @ p["wq"].to(h.dtype)).reshape(B, S, -1, hd)
-    k = (h @ p["wk"].to(h.dtype)).reshape(B, S, -1, hd)
-    v = (h @ p["wv"].to(h.dtype)).reshape(B, S, -1, hd)
+    k = (h @ wk.to(h.dtype)).reshape(B, S, -1, hd)
+    v = (h @ wv.to(h.dtype)).reshape(B, S, -1, hd)
     if cfg.qk_norm:
-        q = L.rmsnorm(q, p["q_norm"], policy=policy)
-        k = L.rmsnorm(k, p["k_norm"], policy=policy)
+        q = L.rmsnorm(q, qn, policy=policy)
+        k = L.rmsnorm(k, kn, policy=policy)
     return q, k, v
 
 
@@ -356,7 +380,7 @@ def attn_block(p: Dict[str, Any], x: torch.Tensor, rope,
     k/v are post-RoPE, exactly what the decode cache stores."""
     pol = rt.kernel_policy()
     h = norm(x, p["ln1"], cfg.norm, policy=pol)
-    q, k, v = _attn_proj(p, h, cfg, policy=pol)
+    q, k, v = _attn_proj(p, h, cfg, policy=pol, pl=pl)
     q, k = L.apply_rope(q, k, rope, cfg)
     o = dispatch("prefill_attention", pol, q, k, v, causal=cfg.causal,
                  window=cfg.sliding_window, chunk=rt.attn_chunk)
@@ -426,6 +450,8 @@ def _unembed(params, cfg: ModelConfig, x: torch.Tensor,
              pl: Optional[Placement] = None) -> torch.Tensor:
     """Logits over the whole vocabulary: a rank's columns, gathered over
     ``model`` where the vocabulary is split."""
+    if pl is not None and pl.vocab_split:
+        x = pl.enter_model(x)
     if cfg.tie_embeddings:
         logits = x @ params["embed"].to(x.dtype).t()
     else:
@@ -462,17 +488,54 @@ def _remat(fn, rt: ModelRuntime):
                      f"none, dots, full")
 
 
+#: :func:`data_dims` of each live placement (a mesh keeps its placements).
+_DATA_DIMS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def data_dims(cfg: ModelConfig, pl: Placement):
+    """Every parameter's dim split over ``data`` under ``pl`` (None where
+    the leaf is whole over ``data``), in the parameter tree's shape."""
+    if pl not in _DATA_DIMS:
+        def walk(d):
+            if isinstance(d, dict):
+                return {k: walk(v) for k, v in d.items()}
+            return pl.split_dim(d.axes, d.shape)
+        _DATA_DIMS[pl] = walk(param_defs(cfg))
+    return _DATA_DIMS[pl]
+
+
+def _gather_data(p, dims, pl: Optional[Placement], stacked: bool = True):
+    """``p`` with every leaf that is split over ``data`` gathered whole
+    (IS); ``stacked=False`` for one layer's leaves, whose stacked
+    ``layers`` dim is gone. One device: ``p`` as it is."""
+    if pl is None:
+        return p
+    out = {}
+    for k, v in p.items():
+        d = dims[k]
+        if isinstance(v, dict):
+            out[k] = _gather_data(v, d, pl, stacked)
+        else:
+            out[k] = v if d is None else pl.gather_data(
+                v, d if stacked else d - 1)
+    return out
+
+
 def _run_blocks(params, cfg: ModelConfig, x, positions, rt: ModelRuntime,
                 on_layer=None, pl: Optional[Placement] = None):
     """Every block in :func:`_schedule`'s order, each under ``rt.remat``
     (the reference remats a hybrid group whole; the gradients are the
     same); ``on_layer(i, material)`` receives each block's cache
     material: ``(k, v)`` for attention block i, the ``{conv, ssm}`` final
-    states for Mamba-2 layer i. Returns (x, summed aux loss f32)."""
+    states for Mamba-2 layer i. Returns (x, summed aux loss f32). Under
+    a recipe that splits weights over ``data`` each attention block
+    gathers its layer's leaves first, inside its remat region."""
     aux = torch.zeros((), device=x.device)
     rope = None if cfg.family == "ssm" else L.rope_tables(positions, cfg)
+    dims = None if pl is None else data_dims(cfg, pl)["blocks"]
 
     def attn(p, x_):
+        p = _gather_data(p, dims, pl, stacked=False)
         x_, a, kv = attn_block(p, x_, rope, cfg, rt, pl)
         return x_, kv, a
 
@@ -498,6 +561,10 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     f32: the MoE layers' summed load-balancing loss, else 0)."""
     _require_ported(cfg)
     pl = active_placement(cfg)
+    if pl is not None:       # the embedding, final norm and head (IS)
+        dims = data_dims(cfg, pl)
+        params = dict(params, **_gather_data(
+            {k: v for k, v in params.items() if k != "blocks"}, dims, pl))
     x = _embed_in(params, batch, rt, pl)
     B, S, _ = x.shape
     positions = _positions(cfg, batch, B, S, x.device)
@@ -698,7 +765,7 @@ def _attn_decode_one(p, x, kv, idx, attend, rope, cfg: ModelConfig,
     B = x.shape[0]
     pol = rt.kernel_policy()
     h = norm(x, p["ln1"], cfg.norm, policy=pol)[:, None, :]   # (B,1,d)
-    q, k, v = _attn_proj(p, h, cfg, policy=pol)
+    q, k, v = _attn_proj(p, h, cfg, policy=pol, pl=pl)
     q, k = L.apply_rope(q, k, rope, cfg)
     k, v = k[:, 0], v[:, 0]
     if rows is not None:

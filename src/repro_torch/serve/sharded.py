@@ -19,7 +19,8 @@ Rank 0's ``run()`` is the result; the sharded engine serves the same
 tokens as the one-device engine (``tests/test_torch_multidevice.py``).
 The families covered are ``dense`` and ``vlm``; any other on a mesh of
 more than one device raises ``NotImplementedError``, as does a recipe
-that splits the model dim (``IS``, ``*+zero3``).
+that splits the model dim (``IS``, ``*+zero3``): the train step
+streams such weights (``train.loop``), serving does not yet.
 """
 from __future__ import annotations
 
@@ -55,9 +56,10 @@ class ShardedServeEngine(ServeEngine):
             raise NotImplementedError(
                 f"recipe {self.recipe.name!r} streams the weights over "
                 f"{self.recipe.rules['embed']} (the model dim split): the "
-                f"serving forms keep d_model whole on every rank; weight "
-                f"streaming comes with training's distributed half "
-                f"(ROADMAP.md Queue 1 item 12)")
+                f"serving forms keep d_model whole on every rank (the "
+                f"sharded train step gathers such weights layer by layer; "
+                f"serving with them waits for the next slice of ROADMAP.md "
+                f"Queue 1 item 12)")
         self.placement = mesh.placement(cfg, self.recipe)
         rt = dataclasses.replace(rt, device=str(mesh.device))
         params = shard_tree(params, axes_tree(cfg), self.recipe, mesh, cfg,

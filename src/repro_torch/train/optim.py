@@ -87,19 +87,31 @@ def adamw_init(params) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree_leaves(tree)))
+def global_norm(tree, copies=None, reduce=None) -> torch.Tensor:
+    """The f32 norm of every leaf of ``tree`` together. On a mesh,
+    ``tree`` is this rank's blocks, ``copies`` a tree of how many ranks
+    hold each block (each block's squares are divided by it, so every
+    element of the logical tree counts once) and ``reduce`` the sum of
+    the partial squares over every rank; then every rank gets one
+    device's norm."""
+    if copies is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in tree_leaves(tree)))
+    part = sum(torch.sum(torch.square(g.float())) / c
+               for g, c in zip(tree_leaves(tree), tree_leaves(copies)))
+    return torch.sqrt(reduce(part))
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params, grads, state,
+def adamw_update(cfg: AdamWConfig, params, grads, state, norm=global_norm,
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step -> (params, state, {'lr', 'grad_norm'}). The new
     values are written into ``params`` and ``state``'s tensors, leaf by
-    leaf, and those trees are returned."""
+    leaf, and those trees are returned. ``norm(grads)`` is the norm the
+    gradients are clipped by (on a mesh, :func:`global_norm` over every
+    rank's blocks)."""
     step = state["step"]
-    gnorm = global_norm(grads)
+    gnorm = norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
 
     lr = lr_at(cfg, step)

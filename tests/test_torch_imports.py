@@ -30,7 +30,7 @@ print(len(mods), bad)
 #: the static-analysis package (the kernel validator, the contract
 #: checker and the liveness walk among them), the launch plans, and the
 #: mesh: the sharding recipes and placement, the mesh and its spawner,
-#: the sharded engines.
+#: the sharded engines, GPipe and the sharded train runs.
 _NEW = ("repro_torch.core.workload.torch_trace",
         "repro_torch.configs.chatglm3_6b",
         "repro_torch.configs.starcoder2_3b",
@@ -67,7 +67,9 @@ _NEW = ("repro_torch.core.workload.torch_trace",
         "repro_torch.kernels.plan",
         "repro_torch.dist.sharding",
         "repro_torch.launch.mesh",
-        "repro_torch.serve.sharded")
+        "repro_torch.serve.sharded",
+        "repro_torch.dist.pipeline",
+        "repro_torch.train.sharded")
 
 
 def test_port_imports_without_jax_or_reference():

@@ -358,7 +358,9 @@ def test_microbatches_take_the_same_step(models):
     diffs = [float((a - b).abs().max()) for (_, a), (_, b) in
              zip(tree_items(outs[0][0]), tree_items(outs[1][0]))]
     assert max(diffs) < 5e-4, max(diffs)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    # recipes are names of RECIPES ("IS", not "is"); the sharded step
+    # itself is held in tests/test_torch_train_mesh.py
+    with pytest.raises(ValueError, match="RECIPES"):
         make_train_step(cfg, _rt(), TrainConfig(), recipe="is")
 
 
@@ -565,7 +567,7 @@ def test_train_launcher_restarts_from_checkpoint(capsys):
         launcher.main(argv)
     out = capsys.readouterr().out
     assert "restoring from step 4" in out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(ValueError, match="RECIPES"):
         launcher.main(argv[:5] + ["--recipe", "is"])
 
 
