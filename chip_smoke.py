@@ -42,7 +42,15 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    starcoder2-3b's group of 12 and chatglm3-6b's group of 16 (D 128
    over 2 kv heads); paged == contiguous bit for bit at G 16 and D 160
    (bf16 and int8 KV); RMSNorm bit for bit at d 160 (stablelm's
-   qk-norm), 3584 and 4096;
+   qk-norm), 3584 and 4096; then the grouped GEMM and the SSD scan at
+   the shapes a rank of a mesh gives them (``mesh_kernel_entries``, the
+   ``e15``, ``f176``, ``nh32``, ``nh16`` and ``nh40`` entries): qwen2-moe's
+   15 experts a rank at ``model`` 4 (16 decode rows and a rank's 1,024
+   of a 1024-token prefill's 4,096) and its 60 experts at 176 columns at
+   ``model`` 8 (16 and 4,096 rows), in f32 and bf16, the scan at
+   mamba2-1.3b's 32 and 16 SSD heads (``model`` 2 and 4) and
+   zamba2-2.7b's 40 (``model`` 2), each against its plain version and
+   timed beside the bound (and ``torch.bmm``);
 
    then ``[validator]`` (under 120 s): the static kernel validator
    (``repro_torch.analysis.kernel_validator``) over the ``h100`` tune
@@ -51,7 +59,9 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    block, dynamic shared memory), and so for the served shapes the grid
    does not reach (``VALIDATOR_EXTRA``: flash at D 80 and 160 and in
    bf16, split-KV at G 12 and 16, the bf16 tensor-core bodies, RMSNorm's
-   wide body); each case launched once through its wrapper, its outputs'
+   wide body) and for the mesh shapes of the grouped GEMM and the scan
+   (``kernel_validator.mesh_cases``, validated statically too); each
+   case launched once through its wrapper, its outputs'
    shapes and dtypes the plan's and its real plan (the MoE case's real
    routing) covering its outputs; one line per kernel symbol
    (registers, static and dynamic shared memory, local bytes, threads,
@@ -193,8 +203,24 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    to ``serve_preflight(mesh=...)``'s to the byte, its
    ``max_memory_allocated`` at most that plus its largest parameter
    block, and each mesh's kernels (minicpm-2b: RMSNorm, flash and the
-   four split-KV decode kernels) launched and no other; the launches of
-   every rank's runs are summed into the ``sharded`` path;
+   four split-KV decode kernels) launched and no other; then the MoE,
+   SSM, hybrid and audio families (``sharded_family_meshes``, depths
+   ``SHARDED_FAMILY_LAYERS``, widths uncut): qwen2-moe-a2.7b (4 of 24
+   layers) at (1, 4), 15 experts a rank (expert-parallel, dropless
+   decode through the grouped GEMM), in f32 teacher-forced on the
+   contiguous engine (logits within ``LOGIT_TOL``) and serving the
+   [serve] prompts on the paged engine (tokens equal to one device's),
+   and in bf16 teacher-forced, its deviation and its argmax and routing
+   agreement reported (bf16 routing flips); in one (1, 2) spawn mamba2-1.3b (8 of
+   48, 32 SSD heads a rank) and zamba2-2.7b (12 of 54: two groups, so
+   both shared blocks run; 40 SSD heads and 16 attention heads a rank)
+   teacher-forced in bf16, and hubert-xlarge's forward (8 of 48 layers,
+   B 2, S 1024 frames, bf16), logits within ``LOGIT_TOL`` of one device;
+   every rank's bytes equal to the capacity model's (``capacity`` of the
+   prefill for hubert), the grouped GEMM and the scan launched on every
+   rank of their meshes; then mixtral-8x22b's serving preflight at
+   (1, 8), host only: a rank's bytes fit 80 GB, one card's do not. The
+   launches of every rank's runs are summed into the ``sharded`` path;
 
    then ``[sharded-train]``: the sharded train step (``train.loop``
    under a recipe, driven on each rank by ``train.sharded.mesh_train``)
@@ -221,8 +247,13 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    bytes equal ``capacity(kind="train", mesh=..., recipe=...)``'s
    (parameters x 3 + 4; its peak printed beside them), RMSNorm and
    flash launched and no other kernel; the launches are summed into the
-   ``sharded_train`` path. Then the train launcher in-process on smoke
-   minicpm-2b, ``--mesh 2x2 --recipe IS --steps 10`` with a checkpoint
+   ``sharded_train`` path. Then, in one (2, 2) spawn, full-width
+   qwen2-moe-a2.7b (2 layers) under IS on the capacity path (capacity,
+   slot order and aux loss global over ``data``) and mamba2-1.3b (4
+   layers) under IS_seq, two f32 steps each held to one device as above
+   (RMSNorm and flash, RMSNorm and the scan, launched). Then the train
+   launcher in-process on smoke minicpm-2b, ``--mesh 2x2 --recipe IS
+   --steps 10`` with a checkpoint
    directory and its resume on ``--mesh 1x2 --recipe WS`` (finite
    losses, every rank's equal to rank 0's, the restore printed);
 5. training (``[train]``), with the card emptied first: full-width
@@ -340,7 +371,13 @@ PAGE_SIZE, PAGES_PER_SEQ = 16, 64
 #: ``quant_matmul``.
 SUB_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "body")
-SUB_ENTRIES = ("d128", "d80", "d160", "g12", "g16", "prefill")
+#: The per-rank shapes of the grouped GEMM and the SSD scan on a mesh
+#: (``mesh_kernel_entries``): qwen2-moe's 15 experts a rank (``model``
+#: 4) and 176 columns of its 60 (``model`` 8); the scan at 32 and 16 SSD
+#: heads (mamba2-1.3b, ``model`` 2 and 4) and 40 (zamba2-2.7b, 2).
+MESH_SUB_ENTRIES = ("e15", "f176", "nh32", "nh16", "nh40")
+SUB_ENTRIES = ("d128", "d80", "d160", "g12", "g16", "prefill",
+               *MESH_SUB_ENTRIES)
 #: The attention shapes of the last-ported families, checked and timed
 #: as the ``d128`` and ``d80`` entries are: stablelm-12b's head dim 160
 #: (32 heads over 8 kv heads), starcoder2-3b's group of 12 and
@@ -632,6 +669,7 @@ def kernel_phase(cfg, moe_cfg, ssm_cfg, hyb_cfg):
                                    3584: (4, 2048), 4096: (4, 2048)})
     entries["moe_gemm"] = moe_gemm_kernel(moe_cfg, gen, rnd, compare, flush)
     entries["ssd_scan"] = ssd_scan_kernel(ssm_cfg, gen, rnd, compare, flush)
+    mesh_kernel_entries(entries, moe_cfg, gen, rnd, compare, flush)
     entries["quant_matmul"] = quant_matmul_kernel(cfg, gen, rnd, compare,
                                                   flush)
     for e in entries.values():
@@ -725,6 +763,80 @@ def decode_entry(cfg, rnd, compare, flush, mask):
         shape=f"B{B} W{W} Hq{H} Hkv{Hkv} D{D} bf16, {valid} valid rows")
 
 
+def moe_case(gen, rnd, E, T, d_in, f_out, dtype, empty, trailing=True):
+    """T rows routed uniformly over E experts of d_in -> f_out, experts
+    0..empty-1 left without a row: the rows, weights, routes, the
+    kernel's sorted arguments, the inverse order and the experts used.
+    With ``trailing`` the sort must leave a trailing block, and no row
+    in it."""
+    import torch
+    from repro_torch.kernels.moe_gemm import (BLOCK_M, block_rows,
+                                              sort_by_expert)
+    dev = torch.device("cuda")
+    x = rnd(T, d_in, dtype=dtype)
+    w = (torch.randn(E, d_in, f_out, generator=gen, device=dev)
+         / math.sqrt(d_in)).to(dtype)
+    eor = torch.randint(0, E, (T,), generator=gen, device=dev)
+    eor = torch.where(eor < empty, eor + empty, eor)
+    xp, be, inv, Tp = sort_by_expert(x, eor, E, BLOCK_M)
+    rows = block_rows(inv, Tp // BLOCK_M, BLOCK_M)
+    tail = be == E
+    check(not bool(rows[tail].any()) and (bool(tail.any()) or not trailing),
+          f"moe_gemm T{T} E{E}: no trailing block, or one holding rows")
+    return x, w, eor, (xp, w, be, rows), inv, int(torch.unique(eor).numel())
+
+
+def moe_checked(gen, rnd, compare, E, T, d, f, label, empty=4,
+                trailing=True):
+    """The grouped GEMM against its plain version at T rows of both
+    shapes (d -> f, f -> d), in f32 (the CUDA cores) and bf16 (the
+    tensor cores); returns the largest error."""
+    import torch
+    from repro_torch.kernels.moe_gemm import (grouped_gemm_padded,
+                                              grouped_gemm_padded_plain)
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d_in, f_out in ((d, f), (f, d)):
+            _, _, _, args, inv, used = moe_case(gen, rnd, E, T, d_in, f_out,
+                                                dtype, empty, trailing)
+            body = CUDA_CORE if dtype == torch.float32 else MMA
+            err = max(err, compare(
+                "moe_gemm", grouped_gemm_padded(*args)[inv],
+                grouped_gemm_padded_plain(*args)[inv], dtype,
+                f"{label} T{T} {d_in}->{f_out} {used}/{E} "
+                f"{str(dtype)[6:]} {body}"))
+    return err
+
+
+def moe_timed(gen, rnd, flush, err, E, T, d, f, what=""):
+    """The bf16 grouped GEMM at T rows over E experts of d -> f, every
+    expert used: kernel, plain version and ``torch.bmm`` over the present
+    experts' padded rows (the layout not timed) beside the bound."""
+    import torch
+    from repro_torch.kernels.moe_gemm import (grouped_gemm_padded,
+                                              grouped_gemm_padded_plain)
+    x, w, eor, args, inv, used = moe_case(gen, rnd, E, T, d, f,
+                                          torch.bfloat16, 0, trailing=False)
+    present = torch.unique(eor)
+    counts = (eor[:, None] == present[None, :]).sum(0)
+    xe = x.new_zeros(len(present), int(counts.max()), d)
+    for j, e in enumerate(present.tolist()):
+        rows = x[eor == e]
+        xe[j, :len(rows)] = rows
+    ws = w[present].contiguous()
+    nbytes = 2 * (T * d + used * d * f + T * f) + 8 * len(args[2])
+    b_ms, b_by = bound(nbytes, 2 * T * d * f, "bf16_tensor")
+    return dict(max_abs_err=err,
+                ms=time_ms(lambda: grouped_gemm_padded(*args), flush=flush),
+                plain_ms=time_ms(lambda: grouped_gemm_padded_plain(*args),
+                                 iters=10, flush=flush),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(lambda: torch.bmm(xe, ws), flush=flush),
+                body=MMA,
+                shape=f"T{T} rows d{d} f{f} bf16, {used}/{E} experts, "
+                      f"block {args[0].shape[0] // len(args[2])}{what}")
+
+
 def moe_gemm_kernel(cfg, gen, rnd, compare, flush):
     """The grouped expert GEMM at qwen2-moe's widths: decode (4 slots x
     top-4 = 16 rows) and a 1024-token prefill (4096 rows), the gate/up
@@ -732,65 +844,13 @@ def moe_gemm_kernel(cfg, gen, rnd, compare, flush):
     empty experts and the trailing blocks the sort's static bound
     leaves. bf16 runs the tensor-core body, f32 the CUDA-core one.
     Timed at the decode gate/up shape (and the prefill one)."""
-    import torch
-    from repro_torch.kernels.moe_gemm import (
-        BLOCK_M, block_rows, grouped_gemm_padded, grouped_gemm_padded_plain,
-        sort_by_expert)
-
-    dev = torch.device("cuda")
     m = cfg.moe
     E, K, d, f = m.n_experts, m.experts_per_token, cfg.d_model, m.d_expert
-
-    def case(T, d_in, f_out, dtype, empty):
-        """Rows routed uniformly, experts 0..empty-1 left without a row."""
-        x = rnd(T, d_in, dtype=dtype)
-        w = (torch.randn(E, d_in, f_out, generator=gen, device=dev)
-             / math.sqrt(d_in)).to(dtype)
-        eor = torch.randint(0, E, (T,), generator=gen, device=dev)
-        eor = torch.where(eor < empty, eor + empty, eor)
-        xp, be, inv, Tp = sort_by_expert(x, eor, E, BLOCK_M)
-        rows = block_rows(inv, Tp // BLOCK_M, BLOCK_M)
-        trailing = be == E
-        check(bool(trailing.any()) and not bool(rows[trailing].any()),
-              f"moe_gemm T{T}: no trailing block, or one holding rows")
-        return x, w, eor, (xp, w, be, rows), inv, int(torch.unique(
-            eor).numel())
-
     err = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        for T, label in ((4 * K, "decode"), (1024 * K, "prefill")):
-            for d_in, f_out in ((d, f), (f, d)):
-                _, _, eor, args, inv, used = case(T, d_in, f_out, dtype, 4)
-                body = CUDA_CORE if dtype == torch.float32 else MMA
-                err = max(err, compare(
-                    "moe_gemm", grouped_gemm_padded(*args)[inv],
-                    grouped_gemm_padded_plain(*args)[inv], dtype,
-                    f"{label} T{T} {d_in}->{f_out} {used}/{E} "
-                    f"{str(dtype)[6:]} {body}"))
-
-    def timed(T):
-        x, w, eor, args, inv, used = case(T, d, f, torch.bfloat16, 0)
-        present = torch.unique(eor)
-        counts = (eor[:, None] == present[None, :]).sum(0)
-        xe = x.new_zeros(len(present), int(counts.max()), d)
-        for j, e in enumerate(present.tolist()):
-            rows = x[eor == e]
-            xe[j, :len(rows)] = rows
-        ws = w[present].contiguous()
-        nbytes = 2 * (T * d + used * d * f + T * f) + 8 * len(args[2])
-        b_ms, b_by = bound(nbytes, 2 * T * d * f, "bf16_tensor")
-        return dict(max_abs_err=err,
-                    ms=time_ms(lambda: grouped_gemm_padded(*args),
-                               flush=flush),
-                    plain_ms=time_ms(lambda: grouped_gemm_padded_plain(*args),
-                                     iters=10, flush=flush),
-                    bound_ms=b_ms, bound_by=b_by,
-                    library_ms=time_ms(lambda: torch.bmm(xe, ws), flush=flush),
-                    body=MMA,
-                    shape=f"T{T} rows d{d} f{f} bf16, {used}/{E} experts, "
-                          f"block {args[0].shape[0] // len(args[2])}")
-
-    dec, pre = timed(4 * K), timed(1024 * K)
+    for T, label in ((4 * K, "decode"), (1024 * K, "prefill")):
+        err = max(err, moe_checked(gen, rnd, compare, E, T, d, f, label))
+    dec = moe_timed(gen, rnd, flush, err, E, 4 * K, d, f)
+    pre = moe_timed(gen, rnd, flush, err, E, 1024 * K, d, f)
     return dict(name="moe_gemm", route="cuda",
                 source="src/repro_torch/kernels/csrc/moe_gemm.cu",
                 replaces="src/repro/kernels/moe_gemm.py:32",
@@ -799,38 +859,68 @@ def moe_gemm_kernel(cfg, gen, rnd, compare, flush):
                 prefill={k: pre[k] for k in SUB_KEYS if k in pre}, **dec)
 
 
-def ssd_scan_kernel(cfg, gen, rnd, compare, flush):
-    """The chunked SSD scan at mamba2-1.3b's widths (64 heads of 64, state
-    128, chunk 256): a 1024-token prefill, a ragged 700 (two sequences)
-    and a 16-token chunk-mode floor (S < chunk). Timed at B1 S1024."""
+def mesh_kernel_entries(entries, moe_cfg, gen, rnd, compare, flush):
+    """The grouped GEMM and the SSD scan at the shapes a rank of a mesh
+    runs them (``analysis.kernel_validator.MESH_KERNEL_CELLS``), each
+    against its plain version and timed, as the ``moe_gemm`` /
+    ``ssd_scan`` sub-entries ``MESH_SUB_ENTRIES`` names: qwen2-moe's 15
+    experts a rank at ``model`` 4 (a rank's 1,024 of a 1024-token
+    prefill's 4,096 rows, and 16 decode rows), its 60 experts at 176
+    columns at ``model`` 8 (all 4,096 rows), and the scan at the SSD
+    heads of mamba2-1.3b at ``model`` 2 and 4 and of zamba2-2.7b at 2."""
+    from repro_torch.configs import get_arch
+    from repro_torch.dist.sharding import DECODE_RECIPE, Placement
+    from repro_torch.models.ssm import ssm_dims
+    m, d = moe_cfg.moe, moe_cfg.d_model
+    for key, model, T in (("e15", 4, 1024), ("f176", 8, 4096)):
+        pl = Placement(moe_cfg, DECODE_RECIPE, {"data": 1, "model": model})
+        E = pl.n_experts
+        f = m.d_expert // (model if pl.moe_split == "ffn" else 1)
+        check(key in (f"e{E}", f"f{f}"), f"{key}: the placement gives E {E}"
+              f" f {f} at model {model}")
+        what = (f", {pl.moe_split} split at model {model}")
+        err = max(moe_checked(gen, rnd, compare, E, 4 * m.experts_per_token,
+                              d, f, f"{key} decode", empty=0,
+                              trailing=False),
+                  moe_checked(gen, rnd, compare, E, T, d, f,
+                              f"{key} prefill", empty=0, trailing=False))
+        t = moe_timed(gen, rnd, flush, err, E, T, d, f, what)
+        entries["moe_gemm"][key] = {k: t[k] for k in SUB_KEYS if k in t}
+    for key, arch, model in (("nh32", "mamba2-1.3b", 2),
+                             ("nh16", "mamba2-1.3b", 4),
+                             ("nh40", "zamba2-2.7b", 2)):
+        cfg = get_arch(arch)
+        pl = Placement(cfg, DECODE_RECIPE, {"data": 1, "model": model})
+        check(key == f"nh{pl.ssm_heads}", f"{key}: the placement gives "
+              f"{pl.ssm_heads} SSD heads at model {model}")
+        dims = ssm_dims(cfg)
+        t = ssd_checked_timed(gen, rnd, compare, flush, pl.ssm_heads,
+                              dims["hp"], dims["N"], cfg.ssm.chunk_size,
+                              f"{arch} at model {model}")
+        entries["ssd_scan"][key] = {k: t[k] for k in SUB_KEYS if k in t}
+
+
+def ssd_inputs(gen, rnd, b, S, nh, hp, N, dtype):
+    """The scan's x, dt (softplus of N(-2, 1)), A (-exp of N(0, 0.25)),
+    B and C (N(0, 1) / N^0.25) for b sequences of S."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
-    from repro_torch.models.ssm import ssm_dims
-
     dev = torch.device("cuda")
-    dims = ssm_dims(cfg)
-    nh, hp, N, L = dims["nh"], dims["hp"], dims["N"], cfg.ssm.chunk_size
+    x = rnd(b, S, nh, hp, dtype=dtype)
+    dt = F.softplus(torch.randn(b, S, nh, generator=gen, device=dev) - 2.0)
+    A = -torch.exp(torch.randn(nh, generator=gen, device=dev) * 0.5)
+    B, C = ((torch.randn(b, S, nh, N, generator=gen, device=dev)
+             / N ** 0.25).to(dtype) for _ in range(2))
+    return x, dt, A, B, C
 
-    def inputs(b, S, dtype):
-        x = rnd(b, S, nh, hp, dtype=dtype)
-        dt = F.softplus(torch.randn(b, S, nh, generator=gen, device=dev)
-                        - 2.0)
-        A = -torch.exp(torch.randn(nh, generator=gen, device=dev) * 0.5)
-        B, C = ((torch.randn(b, S, nh, N, generator=gen, device=dev)
-                 / N ** 0.25).to(dtype) for _ in range(2))
-        return x, dt, A, B, C
 
-    err = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        for b, S in ((1, 1024), (2, 700), (1, 16)):
-            args = inputs(b, S, dtype)
-            (y, h), (yw, hw) = ssd_scan(*args, chunk=L), ssd_chunked(*args, L)
-            what = f"b{b} S{S} nh{nh} hp{hp} N{N} L{L} {str(dtype)[6:]}"
-            err = max(err, compare("ssd_scan", y, yw, dtype, f"y {what}"))
-            compare("ssd_scan", h, hw, torch.float32, f"state {what}")
+def ssd_timed(gen, rnd, flush, err, nh, hp, N, L, what=""):
+    """The bf16 scan at B1 S1024 timed (kernel, plain version) beside
+    the bound."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
     b, S = 1, 1024
-    args = inputs(b, S, torch.bfloat16)
+    args = ssd_inputs(gen, rnd, b, S, nh, hp, N, torch.bfloat16)
     # what the chunked algorithm needs per (sequence, head, chunk): the
     # causal C.B scores and their product with x, the carried-state term
     # and the state update, each 2 operations per multiply-add
@@ -840,17 +930,54 @@ def ssd_scan_kernel(cfg, gen, rnd, compare, flush):
     nbytes = (2 * b * S * nh * (2 * hp + 2 * N) + 4 * b * S * nh + 4 * nh
               + 4 * b * nh * hp * N)
     b_ms, b_by = bound(nbytes, ops, "bf16_tensor")
-    return dict(name="ssd_scan", route="cuda",
-                source="src/repro_torch/kernels/csrc/ssd_scan.cu",
-                replaces="src/repro/kernels/ssd_scan.py:79", max_abs_err=err,
+    return dict(max_abs_err=err,
                 ms=time_ms(lambda: ssd_scan(*args, chunk=L), flush=flush),
                 plain_ms=time_ms(lambda: ssd_chunked(*args, L), iters=10,
                                  flush=flush),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                library_call="none: no single PyTorch call computes a "
-                             "chunked SSD scan", body=SSD_BODY,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, body=SSD_BODY,
                 bound_ms_f32_cuda_core=bound(nbytes, ops, "f32_cuda_core")[0],
-                shape=f"b{b} S{S} nh{nh} hp{hp} N{N} chunk {L} bf16")
+                shape=f"b{b} S{S} nh{nh} hp{hp} N{N} chunk {L} bf16{what}")
+
+
+def ssd_checked_timed(gen, rnd, compare, flush, nh, hp, N, L, what):
+    """The scan at nh heads against its plain version at B1 S1024 in f32
+    and bf16 (outputs and final state), then timed."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        args = ssd_inputs(gen, rnd, 1, 1024, nh, hp, N, dtype)
+        (y, h), (yw, hw) = ssd_scan(*args, chunk=L), ssd_chunked(*args, L)
+        label = f"{what} nh{nh} hp{hp} N{N} {str(dtype)[6:]}"
+        err = max(err, compare("ssd_scan", y, yw, dtype, f"y {label}"))
+        compare("ssd_scan", h, hw, torch.float32, f"state {label}")
+    return ssd_timed(gen, rnd, flush, err, nh, hp, N, L, f", {what}")
+
+
+def ssd_scan_kernel(cfg, gen, rnd, compare, flush):
+    """The chunked SSD scan at mamba2-1.3b's widths (64 heads of 64, state
+    128, chunk 256): a 1024-token prefill, a ragged 700 (two sequences)
+    and a 16-token chunk-mode floor (S < chunk). Timed at B1 S1024."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+    from repro_torch.models.ssm import ssm_dims
+
+    dims = ssm_dims(cfg)
+    nh, hp, N, L = dims["nh"], dims["hp"], dims["N"], cfg.ssm.chunk_size
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, S in ((1, 1024), (2, 700), (1, 16)):
+            args = ssd_inputs(gen, rnd, b, S, nh, hp, N, dtype)
+            (y, h), (yw, hw) = ssd_scan(*args, chunk=L), ssd_chunked(*args, L)
+            what = f"b{b} S{S} nh{nh} hp{hp} N{N} L{L} {str(dtype)[6:]}"
+            err = max(err, compare("ssd_scan", y, yw, dtype, f"y {what}"))
+            compare("ssd_scan", h, hw, torch.float32, f"state {what}")
+    return dict(name="ssd_scan", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                replaces="src/repro/kernels/ssd_scan.py:79",
+                library_call="none: no single PyTorch call computes a "
+                             "chunked SSD scan",
+                **ssd_timed(gen, rnd, flush, err, nh, hp, N, L))
 
 
 def quant_matmul_kernel(cfg, gen, rnd, compare, flush):
@@ -1271,6 +1398,8 @@ def validator_phase():
     import os
     import torch
     from repro_torch.analysis.kernel_validator import (check_plan,
+                                                       mesh_cases,
+                                                       validate_mesh_cases,
                                                        validate_preset)
     from repro_torch.kernels import plan as P
     from repro_torch.kernels import tune
@@ -1278,12 +1407,12 @@ def validator_phase():
 
     t0 = time.perf_counter()
     preset = tune.H100
-    findings = validate_preset(preset)
+    findings = validate_preset(preset) + validate_mesh_cases()
     for f in findings:
         print(f"[validator] {f.describe()}")
     errors = sum(f.severity == "error" for f in findings)
-    print(f"[validator] static pass over the {preset.name} grid: "
-          f"{len(findings)} findings, {errors} errors "
+    print(f"[validator] static pass over the {preset.name} grid and the "
+          f"mesh shapes: {len(findings)} findings, {errors} errors "
           f"({time.perf_counter() - t0:.1f} s)")
     check(errors == 0, f"kernel validator: {errors} errors")
 
@@ -1339,6 +1468,11 @@ def validator_phase():
     for op, label, shapes, kw in VALIDATOR_EXTRA:
         against_library(label, implementations(op)["cuda"],
                         extra_meta_args(op, shapes), kw)
+        n_plans += 1
+    # the per-rank shapes of the mesh forms (the [kernels] phase ran each
+    # against its plain version): planned as the library plans them
+    for op, label, args, kw in mesh_cases():
+        against_library(label, implementations(op)["cuda"], args, kw)
         n_plans += 1
     print(f"[validator] {n_plans} plans == the library's plans (name, "
           f"grid, block, dynamic smem); {n_calls} wrapper calls, outputs "
@@ -2077,8 +2211,8 @@ def moe_parity(cfg, params):
     routes = {}
     route = MOE._route
 
-    def recording(p, xt, c):
-        g, idx, aux = route(p, xt, c)
+    def recording(p, xt, c, dpl=None):
+        g, idx, aux = route(p, xt, c, dpl)
         routes[current].append(idx)
         return g, idx, aux
 
@@ -2644,6 +2778,11 @@ SHARDED_SLACK = 2 ** 20
 #: of its 40 layers, and chatglm3-6b's (1, 4) runs at 7 of its 28;
 #: widths uncut.
 SHARDED_LAYERS = {"minicpm-2b": 6, "chatglm3-6b": 7}
+#: Depths of [sharded]'s MoE, SSM, hybrid and audio models (widths
+#: uncut): zamba2-2.7b's 12 of 54 are two groups, so both of its
+#: physical shared blocks run.
+SHARDED_FAMILY_LAYERS = {"qwen2-moe-a2.7b": 4, "mamba2-1.3b": 8,
+                         "zamba2-2.7b": 12, "hubert-xlarge": 8}
 #: The kernels each mesh's runs must launch on every rank.
 SHARDED_KERNELS = ("rmsnorm", "flash_attention", "decode_attention",
                    "paged_decode_attention", "quant_decode_attention",
@@ -2680,13 +2819,37 @@ def take_cublas_workspace(device) -> None:
         (x @ x).sum().item()
 
 
+def recorded_routes(routes):
+    """A context in which every MoE routing call appends its expert
+    choices (T, K) to ``routes``, on the host."""
+    import contextlib
+    from repro_torch.models import moe as MOE
+
+    @contextlib.contextmanager
+    def ctx():
+        route = MOE._route
+
+        def recording(p, xt, c, dpl=None):
+            g, idx, aux = route(p, xt, c, dpl)
+            routes.append(idx.cpu())
+            return g, idx, aux
+        MOE._route = recording
+        try:
+            yield routes
+        finally:
+            MOE._route = route
+    return ctx()
+
+
 def mesh_run(make, run):
     """One run of [sharded] through the engine ``make(scheduler)``
     builds: ``run['requests']`` served; with ``run['teacher']`` the
     logits of every prefill and of every decode step captured as the
-    host samples them (the requests then end after their forced tail).
-    Returns the tokens, the captured logits, the step times, the stats
-    and the engine's bytes."""
+    host samples them (the requests then end after their forced tail),
+    with ``run['routes']`` every MoE routing call's expert choices.
+    Returns the tokens, the captured logits and routes, the step times,
+    the stats and the engine's bytes."""
+    import contextlib
     import torch
     from repro_torch.serve import Request, Scheduler
     sched = Scheduler(cfg=run["cfg"], max_len=run["kw"]["max_len"],
@@ -2703,18 +2866,20 @@ def mesh_run(make, run):
         eng._host_logits = capture
     for r in run["requests"]:
         eng.submit(Request(**r))
-    steps = []
-    while eng.queue or any(s is not None for s in eng.slots):
-        t0 = time.perf_counter()
-        eng.step()
-        torch.cuda.synchronize()
-        steps.append((time.perf_counter() - t0) * 1e3)
+    steps, routes = [], []
+    with (recorded_routes(routes) if run.get("routes")
+          else contextlib.nullcontext()):
+        while eng.queue or any(s is not None for s in eng.slots):
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
     check(len(eng.finished) == len(run["requests"]) and not eng.rejected,
           f"{run['label']}: served {len(eng.finished)}")
     from repro_torch.tree import tree_leaves
     leaves = [t.numel() * t.element_size() for t in tree_leaves(eng.params)]
     return dict(tokens={r.rid: list(r.out_tokens) for r in eng.finished},
-                logits=caught, steps_ms=steps,
+                logits=caught, routes=routes, steps_ms=steps,
                 prefix_hits=eng.stats.prefix_hits,
                 params_bytes=tree_bytes(eng.params),
                 cache_bytes=tree_bytes(eng.cache), largest_leaf=max(leaves))
@@ -2749,7 +2914,7 @@ def sharded_rank(mesh, params, cfg, runs):
                    peak=torch.cuda.max_memory_allocated() - base,
                    launches={k: c.launches for k, c in counters.items()})
         if mesh.rank != 0:
-            rec["logits"] = None
+            rec["logits"] = rec["routes"] = None
         out.append(rec)
         gc.collect()
         torch.cuda.empty_cache()
@@ -2806,25 +2971,112 @@ def sharded_mesh(title, mesh, cfg, params, runs, expect, logit_tol=None,
     every rank's bytes to the capacity prediction, its peak to that
     plus its largest leaf, and ``expect``'s kernels launched on every
     rank. Returns the launches summed over ranks and runs."""
-    import numpy as np
+    return sharded_spawn(mesh, [dict(
+        kind="serve", title=title, cfg=cfg, params=params, runs=runs,
+        expect=expect, logit_tol=logit_tol, equal_tokens=equal_tokens)])
+
+
+def sharded_items_rank(mesh, items):
+    """One rank of a [sharded] mesh that runs several models: each item
+    ``(kind, params, cfg, runs)`` in turn, ``serve`` as ``sharded_rank``
+    serves, ``forward`` as ``forward_rank`` runs."""
+    return [(sharded_rank if kind == "serve" else forward_rank)(
+        mesh, params, cfg, runs) for kind, params, cfg, runs in items]
+
+
+def forward_rank(mesh, params, cfg, runs):
+    """``serve.sharded.mesh_forward`` on this rank (its blocks of the
+    parent's tensors, read over CUDA IPC), every launch count set to 0
+    before each run and read after, the rank's peak since it began.
+    Rank 0 returns the logits."""
     import torch
-    from repro_torch.analysis.capacity import serve_preflight
+    from repro_torch.serve.sharded import mesh_forward
+    counters = kernel_counters()
+    take_cublas_workspace(mesh.device)
+    out = []
+    for run in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        rec = mesh_forward(mesh, params, cfg, [run])[0]
+        torch.cuda.synchronize()
+        rec.update(label=run["label"], ms=(time.perf_counter() - t0) * 1e3,
+                   peak=torch.cuda.max_memory_allocated() - base,
+                   launches={k: c.launches for k, c in counters.items()})
+        if mesh.rank != 0:
+            rec["logits"] = None
+        out.append(rec)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def one_device_forward(params, cfg, runs):
+    """Each run's ``forward`` on one device (its logits on the host, its
+    wall ms): the reference a mesh's forward is held to."""
+    import torch
+    from repro_torch.models import forward
+    out = []
+    for run in runs:
+        batch = {k: torch.as_tensor(v).cuda() for k, v in run["batch"].items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, _ = forward(params, cfg, batch, run["rt"])
+        torch.cuda.synchronize()
+        out.append(dict(logits=logits.float().cpu(),
+                        ms=(time.perf_counter() - t0) * 1e3))
+    return out
+
+
+def sharded_spawn(mesh, items):
+    """One [sharded] spawn of ``mesh`` running every item (a dict of
+    ``kind`` ``serve`` or ``forward``, ``title``, ``cfg``, ``params``,
+    ``runs``, ``expect`` and ``logit_tol`` (None: reported, not held),
+    and for ``serve`` ``equal_tokens``), each held to its one-device
+    runs. Returns the launches summed over ranks, items and runs."""
+    import torch
     from repro_torch.launch.mesh import run_mesh
     t0 = time.perf_counter()
-    want = one_device_runs(params, cfg, runs)
+    wants = [(one_device_runs if it["kind"] == "serve"
+              else one_device_forward)(it["params"], it["cfg"], it["runs"])
+             for it in items]
     t_one = time.perf_counter() - t0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ranks = run_mesh(sharded_rank, mesh, params, cfg, runs,
-                     timeout=SHARDED_TIMEOUT)
+    ranks = run_mesh(sharded_items_rank, mesh,
+                     [(it["kind"], it["params"], it["cfg"], it["runs"])
+                      for it in items], timeout=SHARDED_TIMEOUT)
     t_mesh = time.perf_counter() - t0
+    print(f"[sharded] {' + '.join(it['title'] for it in items)}: mesh "
+          f"{mesh[0]}x{mesh[1]} (data, model), {len(ranks)} ranks on "
+          f"{torch.cuda.device_count()} card(s) over "
+          f"{ranks[0][0][0]['backend']} (all_reduce / all_gather / "
+          f"broadcast of CUDA tensors, staged by gloo through host memory);"
+          f" spawn and runs {t_mesh:.1f} s, one-device runs {t_one:.1f} s")
+    total = {}
+    for i, (it, want) in enumerate(zip(items, wants)):
+        check_fn = sharded_check if it["kind"] == "serve" else forward_check
+        got = check_fn(it, mesh, [r[i] for r in ranks], want)
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def sharded_check(item, mesh, ranks, want):
+    """The serving runs of one item against the one-device engine's
+    (``want``): logits within the item's ``logit_tol`` (reported when it
+    is None), or tokens equal; every rank's bytes equal to
+    ``serve_preflight(mesh=...)``, its peak at most that plus its largest
+    leaf; the item's kernels launched on every rank and no other."""
+    import numpy as np
+    from repro_torch.analysis.capacity import serve_preflight
+    title, cfg, runs = item["title"], item["cfg"], item["runs"]
+    logit_tol, expect = item["logit_tol"], item["expect"]
     sizes = {"data": mesh[0], "model": mesh[1]}
-    backend = ranks[0][0]["backend"]
-    print(f"[sharded] {title}: mesh {mesh[0]}x{mesh[1]} (data, model), "
-          f"{len(ranks)} ranks on {torch.cuda.device_count()} card(s) over "
-          f"{backend} (all_reduce / all_gather / broadcast of CUDA tensors, "
-          f"staged by gloo through host memory); spawn and runs "
-          f"{t_mesh:.1f} s, one-device runs {t_one:.1f} s")
     total = {}
     for i, run in enumerate(runs):
         recs = [r[i] for r in ranks]
@@ -2844,10 +3096,21 @@ def sharded_mesh(title, mesh, cfg, params, runs, expect, logit_tol=None,
             b = np.concatenate([x.argmax(-1) for x in ref["logits"]])
             line += (f" logits of {len(run['requests'])} prefills + "
                      f"{SHARDED_FORCED} decode steps, max |mesh - one "
-                     f"device| {dev:.4f} (tol {logit_tol}); argmax agree "
-                     f"{int((a == b).sum())}/{a.size}")
-            check(dev <= logit_tol, f"{title} {run['label']}: logits "
-                  f"{dev:.4f} from one device, tol {logit_tol}")
+                     f"device| {dev:.4f} (tol "
+                     f"{'none: reported' if logit_tol is None else logit_tol}"
+                     f"); argmax agree {int((a == b).sum())}/{a.size}")
+            if run.get("routes"):
+                check(len(rank0["routes"]) == len(ref["routes"]) > 0,
+                      f"{title} {run['label']}: routing calls "
+                      f"{len(rank0['routes'])} vs {len(ref['routes'])}")
+                same = sum(int((x == y).sum()) for x, y in
+                           zip(rank0["routes"], ref["routes"]))
+                n = sum(x.numel() for x in ref["routes"])
+                line += (f"; routing agree {same}/{n} (token, k) "
+                         f"choices")
+            if logit_tol is not None:
+                check(dev <= logit_tol, f"{title} {run['label']}: logits "
+                      f"{dev:.4f} from one device, tol {logit_tol}")
         else:
             same = sum(x == y for rid in ref["tokens"]
                        for x, y in zip(rank0["tokens"][rid],
@@ -2857,7 +3120,7 @@ def sharded_mesh(title, mesh, cfg, params, runs, expect, logit_tol=None,
                      f"{statistics.median(rank0['steps_ms']):.2f} ms (one "
                      f"device {statistics.median(ref['steps_ms']):.2f} ms) "
                      f"over {len(rank0['steps_ms'])} steps")
-            if equal_tokens:
+            if item.get("equal_tokens"):
                 check(rank0["tokens"] == ref["tokens"], f"{title} "
                       f"{run['label']}: tokens differ from one device")
             if run["paged"]:
@@ -2887,6 +3150,13 @@ def sharded_mesh(title, mesh, cfg, params, runs, expect, logit_tol=None,
               f"{[r['peak'] for r in recs]} B <= {pred} + largest leaf "
               f"{recs[0]['largest_leaf']} B + {SHARDED_SLACK} B (calibrated "
               f"peak {cap.peak_bytes} B)")
+    launched_on(title, ranks, expect, total)
+    return total
+
+
+def launched_on(title, ranks, expect, total):
+    """Every rank launched ``expect``'s kernels over its runs, and no
+    other path's."""
     for rank in ranks:
         launched = {k for rec in rank for k, n in rec["launches"].items()
                     if n}
@@ -2898,6 +3168,46 @@ def sharded_mesh(title, mesh, cfg, params, runs, expect, logit_tol=None,
     print(f"[sharded] {title}: every rank launched {sorted(expect)}; "
           f"launches over ranks and runs "
           f"{ {k: v for k, v in total.items() if v} }")
+
+
+def forward_check(item, mesh, ranks, want):
+    """The forward runs of one item against one device's: logits within
+    the item's ``logit_tol``; every rank's parameter bytes equal to
+    ``capacity(prefill, mesh=...)``'s, the item's kernels launched on
+    every rank and no other."""
+    from repro_torch.analysis.capacity import capacity
+    from repro_torch.configs.base import ShapeConfig
+    title, cfg = item["title"], item["cfg"]
+    sizes = {"data": mesh[0], "model": mesh[1]}
+    total = {}
+    for i, run in enumerate(item["runs"]):
+        recs = [r[i] for r in ranks]
+        ref = want[i]
+        B, S = next(iter(run["batch"].values())).shape[:2]
+        rep = capacity(cfg, ShapeConfig("prefill", S, B, "prefill"),
+                       mesh=sizes, dtype=run["rt"].dtype)
+        for r in recs:
+            check(r["params_bytes"] == rep.params_bytes, f"{title} rank "
+                  f"{r['rank']}: params {r['params_bytes']} B, predicted "
+                  f"{rep.params_bytes}")
+            for k, n in r["launches"].items():
+                total[k] = total.get(k, 0) + n
+        got = recs[0]["logits"]
+        check(got.shape == ref["logits"].shape and bool(
+            got.isfinite().all()), f"{title}: logits {tuple(got.shape)}")
+        dev = float((got - ref["logits"]).abs().max())
+        agree = float((got.argmax(-1) == ref["logits"].argmax(-1))
+                      .float().mean())
+        check(dev <= item["logit_tol"], f"{title} {run['label']}: logits "
+              f"{dev:.4f} from one device, tol {item['logit_tol']}")
+        print(f"[sharded] {title} {run['label']} (recipe "
+              f"{recs[0]['recipe']}): logits max |mesh - one device| "
+              f"{dev:.4f} (tol {item['logit_tol']}), argmax agree "
+              f"{agree:.4f}; {max(r['ms'] for r in recs):.1f} ms (one "
+              f"device {ref['ms']:.1f}); per rank params "
+              f"{rep.params_bytes} B = predicted, peaks "
+              f"{[r['peak'] for r in recs]} B")
+    launched_on(title, ranks, item["expect"], total)
     return total
 
 
@@ -2969,10 +3279,108 @@ def sharded_phase(counters):
         {"rmsnorm", "flash_attention", "decode_attention",
          "paged_decode_attention"}, equal_tokens=True))
     del params
+    totals.extend(sharded_family_meshes())
     sharded = {k: sum(t.get(k, 0) for t in totals) for k in counters}
     print(f"[sharded] launches over all meshes {sharded}; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     return sharded
+
+
+def sharded_family_meshes():
+    """[sharded]'s MoE, SSM, hybrid and audio meshes (widths uncut,
+    depths ``SHARDED_FAMILY_LAYERS``): qwen2-moe-a2.7b at (1, 4), 15
+    experts a rank, in f32 (teacher-forced on the contiguous engine: its
+    logits within ``LOGIT_TOL``, its argmax and routing agreement; the
+    [serve] prompts on the paged engine: tokens equal to one device's)
+    and in bf16 (teacher-forced: the deviation, argmax and routing
+    agreement reported, routing flips in bf16); in one (1, 2) spawn mamba2-1.3b (32 SSD heads a
+    rank) and zamba2-2.7b (40 heads and 16 attention heads a rank)
+    teacher-forced in bf16 and hubert-xlarge's forward (B 2, S 1024
+    frames, bf16), logits within ``LOGIT_TOL`` of one device; then
+    mixtral-8x22b's serving preflight at (1, 8), host only (its 282 GB
+    of bf16 weights fit no card). Returns each spawn's launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.analysis.capacity import serve_preflight
+    from repro_torch.configs import get_arch
+    from repro_torch.models import ModelRuntime, init_params
+
+    def model(name):
+        return dataclasses.replace(get_arch(name),
+                                   n_layers=SHARDED_FAMILY_LAYERS[name])
+
+    def served(cfg):
+        rng = np.random.default_rng(1)
+        return [dict(rid=i, prompt=rng.integers(0, cfg.vocab_size, n)
+                     .astype(np.int32), max_new_tokens=SHARDED_NEW)
+                for i, n in enumerate(PROMPT_LENS)]
+
+    bf16, f32 = ModelRuntime(), ModelRuntime(dtype="float32")
+    totals = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = model("qwen2-moe-a2.7b")
+    params = init_params(cfg, seed=0, device="cuda")          # f32
+    every = sharded_runs(cfg, f32, teacher=True, served=served(cfg))
+    runs32 = [dict(every[0], routes=True), every[3]]  # teacher, paged
+    runs16 = [dict(run, routes=True) for run in sharded_runs(
+        cfg, bf16, teacher=True, served=[], layouts=(False,))[:1]]
+    expect = {"rmsnorm", "flash_attention", "decode_attention", "moe_gemm"}
+    totals.append(sharded_spawn((1, 4), [
+        dict(kind="serve", title=f"qwen2-moe-a2.7b ({cfg.n_layers} of 24 "
+             f"layers) f32", cfg=cfg, params=params, runs=runs32,
+             expect=expect | {"paged_decode_attention"},
+             logit_tol=LOGIT_TOL, equal_tokens=True),
+        dict(kind="serve", title=f"qwen2-moe-a2.7b ({cfg.n_layers} of 24 "
+             f"layers) bf16", cfg=cfg, params=params, runs=runs16,
+             expect=expect, logit_tol=None)]))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    items = []
+    for name, expect in (
+            ("mamba2-1.3b", {"rmsnorm", "ssd_scan"}),
+            ("zamba2-2.7b", {"rmsnorm", "ssd_scan", "flash_attention",
+                             "decode_attention"})):
+        cfg = model(name)
+        items.append(dict(
+            kind="serve", title=f"{name} ({cfg.n_layers} of "
+            f"{get_arch(name).n_layers} layers) bf16", cfg=cfg,
+            params=init_params(cfg, seed=0, rt=bf16),
+            runs=sharded_runs(cfg, bf16, teacher=True, served=[],
+                              layouts=(False,))[:1],
+            expect=expect, logit_tol=LOGIT_TOL))
+    cfg = model(ENCODER)
+    rng = np.random.default_rng(3)
+    frames = rng.standard_normal((2, 1024, cfg.d_model)).astype(np.float32)
+    items.append(dict(
+        kind="forward", title=f"{ENCODER} ({cfg.n_layers} of "
+        f"{get_arch(ENCODER).n_layers} layers) bf16 forward", cfg=cfg,
+        params=init_params(cfg, seed=0, rt=bf16),
+        runs=[dict(label="B 2 S 1024 frames", rt=bf16,
+                   batch={"embeds": frames})],
+        expect={"flash_attention"} | ({"rmsnorm"} if uses_rmsnorm(cfg)
+                                      else set()),
+        logit_tol=LOGIT_TOL))
+    totals.append(sharded_spawn((1, 2), items))
+    del items
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch("mixtral-8x22b")
+    sizes = {"data": 1, "model": 8}
+    one = serve_preflight(cfg, n_slots=4, max_len=1024, dtype="bfloat16")
+    rep = serve_preflight(cfg, n_slots=4, max_len=1024, mesh=sizes,
+                          dtype="bfloat16")
+    check(rep.fits and not one.fits, f"mixtral-8x22b preflight: mesh "
+          f"{rep.fits}, one card {one.fits}")
+    print(f"[sharded] mixtral-8x22b full width at (1, 8) under "
+          f"{rep.recipe}, 4 slots x 1024, host only: per rank params "
+          f"{rep.params_bytes} B (one expert of 8) + cache "
+          f"{rep.cache_bytes} B, predicted peak {rep.peak_bytes} B of "
+          f"{rep.hbm_bytes} B: fits; one card would hold params "
+          f"{one.params_bytes} B: does not")
+    return totals
 
 
 # ===========================================================================
@@ -2983,7 +3391,8 @@ def sharded_phase(counters):
 #: and a shared-card IS step gathers every layer over gloo (5.6 s a step
 #: at 8 layers, 4.1-6.5 s at 6: the embedding's gather and sum do not
 #: shrink with depth), so minicpm-2b runs 4 of its 40 layers.
-SHARDED_TRAIN_LAYERS = {"minicpm-2b": 4, "chatglm3-6b": 4}
+SHARDED_TRAIN_LAYERS = {"minicpm-2b": 4, "chatglm3-6b": 4,
+                        "qwen2-moe-a2.7b": 2, "mamba2-1.3b": 4}
 #: The global batch and length of every [sharded-train] step.
 SHARDED_TRAIN_B, SHARDED_TRAIN_S = 4, 256
 #: Seconds one mesh's spawn may take, its runs included.
@@ -3164,9 +3573,10 @@ def sharded_train_mesh(title, mesh, runs, refs, gpipe=None):
                   f"{r['rank']}: state {r['state_bytes']} B, predicted "
                   f"{want} B")
             launched = {k for k, n in r["launches"].items() if n}
-            check(launched == set(SHARDED_TRAIN_KERNELS),
+            kernels = run.get("kernels", SHARDED_TRAIN_KERNELS)
+            check(launched == set(kernels),
                   f"{title} {run['label']} rank {r['rank']}: launched "
-                  f"{sorted(launched)}, not {SHARDED_TRAIN_KERNELS}")
+                  f"{sorted(launched)}, not {kernels}")
             check(all(math.isfinite(x) for x in r["loss"]),
                   f"{title} {run['label']}: non-finite loss {r['loss']}")
             for k, n in r["launches"].items():
@@ -3213,6 +3623,45 @@ def sharded_train_mesh(title, mesh, runs, refs, gpipe=None):
                  f"{[{k: v for k, v in r['launches'].items() if v} for r in recs]}")
         print(line)
     return total, ranks
+
+
+def sharded_train_families(f32):
+    """[sharded-train]'s MoE and SSM runs, one (2, 2) spawn, f32,
+    two steps each held to one device (losses, norms, step 0's gradient
+    blocks leaf by leaf): full-width qwen2-moe-a2.7b (2 layers) under IS
+    on the capacity path (its capacity, slot order and aux loss global
+    over ``data``; 30 experts of a layer a rank between gathers) and
+    mamba2-1.3b (4 layers) under its launcher recipe IS_seq (32 SSD
+    heads a rank, B/C whole). Returns the launches over ranks and
+    runs."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    runs, refs = [], []
+    for name, recipe, kernels in (
+            ("qwen2-moe-a2.7b", "IS", ("rmsnorm", "flash_attention")),
+            ("mamba2-1.3b", "IS_seq", ("rmsnorm", "ssd_scan"))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(get_arch(name),
+                                  n_layers=SHARDED_TRAIN_LAYERS[name])
+        params = init_params(cfg, seed=0, device="cuda")          # f32
+        batches = sharded_train_batches(cfg, 2)
+        t0 = time.perf_counter()
+        refs.append(one_device_train(cfg, params, batches, "float32",
+                                     grads=True))
+        print(f"[sharded-train] {name} one device (f32 gradients + 2 "
+              f"steps): {time.perf_counter() - t0:.1f} s")
+        runs.append(dict(cfg=cfg, params=params, tc=sharded_train_tc(cfg),
+                         recipe=recipe, label=f"{name} f32", rt=f32,
+                         batches=batches, ref_grads=refs[-1]["grads"],
+                         kernels=kernels))
+    got, _ = sharded_train_mesh("full width, (2, 2)", (2, 2), runs, refs)
+    del runs, refs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
 
 
 def same_bytes(a, b, chunk=1 << 28) -> bool:
@@ -3424,6 +3873,7 @@ def sharded_train_phase(counters):
               f"files equal, byte for byte")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    totals.append(sharded_train_families(f32))
     launcher_mesh_runs()
     trained = {k: sum(t.get(k, 0) for t in totals) for k in counters}
     print(f"[sharded-train] launches over every rank's train runs "

@@ -28,6 +28,12 @@ tune-preset shapes, on ``meta`` operands, and check the launch geometry
 Grids above ``_MAX_GRID_CELLS`` blocks skip the vectorised coverage/race
 evaluation (the tune-grid shapes never get close).
 
+Besides the tune grid, the pass validates the shapes a rank of a mesh
+gives the grouped expert GEMM and the SSD scan at full width
+(:func:`mesh_cases`: qwen2-moe's 15 experts a rank at ``model`` 4 and
+176 columns of each at ``model`` 8, the SSD heads of mamba2 at ``model``
+2 and 4 and of zamba2 at 2), read off ``dist.sharding.Placement``.
+
 ``python -m repro_torch.analysis.kernel_validator`` runs the pass over a
 tune preset; with ``--sanitize`` (on the card) it launches each kernel
 once at the ``ci`` preset's small shapes, in f32 and bf16, with every
@@ -286,17 +292,83 @@ def validate_preset(tune_preset, cells=None, *,
     return findings
 
 
+#: (arch, ``model`` size) of the per-rank kernel shapes
+#: :func:`mesh_cases` plans: expert-parallel and expert-split MoE,
+#: head-aligned Mamba-2.
+MESH_KERNEL_CELLS = (("qwen2-moe-a2.7b", 4), ("qwen2-moe-a2.7b", 8),
+                     ("mamba2-1.3b", 2), ("mamba2-1.3b", 4),
+                     ("zamba2-2.7b", 2))
+
+
+def mesh_cases(dtype=torch.bfloat16):
+    """``(op, label, args, kwargs)`` on ``meta`` of the grouped expert
+    GEMM (decode rows, 4 slots x top-k, and a 1024-token prefill's; the
+    gate/up and the down shape) and the SSD scan (B1 S1024) at the shapes
+    a rank of a (1, M) mesh runs them at full width under the decode
+    recipe."""
+    from repro_torch.configs import get_arch
+    from repro_torch.dist.sharding import DECODE_RECIPE, Placement
+    from repro_torch.models.ssm import ssm_dims
+
+    def meta(*shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    out = []
+    for arch, model in MESH_KERNEL_CELLS:
+        cfg = get_arch(arch)
+        pl = Placement(cfg, DECODE_RECIPE, {"data": 1, "model": model})
+        where = f"{arch} at model {model}"
+        if cfg.moe is not None:
+            m, d = cfg.moe, cfg.d_model
+            E = pl.n_experts
+            f = m.d_expert // (model if pl.moe_split == "ffn" else 1)
+            for T in (4 * m.experts_per_token, 1024 * m.experts_per_token):
+                for d_in, d_out in ((d, f), (f, d)):
+                    out.append(("moe_gemm", f"{where}: E {E} f {f}, T{T} "
+                                f"{d_in}->{d_out}",
+                                (meta(T, d_in), meta(E, d_in, d_out),
+                                 meta(T, dt=torch.int32)), {"n_experts": E}))
+        else:
+            dm = ssm_dims(cfg)
+            nh, hp, N, S = pl.ssm_heads, dm["hp"], dm["N"], 1024
+            out.append(("ssd_scan", f"{where}: nh {nh} hp {hp} N {N}, B1 "
+                        f"S{S}", (meta(1, S, nh, hp),
+                                  meta(1, S, nh, dt=torch.float32),
+                                  meta(nh, dt=torch.float32),
+                                  meta(1, S, nh, N), meta(1, S, nh, N)),
+                        {"chunk": cfg.ssm.chunk_size}))
+    return out
+
+
+def validate_mesh_cases(*, smem_budget: int = SMEM_BUDGET_BYTES
+                        ) -> List[Finding]:
+    """Every non-torch impl of :func:`mesh_cases`' ops at their shapes,
+    on ``meta`` operands."""
+    from repro_torch.kernels.dispatch import implementations
+    findings: List[Finding] = []
+    for op, label, args, kw in mesh_cases():
+        impls = implementations(op)
+        for impl in sorted(impls):
+            if impl != "torch":
+                findings.extend(validate_impl(
+                    op, impl, impls[impl], args, kw, ref=impls.get("torch"),
+                    smem_budget=smem_budget, label=f"{op}/{impl}@{label}"))
+    return findings
+
+
 @register_pass(
     "kernel_validator",
     rules=("kernel-grid-coverage", "kernel-write-race", "kernel-smem-budget",
            "kernel-missing-vjp", "kernel-dtype-parity", "kernel-trace-error"),
     description="coverage/race/shared-memory/VJP/parity checks on the "
                 "launch plan of every registered non-torch kernel over "
-                "the tune-grid shapes")
+                "the tune-grid shapes and the per-rank mesh shapes")
 def run_pass(ctx: AnalysisContext) -> List[Finding]:
     from repro_torch.kernels.tune import TUNE_PRESETS
-    return validate_preset(TUNE_PRESETS[ctx.preset.tune_preset],
-                           smem_budget=ctx.preset.smem_budget_bytes)
+    budget = ctx.preset.smem_budget_bytes
+    return (validate_preset(TUNE_PRESETS[ctx.preset.tune_preset],
+                            smem_budget=budget)
+            + validate_mesh_cases(smem_budget=budget))
 
 
 # ===========================================================================
@@ -407,7 +479,8 @@ def main(argv=None) -> int:
         print(f"[sanitize] {failed} failed checks")
         return 1 if failed else 0
     from repro_torch.kernels.tune import TUNE_PRESETS
-    findings = validate_preset(TUNE_PRESETS[args.preset])
+    findings = validate_preset(TUNE_PRESETS[args.preset]) \
+        + validate_mesh_cases()
     for f in findings:
         print(f.describe())
     errors = sum(f.severity == "error" for f in findings)

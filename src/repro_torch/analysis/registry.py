@@ -11,9 +11,9 @@ resolvability over ``dist.sharding.RECIPES`` among its rules), the
 buffer-liveness walk, the repo AST lint and the deployment-feasibility
 lint, and the id of the capacity gate behind ``launch/serve.py
 --preflight``. The reference's jaxpr lint waits for a compiled step,
-and its sharding propagation (over the training recipes, which the
-port has since item 12's training half) is still to port (ROADMAP.md
-Queue 1 items 12 and 14); its SPMD/compile lint reads XLA's dry-run,
+and its sharding propagation (over every family's recipes, which the
+port has since item 12's family slice) is still to port (ROADMAP.md
+Queue 1 item 14); its SPMD/compile lint reads XLA's dry-run,
 which the port does not have.
 
 Presets: ``ci`` lints the reference ``ci`` preset's two smoke archs at

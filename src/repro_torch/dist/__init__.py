@@ -1,9 +1,10 @@
 """Distribution substrate of the port: logical-axis sharding recipes, the
 port's placement of a model on a mesh (serving and the sharded train
 step: ``serve.sharded``, ``train.loop``), GPipe over a ``stage`` axis,
-and the fault-tolerance hooks with the elastic mesh re-plan. MoE, SSM,
-hybrid and audio models on a mesh are ROADMAP.md Queue 1 item 12's next
-slice."""
+and the fault-tolerance hooks with the elastic mesh re-plan. Every
+family places on a mesh: the attention by its heads, the MoE by its
+experts or their columns (the router whole), the Mamba-2 mixer by its
+SSD heads."""
 from repro_torch.dist.fault import (StepMonitor, StragglerEvent, Watchdog,
                                     pow2_mesh_shape)
 from repro_torch.dist.pipeline import pipeline_apply, stage_split

@@ -19,9 +19,22 @@ tensor-parallel server does: with 2 K/V heads over 4 ranks each rank
 holds the one its two query heads share, where the recipe's spec would
 keep both (indivisible) or cut a head in half (``wk``'s ``2 * hd``
 columns). When the query heads do not divide over ``model`` the
-attention stays whole on every rank. The specs and the drops stay the
-reference's; only the bytes of those leaves depart from them
-(``tests/test_torch_sharding.py`` pins which).
+attention stays whole on every rank.
+
+Two more leaves depart the same way. The Mamba-2 mixer is head-aligned:
+``in_proj``'s columns are ``[z | x | B | C | dt]`` and ``conv``'s
+channels ``[x | B | C]``, so a rank takes its own SSD heads' z, x and dt
+columns and x channels, its heads' ``A_log``, ``D``, ``dt_bias``,
+``norm`` and ``out_proj`` rows and state, and B/C (one group, every
+config's) whole on every rank, where the spec's
+contiguous block would mix z, x, B, C and dt; when the SSD heads do not
+divide over ``model`` the mixer stays whole. The MoE router stays whole
+on every rank (the spec splits it over ``experts``): each rank routes
+every token from the whole softmax, as one device does, and the expert
+weights split as the sanitized spec says, experts over ``model`` when
+they divide (expert-parallel), else ``expert_ffn`` (expert-split). The
+specs and the drops stay the reference's; only the bytes of those
+leaves depart from them (``tests/test_torch_sharding.py`` pins which).
 
 For training the placement also says where each gradient must be
 summed: over ``model`` where a replicated tensor enters a split region
@@ -37,7 +50,6 @@ train state, a checkpoint).
 from __future__ import annotations
 
 import itertools
-import math
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass, field
@@ -310,22 +322,6 @@ def use_mesh(mesh):
         _ACTIVE.mesh = prev
 
 
-#: The families whose blocks the tensor-parallel forms cover (attention
-#: + MLP); the rest wait for the next slice of the port.
-MESH_FAMILIES = ("dense", "vlm")
-
-
-def check_mesh_family(cfg, sizes: Dict[str, int]) -> None:
-    """Raise for a family the mesh forms do not cover on a mesh of more
-    than one device."""
-    if math.prod(sizes.values()) > 1 and cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) on mesh {sizes}: the sharded "
-            f"engines and the sharded train step cover {MESH_FAMILIES}; "
-            f"MoE, SSM, hybrid and audio models on a mesh come with the "
-            f"next slice of ROADMAP.md Queue 1 item 12")
-
-
 def active_mesh():
     """The ambient mesh (``use_mesh``), or None."""
     return _ACTIVE.mesh
@@ -381,7 +377,57 @@ class Placement:
         self.vocab_start = r * self.vocab_size if self.vocab_split else 0
         self.ffn_split = bool(cfg.d_ff) and self._over_model(
             ("ffn", "embed"), (cfg.d_ff, cfg.d_model))
+        self._moe_plan(r)
+        self._ssm_plan(r)
         self._peers = None
+
+    def _moe_plan(self, r: int) -> None:
+        """``moe_split``: ``experts`` (each rank runs ``n_experts`` local
+        experts from ``expert_start``), ``ffn`` (every expert at its
+        ``d_expert`` columns) or None (whole), as the sanitized spec of
+        the expert weights splits them; ``shared_split`` for the shared
+        experts, which split as the dense MLP does."""
+        m, M = self.cfg.moe, self.model
+        self.moe_split, self.shared_split = None, False
+        self.n_experts = m.n_experts if m is not None else 0
+        self.expert_start = 0
+        if m is None or M <= 1:
+            return
+        spec = _sanitize(self.recipe.spec_for(
+            ("experts", "embed", "expert_ffn")),
+            (m.n_experts, self.cfg.d_model, m.d_expert), self.sizes, None,
+            record=False)
+        spec = tuple(spec) + (None,) * (3 - len(spec))
+        if "model" in _parts(spec[0]):
+            self.moe_split = "experts"
+            self.n_experts = m.n_experts // M
+            self.expert_start = r * self.n_experts
+        elif "model" in _parts(spec[2]):
+            self.moe_split = "ffn"
+        if m.n_shared_experts:
+            ff_sh = m.n_shared_experts * (m.d_shared_expert or m.d_expert)
+            self.shared_split = self._over_model(("ffn", "embed"),
+                                                 (ff_sh, self.cfg.d_model))
+
+    def _ssm_plan(self, r: int) -> None:
+        """The head-aligned Mamba-2 mixer: ``ssm_split`` when the recipe
+        puts ``ssm_heads`` and ``ssm_inner`` on ``model``, the SSD heads
+        divide and one B/C group serves them all (every config's); this
+        rank's heads from ``ssm_head_start``."""
+        s, M = self.cfg.ssm, self.model
+        self.ssm_split = False
+        if s is None:
+            return
+        d = self.cfg.d_model
+        di, nh = s.d_inner(d), s.n_heads(d)
+        self._ssm = (di, nh, s.head_dim, s.n_groups, s.d_state)
+        rules = self.recipe.rules
+        self.ssm_split = (
+            M > 1 and _parts(rules.get("ssm_heads")) == ("model",)
+            and _parts(rules.get("ssm_inner")) == ("model",)
+            and nh % M == 0 and s.n_groups == 1)
+        self.ssm_heads = nh // M if self.ssm_split else nh
+        self.ssm_head_start = r * self.ssm_heads if self.ssm_split else 0
 
     def _over_model(self, axes, shape) -> bool:
         """Whether the recipe splits the leading dim over ``model``."""
@@ -403,18 +449,23 @@ class Placement:
                record: bool = True) -> Tuple[slice, ...]:
         """This rank's block of a leaf with logical ``axes``: the
         recipe's sanitized spec, but the attention heads by the head
-        plan; dims whose logical axis is in ``whole`` stay whole. Drops
-        are recorded unless ``record`` is False."""
+        plan, the Mamba-2 mixer by its heads (a dim of ``in_proj`` or
+        ``conv`` selects a list of indices, every other dim a slice) and
+        the router whole; dims whose logical axis is in ``whole`` stay
+        whole. Drops are recorded unless ``record`` is False."""
         axes = tuple(axes or (None,) * len(shape))
         spec = _sanitize(self.recipe.spec_for(axes), tuple(shape),
                          self.sizes, path, record)
         spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+        router = "experts" in axes and "expert_ffn" not in axes
         out = []
         for dim, name, entry in zip(shape, axes, spec):
-            if name in whole:
+            if name in whole or (router and name == "experts"):
                 out.append(slice(0, dim))
             elif name in ("heads", "kv_heads"):
                 out.append(self._head_block(name, dim))
+            elif name in ("ssm_heads", "ssm_inner"):
+                out.append(self._ssm_block(name, dim))
             else:
                 parts = _parts(entry)
                 ext, idx = 1, 0
@@ -437,9 +488,35 @@ class Placement:
             start, n = self.kv_start, self.kv_heads
         return slice(start * unit, (start + n) * unit)
 
+    def _ssm_block(self, name: str, dim: int) -> Union[slice, List[int]]:
+        """This rank's heads of a Mamba-2 dim: the ``ssm_heads`` rows,
+        or by the dim's size a ``d_inner`` dim (``norm``, ``out_proj``),
+        ``conv``'s channels ``[x | B | C]`` or ``in_proj``'s columns
+        ``[z | x | B | C | dt]``, each part at this rank's heads and B
+        and C whole."""
+        if not self.ssm_split:
+            return slice(0, dim)
+        di, nh, hp, g, N = self._ssm
+        h0, h1 = self.ssm_head_start, self.ssm_head_start + self.ssm_heads
+        if name == "ssm_heads":
+            return slice(h0, h1)
+        if dim == di:
+            return slice(h0 * hp, h1 * hp)
+        inner = list(range(h0 * hp, h1 * hp))
+        bc = list(range(di, di + 2 * N))
+        if dim == di + 2 * N:
+            return inner + bc
+        if dim == 2 * di + 2 * N + nh:
+            dt = 2 * di + 2 * N
+            return (inner + [di + c for c in inner] + [di + c for c in bc]
+                    + list(range(dt + h0, dt + h1)))
+        raise ValueError(f"an {name} dim of {dim} is none of the Mamba-2 "
+                         f"mixer's (d_inner {di}, conv {di + 2 * g * N}, "
+                         f"in_proj {2 * di + 2 * g * N + nh})")
+
     def local_shape(self, axes, shape, path=None,
                     whole: Tuple[str, ...] = ()) -> Tuple[int, ...]:
-        return tuple(s.stop - s.start
+        return tuple(_extent(s)
                      for s in self.slices(axes, tuple(shape), path, whole))
 
     def local_spec(self, spec: Dict[str, Tuple], axes: Dict[str, Tuple],
@@ -462,15 +539,33 @@ class Placement:
                            for c in coords]
         return self._peers
 
-    def copies(self, axes, shape) -> int:
-        """How many ranks hold a block equal to this rank's (every
-        block of a leaf has the same count): the world over the number
-        of distinct blocks."""
+    def copies(self, axes, shape):
+        """How many ranks hold each element of this rank's block. An int
+        where blocks are equal or disjoint (every block of a leaf has the
+        same count: the world over the number of distinct blocks); where
+        a dim selects a list of indices (the Mamba-2 mixer's, whose B/C
+        columns every rank holds beside its own heads'), a float tensor
+        that broadcasts over the block: each element's holders."""
         shape = tuple(shape)
-        blocks = {tuple((s.start, s.stop) for s in
-                        p.slices(axes, shape, record=False))
-                  for p in self.peers()}
-        return len(self.peers()) // len(blocks)
+        mine = self.slices(axes, shape, record=False)
+        listed = [i for i, s in enumerate(mine) if not isinstance(s, slice)]
+        if not listed:
+            blocks = {tuple(_key(s) for s in
+                            p.slices(axes, shape, record=False))
+                      for p in self.peers()}
+            return len(self.peers()) // len(blocks)
+        import torch
+        (dim,) = listed
+        at = {j: n for n, j in enumerate(mine[dim])}
+        count = torch.zeros(len(at))
+        for p in self.peers():
+            theirs = p.slices(axes, shape, record=False)
+            if all(_key(a) == _key(b) for i, (a, b) in
+                   enumerate(zip(theirs, mine)) if i != dim):
+                hit = [at[j] for j in theirs[dim] if j in at]
+                count[hit] += 1
+        return count.reshape([-1 if i == dim else 1
+                              for i in range(len(shape))])
 
     def owns(self, axes, shape) -> bool:
         """Whether this rank is the first (lowest rank) of those holding
@@ -558,6 +653,19 @@ class Placement:
         group = self.mesh.subgroup(self.kv_groups())
         return t if group is None else self.mesh.enter(t, group=group)
 
+    def total_model(self, t):
+        """The sum of ``t`` over ``model`` whose backward sums too: each
+        rank's consumers of the total differ (the gated norm's sum of
+        squares over ``d_inner``, each rank normalising its own heads)."""
+        return self.mesh.total(t, "model")
+
+    def total_data(self, t):
+        """The sum of ``t`` over ``data`` whose backward sums too: a
+        statistic of the global batch (the MoE aux loss's means) that
+        every data rank computes the same loss from; its gradient is
+        then averaged over ``data`` with the others."""
+        return self.mesh.total(t, "data")
+
     def gather_data(self, t, dim: int):
         """A weight split over ``data`` on ``dim``, gathered whole for
         its layer; the backward sums the gradient over ``data`` and
@@ -577,6 +685,21 @@ class Placement:
     def slot_block(self, n_slots: int) -> slice:
         """The engine's slots this rank holds (its block of ``pos``)."""
         return self.slices(("batch",), (n_slots,), "pos")[0]
+
+
+def _extent(sel) -> int:
+    """The size of one dim's selection: a slice or a list of indices."""
+    return sel.stop - sel.start if isinstance(sel, slice) else len(sel)
+
+
+def _key(sel) -> Tuple:
+    return (sel.start, sel.stop) if isinstance(sel, slice) else tuple(sel)
+
+
+def _key_all(pl: Placement, axes, shape) -> bool:
+    """Whether every rank holds the whole leaf."""
+    c = pl.copies(axes, shape)
+    return isinstance(c, int) and c == len(pl.peers())
 
 
 # ---------------------------------------------------------------------------
@@ -696,7 +819,7 @@ class TreeLayout:
         out: Dict[str, Any] = {}
         for keys, block, ax, shape, _, _ in self.blocks(tree):
             block = block.detach()
-            if self.pl.copies(ax, shape) == len(self.pl.peers()):
+            if _key_all(self.pl, ax, shape):
                 whole = block.to("cpu", copy=True)
             else:
                 whole = self.pl.local_to_global(block, ax, shape).cpu()

@@ -26,7 +26,10 @@ two operators among them: :meth:`Mesh.sum` (*g*: the sum forward, the
 identity backward, for a row-parallel product's partial sums whose
 consumers compute the same thing on every rank), :meth:`Mesh.enter`
 (*f*: the identity forward, the sum backward, for a replicated tensor
-entering a split region), :meth:`Mesh.gather` (backward: this rank's
+entering a split region), :meth:`Mesh.total` (the sum forward and
+backward: a total each rank consumes differently, as the Mamba-2 gated
+norm's sum of squares, or a global-batch statistic, as the MoE aux
+loss's means), :meth:`Mesh.gather` (backward: this rank's
 slice of the gradient, summed over the axis first for a weight
 gathered over ``data``) and :meth:`Mesh.shift` (a ring shift whose
 backward shifts the gradient the other way).
@@ -47,8 +50,7 @@ from typing import Any, Callable, List, Optional, Sequence, Union
 import torch
 import torch.distributed as dist
 
-from repro_torch.dist.sharding import (Placement, Recipe,
-                                      check_mesh_family, use_mesh)
+from repro_torch.dist.sharding import Placement, Recipe, use_mesh
 
 __all__ = ["Mesh", "make_mesh", "parse_mesh", "pick_backend", "rank_device",
            "run_mesh", "use_mesh"]
@@ -118,6 +120,19 @@ class _Enter(torch.autograd.Function):
     def forward(ctx, t, group):
         ctx.group = group
         return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum(grad, ctx.group), None
+
+
+class _Total(torch.autograd.Function):
+    """The sum over a group whose backward is the sum too."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _sum(t, group)
 
     @staticmethod
     def backward(ctx, grad):
@@ -195,7 +210,6 @@ class Mesh:
         """``cfg``'s placement on this rank under ``recipe`` (cached)."""
         key = (cfg, recipe.key())
         if key not in self._placements:
-            check_mesh_family(cfg, self.sizes)
             self._placements[key] = Placement(cfg, recipe, self)
         return self._placements[key]
 
@@ -241,6 +255,15 @@ class Mesh:
                 return t
             group = self._groups[axis]
         return _Enter.apply(t, group)
+
+    def total(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum over ``axis`` whose backward sums the gradient over it
+        too: for a total that every rank consumes differently (a norm's
+        sum of squares over a split row), or a statistic of the global
+        batch that each data rank's loss reads."""
+        if self.sizes[axis] == 1:
+            return t
+        return _Total.apply(t, self._groups[axis])
 
     def gather(self, t: torch.Tensor, axis: str, dim: int,
                reduce: bool = False) -> torch.Tensor:

@@ -46,8 +46,8 @@ device_count}``: on one card the ranks share it over ``gloo``, on D x M
 cards each has its own over ``nccl`` (``--device cpu``: ``gloo`` on the
 CPU). ``--preflight`` and ``--hbm-gb`` then price each device. Rank 0's
 run is the one reported, and every rank must have served the same
-tokens. The families on a mesh are ``dense`` and ``vlm``; the launcher
-refuses the others there.
+tokens. Every decoder family runs on a mesh (an encoder such as
+hubert-xlarge has no decode step, on a mesh or not).
 
 ``main(argv)`` returns what it measured (the requests served, the step
 percentiles, the engine's stats and the two gates' reports) to an
@@ -65,7 +65,6 @@ import torch
 from repro_torch.analysis.capacity import serve_preflight
 from repro_torch.analysis.deploy_lint import DeploymentSpec, deploy_preflight
 from repro_torch.configs import get_arch, smoke_config
-from repro_torch.dist.sharding import check_mesh_family
 from repro_torch.launch.mesh import parse_mesh, run_mesh
 from repro_torch.models import ModelRuntime, init_params
 from repro_torch.serve import (PagedServeEngine, Request, Sampler,
@@ -160,7 +159,7 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None,
                     help="DxM device mesh, e.g. 2x4 -> (data, model): one "
                          "process a rank, the sharded engines under the "
-                         "decode recipe (dense and vlm archs)")
+                         "decode recipe (every decoder family)")
     ap.add_argument("--preflight", action="store_true",
                     help="gate the config through the closed-form HBM "
                          "capacity model before allocating anything; "
@@ -203,10 +202,6 @@ def main(argv=None):
     mesh_shape = sizes = None
     if args.mesh:
         mesh_shape, sizes = parse_mesh(args.mesh)
-        try:
-            check_mesh_family(cfg, sizes)
-        except NotImplementedError as e:
-            raise SystemExit(str(e)) from None
 
     scenario = drep = cap = None
     if args.scenario:

@@ -22,8 +22,9 @@ the ranks load it. Rank 0's lines are printed when the run ends, and
 every rank's losses must equal rank 0's. With ``--ckpt-dir`` the mesh
 writes whole leaves (the files of a one-device run), and a resume on
 another ``--mesh`` or recipe reads each rank's blocks of them
-(``ckpt.restore_elastic``). The families on a mesh are ``dense`` and
-``vlm``; the launcher refuses the others there.
+(``ckpt.restore_elastic``). Every family the one-device launcher
+trains runs on a mesh (the MoE, SSM and hybrid ones under the recipe's
+expert and head-aligned placements, ``dist.sharding``).
 """
 from __future__ import annotations
 
@@ -36,8 +37,7 @@ from repro_torch.ckpt import (AsyncCheckpointer, latest_step, restore,
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.data import SyntheticLMData
 from repro_torch.dist.fault import StepMonitor
-from repro_torch.dist.sharding import (check_mesh_family, default_recipe,
-                                       use_mesh)
+from repro_torch.dist.sharding import default_recipe, use_mesh
 from repro_torch.launch.mesh import parse_mesh, run_mesh
 from repro_torch.models import ModelRuntime, init_params
 from repro_torch.train import AdamWConfig, TrainConfig, train_loop
@@ -128,10 +128,6 @@ def main(argv=None):
     mesh_shape = None
     if args.mesh:
         mesh_shape, sizes = parse_mesh(args.mesh)
-        try:
-            check_mesh_family(cfg, sizes)
-        except NotImplementedError as e:
-            raise SystemExit(str(e)) from None
         if recipe is None:
             recipe = default_recipe(cfg, "train", sizes["model"])
     rt = ModelRuntime(dtype=args.dtype, remat="none", attn_chunk=128,

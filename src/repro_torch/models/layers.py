@@ -202,6 +202,18 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, tables, cfg: ModelConfig
 # ===========================================================================
 # Activations + loss
 # ===========================================================================
+def row_parallel(h: torch.Tensor, w: torch.Tensor, pl=None) -> torch.Tensor:
+    """``h @ w`` in ``h``'s dtype. With ``pl`` (a ``dist.sharding.
+    Placement``) ``w`` holds this rank's rows of a weight split over
+    ``model``: the rank's partial product is taken in f32, summed over
+    ``model`` and rounded to ``h``'s dtype once, as one device's product
+    rounds once (bf16 partials rounded before the sum would differ from
+    it by an ulp in a good share of the elements)."""
+    if pl is None:
+        return h @ w.to(h.dtype)
+    return pl.reduce_model(h.float() @ w.float()).to(h.dtype)
+
+
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
 

@@ -58,7 +58,16 @@ through an f over the ranks that hold the same K/V heads. Where the
 attention stays whole on every rank there is neither. Under a recipe
 that splits ``embed`` over ``data`` (IS) each leaf split over ``data``
 is gathered whole just before its layer runs, inside the remat region,
-one layer at a time; the gather's backward sums over ``data``.
+one layer at a time (the hybrid's shared block at each use); the
+gather's backward sums over ``data``.
+
+The MoE layer (``models.moe``) runs this rank's experts, or every
+expert's columns, and the Mamba-2 mixer (``models.ssm``) this rank's SSD
+heads; both sum their partial outputs over ``model``. :func:`forward`
+and :func:`loss_fn` take this ``data`` rank's rows of the global batch
+(the train step's ``make_global_batch``), so the MoE keeps its capacity,
+slot order and aux loss global over ``data``; :func:`prefill` takes the
+whole batch on every rank.
 """
 from __future__ import annotations
 
@@ -313,11 +322,11 @@ def _kv_layers(cfg: ModelConfig) -> int:
 # ===========================================================================
 # Blocks
 # ===========================================================================
-def _row_parallel(y: torch.Tensor, pl: Optional[Placement],
+def _row_parallel(h: torch.Tensor, w: torch.Tensor, pl: Optional[Placement],
                   split: bool) -> torch.Tensor:
-    """A row-parallel product's partial sum, summed over ``model`` where
-    the leaf is split (one device: ``y`` as it is)."""
-    return pl.reduce_model(y) if pl is not None and split else y
+    """``h @ w``, summed over ``model`` where ``w`` is split by rows
+    (``layers.row_parallel``; one device: the product as it is)."""
+    return L.row_parallel(h, w, pl if pl is not None and split else None)
 
 
 def _mlp(p: Dict[str, torch.Tensor], h: torch.Tensor,
@@ -328,8 +337,7 @@ def _mlp(p: Dict[str, torch.Tensor], h: torch.Tensor,
         z = swiglu(h @ p["wg"].to(h.dtype), h @ p["wi"].to(h.dtype))
     else:
         z = gelu(h @ p["wi"].to(h.dtype))
-    return _row_parallel(z @ p["wo2"].to(h.dtype), pl,
-                         pl is not None and pl.ffn_split)
+    return _row_parallel(z, p["wo2"], pl, pl is not None and pl.ffn_split)
 
 
 def _attn_proj(p, h, cfg: ModelConfig, policy=None,
@@ -355,13 +363,16 @@ def _attn_proj(p, h, cfg: ModelConfig, policy=None,
 
 
 def _ffn(p, h: torch.Tensor, cfg: ModelConfig, pol, dropless: bool,
-         token_chunk: int = 0, pl: Optional[Placement] = None
+         token_chunk: int = 0, pl: Optional[Placement] = None,
+         rows_split: bool = False
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The block's FFN on (B, S, d): the MoE layer (with its aux loss) or
-    the dense MLP (aux None)."""
+    the dense MLP (aux None). ``rows_split``: h holds this ``data``
+    rank's rows of the global batch (the MoE's semantics stay global)."""
     if cfg.moe is not None:
         return MOE.moe_ffn(p["moe"], h, cfg, dropless=dropless,
-                           token_chunk=token_chunk, policy=pol)
+                           token_chunk=token_chunk, policy=pol, pl=pl,
+                           rows_split=rows_split)
     return _mlp(p, h, cfg, pl), None
 
 
@@ -369,13 +380,12 @@ def _attn_out(o: torch.Tensor, p, x: torch.Tensor,
               pl: Optional[Placement]) -> torch.Tensor:
     """The attention output projection, summed over ``model`` where the
     heads are split."""
-    return _row_parallel(o @ p["wo"].to(x.dtype), pl,
-                         pl is not None and pl.heads_split)
+    return _row_parallel(o, p["wo"], pl, pl is not None and pl.heads_split)
 
 
 def attn_block(p: Dict[str, Any], x: torch.Tensor, rope,
                cfg: ModelConfig, rt: ModelRuntime,
-               pl: Optional[Placement] = None):
+               pl: Optional[Placement] = None, rows_split: bool = False):
     """Pre-norm attention + FFN block. Returns (x, aux or None, (k, v));
     k/v are post-RoPE, exactly what the decode cache stores."""
     pol = rt.kernel_policy()
@@ -387,17 +397,18 @@ def attn_block(p: Dict[str, Any], x: torch.Tensor, rope,
     o = o.reshape(x.shape[0], x.shape[1], -1)
     x = x + _attn_out(o, p, x, pl)
     h2 = norm(x, p["ln2"], cfg.norm, policy=pol)
-    y, aux = _ffn(p, h2, cfg, pol, rt.moe_dropless, rt.moe_chunk, pl)
+    y, aux = _ffn(p, h2, cfg, pol, rt.moe_dropless, rt.moe_chunk, pl,
+                  rows_split)
     return x + y, aux, (k, v)
 
 
 def mamba_block(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
-                rt: ModelRuntime):
+                rt: ModelRuntime, pl: Optional[Placement] = None):
     """Pre-norm Mamba-2 block. Returns (x, {'conv', 'ssm'} final states
-    for the prefill handoff)."""
+    for the prefill handoff; this rank's heads under a mesh)."""
     pol = rt.kernel_policy()
     h = norm(x, p["ln"], cfg.norm, policy=pol)
-    y, state = SSM.ssm_block(p["ssm"], h, cfg, policy=pol)
+    y, state = SSM.ssm_block(p["ssm"], h, cfg, policy=pol, pl=pl)
     return x + y, state
 
 
@@ -522,25 +533,32 @@ def _gather_data(p, dims, pl: Optional[Placement], stacked: bool = True):
 
 
 def _run_blocks(params, cfg: ModelConfig, x, positions, rt: ModelRuntime,
-                on_layer=None, pl: Optional[Placement] = None):
+                on_layer=None, pl: Optional[Placement] = None,
+                rows_split: bool = False):
     """Every block in :func:`_schedule`'s order, each under ``rt.remat``
     (the reference remats a hybrid group whole; the gradients are the
     same); ``on_layer(i, material)`` receives each block's cache
     material: ``(k, v)`` for attention block i, the ``{conv, ssm}`` final
     states for Mamba-2 layer i. Returns (x, summed aux loss f32). Under
-    a recipe that splits weights over ``data`` each attention block
-    gathers its layer's leaves first, inside its remat region."""
+    a recipe that splits weights over ``data`` each block gathers its
+    layer's leaves first, inside its remat region (the hybrid's shared
+    block at each of its uses). ``rows_split``: x holds this ``data``
+    rank's rows of the global batch."""
     aux = torch.zeros((), device=x.device)
     rope = None if cfg.family == "ssm" else L.rope_tables(positions, cfg)
-    dims = None if pl is None else data_dims(cfg, pl)["blocks"]
+    dims = None if pl is None else data_dims(cfg, pl)
+    attn_dims = None if pl is None else dims[
+        "shared" if cfg.family == "hybrid" else "blocks"]
+    mamba_dims = None if pl is None else dims["blocks"]
 
     def attn(p, x_):
-        p = _gather_data(p, dims, pl, stacked=False)
-        x_, a, kv = attn_block(p, x_, rope, cfg, rt, pl)
+        p = _gather_data(p, attn_dims, pl, stacked=False)
+        x_, a, kv = attn_block(p, x_, rope, cfg, rt, pl, rows_split)
         return x_, kv, a
 
     def mamba(p, x_):
-        return mamba_block(p, x_, cfg, rt) + (None,)
+        p = _gather_data(p, mamba_dims, pl, stacked=False)
+        return mamba_block(p, x_, cfg, rt, pl) + (None,)
 
     blocks = {"attn": _remat(attn, rt), "mamba": _remat(mamba, rt)}
     for kind, i, p in _schedule(params, cfg):
@@ -564,11 +582,13 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     if pl is not None:       # the embedding, final norm and head (IS)
         dims = data_dims(cfg, pl)
         params = dict(params, **_gather_data(
-            {k: v for k, v in params.items() if k != "blocks"}, dims, pl))
+            {k: v for k, v in params.items()
+             if k not in ("blocks", "shared")}, dims, pl))
     x = _embed_in(params, batch, rt, pl)
     B, S, _ = x.shape
     positions = _positions(cfg, batch, B, S, x.device)
-    x, aux = _run_blocks(params, cfg, x, positions, rt, pl=pl)
+    x, aux = _run_blocks(params, cfg, x, positions, rt, pl=pl,
+                         rows_split=pl is not None and pl.batch_split)
     x = norm(x, params["final_norm"], cfg.norm, policy=rt.kernel_policy())
     return _unembed(params, cfg, x, pl), aux
 
@@ -778,12 +798,14 @@ def _attn_decode_one(p, x, kv, idx, attend, rope, cfg: ModelConfig,
                     pl=pl)[0][:, 0]
 
 
-def _mamba_decode_one(p, x, cache, i: int, cfg: ModelConfig, pol):
+def _mamba_decode_one(p, x, cache, i: int, cfg: ModelConfig, pol,
+                      pl: Optional[Placement] = None):
     """One Mamba-2 layer for one token; layer i's state is written back
     into the cache in place."""
     h = norm(x, p["ln"], cfg.norm, policy=pol)
     y, st = SSM.ssm_decode_step(p["ssm"], h, {
-        "conv": cache["conv"][i], "ssm": cache["ssm"][i]}, cfg, policy=pol)
+        "conv": cache["conv"][i], "ssm": cache["ssm"][i]}, cfg, policy=pol,
+        pl=pl)
     cache["conv"][i] = st["conv"]
     cache["ssm"][i] = st["ssm"]
     return x + y
@@ -813,7 +835,7 @@ def _decode_blocks(params, cfg: ModelConfig, cache, x, rt: ModelRuntime,
         rope = L.rope_tables(posv, cfg)
     for kind, i, p in _schedule(params, cfg):
         if kind == "mamba":
-            x = _mamba_decode_one(p, x, cache, i, cfg, pol)
+            x = _mamba_decode_one(p, x, cache, i, cfg, pol, pl)
             continue
         kv = tuple(cache[n][i] if n in cache else None for n in names)
         x = _attn_decode_one(p, x, kv, idx, attend, rope, cfg, rt, pl, rows)
@@ -832,7 +854,7 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, torch.Tensor],
     pos = cache["pos"]
     x = _lookup(params, tokens, rt, pl)                          # (B, d)
     if cfg.family == "ssm":
-        logits = _decode_blocks(params, cfg, cache, x, rt)
+        logits = _decode_blocks(params, cfg, cache, x, rt, pl=pl)
         pos += 1
         return cache, logits
     W = cache["k"].shape[2]

@@ -12,11 +12,11 @@ from repro_torch.serve.scenarios import (SCENARIOS, ArrivalSpec, LengthDist,
                                          Scenario, SLOSpec, get_scenario)
 from repro_torch.serve.scheduler import AdmissionPlan, Scheduler
 from repro_torch.serve.sharded import (ShardedPagedServeEngine,
-                                       ShardedServeEngine)
+                                       ShardedServeEngine, mesh_forward)
 
 __all__ = ["AdmissionPlan", "ArrivalSpec", "EngineStats", "LengthDist",
            "NULL_PAGE", "PagedKVCache", "PagedServeEngine", "PagesExhausted",
            "ParityReport", "Request", "SCENARIOS", "SLOSpec", "Sampler",
            "Scenario", "Scheduler", "ServeEngine", "ShardedPagedServeEngine",
            "ShardedServeEngine", "get_scenario", "logit_parity",
-           "prefix_page_keys"]
+           "mesh_forward", "prefix_page_keys"]

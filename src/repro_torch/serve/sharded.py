@@ -16,11 +16,16 @@ logits of every slot are gathered over ``data`` at the end of each step
 and a prefill's logits are broadcast from the first rank over ``data``,
 so every rank samples the same tokens and keeps the same host state.
 Rank 0's ``run()`` is the result; the sharded engine serves the same
-tokens as the one-device engine (``tests/test_torch_multidevice.py``).
-The families covered are ``dense`` and ``vlm``; any other on a mesh of
-more than one device raises ``NotImplementedError``, as does a recipe
-that splits the model dim (``IS``, ``*+zero3``): the train step
-streams such weights (``train.loop``), serving does not yet.
+tokens as the one-device engine (``tests/test_torch_multidevice.py``,
+``tests/test_torch_mesh_moe.py``, ``tests/test_torch_mesh_ssm.py``).
+Every decoder family runs: dense and vlm, the MoE (expert-parallel or
+expert-split), the SSM (head-aligned, no pages: its state is O(1) a
+slot) and the hybrid (its shared blocks' K/V contiguous per slot or
+paged, its state per slot). A recipe that splits the model dim (``IS``,
+``*+zero3``) raises ``NotImplementedError``: the train step streams
+such weights (``train.loop``), serving does not yet.
+:func:`mesh_forward` runs the non-causal forward of an encoder (hubert)
+or any model's logits on a mesh.
 """
 from __future__ import annotations
 
@@ -32,9 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch.dist.sharding import (DECODE_RECIPE, Recipe, axis_rules,
-                                       check_mesh_family, shard_tree,
-                                       use_mesh)
-from repro_torch.models.model import axes_tree, leaf_dtype
+                                       default_recipe, shard_tree, use_mesh)
+from repro_torch.models.model import axes_tree, forward, leaf_dtype
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.paged import PagedServeEngine
 from repro_torch.tree import tree_leaves
@@ -49,7 +53,6 @@ class ShardedServeEngine(ServeEngine):
 
     def __init__(self, params, cfg, rt, mesh,
                  recipe: Optional[Recipe] = None, **kw):
-        check_mesh_family(cfg, mesh.sizes)
         self.mesh = mesh
         self.recipe = recipe if recipe is not None else DECODE_RECIPE
         if self.recipe.rules.get("embed") is not None:
@@ -59,7 +62,7 @@ class ShardedServeEngine(ServeEngine):
                 f"serving forms keep d_model whole on every rank (the "
                 f"sharded train step gathers such weights layer by layer; "
                 f"serving with them waits for the next slice of ROADMAP.md "
-                f"Queue 1 item 12)")
+                f"Queue 1 item 12, with sharding_prop)")
         self.placement = mesh.placement(cfg, self.recipe)
         rt = dataclasses.replace(rt, device=str(mesh.device))
         params = shard_tree(params, axes_tree(cfg), self.recipe, mesh, cfg,
@@ -169,4 +172,33 @@ def mesh_serve(mesh, params, cfg, runs: Sequence[Dict[str, Any]],
             "slots": (eng._slot_lo, eng._slot_hi),
         })
         del eng
+    return out
+
+
+def mesh_forward(mesh, params, cfg, runs: Sequence[Dict[str, Any]],
+                 recipe: Optional[Recipe] = None) -> List[Dict[str, Any]]:
+    """One rank's forward runs, for ``launch.mesh.run_mesh``: each run (a
+    dict of ``rt`` and ``batch``, the global batch as host arrays or
+    tensors: each ``data`` rank takes its rows) calls ``forward`` on this
+    rank's blocks of ``params`` under ``recipe`` (default the reference
+    launcher's prefill recipe); per run the logits of every row
+    (gathered over ``data``, on the CPU), the aux loss and this rank's
+    parameter bytes."""
+    from repro_torch.data.pipeline import make_global_batch
+    recipe = recipe if recipe is not None else default_recipe(
+        cfg, "prefill", mesh.sizes.get("model", 1))
+    out = []
+    for run in runs:
+        rt = dataclasses.replace(run["rt"], device=str(mesh.device))
+        with use_mesh(mesh), axis_rules(recipe), torch.no_grad():
+            blocks = shard_tree(params, axes_tree(cfg), recipe, mesh, cfg,
+                                dtype=lambda path: leaf_dtype(path, rt))
+            batch = make_global_batch(run["batch"], mesh)
+            logits, aux = forward(blocks, cfg, batch, rt)
+            logits = mesh.all_gather(logits, "data", 0)
+        out.append({"rank": mesh.rank, "coords": dict(mesh.coords),
+                    "backend": mesh.backend, "recipe": recipe.name,
+                    "logits": logits.float().cpu(), "aux": float(aux),
+                    "params_bytes": _nbytes(blocks)})
+        del blocks
     return out

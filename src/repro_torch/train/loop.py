@@ -18,8 +18,11 @@ data rank takes its block of it (``data.make_global_batch``). Every
 leaf's gradient is summed over ``data`` once (an all-reduce, or the
 backward of its gather) and divided by the ``data`` size; the clipping
 norm counts each element of the logical tree once
-(``optim.global_norm``); AdamW updates each block. Loss, ce and aux are
-averaged over ``data``, so every rank reports one device's numbers. A
+(``optim.global_norm``: a block's squares, or for the Mamba-2 mixer
+each column's, divided by its holders); AdamW updates each block.
+Loss, ce and aux are averaged over ``data``, so every rank reports one
+device's numbers: the MoE aux loss is already the global batch's on
+every rank (``models.moe``), its gradient entering once. A
 recipe is placement, not semantics: ``tests/test_torch_train_mesh.py``
 holds the mesh to one device and to the JAX package.
 """
@@ -35,8 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import batch_dim, make_global_batch
 from repro_torch.dist.sharding import (RECIPES, Recipe, TreeLayout,
                                        active_mesh, active_placement,
-                                       axis_rules, check_mesh_family,
-                                       shard_tree)
+                                       axis_rules, shard_tree)
 from repro_torch.models.model import (ModelRuntime, axes_tree, check_device,
                                       data_dims, loss_fn, param_defs)
 from repro_torch.train.optim import (AdamWConfig, adamw_init, adamw_update,
@@ -174,9 +176,6 @@ def make_train_step(cfg: ModelConfig, rt: ModelRuntime, tc: TrainConfig,
     ``grads(params, batch)`` returns (loss, metrics, gradients) as the
     step takes them, reduced over ``data``."""
     recipe = check_recipe(recipe)
-    mesh = active_mesh()
-    if recipe is not None and mesh is not None and mesh.devices > 1:
-        check_mesh_family(cfg, mesh.sizes)
 
     def compute(pl, params, batch):
         """(loss, metrics, gradients) as the step takes them: on one

@@ -90,14 +90,15 @@ def adamw_init(params) -> Dict[str, Any]:
 def global_norm(tree, copies=None, reduce=None) -> torch.Tensor:
     """The f32 norm of every leaf of ``tree`` together. On a mesh,
     ``tree`` is this rank's blocks, ``copies`` a tree of how many ranks
-    hold each block (each block's squares are divided by it, so every
-    element of the logical tree counts once) and ``reduce`` the sum of
-    the partial squares over every rank; then every rank gets one
-    device's norm."""
+    hold each block, or each element of it (a tensor that broadcasts over
+    the block): the squares are divided by it, so every element of the
+    logical tree counts once; ``reduce`` is the sum of the partial
+    squares over every rank; then every rank gets one device's norm."""
     if copies is None:
         return torch.sqrt(sum(torch.sum(torch.square(g.float()))
                               for g in tree_leaves(tree)))
-    part = sum(torch.sum(torch.square(g.float())) / c
+    part = sum(torch.sum(torch.square(g.float())) / c if isinstance(c, int)
+               else torch.sum(torch.square(g.float()) / c.to(g.device))
                for g, c in zip(tree_leaves(tree), tree_leaves(copies)))
     return torch.sqrt(reduce(part))
 

@@ -3,8 +3,8 @@
 
 :func:`mesh_train` drives the sharded train step (``train.loop``) on
 this rank's blocks through a list of runs and returns, per run, what a
-caller holds against one device: every step's loss, ce, gradient norm,
-learning rate and wall time; this rank's state bytes; on request step
+caller holds against one device: every step's loss, ce, aux, gradient
+norm, learning rate and wall time; this rank's state bytes; on request step
 0's gradients (assembled whole, or each block against a whole reference
 tree), the whole state after the steps, whether every block of this
 rank equals its slices of that whole state, a checkpoint written from
@@ -103,7 +103,7 @@ def mesh_train(mesh, runs: Sequence[Dict[str, Any]]) -> List[Dict]:
                     whole = param_layout(cfg, pl).gather(g)
                     rec["grads"] = whole if mesh.rank == 0 else None
                 del g
-            keys = ("loss", "ce", "grad_norm", "lr")
+            keys = ("loss", "ce", "aux", "grad_norm", "lr")
             for k in keys + ("step_ms",):
                 rec[k] = []
             for batch in run["batches"]:

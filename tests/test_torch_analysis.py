@@ -8,8 +8,8 @@
   ``PagedServeEngine`` allocate, for every family, contiguous and paged,
   bf16 and int8 KV; equal to the reference's ``argument_bytes`` where
   the dtypes agree; the peak formula under the reference's (XLA's)
-  coefficients equal to its ``peak_bytes``; a mesh priced per device,
-  the next slice's families refused on it;
+  coefficients equal to its ``peak_bytes``; a mesh priced per device
+  for every family;
 * ``analysis/deploy_lint.py`` — ``deploy_preflight`` equal to the
   reference's under ``H100_AS_TPU`` (the reference's chip vocabulary
   carrying the H100's numbers) for every arch and scenario at smoke
@@ -51,7 +51,6 @@ from repro_torch.analysis.runner import run_analysis  # noqa: E402
 from repro_torch.configs import ARCHS, get_arch, smoke_config  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core.hardware import H100_SXM  # noqa: E402
-from repro_torch.dist.sharding import check_mesh_family  # noqa: E402
 from repro_torch.models import (ModelRuntime, init_cache,  # noqa: E402
                                 init_paged_cache, init_params)
 from repro_torch.serve import (PagedServeEngine, Request,  # noqa: E402
@@ -252,22 +251,27 @@ def test_card_calibration_covers_its_features():
     assert cap.XLA_CALIBRATION == jcap.CALIBRATION
 
 
-def test_mesh_refused_and_one_device_accepted():
+def test_mesh_priced_for_every_family_and_one_device_accepted():
     """A mesh is priced per device for every family (pure shape math;
-    ``tests/test_torch_sharding.py`` holds the bytes to the reference's);
-    serving on it refuses the families the next slice brings; one device
+    ``tests/test_torch_sharding.py`` holds the bytes to the reference's):
+    the SSM's state at its heads, the MoE's experts a rank; one device
     is the default."""
     cfg = smoke_config(get_arch("minicpm-2b"))
     ssm = smoke_config(get_arch("mamba2-1.3b"))
+    moe = smoke_config(get_arch("qwen2-moe-a2.7b"))
     for mesh in ({"data": 2, "model": 1}, {"data": 1, "model": 4}):
         rep = cap.serve_preflight(cfg, n_slots=2, max_len=32, mesh=mesh)
         assert rep.mesh_sizes == mesh
         assert rep.devices == mesh["data"] * mesh["model"]
         assert DeploymentSpec(mesh=mesh).mesh == mesh
         assert deploy_preflight(cfg, "chat_burst", mesh=mesh).mesh == mesh
-        with pytest.raises(NotImplementedError, match="item 12"):
-            check_mesh_family(ssm, mesh)
-        check_mesh_family(cfg, mesh)
+        for c in (ssm, moe):
+            one = cap.serve_preflight(c, n_slots=2, max_len=32)
+            rep = cap.serve_preflight(c, n_slots=2, max_len=32, mesh=mesh)
+            assert rep.mesh_sizes == mesh
+            assert rep.cache_bytes < one.cache_bytes
+            assert (rep.params_bytes < one.params_bytes) == \
+                (mesh["model"] > 1)
     one = cap.serve_preflight(cfg, n_slots=2, max_len=32,
                               mesh={"data": 1, "model": 1})
     assert one == cap.serve_preflight(cfg, n_slots=2, max_len=32)

@@ -27,7 +27,8 @@ from repro.analysis.kernel_validator import \
     validate_impl as jvalidate_impl  # noqa: E402
 
 from repro_torch.analysis.kernel_validator import (  # noqa: E402
-    check_plan, validate_impl, validate_preset)
+    check_plan, mesh_cases, validate_impl, validate_mesh_cases,
+    validate_preset)
 from repro_torch.kernels import dispatch as D  # noqa: E402
 from repro_torch.kernels import plan as P  # noqa: E402
 from repro_torch.kernels import tune  # noqa: E402
@@ -203,6 +204,18 @@ def test_fixture_trace_error():
 @pytest.mark.parametrize("preset", [tune.CI, tune.H100], ids=lambda p: p.name)
 def test_real_plans_are_clean_over_the_tune_grid(preset):
     assert validate_preset(preset) == []
+
+
+def test_real_plans_are_clean_at_the_mesh_shapes():
+    """The grouped GEMM and the SSD scan plan clean at the shapes a rank
+    runs them on a mesh: qwen2-moe's 15 experts a rank (``model`` 4) and
+    176 columns of its 60 (``model`` 8), mamba2's 32 and 16 SSD heads
+    and zamba2's 40."""
+    assert validate_mesh_cases() == []
+    shapes = {(op, tuple(args[1].shape)) for op, _, args, _ in mesh_cases()}
+    assert {("moe_gemm", (15, 2048, 1408)), ("moe_gemm", (60, 2048, 176)),
+            ("moe_gemm", (60, 176, 2048))} <= shapes
+    assert {s[1][2] for s in shapes if s[0] == "ssd_scan"} == {16, 32, 40}
 
 
 def test_every_cuda_impl_carries_its_plan():

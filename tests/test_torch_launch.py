@@ -130,11 +130,25 @@ def test_mesh_serves_the_one_device_tokens(capsys, page_size):
 
 
 def test_mesh_refusals(no_alloc):
-    with pytest.raises(SystemExit, match="next slice"):
-        launcher.main(["--arch", "mamba2-1.3b", "--smoke", "--device",
+    """An encoder has no decode step on a mesh either, and a mesh must
+    read DxM: both refused before any weight is drawn."""
+    with pytest.raises(SystemExit, match="encoder-only"):
+        launcher.main(["--arch", "hubert-xlarge", "--smoke", "--device",
                        "cpu", "--mesh", "1x2"])
     with pytest.raises(SystemExit, match="DxM"):
         launcher.main(SMOKE + ["--mesh", "2by2"])
+
+
+def test_mesh_serves_an_ssm_model(capsys):
+    """``--mesh 1x2`` takes the SSM family: mamba2's SSD heads split over
+    the two ranks, the tokens the one-device launcher's."""
+    argv = ["--arch", "mamba2-1.3b", "--smoke", "--device", "cpu",
+            "--requests", "3", "--max-new", "4", "--max-len", "64"]
+    one = launcher.main(argv)
+    out = launcher.main(argv + ["--mesh", "1x2"])
+    assert "mesh 1x2 (data, model) over gloo" in capsys.readouterr().out
+    assert {r.rid: r.out_tokens for r in out["finished"]} == \
+        {r.rid: r.out_tokens for r in one["finished"]}
 
 
 # ===========================================================================

@@ -201,15 +201,15 @@ def test_backend_rule():
 
 
 @pytest.mark.parametrize("arch,mesh,recipe,kw,match", [
-    ("mamba2-1.3b", (1, 2), None, {}, "next slice"),
+    ("hubert-xlarge", (1, 2), None, {}, "encoder-only"),
     ("minicpm-2b", (1, 2), IS_RECIPE, {}, "streams the weights"),
     ("minicpm-2b", (2, 1), None, dict(n_slots=3), "does not divide")])
 def test_a_rank_failure_stops_the_mesh(weights, arch, mesh, recipe, kw,
                                        match):
     """A rank that raises stops every rank, and its traceback reaches
-    the caller (nothing is caught and passed over): an SSM on a mesh, a
-    recipe that splits the model dim, slots that do not divide over
-    ``data``."""
+    the caller (nothing is caught and passed over): an encoder served on
+    a mesh, a recipe that splits the model dim, slots that do not divide
+    over ``data``."""
     cfg = smoke_config(ARCHS[arch])
     params = weights[1] if arch == "minicpm-2b" else {}
     with pytest.raises(RuntimeError, match=match):

@@ -8,12 +8,14 @@ group, meshes as dicts of axis sizes (the reference's ``_ProxyMesh``).
   every arch under every recipe at meshes (1, 2), (2, 2), (2, 4) and
   (1, 8);
 * the port's placement: a query head never straddles ranks, each rank
-  holds exactly the K/V heads its query heads read, the blocks tile each
-  leaf, and a family outside ``dense``/``vlm`` is refused on a mesh;
+  holds exactly the K/V heads its query heads read, and every family's
+  blocks (the MoE, SSM, hybrid and audio ones too) tile each leaf;
 * ``capacity``/``serve_preflight``/``deploy_preflight`` bytes at those
   meshes equal the reference's except on the pinned leaves: those with
   an attention-heads axis, where the port's head plan departs from the
-  reference's spec division, each such leaf's bytes worked out here;
+  reference's spec division, the Mamba-2 mixer's (head-aligned, B/C
+  whole) and the MoE router (whole), each such leaf's bytes worked out
+  here;
 * the contract checker over the live recipes is clean, and a seeded
   unknown axis fires ``contract-axis-unresolvable``.
 """
@@ -56,6 +58,7 @@ ARCH_IDS = tuple(ARCHS)
 DECODERS = tuple(a for a in ARCH_IDS if not ARCHS[a].is_encoder_only)
 MESHES = ((1, 2), (2, 2), (2, 4), (1, 8))
 HEAD_AXES = ("heads", "kv_heads")
+SSM_AXES = ("ssm_heads", "ssm_inner")
 
 
 def _sizes(mesh):
@@ -252,13 +255,40 @@ def test_blocks_tile_every_leaf(mesh):
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-1.3b",
                                   "zamba2-2.7b", "hubert-xlarge"])
-def test_mesh_refuses_the_next_slices_families(arch):
+def test_every_family_tiles_its_leaves_on_a_mesh(arch):
+    """Every rank's blocks of every leaf (the placement at its
+    coordinates) put back at their slices rebuild the whole tree, and
+    every element is held: the MoE's experts, the Mamba-2 mixer's
+    head-aligned columns and channels (a list of indices a dim), the
+    hybrid's shared blocks, hubert's vocabulary, under the decode and
+    IS recipes at (2, 2) and (1, 4)."""
     cfg = smoke_config(get_arch(arch))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        sh.check_mesh_family(cfg, {"data": 1, "model": 2})
-    sh.check_mesh_family(cfg, {"data": 1, "model": 1})
-    for ok in ("minicpm-2b", "qwen2-vl-7b"):
-        sh.check_mesh_family(get_arch(ok), {"data": 2, "model": 4})
+    params = tmodel.init_params(cfg, seed=0, device="cpu")
+    axes = dict(_walk(tmodel.axes_tree(cfg)))
+    for mesh, recipe in (((2, 2), sh.IS_RECIPE), ((1, 4), sh.DECODE_RECIPE)):
+        sizes = _sizes(mesh)
+        whole = {p: torch.zeros_like(t) for p, t in _walk(params)}
+        held = {p: torch.zeros(t.shape, dtype=torch.bool)
+                for p, t in _walk(params)}
+        for d in range(mesh[0]):
+            for m in range(mesh[1]):
+                pl = sh.Placement(cfg, recipe, sizes,
+                                  coords={"data": d, "model": m})
+                for path, block in _blocks(params, axes, pl).items():
+                    idx = pl.slices(axes[path], tuple(whole[path].shape),
+                                    record=False)
+                    whole[path][idx] = block
+                    held[path][idx] = True
+        for path, leaf in _walk(params):
+            assert bool(held[path].all()), (mesh, path)
+            assert torch.equal(whole[path], leaf), (mesh, path)
+
+
+def _blocks(params, axes, pl):
+    """{path: this rank's block} of ``params`` under ``pl``."""
+    return {path: leaf[pl.slices(axes[path], tuple(leaf.shape),
+                                 record=False)]
+            for path, leaf in _walk(params)}
 
 
 # ===========================================================================
@@ -281,29 +311,51 @@ def _leaf_bytes(tree, axes, recipe, sizes, cfg, item):
     return out
 
 
+def _ssm_extent(cfg, model, name, dim):
+    """A Mamba-2 dim's extent on a rank: head-aligned (each rank its
+    nh / M heads' z, x and dt, B and C of the one group whole) when the
+    heads divide over ``model``, else whole."""
+    s = cfg.ssm
+    di, nh, N = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model), s.d_state
+    assert s.n_groups == 1
+    if model == 1 or nh % model:
+        return dim
+    if name == "ssm_heads":
+        return nh // model
+    return {di: di // model, di + 2 * N: di // model + 2 * N,
+            2 * di + 2 * N + nh: 2 * di // model + 2 * N + nh // model}[dim]
+
+
 def _pinned_delta(tree, axes, recipe, sizes, cfg, item):
-    """Port minus reference bytes over the leaves with a heads axis (the
-    pinned leaves), each checked against the head plan worked out here;
-    every other leaf must agree."""
+    """Port minus reference bytes over the pinned leaves (those with a
+    heads axis or a Mamba-2 axis, and the MoE router), each checked
+    against the plan worked out here; every other leaf must agree."""
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
     q, kv = _expected_heads(cfg, sizes["model"])
     delta = 0
     for path, (ours, ref, a, shape) in _leaf_bytes(
             tree, axes, recipe, sizes, cfg, item).items():
-        if not set(a) & set(HEAD_AXES):
+        router = "experts" in a and "expert_ffn" not in a
+        if not (set(a) & set(HEAD_AXES + SSM_AXES) or router):
             assert ours == ref, path
             continue
-        # the head dims by the head plan, every other dim as the
-        # reference's sanitized spec divides it
+        # the head dims by the head plan, the mixer's by its heads, the
+        # router's experts whole, every other dim as the reference's
+        # sanitized spec divides it
         spec = tuple(jsh.sanitize_spec(recipe.spec_for(a), shape,
                                        jcap._ProxyMesh(sizes)))
         spec += (None,) * (len(shape) - len(spec))
         want = math.prod(shape) * item(path, None)
-        for name, entry in zip(a, spec):
+        for name, entry, dim in zip(a, spec, shape):
             if name == "heads":
                 want = want // nq * q
             elif name == "kv_heads":
                 want = want // nkv * kv
+            elif name in SSM_AXES:
+                want = want // dim * _ssm_extent(cfg, sizes["model"], name,
+                                                 dim)
+            elif router and name == "experts":
+                continue
             else:
                 for ax in ((entry,) if isinstance(entry, str)
                            else entry or ()):

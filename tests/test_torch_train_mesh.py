@@ -22,7 +22,8 @@ GPipe on a ``("stage", "data")`` mesh against the sequential form
 a mesh (the files of a one-device save; the JAX package reads them) and
 read onto another mesh (``restore_elastic``, from the JAX package's
 files too), the launcher's ``--mesh``/``--recipe`` and its resume on
-another mesh, and the families a mesh refuses.
+another mesh, and the sharded state of the MoE, SSM, hybrid and audio
+families.
 
 Each mesh is one ``run_mesh`` spawn (one thread a rank, its own
 timeout) running every case on it in turn; the tests read its results.
@@ -88,7 +89,11 @@ CASES = [
     ("stablelm-WS-1x2", "stablelm-12b", "WS", (1, 2), 1),
     ("starcoder2-IS-2x2", "starcoder2-3b", "IS", (2, 2), 1),
 ]
-REFUSED = ("qwen2-moe-a2.7b", "mamba2-1.3b", "zamba2-2.7b", "hubert-xlarge")
+#: The families the family slice brought to the mesh: each builds its
+#: sharded train state on the (2, 2) spawn (the steps themselves are held
+#: to the JAX package in tests/test_torch_mesh_moe.py and
+#: tests/test_torch_mesh_ssm.py).
+FAMILIES = ("qwen2-moe-a2.7b", "mamba2-1.3b", "zamba2-2.7b", "hubert-xlarge")
 
 
 def _rt():
@@ -451,19 +456,23 @@ def test_gpipe_gradients_match_jax_grad(gpipe):
 
 
 def _batch_rank(mesh, batch, cfgs, rt, tc, elastic=None):
-    """This rank's rows of ``batch``; the refusals of ``cfgs``; with
-    ``elastic`` (a directory), its blocks of the reference tree there."""
+    """This rank's rows of ``batch``; for each of ``cfgs`` its train step
+    built under IS and the bytes of its sharded state; with ``elastic``
+    (a directory), its blocks of the reference tree there."""
     from repro_torch.ckpt import restore_elastic
     from repro_torch.data import make_global_batch
     from repro_torch.dist.sharding import use_mesh
-    from repro_torch.train.loop import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.train.loop import make_train_step, shard_state
     out = dict(coords=dict(mesh.coords), rows=make_global_batch(batch, mesh),
-               refusals=[])
+               state_bytes=[])
     with use_mesh(mesh):
         for cfg in cfgs:
-            with pytest.raises(NotImplementedError) as e:
-                make_train_step(cfg, rt, tc, "IS")
-            out["refusals"].append(str(e.value))
+            assert callable(make_train_step(cfg, rt, tc, "IS"))
+            state = shard_state(init_params(cfg, device="cpu"), cfg, "IS")
+            out["state_bytes"].append(sum(
+                t.numel() * t.element_size()
+                for _, t in tree_items(state)))
     if elastic:
         recipe = Recipe("elastic", {"rows": ("data",), "cols": ("model",)})
         layout = TreeLayout(mesh.placement(smoke_config(ARCHS["minicpm-2b"]),
@@ -488,15 +497,15 @@ def _global_batch():
 @pytest.fixture(scope="module")
 def global_batches(tmp_path_factory):
     """The global batch and every rank's results at (2, 2) (its rows,
-    the refusals, its blocks of the reference test's tree as the JAX
+    each family's state bytes, its blocks of the reference test's tree as the JAX
     package wrote it) and at (4, 1) (its rows)."""
     b = _global_batch()
-    refused = [smoke_config(ARCHS[a]) for a in REFUSED]
+    families = [smoke_config(ARCHS[a]) for a in FAMILIES]
     elastic = str(tmp_path_factory.mktemp("reference_tree"))
     jckpt.save(elastic, 1, {"w": jnp.arange(64.0).reshape(8, 8),
                             "b": jnp.arange(8.0)})
     return b, {mesh: run_mesh(_batch_rank, mesh, b,
-                              refused if mesh == (2, 2) else [], _rt(),
+                              families if mesh == (2, 2) else [], _rt(),
                               _tc(), elastic if mesh == (2, 2) else None,
                               devices="cpu", timeout=MESH_TIMEOUT)
                for mesh in ((2, 2), (4, 1))}
@@ -516,13 +525,18 @@ def test_make_global_batch_gives_each_rank_its_rows(global_batches, mesh):
                                           err_msg=k)
 
 
-def test_other_families_refused_on_a_mesh(global_batches):
+def test_other_families_shard_their_state_on_a_mesh(global_batches):
+    """The MoE, SSM, hybrid and audio families build their train step
+    on the (2, 2) mesh under IS, and each rank's state is the sharded
+    capacity model's bytes (f32 masters, two moments, the step)."""
     ranks = global_batches[1][(2, 2)]
     for r in ranks:
-        assert len(r["refusals"]) == len(REFUSED)
-        for arch, msg in zip(REFUSED, r["refusals"]):
-            assert arch in msg and "next slice" in msg \
-                and "item 12" in msg, msg
+        assert len(r["state_bytes"]) == len(FAMILIES)
+        for arch, got in zip(FAMILIES, r["state_bytes"]):
+            rep = capacity(smoke_config(ARCHS[arch]),
+                           ShapeConfig("train", S, B, "train"),
+                           mesh={"data": 2, "model": 2}, recipe="IS")
+            assert got == rep.params_bytes * 3 + 4, arch
 
 
 # ---------------------------------------------------------------------------
@@ -536,7 +550,7 @@ def _losses(out):
 def test_train_launcher_on_a_cpu_mesh_and_its_resume(capsys, tmp_path):
     """``--mesh 2x2 --recipe IS`` trains to one device's losses; a resume
     on ``--mesh 1x2`` (the default recipe) restores the mesh's
-    checkpoint."""
+    checkpoint; mamba2 on ``--mesh 1x2`` trains to one device's losses."""
     argv = ["--arch", "minicpm-2b", "--smoke", "--device", "cpu",
             "--steps", "4", "--batch", "4", "--seq", "16"]
     one = launcher.main(argv)
@@ -557,9 +571,12 @@ def test_train_launcher_on_a_cpu_mesh_and_its_resume(capsys, tmp_path):
     assert "restoring from step 4" in out and resumed["restored"] == 4
     assert resumed["recipe"] == "IS"
     assert all(math.isfinite(x) for x in resumed["losses"])
-    with pytest.raises(SystemExit, match="next slice"):
-        launcher.main(["--arch", "mamba2-1.3b", "--smoke", "--device", "cpu",
-                       "--mesh", "1x2"])
+    # the SSM family on a mesh: mamba2's heads split, one device's losses
+    ssm = ["--arch", "mamba2-1.3b", "--smoke", "--device", "cpu",
+           "--steps", "2", "--batch", "2", "--seq", "16"]
+    np.testing.assert_allclose(
+        launcher.main(ssm + ["--mesh", "1x2"])["losses"],
+        launcher.main(ssm)["losses"], rtol=LOSS_RTOL)
 
 
 def test_one_device_and_a_mesh_of_one_take_the_same_step(models):
