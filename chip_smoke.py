@@ -109,7 +109,7 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    a shared attention block at head dim 80 after every 6, chunk-mode
    admission): each model through ``ServeEngine`` and
    ``PagedServeEngine`` with equal streams (zamba2 in bf16 and int8 KV,
-   four engines; the two recurrent models served at 16 and 18 layers,
+   four engines; the two recurrent models served at 8 and 12 layers,
    ``SERVE_RECURRENT_LAYERS``), ``moe_gemm`` launched only in the MoE runs,
    ``ssd_scan`` only in the SSM and hybrid runs and no attention kernel
    in the SSM runs; a prefill and a decode-step profile; and
@@ -204,7 +204,7 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    ``max_memory_allocated`` at most that plus its largest parameter
    block, and each mesh's kernels (minicpm-2b: RMSNorm, flash and the
    four split-KV decode kernels) launched and no other; then the MoE,
-   SSM, hybrid and audio families (``sharded_family_meshes``, depths
+   SSM, hybrid and audio families (``sharded_family_items``, depths
    ``SHARDED_FAMILY_LAYERS``, widths uncut): qwen2-moe-a2.7b (4 of 24
    layers) at (1, 4), 15 experts a rank (expert-parallel, dropless
    decode through the grouped GEMM), in f32 teacher-forced on the
@@ -248,8 +248,8 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    (parameters x 3 + 4; its peak printed beside them), RMSNorm and
    flash launched and no other kernel; the launches are summed into the
    ``sharded_train`` path. Then, in one (2, 2) spawn, full-width
-   qwen2-moe-a2.7b (2 layers) under IS on the capacity path (capacity,
-   slot order and aux loss global over ``data``) and mamba2-1.3b (4
+   qwen2-moe-a2.7b (1 layer) under IS on the capacity path (capacity,
+   slot order and aux loss global over ``data``) and mamba2-1.3b (2
    layers) under IS_seq, two f32 steps each held to one device as above
    (RMSNorm and flash, RMSNorm and the scan, launched). Then the train
    launcher in-process on smoke minicpm-2b, ``--mesh 2x2 --recipe IS
@@ -1128,7 +1128,7 @@ def decode_variants(cfg, gen, rnd, compare, flush, mask):
          "SDPA over pre-dequantized bf16 K/V, dequantize not timed",
          f"B{B} W{W} Hq{H} Hkv{Hkv} D{D} int8 KV + bf16 scales, q bf16, "
          f"{valid} valid rows"),
-        ("quant_paged_decode_attention", "quant_attention.cu",
+        ("quant_paged_decode_attention", "quant_paged_attention.cu",
          "src/repro/kernels/quant.py:282", errs[2],
          lambda: quant_paged_decode_attention(q, kpq, vpq, kps, vps, pt,
                                               mask),
@@ -1665,9 +1665,10 @@ NEW_TOKENS = 32
 #: their profiles, traces and parity stay at full depth): chunk-mode
 #: admission steps every prompt token through every layer, ~350 host-
 #: bound steps a run, so zamba2-2.7b's four runs and mamba2-1.3b's two
-#: took 202 s of the script at 54 and 48 layers. Cut to make room for
-#: [sharded-train] in the run's time limit.
-SERVE_RECURRENT_LAYERS = {"mamba2-1.3b": 16, "zamba2-2.7b": 18}
+#: took 202 s of the script at 54 and 48 layers, ~100 s at 18 and 16.
+#: Cut to keep the run well inside its time limit; zamba2-2.7b's 12 are
+#: two groups, so both of its physical shared blocks run.
+SERVE_RECURRENT_LAYERS = {"mamba2-1.3b": 8, "zamba2-2.7b": 12}
 #: Shared-system-prompt trace: one 512-token prompt + tails of 8-40.
 SYSTEM_LEN, N_SYSTEM_REQS = 512, 8
 
@@ -2882,7 +2883,32 @@ def mesh_run(make, run):
                 logits=caught, routes=routes, steps_ms=steps,
                 prefix_hits=eng.stats.prefix_hits,
                 params_bytes=tree_bytes(eng.params),
-                cache_bytes=tree_bytes(eng.cache), largest_leaf=max(leaves))
+                cache_bytes=tree_bytes(eng.cache), largest_leaf=max(leaves),
+                gathered=0 if not hasattr(eng, "placement") else
+                largest_gather(eng.cfg, eng.recipe, eng.placement.sizes,
+                               eng.rt))
+
+
+def largest_gather(cfg, recipe, sizes, rt) -> int:
+    """The most bytes a rank holds gathered over ``data`` at once under
+    ``recipe`` on a mesh of ``sizes``, host only: one block's leaves that
+    the recipe splits over ``data``, whole (a layer of the stack, a
+    hybrid's shared block), or the embedding or the head, at the dtypes
+    ``rt`` casts them to; 0 where nothing is split over ``data``."""
+    from repro_torch.dist.sharding import Placement
+    from repro_torch.models.model import leaf_dtype, param_defs
+    pl, n = Placement(cfg, recipe, sizes), sizes.get("data", 1)
+
+    def whole(d, path, layers):
+        if isinstance(d, dict):
+            return sum(whole(v, path + (k,), layers) for k, v in d.items())
+        if pl.split_dim(d.axes, d.shape) is None:
+            return 0
+        return (math.prod(pl.local_shape(d.axes, d.shape)) * n
+                * leaf_dtype(path, rt).itemsize // layers)
+    layers = {"blocks": cfg.n_layers, "shared": cfg.n_shared_attn_blocks}
+    return max(whole(d, (k,), layers.get(k, 1))
+               for k, d in param_defs(cfg).items())
 
 
 def sharded_rank(mesh, params, cfg, runs):
@@ -2907,7 +2933,9 @@ def sharded_rank(mesh, params, cfg, runs):
         cls = ShardedPagedServeEngine if run["paged"] \
             else ShardedServeEngine
         rec = mesh_run(lambda sched: cls(params, cfg, run["rt"], mesh,
-                                         scheduler=sched, **run["kw"]), run)
+                                         scheduler=sched,
+                                         recipe=run.get("recipe"),
+                                         **run["kw"]), run)
         torch.cuda.synchronize()
         rec.update(rank=mesh.rank, backend=mesh.backend,
                    coords=dict(mesh.coords), label=run["label"],
@@ -2922,16 +2950,18 @@ def sharded_rank(mesh, params, cfg, runs):
 
 
 def sharded_runs(cfg, rt, *, teacher: bool, served, kvs=(None,),
-                 layouts=(False, True), n_slots=4, max_len=1024, page=16):
+                 layouts=(False, True), n_slots=4, max_len=1024, page=16,
+                 forced_steps=SHARDED_FORCED, recipe=None):
     """The run list of one mesh: per KV dtype and layout (contiguous,
-    paged), a teacher-forced run (4 prompts of SHARDED_PREFILL +
-    SHARDED_FORCED tokens) when ``teacher``, and ``served``'s requests."""
+    paged), a teacher-forced run (``n_slots`` prompts of SHARDED_PREFILL
+    + ``forced_steps`` tokens) when ``teacher``, and ``served``'s requests;
+    every run under ``recipe`` (a name; None: the engine's default)."""
     import dataclasses
     import numpy as np
     runs = []
     rng = np.random.default_rng(17)
     forced = [dict(rid=i, prompt=rng.integers(
-        0, cfg.vocab_size, SHARDED_PREFILL + SHARDED_FORCED).astype(
+        0, cfg.vocab_size, SHARDED_PREFILL + forced_steps).astype(
             np.int32), max_new_tokens=1) for i in range(n_slots)]
     for kv in kvs:
         run_rt = dataclasses.replace(rt, kv_dtype=kv)
@@ -2941,7 +2971,8 @@ def sharded_runs(cfg, rt, *, teacher: bool, served, kvs=(None,),
                 kw["page_size"] = page
             name = (f"{'paged' if paged else 'contiguous'} "
                     f"{kv or rt.dtype}")
-            base = dict(cfg=cfg, rt=run_rt, paged=paged, kw=kw)
+            base = dict(cfg=cfg, rt=run_rt, paged=paged, kw=kw,
+                        recipe=recipe, forced=forced_steps)
             if teacher:
                 runs.append(dict(base, label=f"{name} teacher-forced",
                                  teacher=True, requests=forced,
@@ -3032,12 +3063,15 @@ def one_device_forward(params, cfg, runs):
     return out
 
 
-def sharded_spawn(mesh, items):
+def sharded_spawn(mesh, items, tag="[sharded]"):
     """One [sharded] spawn of ``mesh`` running every item (a dict of
     ``kind`` ``serve`` or ``forward``, ``title``, ``cfg``, ``params``,
     ``runs``, ``expect`` and ``logit_tol`` (None: reported, not held),
-    and for ``serve`` ``equal_tokens``), each held to its one-device
-    runs. Returns the launches summed over ranks, items and runs."""
+    and for ``serve`` ``equal_tokens`` and ``same_bits_as``: the index
+    of an earlier item whose teacher-forced logits, run for run, this
+    item's must equal bit for bit), each held to its one-device runs,
+    its lines printed under ``tag``. Returns the launches summed over
+    ranks, items and runs."""
     import torch
     from repro_torch.launch.mesh import run_mesh
     t0 = time.perf_counter()
@@ -3051,7 +3085,7 @@ def sharded_spawn(mesh, items):
                      [(it["kind"], it["params"], it["cfg"], it["runs"])
                       for it in items], timeout=SHARDED_TIMEOUT)
     t_mesh = time.perf_counter() - t0
-    print(f"[sharded] {' + '.join(it['title'] for it in items)}: mesh "
+    print(f"{tag} {' + '.join(it['title'] for it in items)}: mesh "
           f"{mesh[0]}x{mesh[1]} (data, model), {len(ranks)} ranks on "
           f"{torch.cuda.device_count()} card(s) over "
           f"{ranks[0][0][0]['backend']} (all_reduce / all_gather / "
@@ -3060,21 +3094,49 @@ def sharded_spawn(mesh, items):
     total = {}
     for i, (it, want) in enumerate(zip(items, wants)):
         check_fn = sharded_check if it["kind"] == "serve" else forward_check
-        got = check_fn(it, mesh, [r[i] for r in ranks], want)
+        got = check_fn(dict(it, tag=tag), mesh, [r[i] for r in ranks], want)
         for k, n in got.items():
             total[k] = total.get(k, 0) + n
+        if it.get("same_bits_as") is not None:
+            same_bits(tag, items, i, it["same_bits_as"], ranks)
     return total
+
+
+def same_bits(tag, items, i, j, ranks):
+    """Item ``i``'s teacher-forced logits against item ``j``'s on rank 0,
+    run for run: equal bit for bit, else the largest difference printed
+    and the run failed."""
+    import numpy as np
+    a_item, b_item = items[i], items[j]
+    for k, run in enumerate(a_item["runs"]):
+        if not run.get("teacher"):
+            continue
+        a, b = ranks[0][i][k]["logits"], ranks[0][j][k]["logits"]
+        same = len(a) == len(b) and all(
+            x.shape == y.shape and x.tobytes() == y.tobytes()
+            for x, y in zip(a, b))
+        dev = max(float(np.abs(x.astype(np.float64) - y).max())
+                  for x, y in zip(a, b))
+        print(f"{tag} {a_item['title']} vs {b_item['title']} "
+              f"{run['label']}: {len(a)} logits arrays "
+              f"{'equal bit for bit' if same else 'NOT equal bit for bit'}"
+              f" (max |difference| {dev})")
+        check(same, f"{a_item['title']} {run['label']}: logits differ from "
+              f"{b_item['title']}'s by up to {dev}")
 
 
 def sharded_check(item, mesh, ranks, want):
     """The serving runs of one item against the one-device engine's
     (``want``): logits within the item's ``logit_tol`` (reported when it
     is None), or tokens equal; every rank's bytes equal to
-    ``serve_preflight(mesh=...)``, its peak at most that plus its largest
-    leaf; the item's kernels launched on every rank and no other."""
+    ``serve_preflight(mesh=..., recipe=...)``, its peak at most that plus
+    its largest leaf and, under a recipe that splits weights over
+    ``data``, the largest layer it gathers; the item's kernels launched
+    on every rank and no other."""
     import numpy as np
     from repro_torch.analysis.capacity import serve_preflight
     title, cfg, runs = item["title"], item["cfg"], item["runs"]
+    tag = item.get("tag", "[sharded]")
     logit_tol, expect = item["logit_tol"], item["expect"]
     sizes = {"data": mesh[0], "model": mesh[1]}
     total = {}
@@ -3084,21 +3146,24 @@ def sharded_check(item, mesh, ranks, want):
         for r in recs[1:]:
             check(r["tokens"] == rank0["tokens"], f"{title} {run['label']}:"
                   f" rank {r['rank']} served other tokens than rank 0")
-        line = f"[sharded] {title} {run['label']}:"
+        line = f"{tag} {title} {run['label']}:"
         if run.get("teacher"):
             dev = max(float(np.abs(a - b).max())
                       for a, b in zip(rank0["logits"], ref["logits"]))
             check(len(rank0["logits"]) == len(ref["logits"])
-                  == len(run["requests"]) + SHARDED_FORCED,
+                  == len(run["requests"]) + run["forced"],
                   f"{title} {run['label']}: captured "
                   f"{len(rank0['logits'])} logits")
             a = np.concatenate([x.argmax(-1) for x in rank0["logits"]])
             b = np.concatenate([x.argmax(-1) for x in ref["logits"]])
             line += (f" logits of {len(run['requests'])} prefills + "
-                     f"{SHARDED_FORCED} decode steps, max |mesh - one "
+                     f"{run['forced']} decode steps, max |mesh - one "
                      f"device| {dev:.4f} (tol "
                      f"{'none: reported' if logit_tol is None else logit_tol}"
-                     f"); argmax agree {int((a == b).sum())}/{a.size}")
+                     f"); argmax agree {int((a == b).sum())}/{a.size}; "
+                     f"step p50 {statistics.median(rank0['steps_ms']):.2f} "
+                     f"ms (one device "
+                     f"{statistics.median(ref['steps_ms']):.2f} ms)")
             if run.get("routes"):
                 check(len(rank0["routes"]) == len(ref["routes"]) > 0,
                       f"{title} {run['label']}: routing calls "
@@ -3131,7 +3196,8 @@ def sharded_check(item, mesh, ranks, want):
                               max_len=run["kw"]["max_len"],
                               page_size=run["kw"].get("page_size"),
                               mesh=sizes, dtype=rt.dtype,
-                              param_dtype=rt.dtype, kv_dtype=rt.kv_dtype)
+                              param_dtype=rt.dtype, kv_dtype=rt.kv_dtype,
+                              recipe=run.get("recipe") or "decode")
         pred = cap.params_bytes + cap.cache_bytes
         for r in recs:
             check(r["params_bytes"] == cap.params_bytes
@@ -3139,22 +3205,38 @@ def sharded_check(item, mesh, ranks, want):
                   f"{title} {run['label']} rank {r['rank']}: params "
                   f"{r['params_bytes']} B, cache {r['cache_bytes']} B, "
                   f"predicted {cap.params_bytes} and {cap.cache_bytes}")
-            check(r["peak"] <= pred + r["largest_leaf"] + SHARDED_SLACK,
-                  f"{title} {run['label']} rank {r['rank']}: peak "
-                  f"{r['peak']} B past {pred} + {r['largest_leaf']} + "
+            # a leaf's gather holds every rank's block beside their
+            # concatenation: at most the layer twice
+            bound = (pred + 2 * r["gathered"] + r["largest_leaf"]
+                     + SHARDED_SLACK)
+            check(r["peak"] <= bound, f"{title} {run['label']} rank "
+                  f"{r['rank']}: peak {r['peak']} B past {pred} + 2 x "
+                  f"gathered {r['gathered']} + {r['largest_leaf']} + "
                   f"{SHARDED_SLACK}")
             for k, n in r["launches"].items():
                 total[k] = total.get(k, 0) + n
-        print(line + f"; per rank params {cap.params_bytes} B + cache "
-              f"{cap.cache_bytes} B = predicted, peaks "
-              f"{[r['peak'] for r in recs]} B <= {pred} + largest leaf "
-              f"{recs[0]['largest_leaf']} B + {SHARDED_SLACK} B (calibrated "
-              f"peak {cap.peak_bytes} B)")
-    launched_on(title, ranks, expect, total)
+        gathered = recs[0]["gathered"]
+        line += (f"; per rank params {cap.params_bytes} B + cache "
+                 f"{cap.cache_bytes} B = predicted")
+        if gathered:
+            with_layer = pred + gathered + SHARDED_SLACK
+            line += (f"; peaks {[r['peak'] for r in recs]} B beside params "
+                     f"+ cache + the largest gathered layer {gathered} B + "
+                     f"{SHARDED_SLACK} B = {with_layer} B (peak - that: "
+                     f"{[r['peak'] - with_layer for r in recs]} B; held "
+                     f"<= that + the layer again, the gather's blocks "
+                     f"beside their concatenation, + the largest leaf "
+                     f"{recs[0]['largest_leaf']} B)")
+        else:
+            line += (f", peaks {[r['peak'] for r in recs]} B <= {pred} + "
+                     f"largest leaf {recs[0]['largest_leaf']} B + "
+                     f"{SHARDED_SLACK} B")
+        print(line + f" (calibrated peak {cap.peak_bytes} B)")
+    launched_on(title, ranks, expect, total, tag)
     return total
 
 
-def launched_on(title, ranks, expect, total):
+def launched_on(title, ranks, expect, total, tag="[sharded]"):
     """Every rank launched ``expect``'s kernels over its runs, and no
     other path's."""
     for rank in ranks:
@@ -3165,7 +3247,7 @@ def launched_on(title, ranks, expect, total):
         check(not launched - set(expect), f"{title}: rank "
               f"{rank[0]['rank']} launched another path's "
               f"{sorted(launched - set(expect))}")
-    print(f"[sharded] {title}: every rank launched {sorted(expect)}; "
+    print(f"{tag} {title}: every rank launched {sorted(expect)}; "
           f"launches over ranks and runs "
           f"{ {k: v for k, v in total.items() if v} }")
 
@@ -3219,8 +3301,10 @@ def sharded_phase(counters):
     layers) at (1, 4) in
     bf16 (its vocabulary split over the ranks, each rank holding the one
     K/V head of its 8 query heads), smoke minicpm-2b at (2, 4) in f32
-    (tokens equal to one device, the prefix cache hit). Returns the
-    launches summed over every rank's runs."""
+    (tokens equal to one device, the prefix cache hit). The (1, 2)
+    and (1, 4) models run in one spawn each with ``sharded_family_items``'
+    of the same shape. Returns the launches summed over every rank's
+    runs."""
     import dataclasses
     import numpy as np
     import torch
@@ -3233,7 +3317,7 @@ def sharded_phase(counters):
           f"ranks 2/4/8 -> {pick_backend(2)}/{pick_backend(4)}/"
           f"{pick_backend(8)} (nccl only when every rank has a card: it "
           f"refuses two ranks on one device, 'Duplicate GPU detected')")
-    totals = []
+    totals, by_mesh = [], {(1, 2): [], (1, 4): []}
     rt = ModelRuntime()                   # bf16, cuda policy
     for name, mesh, kvs, layouts in (
             ("minicpm-2b", (1, 2), (None, "int8"), (False, True)),
@@ -3253,9 +3337,9 @@ def sharded_phase(counters):
         expect = {"rmsnorm", "flash_attention", "decode_attention"}
         if name == "minicpm-2b":
             expect = set(SHARDED_KERNELS)
-        totals.append(sharded_mesh(f"{name} full width bf16", mesh, cfg,
-                                   params, runs, expect,
-                                   logit_tol=LOGIT_TOL))
+        by_mesh[mesh].append(dict(
+            kind="serve", title=f"{name} full width bf16", cfg=cfg,
+            params=params, runs=runs, expect=expect, logit_tol=LOGIT_TOL))
         del params
     # smoke minicpm-2b in f32 at (2, 4): the reference test's prompts
     gc.collect()
@@ -3279,15 +3363,18 @@ def sharded_phase(counters):
         {"rmsnorm", "flash_attention", "decode_attention",
          "paged_decode_attention"}, equal_tokens=True))
     del params
-    totals.extend(sharded_family_meshes())
+    for mesh, items in sharded_family_items().items():
+        totals.append(sharded_spawn(mesh, by_mesh[mesh] + items))
+    del by_mesh, items
+    mixtral_preflight()
     sharded = {k: sum(t.get(k, 0) for t in totals) for k in counters}
     print(f"[sharded] launches over all meshes {sharded}; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     return sharded
 
 
-def sharded_family_meshes():
-    """[sharded]'s MoE, SSM, hybrid and audio meshes (widths uncut,
+def sharded_family_items():
+    """[sharded]'s MoE, SSM, hybrid and audio items (widths uncut,
     depths ``SHARDED_FAMILY_LAYERS``): qwen2-moe-a2.7b at (1, 4), 15
     experts a rank, in f32 (teacher-forced on the contiguous engine: its
     logits within ``LOGIT_TOL``, its argmax and routing agreement; the
@@ -3296,13 +3383,11 @@ def sharded_family_meshes():
     agreement reported, routing flips in bf16); in one (1, 2) spawn mamba2-1.3b (32 SSD heads a
     rank) and zamba2-2.7b (40 heads and 16 attention heads a rank)
     teacher-forced in bf16 and hubert-xlarge's forward (B 2, S 1024
-    frames, bf16), logits within ``LOGIT_TOL`` of one device; then
-    mixtral-8x22b's serving preflight at (1, 8), host only (its 282 GB
-    of bf16 weights fit no card). Returns each spawn's launches."""
+    frames, bf16), logits within ``LOGIT_TOL`` of one device. Returns
+    the items of each mesh, for ``sharded_spawn``."""
     import dataclasses
     import numpy as np
     import torch
-    from repro_torch.analysis.capacity import serve_preflight
     from repro_torch.configs import get_arch
     from repro_torch.models import ModelRuntime, init_params
 
@@ -3317,7 +3402,6 @@ def sharded_family_meshes():
                 for i, n in enumerate(PROMPT_LENS)]
 
     bf16, f32 = ModelRuntime(), ModelRuntime(dtype="float32")
-    totals = []
     gc.collect()
     torch.cuda.empty_cache()
     cfg = model("qwen2-moe-a2.7b")
@@ -3327,17 +3411,14 @@ def sharded_family_meshes():
     runs16 = [dict(run, routes=True) for run in sharded_runs(
         cfg, bf16, teacher=True, served=[], layouts=(False,))[:1]]
     expect = {"rmsnorm", "flash_attention", "decode_attention", "moe_gemm"}
-    totals.append(sharded_spawn((1, 4), [
-        dict(kind="serve", title=f"qwen2-moe-a2.7b ({cfg.n_layers} of 24 "
-             f"layers) f32", cfg=cfg, params=params, runs=runs32,
-             expect=expect | {"paged_decode_attention"},
-             logit_tol=LOGIT_TOL, equal_tokens=True),
-        dict(kind="serve", title=f"qwen2-moe-a2.7b ({cfg.n_layers} of 24 "
-             f"layers) bf16", cfg=cfg, params=params, runs=runs16,
-             expect=expect, logit_tol=None)]))
+    moe = [dict(kind="serve", title=f"qwen2-moe-a2.7b ({cfg.n_layers} of 24 "
+                f"layers) f32", cfg=cfg, params=params, runs=runs32,
+                expect=expect | {"paged_decode_attention"},
+                logit_tol=LOGIT_TOL, equal_tokens=True),
+           dict(kind="serve", title=f"qwen2-moe-a2.7b ({cfg.n_layers} of 24 "
+                f"layers) bf16", cfg=cfg, params=params, runs=runs16,
+                expect=expect, logit_tol=None)]
     del params
-    gc.collect()
-    torch.cuda.empty_cache()
     items = []
     for name, expect in (
             ("mamba2-1.3b", {"rmsnorm", "ssd_scan"}),
@@ -3363,10 +3444,14 @@ def sharded_family_meshes():
         expect={"flash_attention"} | ({"rmsnorm"} if uses_rmsnorm(cfg)
                                       else set()),
         logit_tol=LOGIT_TOL))
-    totals.append(sharded_spawn((1, 2), items))
-    del items
-    gc.collect()
-    torch.cuda.empty_cache()
+    return {(1, 4): moe, (1, 2): items}
+
+
+def mixtral_preflight():
+    """[sharded]'s last line: mixtral-8x22b's serving preflight at
+    (1, 8), host only (its 282 GB of bf16 weights fit no card)."""
+    from repro_torch.analysis.capacity import serve_preflight
+    from repro_torch.configs import get_arch
     cfg = get_arch("mixtral-8x22b")
     sizes = {"data": 1, "model": 8}
     one = serve_preflight(cfg, n_slots=4, max_len=1024, dtype="bfloat16")
@@ -3380,7 +3465,124 @@ def sharded_family_meshes():
           f"{rep.cache_bytes} B, predicted peak {rep.peak_bytes} B of "
           f"{rep.hbm_bytes} B: fits; one card would hold params "
           f"{one.params_bytes} B: does not")
-    return totals
+
+
+# ===========================================================================
+# [sharded-zero3]: serving with the weights split over data
+# ===========================================================================
+#: Depths of the full-width models [sharded-zero3] serves (widths uncut):
+#: every step of a shared-card mesh gathers each layer over gloo, through
+#: host memory.
+ZERO3_LAYERS = {"chatglm3-6b": 4, "qwen2-moe-a2.7b": 4}
+#: The slots of a [sharded-zero3] engine (one teacher-forced prompt
+#: each), its teacher-forced decode steps, and the served prompts (the
+#: first of PROMPT_LENS) and new tokens of its paged run: each prefill
+#: and each step gathers every layer over gloo (a chatglm3-6b pass ~4 s
+#: at (2, 1), a qwen2-moe pass ~8 s at (2, 2)).
+ZERO3_SLOTS, ZERO3_FORCED, ZERO3_SERVED, ZERO3_NEW = 2, 2, 2, 2
+#: The f32 MoE's logits against one device's.
+ZERO3_MOE_TOL = 1e-4
+
+
+def sharded_zero3_phase(counters):
+    """``[sharded-zero3]``: the sharded engines under the recipes that
+    split the weights over ``data`` too (``default_recipe``'s
+    ``decode+zero3`` for the full-width models), on meshes whose ranks
+    share the card over gloo, widths uncut: chatglm3-6b (4 of 28 layers,
+    bf16) at (2, 1) under ``decode+zero3`` and ``decode`` in one spawn,
+    their teacher-forced logits equal bit for bit and each within
+    ``LOGIT_TOL`` of one device; qwen2-moe-a2.7b (4 of 24, f32) at
+    (2, 2) under ``decode+zero3``, 30 experts a rank, teacher-forced
+    within ``ZERO3_MOE_TOL`` of one device and served paged with one
+    device's tokens (no routing agreement: each ``data`` rank routes its
+    own slots' tokens); on every rank its bytes equal to ``capacity``'s
+    under its recipe and its peak printed beside them plus the largest
+    layer it gathers; then mixtral-8x22b at (2, 8) under
+    ``decode+zero3`` beside (1, 8) under ``decode``, host only. Returns
+    the launches summed over every rank's runs."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.analysis.capacity import serve_preflight
+    from repro_torch.configs import get_arch
+    from repro_torch.dist.sharding import default_recipe, get_recipe
+    from repro_torch.models import ModelRuntime, init_params
+
+    t_phase = time.perf_counter()
+    tag = "[sharded-zero3]"
+
+    def model(name, model_axis):
+        full = get_arch(name)
+        recipe = default_recipe(full, "decode", model_axis).name
+        check(recipe == "decode+zero3", f"{name} at model {model_axis}: "
+              f"default_recipe chose {recipe}")
+        return dataclasses.replace(full, n_layers=ZERO3_LAYERS[name]), recipe
+
+    def served(cfg):
+        rng = np.random.default_rng(1)
+        return [dict(rid=i, prompt=rng.integers(0, cfg.vocab_size, n)
+                     .astype(np.int32), max_new_tokens=ZERO3_NEW)
+                for i, n in enumerate(PROMPT_LENS[:ZERO3_SERVED])]
+
+    bf16, f32 = ModelRuntime(), ModelRuntime(dtype="float32")
+    totals = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, recipe = model("chatglm3-6b", 1)
+    params = init_params(cfg, seed=0, rt=bf16)     # cast leaf by leaf
+    expect = {"rmsnorm", "flash_attention", "decode_attention"}
+    items = [dict(kind="serve", title=f"chatglm3-6b ({cfg.n_layers} of 28 "
+                  f"layers) bf16 {r}", cfg=cfg, params=params,
+                  runs=sharded_runs(cfg, bf16, teacher=True, served=[],
+                                    layouts=(False,), n_slots=ZERO3_SLOTS,
+                                    forced_steps=ZERO3_FORCED,
+                                    recipe=r)[:1],
+                  expect=expect, logit_tol=LOGIT_TOL)
+             for r in (recipe, "decode")]
+    items[1]["same_bits_as"] = 0
+    totals.append(sharded_spawn((2, 1), items, tag))
+    del items, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, recipe = model("qwen2-moe-a2.7b", 2)
+    params = init_params(cfg, seed=0, device="cuda")          # f32
+    every = sharded_runs(cfg, f32, teacher=True, served=served(cfg),
+                         n_slots=ZERO3_SLOTS, forced_steps=ZERO3_FORCED,
+                         recipe=recipe)
+    totals.append(sharded_spawn((2, 2), [dict(
+        kind="serve", title=f"qwen2-moe-a2.7b ({cfg.n_layers} of 24 layers) "
+        f"f32 {recipe}", cfg=cfg, params=params,
+        runs=[every[0], every[3]],         # teacher-forced, served paged
+        expect={"rmsnorm", "flash_attention", "decode_attention",
+                "paged_decode_attention", "moe_gemm"},
+        logit_tol=ZERO3_MOE_TOL, equal_tokens=True)], tag))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch("mixtral-8x22b")
+    recipe = default_recipe(cfg, "decode", 8)
+    reps = [(mesh, serve_preflight(
+        cfg, n_slots=4, max_len=1024, dtype="bfloat16", recipe=r,
+        mesh={"data": mesh[0], "model": mesh[1]}))
+        for mesh, r in (((2, 8), recipe), ((1, 8), "decode"))]
+    for mesh, rep in reps:
+        gathered = largest_gather(cfg, get_recipe(rep.recipe),
+                                  {"data": mesh[0], "model": mesh[1]}, bf16)
+        print(f"{tag} mixtral-8x22b full width at {mesh} under "
+              f"{rep.recipe}, 4 slots x 1024, host only: per rank params "
+              f"{rep.params_bytes} B + cache {rep.cache_bytes} B, predicted "
+              f"peak {rep.peak_bytes} B of {rep.hbm_bytes} B "
+              f"({'fits' if rep.fits else 'does not fit'}); largest layer "
+              f"gathered over data {gathered} B (not priced by the model)")
+    z, d = reps[0][1].params_bytes, reps[1][1].params_bytes
+    check(z < d, f"mixtral-8x22b: decode+zero3 at (2, 8) holds {z} B, "
+          f"decode at (1, 8) {d} B")
+    print(f"{tag} mixtral-8x22b: a rank's parameters under decode+zero3 at "
+          f"(2, 8) are {z / d:.6f} of decode's at (1, 8)")
+    zero3 = {k: sum(t.get(k, 0) for t in totals) for k in counters}
+    print(f"{tag} launches over all meshes {zero3}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return zero3
 
 
 # ===========================================================================
@@ -3390,9 +3592,11 @@ def sharded_family_meshes():
 #: mesh and its one-device reference run one after the other on the card,
 #: and a shared-card IS step gathers every layer over gloo (5.6 s a step
 #: at 8 layers, 4.1-6.5 s at 6: the embedding's gather and sum do not
-#: shrink with depth), so minicpm-2b runs 4 of its 40 layers.
+#: shrink with depth), so minicpm-2b runs 4 of its 40 layers; the MoE
+#: and SSM spawn took 79 s at 2 and 4 layers (a 2.1 GB f32 expert layer
+#: gathered a step), so they run 1 and 2.
 SHARDED_TRAIN_LAYERS = {"minicpm-2b": 4, "chatglm3-6b": 4,
-                        "qwen2-moe-a2.7b": 2, "mamba2-1.3b": 4}
+                        "qwen2-moe-a2.7b": 1, "mamba2-1.3b": 2}
 #: The global batch and length of every [sharded-train] step.
 SHARDED_TRAIN_B, SHARDED_TRAIN_S = 4, 256
 #: Seconds one mesh's spawn may take, its runs included.
@@ -3628,10 +3832,10 @@ def sharded_train_mesh(title, mesh, runs, refs, gpipe=None):
 def sharded_train_families(f32):
     """[sharded-train]'s MoE and SSM runs, one (2, 2) spawn, f32,
     two steps each held to one device (losses, norms, step 0's gradient
-    blocks leaf by leaf): full-width qwen2-moe-a2.7b (2 layers) under IS
+    blocks leaf by leaf): full-width qwen2-moe-a2.7b (1 layer) under IS
     on the capacity path (its capacity, slot order and aux loss global
     over ``data``; 30 experts of a layer a rank between gathers) and
-    mamba2-1.3b (4 layers) under its launcher recipe IS_seq (32 SSD
+    mamba2-1.3b (2 layers) under its launcher recipe IS_seq (32 SSD
     heads a rank, B/C whole). Returns the launches over ranks and
     runs."""
     import dataclasses
@@ -4348,6 +4552,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
+
+    def clock(phase):
+        """Where the run's 1,200 s go: each phase's start on one clock."""
+        print(f"[clock] {phase} starts at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
     # --- phase 1 ---------------------------------------------------------
     print(f"[device] {torch.cuda.get_device_name(0)}; count "
           f"{torch.cuda.device_count()}; torch {torch.__version__} cuda "
@@ -4374,13 +4585,17 @@ def main() -> int:
     hyb_cfg = get_arch("zamba2-2.7b")
     counters = kernel_counters()
     # --- phase 2 ---------------------------------------------------------
+    clock("[kernels]")
     entries = kernel_phase(cfg, moe_cfg, ssm_cfg, hyb_cfg)
+    clock("[validator]")
     validator_phase()
+    clock("[tune]")
     tuned = tuner_phase(counters)
     gc.collect()
     torch.cuda.empty_cache()
 
     # --- phase 3 ---------------------------------------------------------
+    clock("[serve] minicpm-2b")
     t0 = time.perf_counter()
     rt = ModelRuntime()                   # bf16, cuda policy, on the card
     master = init_params(cfg, seed=0, device="cuda")
@@ -4405,6 +4620,7 @@ def main() -> int:
             (hyb_cfg, {"rmsnorm", "flash_attention", "ssd_scan"}, True)):
         gc.collect()
         torch.cuda.empty_cache()
+        clock(f"[serve] {mcfg.name}")
         t0 = time.perf_counter()
         mrt = ModelRuntime(moe_dropless=True)   # as the launcher serves
         params = init_params(mcfg, seed=0, rt=mrt)   # cast leaf by leaf
@@ -4443,6 +4659,7 @@ def main() -> int:
             int8_devs[mcfg.name] = int8_dev
         del params
     # --- [families]: the last-ported families ------------------------------
+    clock("[families]")
     fam_served, fam_traced, dt, fam_measured, fam_int8 = families_phase(
         counters)
     totals.append(fam_served)
@@ -4459,24 +4676,37 @@ def main() -> int:
     # --- [launch]: the launcher's gates and the examples --------------------
     gc.collect()
     torch.cuda.empty_cache()
+    clock("[launch]")
     launched = launch_phase(counters)
 
     # --- [sharded]: the sharded engines on meshes sharing the card ---------
     gc.collect()
     torch.cuda.empty_cache()
+    clock("[sharded]")
     sharded = sharded_phase(counters)
+
+    # --- [sharded-zero3]: serving with the weights split over data --------
+    gc.collect()
+    torch.cuda.empty_cache()
+    clock("[sharded-zero3]")
+    zero3 = sharded_zero3_phase(counters)
+    sharded = {k: sharded[k] + zero3[k] for k in counters}
 
     # --- [sharded-train]: the sharded train step on meshes sharing the card
     gc.collect()
     torch.cuda.empty_cache()
+    clock("[sharded-train]")
     sharded_train = sharded_train_phase(counters)
 
     # --- phase 5 ---------------------------------------------------------
+    clock("[train]")
     trained, train_runs = train_phase(counters)
 
     # --- phase 6 ---------------------------------------------------------
+    clock("[explore]")
     explore_phase(served_measured, train_runs, int8_devs)
     capacity_phase()
+    clock("the kernels line")
 
     # --- phase 7 ---------------------------------------------------------
     kernels = []

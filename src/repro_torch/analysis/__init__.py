@@ -4,12 +4,14 @@ infeasible deployments and HBM overflows *before* anything runs.
 
     PYTHONPATH=src python -m repro_torch.analysis --preset ci --strict
 
-Five pass families: the Hopper kernel validator (launch plans over the
+Six pass families: the Hopper kernel validator (launch plans over the
 tune grids), the contract checker (cache axes, dispatch closure), the
 buffer-liveness walk and capacity drift guards, the shipped-bug-class
-AST lint over the port and ``chip_smoke.py``, and the deployment-
+AST lint over the port and ``chip_smoke.py``, the deployment-
 feasibility lint (scheduler liveness + queueing bounds over the
-traffic-scenario library, priced by the one-card model). Findings
+traffic-scenario library, priced by the one-card model) and the
+sharding propagation (every recipe over the paper-scale trees on the
+reference's production meshes, read from the port's placement). Findings
 serialize to the port's ``analysis/report.json``
 (``repro_torch.artifacts``). The closed-form HBM model behind
 ``launch/serve.py --preflight`` lives in

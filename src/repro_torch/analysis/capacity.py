@@ -52,7 +52,8 @@ from typing import Any, Dict, Optional, Tuple
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.hardware import H100_SXM
 from repro_torch.dist.sharding import (RECIPES, Placement, Recipe,
-                                       default_recipe, sanitize_spec)
+                                       default_recipe, get_recipe,
+                                       sanitize_spec)
 from repro_torch.dist.sharding import mesh_sizes as _sizes
 from repro_torch.models.model import (CACHE_AXES, F32_LEAVES,
                                       PAGED_CACHE_AXES, ModelRuntime,
@@ -346,7 +347,7 @@ def capacity(cfg: ModelConfig, shape: Optional[ShapeConfig] = None,
     if recipe is None:
         recipe = default_recipe(cfg, kind, sizes.get("model", 1))
     elif isinstance(recipe, str):
-        recipe = RECIPES[recipe]
+        recipe = get_recipe(recipe)
     B, S = shape.global_batch, shape.seq_len
     if param_dtype is None:
         param_dtype = "float32" if kind == "train" else dtype
@@ -430,18 +431,19 @@ def serve_preflight(cfg: ModelConfig, *, n_slots: int, max_len: int,
                     mesh=None, hbm_gb: Optional[float] = None,
                     dtype: str = "bfloat16",
                     param_dtype: Optional[str] = None,
-                    kv_dtype: Optional[str] = None) -> CapacityReport:
+                    kv_dtype: Optional[str] = None,
+                    recipe="decode") -> CapacityReport:
     """The serve launcher's capacity gate, evaluated before anything is
     allocated, at the runtime's ``dtype`` (and ``param_dtype``, default
     ``dtype``) that the engine then runs, per device on ``mesh`` under
-    the ``decode`` recipe (the sharded engines' default). A paged config
-    without a budget gates the pool ``PagedServeEngine`` derives
-    (:func:`default_page_budget`). ``hbm_gb`` (GiB) overrides each
-    card's budget."""
+    ``recipe`` (a ``Recipe`` or its name; default ``decode``, the
+    sharded engines' default). A paged config without a budget gates the
+    pool ``PagedServeEngine`` derives (:func:`default_page_budget`).
+    ``hbm_gb`` (GiB) overrides each card's budget."""
     chip: Any = None
     if hbm_gb is not None:
         chip = int(hbm_gb * 2**30)
-    kw = dict(mesh=mesh, recipe="decode", n_slots=n_slots, max_len=max_len,
+    kw = dict(mesh=mesh, recipe=recipe, n_slots=n_slots, max_len=max_len,
               chip=chip, dtype=dtype, param_dtype=param_dtype,
               kv_dtype=kv_dtype)
     if page_size:

@@ -5,16 +5,16 @@ An :class:`AnalysisPass` is a named callable ``run(ctx) -> [Finding]``
 declaring which rule ids it can emit — the runner uses the declaration
 to skip passes entirely when ``--rules`` filters them out.
 
-The port carries five passes: the kernel validator (launch plans of the
+The port carries six passes: the kernel validator (launch plans of the
 Hopper kernels over the tune grids), the contract checker (recipe
 resolvability over ``dist.sharding.RECIPES`` among its rules), the
-buffer-liveness walk, the repo AST lint and the deployment-feasibility
-lint, and the id of the capacity gate behind ``launch/serve.py
---preflight``. The reference's jaxpr lint waits for a compiled step,
-and its sharding propagation (over every family's recipes, which the
-port has since item 12's family slice) is still to port (ROADMAP.md
-Queue 1 item 14); its SPMD/compile lint reads XLA's dry-run,
-which the port does not have.
+buffer-liveness walk, the repo AST lint, the deployment-feasibility
+lint and the sharding propagation (every recipe over the paper-scale
+trees on the reference's production meshes, read from the port's own
+placement), and the id of the capacity gate behind ``launch/serve.py
+--preflight``. The reference's jaxpr lint waits for a compiled step
+(ROADMAP.md Queue 1 item 14); its SPMD/compile lint reads XLA's
+dry-run, which the port does not have.
 
 Presets: ``ci`` lints the reference ``ci`` preset's two smoke archs at
 its ``max_len`` and page size and validates the ``ci`` tune grid;
@@ -70,6 +70,13 @@ RULES: Dict[str, str] = {
                              "chip budget (the --preflight gate)",
     "capacity-spec-drift": "the closed-form capacity model drifted from "
                            "the live runtime/model contracts it mirrors",
+    # sharding propagation
+    "shard-replicated-large": "a large parameter/cache leaf stays fully "
+                              "replicated on every device of the mesh",
+    "shard-spec-dropped": "sanitize_spec drops a requested mesh axis "
+                          "(indivisible extent: silent replication)",
+    "shard-unknown-mesh-axis": "a recipe rule names a mesh axis that "
+                               "exists in no preset mesh (dead spec)",
     # deployment feasibility (scenario library x serving config)
     "deploy-admission-deadlock": "a request shape within max_len needs "
                                  "more pages than the pool holds: the "
@@ -103,7 +110,9 @@ SMEM_BUDGET_BYTES = 232448
 class AnalysisPreset:
     """Scale point of one analysis run: the archs linted (their smoke
     configs when ``smoke``), and the serving ``max_len`` and page size
-    they are linted at."""
+    they are linted at; ``replicated_leaf_bytes`` is the floor of
+    ``shard-replicated-large`` (the sharding propagation runs at paper
+    scale under every preset)."""
 
     name: str
     archs: Tuple[str, ...]
@@ -112,6 +121,7 @@ class AnalysisPreset:
     smoke: bool = True
     tune_preset: str = "ci"              # kernels validated at this grid
     smem_budget_bytes: int = SMEM_BUDGET_BYTES
+    replicated_leaf_bytes: int = 2 << 30
     description: str = ""
 
 

@@ -26,6 +26,7 @@ _PASS_MODULES = (
     "repro_torch.analysis.ast_lint",
     "repro_torch.analysis.liveness",
     "repro_torch.analysis.deploy_lint",
+    "repro_torch.analysis.sharding_prop",
 )
 
 

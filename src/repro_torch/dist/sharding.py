@@ -152,22 +152,38 @@ RECIPES: Dict[str, Recipe] = {
 }
 
 
+def zero3(base: Recipe) -> Recipe:
+    """``base`` with its weights split over ``data`` too (``embed``):
+    ZeRO-3-style inference, each layer gathered just before it runs."""
+    return base.with_rules(embed=("data",)).replace_name(
+        base.name + "+zero3")
+
+
+def get_recipe(name: str) -> Recipe:
+    """The recipe called ``name``: one of :data:`RECIPES`, or one of
+    them with ``+zero3`` (:func:`zero3`); any other name is refused."""
+    base, plus, rest = name.partition("+")
+    if base not in RECIPES or (plus and rest != "zero3"):
+        raise ValueError(f"unknown recipe {name!r}: one of "
+                         f"{sorted(RECIPES)}, or one of them + '+zero3'")
+    return zero3(RECIPES[base]) if plus else RECIPES[base]
+
+
 def default_recipe(cfg, kind: str, model_axis: int = 16) -> Recipe:
     """The reference launcher's recipe for a step kind (``repro.launch.
     lowering.default_recipe``): IS for training, WS for prefill, decode
     otherwise; the ``*_seq`` variants when the heads do not divide, and
-    weights over ``data`` too when bf16 weights over ``model`` pass 12
-    GB."""
+    weights over ``data`` too (:func:`zero3`) when bf16 weights over
+    ``model`` pass 12 GB."""
     heads_divide = cfg.n_heads % model_axis == 0 and cfg.family != "ssm"
     big = cfg.param_count() * 2 / model_axis > 12e9
     if kind == "train":
         return IS_RECIPE if heads_divide else IS_SEQ_RECIPE
     if kind == "prefill":
         base = WS_RECIPE if heads_divide else WS_SEQ_RECIPE
-        return base.with_rules(embed=("data",)).replace_name(
-            base.name + "+zero3") if big else base
-    return DECODE_RECIPE.with_rules(embed=("data",)).replace_name(
-        DECODE_RECIPE.name + "+zero3") if big else DECODE_RECIPE
+    else:
+        base = DECODE_RECIPE
+    return zero3(base) if big else base
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,15 @@
 // (decode_attention.py:88-96), and casts on write.
 #include "splitkv.cuh"
 
+// The f32 forms (decode_attention_f32.cu): each dtype's kernels build in
+// an nvcc process of their own, in parallel.
+int decode_attention_f32(const void* q, const void* k, const void* v,
+                         const void* mask, void* o_part, void* m_part,
+                         void* l_part, void* out, int B, int W, int Hkv,
+                         int G, int D, void* stream);
+int decode_attention_f32_plan(int B, int W, int Hkv, int G, int D,
+                              RtLaunch* out, int cap);
+
 extern "C" int rt_decode_attention(const void* q, const void* k,
                                    const void* v, const void* mask,
                                    void* o_part, void* m_part, void* l_part,
@@ -31,9 +40,8 @@ extern "C" int rt_decode_attention(const void* q, const void* k,
         q, k, v, nullptr, mask, o_part, m_part, l_part, out, B, W, Hkv, G,
         D, 0, 0, stream);
   if (dtype == RT_F32)
-    return splitkv::launch_same<float, false>(
-        q, k, v, nullptr, mask, o_part, m_part, l_part, out, B, W, Hkv, G,
-        D, 0, 0, stream);
+    return decode_attention_f32(q, k, v, mask, o_part, m_part, l_part, out,
+                                B, W, Hkv, G, D, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -46,6 +54,6 @@ extern "C" int rt_decode_attention_plan(int B, int W, int Hkv, int G, int D,
     return splitkv::plan_same<__nv_bfloat16, false>(B, W, Hkv, G, D, out,
                                                     cap);
   if (dtype == RT_F32)
-    return splitkv::plan_same<float, false>(B, W, Hkv, G, D, out, cap);
+    return decode_attention_f32_plan(B, W, Hkv, G, D, out, cap);
   return -static_cast<int>(cudaErrorInvalidValue);
 }

@@ -22,6 +22,16 @@
 // the caller's mask, not padded.
 #include "splitkv.cuh"
 
+// The f32 forms (paged_attention_f32.cu): each dtype's kernels build in
+// an nvcc process of their own, in parallel.
+int paged_attention_f32(const void* q, const void* k_pages,
+                        const void* v_pages, const void* page_table,
+                        const void* mask, void* o_part, void* m_part,
+                        void* l_part, void* out, int B, int NP, int ps,
+                        int Hkv, int G, int D, void* stream);
+int paged_attention_f32_plan(int B, int NP, int ps, int Hkv, int G, int D,
+                             RtLaunch* out, int cap);
+
 extern "C" int rt_paged_decode_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* page_table, const void* mask, void* o_part, void* m_part,
@@ -33,9 +43,9 @@ extern "C" int rt_paged_decode_attention(
         q, k_pages, v_pages, page_table, mask, o_part, m_part, l_part, out,
         B, NP * ps, Hkv, G, D, ps, NP, stream);
   if (dtype == RT_F32)
-    return splitkv::launch_same<float, true>(
-        q, k_pages, v_pages, page_table, mask, o_part, m_part, l_part, out,
-        B, NP * ps, Hkv, G, D, ps, NP, stream);
+    return paged_attention_f32(q, k_pages, v_pages, page_table, mask,
+                               o_part, m_part, l_part, out, B, NP, ps, Hkv,
+                               G, D, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -50,6 +60,6 @@ extern "C" int rt_paged_decode_attention_plan(int B, int NP, int ps, int Hkv,
     return splitkv::plan_same<__nv_bfloat16, true>(B, NP * ps, Hkv, G, D,
                                                    out, cap);
   if (dtype == RT_F32)
-    return splitkv::plan_same<float, true>(B, NP * ps, Hkv, G, D, out, cap);
+    return paged_attention_f32_plan(B, NP, ps, Hkv, G, D, out, cap);
   return -static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,0 +1,17 @@
+// The f32 forms of quant_attention.cu, in a source of their own so that
+// nvcc builds them beside the bf16 forms.
+#include "quant_splitkv.cuh"
+
+int quant_attention_f32(const void* q, const void* k, const void* v,
+                        const void* ks, const void* vs, const void* mask,
+                        void* o_part, void* m_part, void* l_part, void* out,
+                        int B, int W, int Hkv, int G, int D, void* stream) {
+  return quant_splitkv::launch<float, false>(q, k, v, ks, vs, nullptr, mask,
+                                             o_part, m_part, l_part, out, B,
+                                             W, Hkv, G, D, 0, 0, stream);
+}
+
+int quant_attention_f32_plan(int B, int W, int Hkv, int G, int D,
+                             RtLaunch* out, int cap) {
+  return quant_splitkv::plan<float, false>(B, W, Hkv, G, D, out, cap);
+}

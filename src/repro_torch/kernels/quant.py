@@ -6,8 +6,10 @@ Replaces ``src/repro/kernels/quant.py``: ``quantize_rows`` /
 ``dequantize_rows`` / ``quantize_channels``, the int8-weight matmul
 ``quant_matmul_pallas`` (``csrc/quant_matmul.cu``) and the two KV
 kernels, ``quant_decode_attention_splitkv`` (contiguous) and
-``quant_paged_decode_attention_splitkv`` (paged), both in
-``csrc/quant_attention.cu``: the row-parallel split body of
+``quant_paged_decode_attention_splitkv`` (paged), in
+``csrc/quant_attention.cu`` and ``csrc/quant_paged_attention.cu`` (each
+dtype's forms in a source of their own, ``*_f32.cu``), both instantiating
+``csrc/quant_splitkv.cuh``: the row-parallel split body of
 ``csrc/splitkv.cuh`` over an int8 cache, ``D / 16`` lanes a cache row
 with one 16-byte load each of K and V (at G 1), and its merge kernel.
 See the sources for what bounds them and the design.

@@ -56,10 +56,14 @@ vocabulary-split unembedding) and on the qk-norm scales, so each
 input's gradient is summed over ``model`` once; ``wk``/``wv`` enter
 through an f over the ranks that hold the same K/V heads. Where the
 attention stays whole on every rank there is neither. Under a recipe
-that splits ``embed`` over ``data`` (IS) each leaf split over ``data``
-is gathered whole just before its layer runs, inside the remat region,
-one layer at a time (the hybrid's shared block at each use); the
-gather's backward sums over ``data``.
+that splits ``embed`` over ``data`` (IS, ``*+zero3``) each leaf split
+over ``data`` is gathered whole just before its layer runs, inside the
+remat region, one layer at a time (the hybrid's shared block at each
+use); the gather's backward sums over ``data``. The serving forms
+gather the same way, each decode step's blocks one at a time and the
+embedding and the head each just before its use, so their logits equal
+the recipe's without the ``data`` split bit for bit (a gather is a
+concatenation).
 
 The MoE layer (``models.moe``) runs this rank's experts, or every
 expert's columns, and the Mamba-2 mixer (``models.ssm``) this rank's SSD
@@ -457,6 +461,18 @@ def _embed_in(params, batch: Dict[str, torch.Tensor],
     return _lookup(params, batch["tokens"], rt, pl)
 
 
+def _serve_lookup(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  rt: ModelRuntime, pl: Optional[Placement]) -> torch.Tensor:
+    """:func:`_lookup` for the serving forms, whose blocks stay this
+    rank's: where the recipe splits the embedding over ``data`` the
+    table is gathered whole for the lookup and dropped after it. The
+    table, not the looked-up rows: each ``data`` rank decodes other
+    slots, so gathering rows would need every rank's tokens first, and
+    a tied head gathers the table at the end of the step anyway. Both
+    are exact."""
+    return _lookup(_outer(params, cfg, pl, ("embed",)), tokens, rt, pl)
+
+
 def _unembed(params, cfg: ModelConfig, x: torch.Tensor,
              pl: Optional[Placement] = None) -> torch.Tensor:
     """Logits over the whole vocabulary: a rank's columns, gathered over
@@ -532,6 +548,36 @@ def _gather_data(p, dims, pl: Optional[Placement], stacked: bool = True):
     return out
 
 
+def _layer_dims(cfg: ModelConfig, pl: Optional[Placement]):
+    """:func:`data_dims` of one block of each :func:`_schedule` kind:
+    ``attn`` (the hybrid's shared blocks) and ``mamba``; None on one
+    device."""
+    if pl is None:
+        return None
+    dims = data_dims(cfg, pl)
+    return {"attn": dims["shared" if cfg.family == "hybrid" else "blocks"],
+            "mamba": dims["blocks"]}
+
+
+def _outer(params, cfg: ModelConfig, pl: Optional[Placement],
+           keys: Optional[Tuple[str, ...]] = None):
+    """``params`` with its leaves outside the blocks (``keys`` of them,
+    default all) gathered whole over ``data`` where the recipe splits
+    them (IS, ``*+zero3``); the blocks stay this rank's. One device:
+    ``params`` as it is."""
+    if pl is None:
+        return params
+    keys = [k for k in params if k not in ("blocks", "shared")
+            and (keys is None or k in keys)]
+    return dict(params, **_gather_data({k: params[k] for k in keys},
+                                       data_dims(cfg, pl), pl))
+
+
+def _head_keys(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The leaves the final norm and the unembedding read."""
+    return ("final_norm", "embed" if cfg.tie_embeddings else "lm_head")
+
+
 def _run_blocks(params, cfg: ModelConfig, x, positions, rt: ModelRuntime,
                 on_layer=None, pl: Optional[Placement] = None,
                 rows_split: bool = False):
@@ -546,18 +592,15 @@ def _run_blocks(params, cfg: ModelConfig, x, positions, rt: ModelRuntime,
     rank's rows of the global batch."""
     aux = torch.zeros((), device=x.device)
     rope = None if cfg.family == "ssm" else L.rope_tables(positions, cfg)
-    dims = None if pl is None else data_dims(cfg, pl)
-    attn_dims = None if pl is None else dims[
-        "shared" if cfg.family == "hybrid" else "blocks"]
-    mamba_dims = None if pl is None else dims["blocks"]
+    dims = _layer_dims(cfg, pl)
 
     def attn(p, x_):
-        p = _gather_data(p, attn_dims, pl, stacked=False)
+        p = _gather_data(p, dims and dims["attn"], pl, stacked=False)
         x_, a, kv = attn_block(p, x_, rope, cfg, rt, pl, rows_split)
         return x_, kv, a
 
     def mamba(p, x_):
-        p = _gather_data(p, mamba_dims, pl, stacked=False)
+        p = _gather_data(p, dims and dims["mamba"], pl, stacked=False)
         return mamba_block(p, x_, cfg, rt, pl) + (None,)
 
     blocks = {"attn": _remat(attn, rt), "mamba": _remat(mamba, rt)}
@@ -579,11 +622,7 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     f32: the MoE layers' summed load-balancing loss, else 0)."""
     _require_ported(cfg)
     pl = active_placement(cfg)
-    if pl is not None:       # the embedding, final norm and head (IS)
-        dims = data_dims(cfg, pl)
-        params = dict(params, **_gather_data(
-            {k: v for k, v in params.items()
-             if k not in ("blocks", "shared")}, dims, pl))
+    params = _outer(params, cfg, pl)   # the embedding, final norm and head
     x = _embed_in(params, batch, rt, pl)
     B, S, _ = x.shape
     positions = _positions(cfg, batch, B, S, x.device)
@@ -636,7 +675,8 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     """
     _require_ported(cfg)
     pl = active_placement(cfg)
-    x = _embed_in(params, batch, rt, pl)
+    x = (_embed_in(params, batch, rt, pl) if "embeds" in batch
+         else _serve_lookup(params, cfg, batch["tokens"], rt, pl))
     B, S, _ = x.shape
     positions = _positions(cfg, batch, B, S, x.device)
     cache = init_cache(cfg, B, max_len, rt.dtype, rt.kv_dtype,
@@ -665,9 +705,10 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     # a gather, not a slice: the kernels take contiguous rows only
     idx = torch.clamp(cache["pos"].long() - 1, 0, S - 1)
     x_last = x[torch.arange(B, device=x.device), idx][:, None, :]
-    x = norm(x_last, params["final_norm"], cfg.norm,
+    head = _outer(params, cfg, pl, _head_keys(cfg))
+    x = norm(x_last, head["final_norm"], cfg.norm,
              policy=rt.kernel_policy())
-    return cache, _unembed(params, cfg, x, pl)[:, 0]
+    return cache, _unembed(head, cfg, x, pl)[:, 0]
 
 
 # ===========================================================================
@@ -821,8 +862,18 @@ def _decode_blocks(params, cfg: ModelConfig, cache, x, rt: ModelRuntime,
     leaves ``names = (k, v, ks, vs)`` (the scales absent from a float
     cache), its new row written at ``idx``, and attention is the
     dispatch op ``op`` on the query, the cache leaves present, then
-    ``tail`` (the mask, after the page table if paged)."""
+    ``tail`` (the mask, after the page table if paged).
+
+    Under a recipe that splits weights over ``data`` (IS, ``*+zero3``)
+    each block's leaves are gathered whole just before it runs and
+    dropped after it (the hybrid's shared block at each of its uses),
+    then the final norm and the head: a rank holds its resident blocks
+    plus one gathered layer, never the whole tree. Every rank makes the
+    same gathers in the same order: the sharded engines run each decode
+    step on every rank at once (lockstep), and a rank that skipped a
+    gather would hang the mesh."""
     pol = rt.kernel_policy()
+    dims = _layer_dims(cfg, pl)
 
     def attend(q, kv):
         return dispatch(op, pol, q, *(t for t in kv if t is not None), *tail)
@@ -834,13 +885,16 @@ def _decode_blocks(params, cfg: ModelConfig, cache, x, rt: ModelRuntime,
             posv = posv[None].expand(3, -1, -1)              # (3, B, 1)
         rope = L.rope_tables(posv, cfg)
     for kind, i, p in _schedule(params, cfg):
+        p = _gather_data(p, dims and dims[kind], pl, stacked=False)
         if kind == "mamba":
             x = _mamba_decode_one(p, x, cache, i, cfg, pol, pl)
             continue
         kv = tuple(cache[n][i] if n in cache else None for n in names)
         x = _attn_decode_one(p, x, kv, idx, attend, rope, cfg, rt, pl, rows)
-    x = norm(x[:, None, :], params["final_norm"], cfg.norm, policy=pol)
-    return _unembed(params, cfg, x, pl)[:, 0]
+    del p                                # the last gathered layer
+    head = _outer(params, cfg, pl, _head_keys(cfg))
+    x = norm(x[:, None, :], head["final_norm"], cfg.norm, policy=pol)
+    return _unembed(head, cfg, x, pl)[:, 0]
 
 
 def decode_step(params, cfg: ModelConfig, cache: Dict[str, torch.Tensor],
@@ -852,7 +906,7 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, torch.Tensor],
     _require_ported(cfg)
     pl = active_placement(cfg)
     pos = cache["pos"]
-    x = _lookup(params, tokens, rt, pl)                          # (B, d)
+    x = _serve_lookup(params, cfg, tokens, rt, pl)               # (B, d)
     if cfg.family == "ssm":
         logits = _decode_blocks(params, cfg, cache, x, rt, pl=pl)
         pos += 1
@@ -984,7 +1038,7 @@ def decode_step_paged(params, cfg: ModelConfig,
         return decode_step(params, cfg, cache, tokens, rt)
     pl = active_placement(cfg)
     pos, pt = cache["pos"], cache["pt"]
-    x = _lookup(params, tokens, rt, pl)                          # (B, d)
+    x = _serve_lookup(params, cfg, tokens, rt, pl)               # (B, d)
     W, ps = window, page_size
     row = (pos % W).long()
     phys = torch.gather(pt, 1, (row // ps)[:, None])[:, 0].long()

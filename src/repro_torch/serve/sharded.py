@@ -21,9 +21,13 @@ tokens as the one-device engine (``tests/test_torch_multidevice.py``,
 Every decoder family runs: dense and vlm, the MoE (expert-parallel or
 expert-split), the SSM (head-aligned, no pages: its state is O(1) a
 slot) and the hybrid (its shared blocks' K/V contiguous per slot or
-paged, its state per slot). A recipe that splits the model dim (``IS``,
-``*+zero3``) raises ``NotImplementedError``: the train step streams
-such weights (``train.loop``), serving does not yet.
+paged, its state per slot). Every recipe of ``RECIPES`` serves, and
+their ``+zero3`` forms (``dist.sharding.get_recipe``): where a recipe
+splits the model dim over ``data`` (``IS``, ``*+zero3``: ZeRO-3-style
+inference) a rank holds its block of every layer and gathers each layer
+whole just before it runs (``models.model``), so it serves the tokens
+of the same recipe without the ``data`` split, bit for bit
+(``tests/test_torch_mesh_zero3.py``).
 :func:`mesh_forward` runs the non-causal forward of an encoder (hubert)
 or any model's logits on a mesh.
 """
@@ -31,13 +35,14 @@ from __future__ import annotations
 
 import dataclasses
 from contextlib import ExitStack
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from repro_torch.dist.sharding import (DECODE_RECIPE, Recipe, axis_rules,
-                                       default_recipe, shard_tree, use_mesh)
+                                       default_recipe, get_recipe,
+                                       shard_tree, use_mesh)
 from repro_torch.models.model import axes_tree, forward, leaf_dtype
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.paged import PagedServeEngine
@@ -46,23 +51,17 @@ from repro_torch.tree import tree_leaves
 
 class ShardedServeEngine(ServeEngine):
     """``ServeEngine`` on ``mesh`` (a ``launch.mesh.Mesh``) under
-    ``recipe``. ``params`` is the whole tree (f32 masters or cast),
-    on the CPU or on a device this process can read (CUDA IPC); only
-    this rank's blocks are copied, each cast as ``cast_params`` casts
-    it."""
+    ``recipe`` (a ``Recipe`` or its name, default ``decode``).
+    ``params`` is the whole tree (f32 masters or cast), on the CPU or on
+    a device this process can read (CUDA IPC); only this rank's blocks
+    are copied, each cast as ``cast_params`` casts it."""
 
     def __init__(self, params, cfg, rt, mesh,
-                 recipe: Optional[Recipe] = None, **kw):
+                 recipe: Optional[Union[Recipe, str]] = None, **kw):
         self.mesh = mesh
+        if isinstance(recipe, str):
+            recipe = get_recipe(recipe)
         self.recipe = recipe if recipe is not None else DECODE_RECIPE
-        if self.recipe.rules.get("embed") is not None:
-            raise NotImplementedError(
-                f"recipe {self.recipe.name!r} streams the weights over "
-                f"{self.recipe.rules['embed']} (the model dim split): the "
-                f"serving forms keep d_model whole on every rank (the "
-                f"sharded train step gathers such weights layer by layer; "
-                f"serving with them waits for the next slice of ROADMAP.md "
-                f"Queue 1 item 12, with sharding_prop)")
         self.placement = mesh.placement(cfg, self.recipe)
         rt = dataclasses.replace(rt, device=str(mesh.device))
         params = shard_tree(params, axes_tree(cfg), self.recipe, mesh, cfg,
@@ -144,7 +143,8 @@ def _nbytes(tree) -> int:
 
 
 def mesh_serve(mesh, params, cfg, runs: Sequence[Dict[str, Any]],
-               recipe: Optional[Recipe] = None) -> List[Dict[str, Any]]:
+               recipe: Optional[Union[Recipe, str]] = None
+               ) -> List[Dict[str, Any]]:
     """One rank's serving runs, for ``launch.mesh.run_mesh``: each run
     (a dict of ``rt``, ``requests`` as dicts of :class:`Request`'s
     fields, ``engine_kw`` and ``paged``) builds its sharded engine over
@@ -176,7 +176,8 @@ def mesh_serve(mesh, params, cfg, runs: Sequence[Dict[str, Any]],
 
 
 def mesh_forward(mesh, params, cfg, runs: Sequence[Dict[str, Any]],
-                 recipe: Optional[Recipe] = None) -> List[Dict[str, Any]]:
+                 recipe: Optional[Union[Recipe, str]] = None
+                 ) -> List[Dict[str, Any]]:
     """One rank's forward runs, for ``launch.mesh.run_mesh``: each run (a
     dict of ``rt`` and ``batch``, the global batch as host arrays or
     tensors: each ``data`` rank takes its rows) calls ``forward`` on this
@@ -185,6 +186,8 @@ def mesh_forward(mesh, params, cfg, runs: Sequence[Dict[str, Any]],
     (gathered over ``data``, on the CPU), the aux loss and this rank's
     parameter bytes."""
     from repro_torch.data.pipeline import make_global_batch
+    if isinstance(recipe, str):
+        recipe = get_recipe(recipe)
     recipe = recipe if recipe is not None else default_recipe(
         cfg, "prefill", mesh.sizes.get("model", 1))
     out = []

@@ -28,7 +28,8 @@ print(len(mods), bad)
 #: Modules the walk must reach: the trace front-end, the figures, the
 #: examples, the last-ported families' configs, the scenario library,
 #: the static-analysis package (the kernel validator, the contract
-#: checker and the liveness walk among them), the launch plans, and the
+#: checker, the liveness walk and the sharding propagation among them),
+#: the launch plans, and the
 #: mesh: the sharding recipes and placement, the mesh and its spawner,
 #: the sharded engines, GPipe and the sharded train runs.
 _NEW = ("repro_torch.core.workload.torch_trace",
@@ -64,6 +65,7 @@ _NEW = ("repro_torch.core.workload.torch_trace",
         "repro_torch.analysis.kernel_validator",
         "repro_torch.analysis.contracts",
         "repro_torch.analysis.liveness",
+        "repro_torch.analysis.sharding_prop",
         "repro_torch.kernels.plan",
         "repro_torch.dist.sharding",
         "repro_torch.launch.mesh",

@@ -34,7 +34,7 @@ from repro.serve import ServeEngine as JServe  # noqa: E402
 
 from repro_torch.configs import ARCHS, smoke_config  # noqa: E402
 from repro_torch.dist.sharding import (DECODE_RECIPE,  # noqa: E402
-                                       IS_RECIPE, Placement)
+                                       Placement)
 from repro_torch.launch.mesh import pick_backend, run_mesh  # noqa: E402
 from repro_torch.models import ModelRuntime, params_from_numpy  # noqa: E402
 from repro_torch.models.model import (CACHE_AXES,  # noqa: E402
@@ -200,16 +200,35 @@ def test_backend_rule():
     assert pick_backend(2, ["cpu", "cuda:1"]) == "gloo"
 
 
+@pytest.mark.parametrize("stop_first", [False, True])
+def test_ranks_fork_from_one_server(stop_first):
+    """Ranks fork from a server that imported torch once: a mesh after
+    another reuses the running server, one after ``stop_forkserver``
+    starts a new one, and either way every rank of the (2, 2) mesh sits
+    at its coordinates and sums over each axis's two ranks."""
+    from torch_mesh_jobs import rank_sums
+    from repro_torch.launch.mesh import stop_forkserver
+    run_mesh(rank_sums, (1, 2), torch.zeros(1), devices="cpu",
+             timeout=MESH_TIMEOUT)
+    if stop_first:
+        stop_forkserver()
+    got = run_mesh(rank_sums, (2, 2), torch.arange(3.0), devices="cpu",
+                   timeout=MESH_TIMEOUT)
+    assert got == [(r, {"data": r // 2, "model": r % 2},
+                    {"data": [0.0, 2.0, 4.0], "model": [0.0, 2.0, 4.0]})
+                   for r in range(4)]
+
+
 @pytest.mark.parametrize("arch,mesh,recipe,kw,match", [
     ("hubert-xlarge", (1, 2), None, {}, "encoder-only"),
-    ("minicpm-2b", (1, 2), IS_RECIPE, {}, "streams the weights"),
+    ("minicpm-2b", (1, 2), "IS+zero2", {}, "unknown recipe"),
     ("minicpm-2b", (2, 1), None, dict(n_slots=3), "does not divide")])
 def test_a_rank_failure_stops_the_mesh(weights, arch, mesh, recipe, kw,
                                        match):
     """A rank that raises stops every rank, and its traceback reaches
     the caller (nothing is caught and passed over): an encoder served on
-    a mesh, a recipe that splits the model dim, slots that do not divide
-    over ``data``."""
+    a mesh, a recipe name no recipe has, slots that do not divide over
+    ``data``."""
     cfg = smoke_config(ARCHS[arch])
     params = weights[1] if arch == "minicpm-2b" else {}
     with pytest.raises(RuntimeError, match=match):
