@@ -52,6 +52,19 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    zamba2-2.7b's 40 (``model`` 2), each against its plain version and
    timed beside the bound (and ``torch.bmm``);
 
+   then ``[graph]``: ``analysis.graph_lint`` under the ``h100`` preset
+   on the card's host, in worker processes that trace while
+   ``[validator]`` runs: the eight ``H100_ARCHS`` at full width
+   (``max_len`` 4096, page 16, batch 2) traced on ``meta`` under the
+   cuda policy, one arch a worker process, each arch's labels, its
+   findings by rule and severity and one decode step's kernel nodes
+   printed, no error or warning allowed; and after each served model's
+   parity (``[graph] <arch> launches``: minicpm-2b contiguous and paged
+   in bf16 and int8 KV, qwen2-moe-a2.7b and zamba2-2.7b contiguous and
+   paged, mamba2-1.3b contiguous) one eager decode step on the card at
+   the same shapes, every wrapper's launches over it equal to the
+   traced step's kernel nodes (the ``graph`` path of the kernels line);
+
    then ``[validator]`` (under 120 s): the static kernel validator
    (``repro_torch.analysis.kernel_validator``) over the ``h100`` tune
    grid with no error; every case x grid point's launch plan
@@ -218,7 +231,15 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    B 2, S 1024 frames, bf16), logits within ``LOGIT_TOL`` of one device;
    every rank's bytes equal to the capacity model's (``capacity`` of the
    prefill for hubert), the grouped GEMM and the scan launched on every
-   rank of their meshes; then mixtral-8x22b's serving preflight at
+   rank of their meshes; in a (1, 8) spawn, qwen2-moe-a2.7b expert-split
+   (60 experts do not divide over 8: every expert at 176 of its 1,408
+   columns a rank): layer 0's MoE FFN in bf16 with the same x on every
+   rank (4 decode slots; a 1024-token prefill), held to one device's
+   bf16 output within (M + 2) u max|one device| (u = 2^-8, M = 8) and no
+   further from the f32 layer than one device is plus u max, then the
+   model at 2 of 24 layers teacher-forced in bf16 (its deviation,
+   argmax and routing agreement reported, not held: routing flips);
+   then mixtral-8x22b's serving preflight at
    (1, 8), host only: a rank's bytes fit 80 GB, one card's do not. The
    launches of every rank's runs are summed into the ``sharded`` path;
 
@@ -305,7 +326,8 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    it (a miss is a finding about the model's reach, recorded in
    ROADMAP.md Queue 3, not a failed run);
 7. one JSON line describing the kernels (each kernel's launches by
-   path: serve, tune, train, trace, launch, sharded and sharded_train),
+   path: serve, tune, train, trace, launch, sharded, sharded_train and
+   graph),
    the card's name and power limit, and last the JSON result line.
 
 It exits non-zero without printing a result when no CUDA device is
@@ -1520,6 +1542,125 @@ def validator_phase():
     print(f"[validator] phase {dt:.1f} s (budget {VALIDATOR_BUDGET_S:.0f} s)")
     check(dt <= VALIDATOR_BUDGET_S, f"validator phase took {dt:.1f} s")
     return len(findings)
+
+
+#: Batch, ``max_len`` and page size of the h100 preset's traces
+#: (``analysis.registry.PRESETS["h100"]``), at which the traced decode
+#: step's kernel nodes are tied to one eager step's launches.
+GRAPH_BATCH = 2
+
+
+def graph_start():
+    """``[graph]``, started: the ``h100`` preset of ``graph_lint`` on the
+    card's host, the eight ``H100_ARCHS`` at full width, ``max_len``
+    4096, page 16, traced on ``meta`` under the cuda policy (nothing
+    allocated, nothing launched), one arch a worker process (forked from
+    the forkserver the meshes use). The workers trace while the caller
+    goes on (``[validator]``); :func:`graph_phase` collects them."""
+    import multiprocessing as mp
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from repro_torch.analysis.graph_lint import lint_summary
+    from repro_torch.analysis.registry import PRESETS
+    from repro_torch.launch.mesh import FORKSERVER_PRELOAD
+
+    p = PRESETS["h100"]
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(list(FORKSERVER_PRELOAD))
+    # a core left to the caller
+    workers = max(1, min(len(p.archs), (os.cpu_count() or 2) - 1))
+    ex = ProcessPoolExecutor(max_workers=workers, mp_context=ctx,
+                             initializer=torch.set_num_threads,
+                             initargs=(1,))
+    futures = {a: ex.submit(lint_summary, a, p.max_len, p.page_size,
+                            p.smoke) for a in p.archs}
+    return ex, futures, workers, time.perf_counter()
+
+
+def graph_phase(started):
+    """``[graph]``'s results (:func:`graph_start`): per arch its labels,
+    its findings by rule and severity and the kernel nodes of one decode
+    step; fails on an error or a warning. Returns {arch: {label: kernel
+    nodes}}."""
+    from collections import Counter
+    from repro_torch.analysis.registry import PRESETS
+    ex, futures, workers, t0 = started
+    try:
+        results = {a: f.result() for a, f in futures.items()}
+    finally:
+        ex.shutdown()
+    p = PRESETS["h100"]
+    nodes = {}
+    for arch, r in results.items():
+        counts = Counter(f"{f.rule_id}/{f.severity}" for f in r["findings"])
+        bad = [f.describe() for f in r["findings"]
+               if f.severity in ("error", "warning")]
+        labels = sorted(r["kernels"])
+        steps = [lab.split("/")[0] + lab.partition(arch)[2] for lab in labels
+                 if not lab.startswith("prefill/")]
+        lengths = sorted(int(lab.rpartition("@L")[2]) for lab in labels
+                         if lab.startswith("prefill/"))
+        print(f"[graph] {arch}: {len(labels)} labels ({', '.join(steps)}; "
+              f"prefill at L {lengths}); findings "
+              f"{dict(counts) or 'none'}; decode_step kernel nodes "
+              f"{r['kernels'][f'decode_step/{arch}']}; "
+              f"{r['seconds']:.1f} s")
+        check(not bad, f"[graph] {arch}: {bad}")
+        nodes[arch] = r["kernels"]
+    print(f"[graph] h100 preset ({len(p.archs)} archs, max_len "
+          f"{p.max_len}, page {p.page_size}, batch {GRAPH_BATCH}): no error"
+          f" or warning; {workers} workers beside [validator], "
+          f"{time.perf_counter() - t0:.1f} s from their start")
+    return nodes
+
+
+def graph_launches(label, cfg, params, rt, counters, cases):
+    """One eager decode step on the card per case ``(kv_dtype, paged)``
+    at the h100 preset's shapes (batch 2, ``max_len`` 4096, page 16; a
+    zero cache, every slot at position 0): each wrapper's launches over
+    the step, its count set to 0 just before, equal to the kernel nodes
+    of the same step traced on ``meta`` (``graph_lint.decode_kernels``).
+    Returns the launches summed over the cases."""
+    import dataclasses
+    import torch
+    from repro_torch.analysis.graph_lint import decode_case, decode_kernels
+    from repro_torch.analysis.registry import PRESETS
+    p = PRESETS["h100"]
+    total = {k: 0 for k in counters}
+    for kv, paged in cases:
+        crt = dataclasses.replace(rt, kv_dtype=kv)
+        ps = p.page_size if paged else None
+        t0 = time.perf_counter()
+        traced = decode_kernels(cfg, crt, batch=GRAPH_BATCH,
+                                max_len=p.max_len, page_size=ps)
+        t_trace = time.perf_counter() - t0
+        fn, spec, _ = decode_case(cfg, crt, batch=GRAPH_BATCH,
+                                  max_len=p.max_len, page_size=ps)
+        cache = {k: torch.zeros(s, dtype=d, device="cuda")
+                 for k, (s, d) in spec.items()}
+        tokens = torch.zeros((GRAPH_BATCH,), dtype=torch.int32,
+                             device="cuda")
+        for c in counters.values():
+            c.launches = 0
+        with torch.no_grad():
+            _, logits = fn(params, cache, tokens)
+        torch.cuda.synchronize()
+        launched = {k: c.launches for k, c in counters.items()}
+        check(bool(logits.isfinite().all()), f"[graph] {label}: logits")
+        name = f"{'paged' if paged else 'contiguous'} {kv or rt.dtype}"
+        print(f"[graph] {label} {name}: traced kernel nodes "
+              f"{dict(traced)} (meta, {t_trace:.1f} s) == launches of one "
+              f"decode step on the card "
+              f"{ {k: n for k, n in launched.items() if n} }")
+        check({k: n for k, n in launched.items() if n} == dict(traced),
+              f"[graph] {label} {name}: traced {dict(traced)}, launched "
+              f"{launched}")
+        for k, n in launched.items():
+            total[k] += n
+        del cache, logits
+    return total
 
 
 def tune_close(op, got, want):
@@ -3010,9 +3151,120 @@ def sharded_mesh(title, mesh, cfg, params, runs, expect, logit_tol=None,
 def sharded_items_rank(mesh, items):
     """One rank of a [sharded] mesh that runs several models: each item
     ``(kind, params, cfg, runs)`` in turn, ``serve`` as ``sharded_rank``
-    serves, ``forward`` as ``forward_rank`` runs."""
-    return [(sharded_rank if kind == "serve" else forward_rank)(
-        mesh, params, cfg, runs) for kind, params, cfg, runs in items]
+    serves, ``forward`` as ``forward_rank`` runs, ``moe_layer`` as
+    ``moe_layer_rank`` does."""
+    ranks = {"serve": sharded_rank, "forward": forward_rank,
+             "moe_layer": moe_layer_rank}
+    return [ranks[kind](mesh, params, cfg, runs)
+            for kind, params, cfg, runs in items]
+
+
+#: bf16's unit roundoff: the expert-split layer's bar is (M + 2) of it
+#: times max|one device| (``moe_layer_check``).
+BF16_U = 2.0 ** -8
+
+
+def _moe_layer_params(layer, cfg, dtype):
+    """One MoE layer's weights in ``dtype``, but the f32 leaves (router,
+    shared gate)."""
+    import torch
+    from repro_torch.models.model import F32_LEAVES
+    return {k: v.to(torch.float32 if k in F32_LEAVES else dtype)
+            for k, v in layer.items()}
+
+
+def moe_layer_rank(mesh, layer, cfg, runs):
+    """One rank's MoE FFN (dropless, the cuda policy) on its block of
+    ``layer`` (one layer's weights, whole, the parent's tensors over CUDA
+    IPC) under the decode recipe, in bf16, on each run's ``x``, the same
+    on every rank: the output summed over ``model``, and the launches
+    (counts set to 0 before each run)."""
+    import torch
+    from repro_torch.dist.sharding import DECODE_RECIPE, shard_tree
+    from repro_torch.models.model import F32_LEAVES
+    from repro_torch.models.moe import moe_defs, moe_ffn
+    counters = kernel_counters()
+    axes = {k: d.axes for k, d in moe_defs(cfg).items()}
+    p = shard_tree(layer, axes, DECODE_RECIPE, mesh, cfg,
+                   dtype=lambda path: torch.float32 if any(
+                       f"'{n}'" in path for n in F32_LEAVES)
+                   else torch.bfloat16)
+    pl = mesh.placement(cfg, DECODE_RECIPE)
+    out = []
+    for run in runs:
+        for c in counters.values():
+            c.launches = 0
+        with torch.no_grad():
+            y, _ = moe_ffn(p, run["x"].to(mesh.device), cfg, dropless=True,
+                           pl=pl)
+        torch.cuda.synchronize()
+        out.append(dict(rank=mesh.rank, split=pl.moe_split,
+                        columns=tuple(p["wo"].shape),
+                        out=y.cpu() if mesh.rank == 0 else None,
+                        launches={k: c.launches
+                                  for k, c in counters.items()}))
+    return out
+
+
+def one_device_moe_layer(layer, cfg, runs):
+    """The same layer on one device, in bf16 and in f32 (the cuda
+    policy), each run's outputs on the host."""
+    import torch
+    from repro_torch.models.moe import moe_ffn
+    out = []
+    for run in runs:
+        rec = {}
+        for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            with torch.no_grad():
+                y, _ = moe_ffn(_moe_layer_params(layer, cfg, dt),
+                               run["x"].to("cuda", dt), cfg, dropless=True)
+            rec[name] = y.float().cpu()
+        out.append(rec)
+    return out
+
+
+def moe_layer_check(item, mesh, ranks, want):
+    """The expert-split layer against one device, with the same x on every
+    rank (the router whole on each: the routing is the same by
+    construction, so only rounding separates them). Each rank's ``wo``
+    product leaves the grouped GEMM rounded to bf16 (at most u = 2^-8 of
+    it, a product taken at one output's worth), the M partials are
+    summed in f32, one device rounds its product and its gate-weighted
+    sum once each: the bar is (M + 2) u max|one device|. The mesh must
+    also be no further from the f32 layer than one device is, give or
+    take u max|one device|."""
+    title, M = item["title"], mesh[1]
+    tag = item.get("tag", "[sharded]")
+    total = {}
+    for i, run in enumerate(item["runs"]):
+        recs = [r[i] for r in ranks]
+        got, ref, exact = recs[0]["out"].float(), want[i]["bf16"], \
+            want[i]["f32"]
+        check({r["split"] for r in recs} == {"ffn"},
+              f"{title}: splits {[r['split'] for r in recs]}")
+        check(got.shape == ref.shape and bool(got.isfinite().all()),
+              f"{title} {run['label']}: output {tuple(got.shape)}")
+        scale = float(ref.abs().max())
+        dev = float((got - ref).abs().max())
+        bar = (M + 2) * BF16_U * scale
+        mesh_exact = float((got - exact).abs().max())
+        one_exact = float((ref - exact).abs().max())
+        print(f"{tag} {title} {run['label']}: {recs[0]['columns']} wo "
+              f"block a rank, max |mesh - one device| {dev:.6f} = "
+              f"{dev / (BF16_U * scale):.3f} u max|one device| "
+              f"({scale:.4f}; bar (M + 2) u = {M + 2} u = {bar:.6f}); "
+              f"against the f32 layer: mesh {mesh_exact:.6f}, one device "
+              f"{one_exact:.6f} (bar one device + u max = "
+              f"{one_exact + BF16_U * scale:.6f})")
+        check(dev <= bar, f"{title} {run['label']}: {dev} past {bar}")
+        check(mesh_exact <= one_exact + BF16_U * scale,
+              f"{title} {run['label']}: {mesh_exact} from f32, one device "
+              f"{one_exact}")
+        for r in recs:
+            for k, n in r["launches"].items():
+                total[k] = total.get(k, 0) + n
+    launched_on(title, ranks, item["expect"], total, tag)
+    return total
 
 
 def forward_rank(mesh, params, cfg, runs):
@@ -3073,10 +3325,11 @@ def sharded_spawn(mesh, items, tag="[sharded]"):
     its lines printed under ``tag``. Returns the launches summed over
     ranks, items and runs."""
     import torch
-    from repro_torch.launch.mesh import run_mesh
+    from repro_torch.launch.mesh import pick_backend, run_mesh
     t0 = time.perf_counter()
-    wants = [(one_device_runs if it["kind"] == "serve"
-              else one_device_forward)(it["params"], it["cfg"], it["runs"])
+    ones = {"serve": one_device_runs, "forward": one_device_forward,
+            "moe_layer": one_device_moe_layer}
+    wants = [ones[it["kind"]](it["params"], it["cfg"], it["runs"])
              for it in items]
     t_one = time.perf_counter() - t0
     torch.cuda.synchronize()
@@ -3085,15 +3338,17 @@ def sharded_spawn(mesh, items, tag="[sharded]"):
                      [(it["kind"], it["params"], it["cfg"], it["runs"])
                       for it in items], timeout=SHARDED_TIMEOUT)
     t_mesh = time.perf_counter() - t0
+    backend = pick_backend(len(ranks))
     print(f"{tag} {' + '.join(it['title'] for it in items)}: mesh "
           f"{mesh[0]}x{mesh[1]} (data, model), {len(ranks)} ranks on "
           f"{torch.cuda.device_count()} card(s) over "
-          f"{ranks[0][0][0]['backend']} (all_reduce / all_gather / "
+          f"{backend} (all_reduce / all_gather / "
           f"broadcast of CUDA tensors, staged by gloo through host memory);"
           f" spawn and runs {t_mesh:.1f} s, one-device runs {t_one:.1f} s")
     total = {}
     for i, (it, want) in enumerate(zip(items, wants)):
-        check_fn = sharded_check if it["kind"] == "serve" else forward_check
+        check_fn = {"serve": sharded_check, "forward": forward_check,
+                    "moe_layer": moe_layer_check}[it["kind"]]
         got = check_fn(dict(it, tag=tag), mesh, [r[i] for r in ranks], want)
         for k, n in got.items():
             total[k] = total.get(k, 0) + n
@@ -3364,7 +3619,7 @@ def sharded_phase(counters):
          "paged_decode_attention"}, equal_tokens=True))
     del params
     for mesh, items in sharded_family_items().items():
-        totals.append(sharded_spawn(mesh, by_mesh[mesh] + items))
+        totals.append(sharded_spawn(mesh, by_mesh.get(mesh, []) + items))
     del by_mesh, items
     mixtral_preflight()
     sharded = {k: sum(t.get(k, 0) for t in totals) for k in counters}
@@ -3419,6 +3674,7 @@ def sharded_family_items():
                 f"layers) bf16", cfg=cfg, params=params, runs=runs16,
                 expect=expect, logit_tol=None)]
     del params
+    split = expert_split_items(bf16, expect)
     items = []
     for name, expect in (
             ("mamba2-1.3b", {"rmsnorm", "ssd_scan"}),
@@ -3444,7 +3700,45 @@ def sharded_family_items():
         expect={"flash_attention"} | ({"rmsnorm"} if uses_rmsnorm(cfg)
                                       else set()),
         logit_tol=LOGIT_TOL))
-    return {(1, 4): moe, (1, 2): items}
+    return {(1, 4): moe, (1, 2): items, (1, 8): split}
+
+
+#: Depth of the expert-split qwen2-moe-a2.7b at (1, 8) (widths uncut).
+SPLIT_LAYERS = 2
+#: The expert-split layer's inputs, the same on every rank: 4 decode
+#: slots, and a 1024-token prefill.
+SPLIT_LAYER_X = (("decode B 4", (4, 1)), ("prefill B 1 S 1024", (1, 1024)))
+
+
+def expert_split_items(bf16, expect):
+    """[sharded]'s (1, 8) spawn: qwen2-moe-a2.7b's 60 experts do not
+    divide over ``model`` 8, so every expert splits its 1,408 columns,
+    176 a rank (expert-split). Layer 0's MoE FFN in bf16 with the same x
+    on every rank, held to one device (``moe_layer_check``), then the
+    model at ``SPLIT_LAYERS`` layers teacher-forced in bf16 (its logits'
+    deviation from one device reported, not held: routing flips)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_arch("qwen2-moe-a2.7b"),
+                              n_layers=SPLIT_LAYERS)
+    params = init_params(cfg, seed=0, device="cuda")          # f32
+    layer = {k: v[0] for k, v in params["blocks"]["moe"].items()}
+    rng = np.random.default_rng(11)
+    runs = [dict(label=label, x=torch.as_tensor(rng.standard_normal(
+        shape + (cfg.d_model,)).astype(np.float32)).to(torch.bfloat16))
+        for label, shape in SPLIT_LAYER_X]
+    teacher = [dict(run, routes=True) for run in sharded_runs(
+        cfg, bf16, teacher=True, served=[], layouts=(False,))[:1]]
+    return [dict(kind="moe_layer", title="qwen2-moe-a2.7b layer 0 MoE FFN "
+                 "expert-split bf16", cfg=cfg, params=layer, runs=runs,
+                 expect={"moe_gemm"}),
+            dict(kind="serve", title=f"qwen2-moe-a2.7b ({cfg.n_layers} of 24"
+                 f" layers) expert-split bf16", cfg=cfg, params=params,
+                 runs=teacher, expect=expect, logit_tol=None)]
 
 
 def mixtral_preflight():
@@ -3472,8 +3766,9 @@ def mixtral_preflight():
 # ===========================================================================
 #: Depths of the full-width models [sharded-zero3] serves (widths uncut):
 #: every step of a shared-card mesh gathers each layer over gloo, through
-#: host memory.
-ZERO3_LAYERS = {"chatglm3-6b": 4, "qwen2-moe-a2.7b": 4}
+#: host memory; qwen2-moe cut from 4 to 2 to make room for [graph] in the
+#: run's time limit (a 1.1 GB f32 layer gathered a pass).
+ZERO3_LAYERS = {"chatglm3-6b": 4, "qwen2-moe-a2.7b": 2}
 #: The slots of a [sharded-zero3] engine (one teacher-forced prompt
 #: each), its teacher-forced decode steps, and the served prompts (the
 #: first of PROMPT_LENS) and new tokens of its paged run: each prefill
@@ -3491,7 +3786,7 @@ def sharded_zero3_phase(counters):
     share the card over gloo, widths uncut: chatglm3-6b (4 of 28 layers,
     bf16) at (2, 1) under ``decode+zero3`` and ``decode`` in one spawn,
     their teacher-forced logits equal bit for bit and each within
-    ``LOGIT_TOL`` of one device; qwen2-moe-a2.7b (4 of 24, f32) at
+    ``LOGIT_TOL`` of one device; qwen2-moe-a2.7b (2 of 24, f32) at
     (2, 2) under ``decode+zero3``, 30 experts a rank, teacher-forced
     within ``ZERO3_MOE_TOL`` of one device and served paged with one
     device's tokens (no routing agreement: each ``data`` rank routes its
@@ -4587,8 +4882,12 @@ def main() -> int:
     # --- phase 2 ---------------------------------------------------------
     clock("[kernels]")
     entries = kernel_phase(cfg, moe_cfg, ssm_cfg, hyb_cfg)
+    clock("[graph]")
+    graph = graph_start()
     clock("[validator]")
     validator_phase()
+    clock("[graph] results")
+    graph_phase(graph)
     clock("[tune]")
     tuned = tuner_phase(counters)
     gc.collect()
@@ -4611,6 +4910,10 @@ def main() -> int:
                                   served_measured[cfg.name])
     # --- phase 4 ---------------------------------------------------------
     int8_devs = {cfg.name: parity_phase(cfg, params)}
+    clock("[graph] minicpm-2b launches")
+    graphed = [graph_launches(cfg.name, cfg, params, rt, counters,
+                              ((None, False), (None, True), ("int8", False),
+                               ("int8", True)))]
     del params
 
     # --- phases 3 and 4: qwen2-moe-a2.7b, mamba2-1.3b, zamba2-2.7b --------
@@ -4657,6 +4960,11 @@ def main() -> int:
                     "hybrid": hybrid_parity}[mcfg.family](mcfg, params)
         if int8_dev is not None:
             int8_devs[mcfg.name] = int8_dev
+        clock(f"[graph] {mcfg.name} launches")
+        graphed.append(graph_launches(
+            mcfg.name, mcfg, params, mrt, counters,
+            ((None, False),) if mcfg.family == "ssm"
+            else ((None, False), (None, True))))
         del params
     # --- [families]: the last-ported families ------------------------------
     clock("[families]")
@@ -4669,6 +4977,9 @@ def main() -> int:
     int8_devs.update(fam_int8)
     served = {name: sum(t[name] for t in totals) for name in counters}
     print(f"[serve] launches over all serving runs: {served}")
+    graphed = {name: sum(t[name] for t in graphed) for name in counters}
+    print(f"[graph] launches of the decode steps tied to their traces: "
+          f"{graphed}")
     print(f"[trace] phase {t_trace:.1f} s (8 models x prefill and decode, "
           f"each traced on the card and on meta); launches {traced}")
     del totals
@@ -4714,14 +5025,16 @@ def main() -> int:
         e = dict(e, ok=True,
                  launches=(served[name] + tuned[name] + trained[name]
                            + traced[name] + launched[name]
-                           + sharded[name] + sharded_train[name]),
+                           + sharded[name] + sharded_train[name]
+                           + graphed[name]),
                  launches_by_path={"serve": served[name],
                                    "tune": tuned[name],
                                    "train": trained[name],
                                    "trace": traced[name],
                                    "launch": launched[name],
                                    "sharded": sharded[name],
-                                   "sharded_train": sharded_train[name]})
+                                   "sharded_train": sharded_train[name],
+                                   "graph": graphed[name]})
         e.pop("shape")
         for t in (e, *(e[k] for k in SUB_ENTRIES if k in e)):
             for key in ("ms", "plain_ms", "bound_ms", "library_ms"):

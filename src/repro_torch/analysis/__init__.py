@@ -4,10 +4,14 @@ infeasible deployments and HBM overflows *before* anything runs.
 
     PYTHONPATH=src python -m repro_torch.analysis --preset ci --strict
 
-Six pass families: the Hopper kernel validator (launch plans over the
-tune grids), the contract checker (cache axes, dispatch closure), the
-buffer-liveness walk and capacity drift guards, the shipped-bug-class
-AST lint over the port and ``chip_smoke.py``, the deployment-
+Seven pass families: the Hopper kernel validator (launch plans over
+the tune grids), the hot-path graph lint (the serving steps traced on
+``meta`` under the card's policy, each kernel launch one node: host
+syncs, trace and cache stability, dtypes, whole-pool int8 upcasts,
+prefill compile counts), the contract checker (cache axes, dispatch
+closure), the buffer-liveness walk and capacity drift guards, the
+shipped-bug-class AST lint over the port and ``chip_smoke.py``, the
+deployment-
 feasibility lint (scheduler liveness + queueing bounds over the
 traffic-scenario library, priced by the one-card model) and the
 sharding propagation (every recipe over the paper-scale trees on the

@@ -22,8 +22,10 @@ tune-preset shapes, on ``meta`` operands, and check the launch geometry
 * **differentiability** — the op's ``torch`` implementation, whose
   autograd ``dispatch._RefBackward`` borrows, must exist and its autograd
   run on ``meta`` for the float operands (``kernel-missing-vjp``);
-* **parity** — the plan's result shapes and dtypes must match the
-  ``torch`` implementation's, run on ``meta`` (``kernel-dtype-parity``).
+* **parity** — the plan's result shapes and dtypes, and the outputs of
+  the impl's own ``meta`` path (the wrapper's checks and allocations,
+  nothing launched: ``dispatch.meta_launch``), must match the ``torch``
+  implementation's, run on ``meta`` (``kernel-dtype-parity``).
 
 Grids above ``_MAX_GRID_CELLS`` blocks skip the vectorised coverage/race
 evaluation (the tune-grid shapes never get close).
@@ -180,6 +182,16 @@ def _grad_error(ref: Callable, args: Sequence[Any],
         return f"{type(e).__name__}: {e}"
 
 
+def _parity(label: str, what: str, got, want) -> List[Finding]:
+    if got == want:
+        return []
+    return [Finding(
+        "kernel-dtype-parity", "error", Location(symbol=label),
+        f"{what} outputs {got} but the torch reference produces {want}",
+        "match the reference signature exactly — dispatch treats "
+        "implementations as interchangeable")]
+
+
 def validate_impl(op: str, impl: str, fn: Callable, args: Sequence[Any],
                   kwargs: Dict[str, Any], *, ref: Optional[Callable] = None,
                   smem_budget: int = SMEM_BUDGET_BYTES,
@@ -194,6 +206,8 @@ def validate_impl(op: str, impl: str, fn: Callable, args: Sequence[Any],
     finding (the kernels are forward-only and borrow its backward).
     ``plan_only`` checks the launch plan alone (registration: a process's
     first op on ``meta`` imports ``torch._dynamo``, about a second).
+    Parity also calls ``fn`` itself on ``meta`` copies (a kernel
+    wrapper's meta branch) and holds its outputs to the reference's.
     """
     label = label or f"{op}/{impl}"
     findings: List[Finding] = []
@@ -225,15 +239,24 @@ def validate_impl(op: str, impl: str, fn: Callable, args: Sequence[Any],
                 "kernel-trace-error", "error", Location(symbol=label),
                 f"torch reference failed on meta: {type(e).__name__}: {e}"))
         if ref_out is not None:
-            got = [(tuple(s), str(d)) for s, d in plan.results]
             want = [(tuple(t.shape), str(t.dtype)) for t in _leaves(ref_out)]
-            if got != want:
+            got = [(tuple(s), str(d)) for s, d in plan.results]
+            findings.extend(_parity(label, "impl", got, want))
+            try:
+                with torch.no_grad():
+                    meta_out = fn(*[_meta_copy(a) for a in args], **kwargs)
+            except Exception as e:
                 findings.append(Finding(
-                    "kernel-dtype-parity", "error", Location(symbol=label),
-                    f"impl outputs {got} but the torch reference produces "
-                    f"{want}",
-                    "match the reference signature exactly — dispatch "
-                    "treats implementations as interchangeable"))
+                    "kernel-trace-error", "error", Location(symbol=label),
+                    f"the impl's meta path failed: {type(e).__name__}: {e}",
+                    "a wrapper given meta tensors runs its checks and "
+                    "returns empty outputs"))
+            else:
+                got = [(tuple(t.shape), str(t.dtype), t.device.type)
+                       for t in _leaves(meta_out)]
+                findings.extend(_parity(
+                    label, "impl's meta path", got,
+                    [w + ("meta",) for w in want]))
 
     # -- differentiability ---------------------------------------------------
     if ref is None:

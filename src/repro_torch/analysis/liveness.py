@@ -23,8 +23,10 @@ The pass checks *contracts*, not bytes against HBM:
   dry run to lower cells at);
 * the decode walk keeps params and cache live across the step, and the
   step updates the cache in place: every cache leaf comes back as the
-  storage it went in as, and no buffer of a leaf's shape and dtype is
-  allocated (the port's counterpart of the reference's donation);
+  storage it went in as, at its shape, dtype and stride, and no buffer
+  of a leaf's shape and dtype is allocated (the port's counterpart of
+  the reference's donation; :func:`cache_in_place`, which the graph
+  lint's ``graph-trace-unstable`` calls too);
 * every ``Scheduler.prefill_lengths`` bucket walks;
 * the serving config at the preset's width still fits the card
   (``capacity-hbm-overflow``, the rule ``--preflight`` names).
@@ -34,6 +36,7 @@ from __future__ import annotations
 import weakref
 from typing import Any, Callable, Dict, List, Tuple
 
+import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
@@ -68,7 +71,16 @@ class _Walk(TorchDispatchMode):
         self.deaths.append((self.op, nbytes))
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
+        out = self.run(func, args, kwargs or {})
+        self.account(args, kwargs, out)
+        return out
+
+    def run(self, func, args, kwargs):
+        """The op itself (a subclass may stand in for it)."""
+        return func(*args, **kwargs)
+
+    def account(self, args, kwargs, out) -> None:
+        """The storages ``out`` allocates and the arguments it read."""
         i = self.op
         for t in tree_flatten((args, kwargs))[0]:
             if isinstance(t, torch.Tensor) and _key(t) in self.args:
@@ -86,7 +98,6 @@ class _Walk(TorchDispatchMode):
                 self.shapes.append((tuple(t.shape), t.dtype))
                 weakref.finalize(t.untyped_storage(), self._free, k, nbytes)
         self.op += 1
-        return out
 
     def peak(self) -> int:
         """Largest live bytes over the ops: each op's outputs beside its
@@ -142,6 +153,29 @@ def _tree_bytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
+def leaf_signatures(cache) -> Dict[str, Tuple]:
+    """Each cache leaf's storage, shape, dtype and stride."""
+    return {k: (_key(t), tuple(t.shape), t.dtype, t.stride())
+            for k, t in cache.items()}
+
+
+def cache_in_place(before: Dict[str, Tuple], out_cache, w: _Walk,
+                   batch: int) -> Tuple[List[str], List[str]]:
+    """Whether a step that was given a cache with leaf signatures
+    ``before`` (:func:`leaf_signatures`) and walked as ``w`` updated it
+    in place: the leaves that came back as another storage, shape, dtype
+    or stride, and the shapes of the buffers of a leaf's shape and dtype
+    the step allocated (a leaf of at most ``batch`` elements, the
+    positions, is not held to the second)."""
+    after = leaf_signatures({k: t for k, t in out_cache.items()
+                             if isinstance(t, torch.Tensor)})
+    moved = sorted(k for k in before if after.get(k) != before[k])
+    leaf_shapes = {(s, d) for _, s, d, _ in before.values()
+                   if int(np.prod(s)) > batch}
+    copies = sorted({str(s) for s, d in w.shapes if (s, d) in leaf_shapes})
+    return moved, copies
+
+
 def _drift(symbol: str, message: str, suggestion: str = "") -> Finding:
     return Finding("capacity-spec-drift", "error", Location(symbol=symbol),
                    message, suggestion)
@@ -191,7 +225,7 @@ def lint_arch(arch: str, *, max_len: int, page_size: int, smoke: bool = True,
     cache = {k: torch.zeros(s, dtype=d, device="meta")
              for k, (s, d) in M.cache_spec(cfg, batch, max_len,
                                            rt.dtype).items()}
-    before = {k: _key(t) for k, t in cache.items()}
+    before = leaf_signatures(cache)
     tokens = torch.zeros((batch,), dtype=torch.int32, device="meta")
     sym = f"liveness/decode/{arch}"
     try:
@@ -210,11 +244,7 @@ def lint_arch(arch: str, *, max_len: int, page_size: int, smoke: bool = True,
                  f"params+cache floor ({floor}) — the step no longer reads "
                  f"every parameter and cache leaf",
             "thread every cache leaf through decode_step"))
-    moved = sorted(k for k in before
-                   if k not in out_cache or _key(out_cache[k]) != before[k])
-    leaf_shapes = {(tuple(t.shape), t.dtype) for k, t in cache.items()
-                   if t.numel() > batch}
-    copies = sorted({str(s) for s, d in w.shapes if (s, d) in leaf_shapes})
+    moved, copies = cache_in_place(before, out_cache, w, batch)
     if moved or copies:
         findings.append(_drift(
             sym, f"decode_step writes its cache out of place: leaves "

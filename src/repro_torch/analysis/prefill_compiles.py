@@ -6,8 +6,9 @@ which is pure Python: a replay of ``Scheduler.plan``. The port's engine
 runs eagerly and has no traces, but counts each distinct prefill call
 shape ``(prefill_len, width)`` once (``serve/engine.py``
 ``EngineStats.prefill_traces``), so the same count predicts it. The
-rest of ``jaxpr_lint`` scans jaxprs; its analogue, a ``torch.compile``
-recompile lint, waits (ROADMAP.md Queue 1 item 14).
+rest of ``jaxpr_lint`` scans jaxprs; its counterpart, which traces the
+serving steps on ``meta``, is :mod:`repro_torch.analysis.graph_lint`
+(``graph-compile-count`` calls this).
 """
 from __future__ import annotations
 

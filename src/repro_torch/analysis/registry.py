@@ -5,16 +5,18 @@ An :class:`AnalysisPass` is a named callable ``run(ctx) -> [Finding]``
 declaring which rule ids it can emit — the runner uses the declaration
 to skip passes entirely when ``--rules`` filters them out.
 
-The port carries six passes: the kernel validator (launch plans of the
-Hopper kernels over the tune grids), the contract checker (recipe
-resolvability over ``dist.sharding.RECIPES`` among its rules), the
-buffer-liveness walk, the repo AST lint, the deployment-feasibility
+The port carries seven passes: the kernel validator (launch plans of
+the Hopper kernels over the tune grids), the hot-path graph lint (the
+reference's jaxpr lint: the serving steps traced on ``meta`` under the
+card's policy, each kernel one node; it compiles nothing, as the
+reference's traces nothing but abstract values), the contract checker
+(recipe resolvability over ``dist.sharding.RECIPES`` among its rules),
+the buffer-liveness walk, the repo AST lint, the deployment-feasibility
 lint and the sharding propagation (every recipe over the paper-scale
 trees on the reference's production meshes, read from the port's own
 placement), and the id of the capacity gate behind ``launch/serve.py
---preflight``. The reference's jaxpr lint waits for a compiled step
-(ROADMAP.md Queue 1 item 14); its SPMD/compile lint reads XLA's
-dry-run, which the port does not have.
+--preflight``. The reference's SPMD/compile lint reads XLA's dry-run,
+which the port does not have.
 
 Presets: ``ci`` lints the reference ``ci`` preset's two smoke archs at
 its ``max_len`` and page size and validates the ``ci`` tune grid;
@@ -48,6 +50,24 @@ RULES: Dict[str, str] = {
     "kernel-dtype-parity": "impl output shapes/dtypes disagree with the "
                            "torch reference",
     "kernel-trace-error": "impl's launch plan fails at a tune-grid shape",
+    # hot-path graph lint (meta traces of what the card runs)
+    "graph-compile-count": "predicted prefill compile count exceeds "
+                           "Scheduler.max_prefill_compiles()",
+    "graph-trace-unstable": "a hot path fails to trace, re-tracing an "
+                            "identical shape yields a different op "
+                            "sequence, or a cache leaf does not come back "
+                            "in place (CUDA-graph capture hazard)",
+    "graph-host-sync": ".item()/nonzero/data-shaped op or copy to the "
+                       "host inside a hot path (device-host sync stall)",
+    "graph-dtype-widen": "f64 value, or an output/cache dtype widened "
+                         "past its declared spec, inside a hot path",
+    "graph-wide-dot": "informational: f32 products under a bf16 runtime "
+                      "(intended softmax/state upcasts included)",
+    "graph-int8-upcast": "a decode step dequantizes an entire int8 KV "
+                         "pool to float (correct impls gather pages "
+                         "first; a whole-pool upcast materializes the "
+                         "full-precision cache the quantization was "
+                         "supposed to avoid)",
     # contract checker
     "contract-cache-axes": "cache leaf missing from (or rank-mismatched "
                            "with) CACHE_AXES/PAGED_CACHE_AXES",

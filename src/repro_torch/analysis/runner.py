@@ -22,6 +22,7 @@ from repro_torch.analysis.registry import (PRESETS, RULES, AnalysisContext,
 #: Pass modules, imported on demand (each registers itself).
 _PASS_MODULES = (
     "repro_torch.analysis.kernel_validator",
+    "repro_torch.analysis.graph_lint",
     "repro_torch.analysis.contracts",
     "repro_torch.analysis.ast_lint",
     "repro_torch.analysis.liveness",

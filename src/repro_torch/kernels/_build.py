@@ -195,6 +195,12 @@ def check_launch(code: int, what: str) -> None:
                            f"({msg})")
 
 
+#: Devices a kernel wrapper takes past its plain version: ``cuda``
+#: launches the kernel, ``meta`` runs the wrapper's checks and
+#: allocations and returns empty outputs (``dispatch.meta_launch``).
+KERNEL_DEVICES = ("cuda", "meta")
+
+
 def dtype_code(t) -> int:
     try:
         return DTYPE_CODES[str(t.dtype)]

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import plan as P
+from repro_torch.kernels.dispatch import meta_launch
 
 NEG_INF = -1e30
 
@@ -52,7 +53,7 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
 def check_query(op: str, q: torch.Tensor, Hkv: int) -> int:
     """Validate the (B, Hq, D) query of a split-KV kernel; returns its
     dtype code."""
-    if q.device.type != "cuda":
+    if q.device.type not in _build.KERNEL_DEVICES:
         raise ValueError(f"{op}: tensors on {q.device}")
     if q.dim() != 3:
         raise ValueError(f"{op}: q must be (B, Hq, D), got "
@@ -101,7 +102,8 @@ def splitkv_buffers(q: torch.Tensor, Hkv: int, W: int):
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor,
                      kv_mask: torch.Tensor) -> torch.Tensor:
-    """The kernel for CUDA tensors; the plain version for CPU tensors."""
+    """The kernel for CUDA tensors; the plain version for CPU tensors;
+    on ``meta`` the checks, the buffers and an empty output."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, kv_mask)
     op = "decode_attention"
@@ -113,6 +115,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                     aligned=True)
     check_input(op, "kv_mask", kv_mask, (B, W), torch.bool, q.device)
     o_part, ml, out = splitkv_buffers(q, Hkv, W)
+    if q.device.type == "meta":
+        return meta_launch(op, out)
     err = _build.library().rt_decode_attention(
         _build.ptr(q), _build.ptr(k_cache), _build.ptr(v_cache),
         _build.ptr(kv_mask), _build.ptr(o_part), _build.ptr(ml[0]),

@@ -272,20 +272,39 @@ def ref_backward(fn: Callable, ref: Callable, *arrays: Any,
 
 #: The installed kernel-call observer, or None (see :func:`observe_kernels`).
 _OBSERVER: Optional[Callable] = None
+#: The installed recorder of launches on ``meta``, or None.
+_ON_META_LAUNCH: Optional[Callable[[str], None]] = None
 
 
 @contextlib.contextmanager
-def observe_kernels(observer: Callable) -> Iterator[None]:
+def observe_kernels(observer: Optional[Callable],
+                    on_meta_launch: Optional[Callable[[str], None]] = None,
+                    ) -> Iterator[None]:
     """Install ``observer`` for the block. Each kernel call then returns
     ``observer(op, run, arrays, kwargs)`` in place of ``run()``, where
     ``run`` makes the call as it stands (the policy's implementation on
-    the caller's arguments); the observer decides whether to call it."""
-    global _OBSERVER
-    prev, _OBSERVER = _OBSERVER, observer
+    the caller's arguments); the observer decides whether to call it.
+    ``on_meta_launch(name)`` is called where a kernel wrapper given
+    ``meta`` tensors stands in for its launch (:func:`meta_launch`)."""
+    global _OBSERVER, _ON_META_LAUNCH
+    prev = _OBSERVER, _ON_META_LAUNCH
+    _OBSERVER, _ON_META_LAUNCH = observer, on_meta_launch
     try:
         yield
     finally:
-        _OBSERVER = prev
+        _OBSERVER, _ON_META_LAUNCH = prev
+
+
+def meta_launch(name: str, out: Any) -> Any:
+    """A kernel wrapper's ``meta`` branch, at the point where it would
+    launch on the card: its checks have run and its buffers are
+    allocated, on ``meta``. Nothing launches and nothing is computed;
+    the installed recorder counts one launch of ``name`` (the wrapper's
+    key in the launch counters) and ``out``, the empty outputs, is
+    returned."""
+    if _ON_META_LAUNCH is not None:
+        _ON_META_LAUNCH(name)
+    return out
 
 
 def _observed(op: str, run: Callable[[], Any], arrays: Tuple,

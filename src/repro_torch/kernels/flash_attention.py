@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import plan as P
+from repro_torch.kernels.dispatch import meta_launch
 
 NEG_INF = -1e30
 
@@ -70,7 +71,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     chunk: int = 512) -> torch.Tensor:
     """The kernel for CUDA tensors; the plain version for CPU tensors.
     ``chunk`` is the plain version's loop over keys, which the head-dim-80
-    body runs too; the other bodies ignore it."""
+    body runs too; the other bodies ignore it. On ``meta`` the checks and
+    an empty output."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      chunk=chunk)
@@ -80,7 +82,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"flash_attention: {name} is {t.dtype} on "
                              f"{t.device}, q is {q.dtype} on {q.device}")
-    if q.device.type != "cuda":
+    if q.device.type not in _build.KERNEL_DEVICES:
         raise ValueError(f"flash_attention: tensors on {q.device}")
     if tuple(k.shape) != (B, T, Hkv, D) or tuple(v.shape) != (B, T, Hkv, D):
         raise ValueError(f"flash_attention: k {tuple(k.shape)} / v "
@@ -94,6 +96,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: q, k, v must be contiguous")
     code = _build.dtype_code(q)
     out = torch.empty_like(q)
+    if q.device.type == "meta":
+        return meta_launch("flash_attention", out)
     lib = _build.library()
     err = lib.rt_flash_attention(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),

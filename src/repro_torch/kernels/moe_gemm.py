@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import plan as P
+from repro_torch.kernels.dispatch import meta_launch
 
 #: Rows per block of the sorted layout: the kernel's one block height.
 BLOCK_M = 64
@@ -111,7 +112,7 @@ def grouped_gemm_padded(x_pad: torch.Tensor, w: torch.Tensor,
     """The kernel for CUDA tensors; the plain version for CPU tensors.
     x_pad (Tp, d); w (E, d, f); block_expert, rows (nb,) int32, with
     ``Tp == nb * BLOCK_M``. Only the real rows of the output are
-    written."""
+    written. On ``meta`` the checks and an empty output."""
     if x_pad.device.type == "cpu":
         return grouped_gemm_padded_plain(x_pad, w, block_expert, rows)
     Tp, d = x_pad.shape
@@ -122,7 +123,7 @@ def grouped_gemm_padded(x_pad: torch.Tensor, w: torch.Tensor,
         if t.device != x_pad.device:
             raise ValueError(f"moe_gemm: {name} on {t.device}, x on "
                              f"{x_pad.device}")
-    if x_pad.device.type != "cuda":
+    if x_pad.device.type not in _build.KERNEL_DEVICES:
         raise ValueError(f"moe_gemm: tensors on {x_pad.device}")
     if w.dtype != x_pad.dtype or dw != d:
         raise ValueError(f"moe_gemm: w {tuple(w.shape)} {w.dtype} does not "
@@ -138,6 +139,8 @@ def grouped_gemm_padded(x_pad: torch.Tensor, w: torch.Tensor,
         raise ValueError("moe_gemm: inputs must be contiguous")
     code = _build.dtype_code(x_pad)
     out = torch.empty((Tp, f), dtype=x_pad.dtype, device=x_pad.device)
+    if x_pad.device.type == "meta":
+        return meta_launch("moe_gemm", out)
     err = _build.library().rt_moe_gemm(
         _build.ptr(x_pad), _build.ptr(w), _build.ptr(block_expert),
         _build.ptr(rows), _build.ptr(out), nb, d, f, E, code,

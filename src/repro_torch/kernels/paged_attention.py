@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import plan as P
+from repro_torch.kernels.dispatch import meta_launch
 from repro_torch.kernels.decode_attention import (_check_group, check_input,
                                                   check_query,
                                                   decode_attention_plain,
@@ -47,7 +48,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            kv_mask: torch.Tensor) -> torch.Tensor:
     """The kernel for CUDA tensors; the plain version for CPU tensors.
     Table entries must name pages of the pool (the caller's invariant:
-    the kernel does not read them back to check)."""
+    the kernel does not read them back to check). On ``meta`` the
+    checks, the buffers and an empty output."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages, page_table,
                                             kv_mask)
@@ -62,6 +64,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     check_input(op, "page_table", page_table, (B, NP), torch.int32, q.device)
     check_input(op, "kv_mask", kv_mask, (B, NP * ps), torch.bool, q.device)
     o_part, ml, out = splitkv_buffers(q, Hkv, NP * ps)
+    if q.device.type == "meta":
+        return meta_launch(op, out)
     err = _build.library().rt_paged_decode_attention(
         _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages),
         _build.ptr(page_table), _build.ptr(kv_mask), _build.ptr(o_part),

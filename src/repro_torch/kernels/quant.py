@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import plan as P
+from repro_torch.kernels.dispatch import meta_launch
 from repro_torch.kernels.decode_attention import (_check_group, check_input,
                                                   check_query,
                                                   decode_attention_plain,
@@ -86,11 +87,12 @@ def quant_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
 
 def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
                  scale: torch.Tensor) -> torch.Tensor:
-    """The kernel for CUDA tensors; the plain version for CPU tensors."""
+    """The kernel for CUDA tensors; the plain version for CPU tensors;
+    on ``meta`` the checks and an empty output."""
     if x.device.type == "cpu":
         return quant_matmul_plain(x, w_q, scale)
     op = "quant_matmul"
-    if x.device.type != "cuda" or x.dim() != 2:
+    if x.device.type not in _build.KERNEL_DEVICES or x.dim() != 2:
         raise ValueError(f"{op}: x must be a (T, K) CUDA tensor, got "
                          f"{tuple(x.shape)} on {x.device}")
     T, K = x.shape
@@ -104,6 +106,8 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
     out = torch.empty((T, N), dtype=x.dtype, device=x.device)
     if T == 0 or N == 0:
         return out
+    if x.device.type == "meta":
+        return meta_launch(op, out)
     err = _build.library().rt_quant_matmul(
         _build.ptr(x), _build.ptr(w_q), _build.ptr(scale), _build.ptr(out),
         T, K, N, code, _build.stream_handle())
@@ -145,7 +149,8 @@ def _check_quant_rows(op, q, k, v, ks, vs, rows_shape):
 
 
 def quant_decode_attention(q, k_q, v_q, k_scale, v_scale, kv_mask):
-    """The kernel for CUDA tensors; the plain version for CPU tensors."""
+    """The kernel for CUDA tensors; the plain version for CPU tensors;
+    on ``meta`` the checks, the buffers and an empty output."""
     if q.device.type == "cpu":
         return quant_decode_attention_plain(q, k_q, v_q, k_scale, v_scale,
                                             kv_mask)
@@ -156,6 +161,8 @@ def quant_decode_attention(q, k_q, v_q, k_scale, v_scale, kv_mask):
     _check_quant_rows(op, q, k_q, v_q, k_scale, v_scale, (B, W, Hkv))
     check_input(op, "kv_mask", kv_mask, (B, W), torch.bool, q.device)
     o_part, ml, out = splitkv_buffers(q, Hkv, W)
+    if q.device.type == "meta":
+        return meta_launch(op, out)
     err = _build.library().rt_quant_decode_attention(
         _build.ptr(q), _build.ptr(k_q), _build.ptr(v_q), _build.ptr(k_scale),
         _build.ptr(v_scale), _build.ptr(kv_mask), _build.ptr(o_part),
@@ -169,7 +176,8 @@ def quant_decode_attention(q, k_q, v_q, k_scale, v_scale, kv_mask):
 def quant_paged_decode_attention(q, k_pages, v_pages, k_scales, v_scales,
                                  page_table, kv_mask):
     """The kernel for CUDA tensors; the plain version for CPU tensors.
-    Table entries must name pages of the pool."""
+    Table entries must name pages of the pool. On ``meta`` the checks,
+    the buffers and an empty output."""
     if q.device.type == "cpu":
         return quant_paged_decode_attention_plain(
             q, k_pages, v_pages, k_scales, v_scales, page_table, kv_mask)
@@ -183,6 +191,8 @@ def quant_paged_decode_attention(q, k_pages, v_pages, k_scales, v_scales,
     check_input(op, "page_table", page_table, (B, NP), torch.int32, q.device)
     check_input(op, "kv_mask", kv_mask, (B, NP * ps), torch.bool, q.device)
     o_part, ml, out = splitkv_buffers(q, Hkv, NP * ps)
+    if q.device.type == "meta":
+        return meta_launch(op, out)
     err = _build.library().rt_quant_paged_decode_attention(
         _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages),
         _build.ptr(k_scales), _build.ptr(v_scales), _build.ptr(page_table),

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import plan as P
-from repro_torch.kernels.dispatch import RMSNORM_EPS
+from repro_torch.kernels.dispatch import RMSNORM_EPS, meta_launch
 
 #: The PyTorch release whose CUDA reduction order (ATen ``Reduce.cuh``:
 #: threads a row from the row count, 4 accumulators, the trees, the
@@ -38,11 +38,13 @@ def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, *,
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
             eps: float = RMSNORM_EPS) -> torch.Tensor:
-    """The kernel for CUDA tensors; the plain version for CPU tensors."""
+    """The kernel for CUDA tensors; the plain version for CPU tensors;
+    on ``meta`` the checks and an empty output (``meta_launch``)."""
     if x.device.type == "cpu":
         return rmsnorm_plain(x, scale, eps=eps)
     d = x.shape[-1]
-    if x.device.type != "cuda" or scale.device != x.device:
+    if x.device.type not in _build.KERNEL_DEVICES \
+            or scale.device != x.device:
         raise ValueError(f"rmsnorm: x on {x.device}, scale on "
                          f"{scale.device}; both must be on one CUDA device")
     if not x.is_contiguous():
@@ -53,6 +55,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     code = _build.dtype_code(x)
     scale = scale.float().contiguous()
     out = torch.empty_like(x)
+    if x.device.type == "meta":
+        return meta_launch("rmsnorm", out)
     lib = _build.library()
     err = lib.rt_rmsnorm(_build.ptr(x), _build.ptr(scale), _build.ptr(out),
                          x.numel() // d if d else 0, d, float(eps), code,

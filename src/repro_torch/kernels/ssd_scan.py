@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import plan as P
+from repro_torch.kernels.dispatch import meta_launch
 
 
 def _segsum_decay(a_cs: torch.Tensor) -> torch.Tensor:
@@ -95,7 +96,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel for CUDA tensors; the plain version for CPU tensors.
     dt and A are float32; x, B and C share a dtype; ``hp`` must be a
-    multiple of 16."""
+    multiple of 16. On ``meta`` the checks, the workspace and empty
+    outputs."""
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, A, B, C, chunk)
     b, S, nh, hp = x.shape
@@ -104,7 +106,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         if t.device != x.device:
             raise ValueError(f"ssd_scan: {name} on {t.device}, x on "
                              f"{x.device}")
-    if x.device.type != "cuda":
+    if x.device.type not in _build.KERNEL_DEVICES:
         raise ValueError(f"ssd_scan: tensors on {x.device}")
     if tuple(dt.shape) != (b, S, nh) or tuple(A.shape) != (nh,) \
             or tuple(B.shape) != (b, S, nh, N) or C.shape != B.shape:
@@ -129,6 +131,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     # each chunk's state, then each chunk's cumulative sum
     ws = torch.empty(b * nh * nc * (hp * N + L), dtype=torch.float32,
                      device=x.device)
+    if x.device.type == "meta":
+        return meta_launch("ssd_scan", (y, h))
     err = _build.library().rt_ssd_scan(
         _build.ptr(x), _build.ptr(dt), _build.ptr(A), _build.ptr(B),
         _build.ptr(C), _build.ptr(y), _build.ptr(h), _build.ptr(ws), b, S,

@@ -512,13 +512,15 @@ def test_ast_lint_covers_the_port_and_is_clean():
 
 
 #: The port's six passes.
-PASSES = {"kernel_validator", "contracts", "ast_lint", "liveness",
-          "deploy_lint", "sharding_prop"}
-#: The sharding propagation's findings on a clean tree, all info: the
+PASSES = {"kernel_validator", "graph_lint", "contracts", "ast_lint",
+          "liveness", "deploy_lint", "sharding_prop"}
+#: The findings on a clean tree, all info: the sharding propagation's
 #: cells whose specs drop an indivisible axis and the paged pools a rank
 #: holds whole at paper scale (tests/test_torch_sharding_prop.py holds
-#: each to the reference's).
-CLEAN_INFO = {"shard-spec-dropped": 36, "shard-replicated-large": 12}
+#: each to the reference's), and the graph lint's f32 state products of
+#: the SSM decode step (tests/test_torch_graph_lint.py).
+CLEAN_INFO = {"shard-spec-dropped": 36, "shard-replicated-large": 12,
+              "graph-wide-dot": 1}
 
 
 def test_clean_tree_ci_preset():

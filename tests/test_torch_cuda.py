@@ -19,7 +19,9 @@ widths; a row's bits independent of its batch; the MoE layer's one
 sort equal to three sorts, bit for bit) and the chunked SSD scan
 (ragged chunks, S < chunk, 16 chunks, N 8, 12 and 16, a bf16 rerun
 equal bit for bit) and the int8-weight matmul (ragged T, K and
-N, both bodies, an unaligned weight). The tensor-core bodies (bf16
+N, both bodies, an unaligned weight); and the graph lint's traced
+decode step, whose kernel nodes are the launches of one eager step. The
+tensor-core bodies (bf16
 flash, the int8-weight matmul at T > 16) are also held to
 ``chip_smoke.py``'s bars, one bf16 ulp and f32 summation order.
 
@@ -1288,3 +1290,54 @@ def test_launch_plan_equals_the_librarys(dev, op, specs, kw):
     for mine, theirs in zip(plan.launches, lib):
         assert P.kernel_attributes(theirs)["smem_static"] == \
             mine.smem_static, mine.kernel
+
+
+def _wrappers():
+    """Every kernel wrapper by the name the graph lint's kernel nodes
+    carry (its launch counter)."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gemm import grouped_gemm_padded
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.quant import (quant_decode_attention,
+                                           quant_matmul,
+                                           quant_paged_decode_attention)
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
+            "decode_attention": decode_attention,
+            "paged_decode_attention": paged_decode_attention,
+            "quant_decode_attention": quant_decode_attention,
+            "quant_paged_decode_attention": quant_paged_decode_attention,
+            "moe_gemm": grouped_gemm_padded, "ssd_scan": ssd_scan,
+            "quant_matmul": quant_matmul}
+
+
+@pytest.mark.parametrize("kv,paged", [(None, False), (None, True),
+                                      ("int8", False), ("int8", True)])
+@pytest.mark.parametrize("arch", ["minicpm-2b", "qwen2-moe-a2.7b",
+                                  "mamba2-1.3b", "zamba2-2.7b"])
+def test_traced_decode_kernels_are_the_launches(dev, arch, kv, paged):
+    """The kernel nodes of a decode step traced on meta
+    (``graph_lint.decode_kernels``) equal the wrappers' launches over
+    one eager step on the card at the same shapes (smoke configs)."""
+    import dataclasses
+    from repro_torch.analysis.graph_lint import decode_case, decode_kernels
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.models import ModelRuntime, init_params
+    cfg = smoke_config(get_arch(arch))
+    rt = ModelRuntime(moe_dropless=True, kv_dtype=kv)
+    ps = 8 if paged else None
+    traced = decode_kernels(cfg, rt, batch=2, max_len=64, page_size=ps)
+    params = init_params(cfg, seed=0, rt=rt)
+    fn, spec, _ = decode_case(cfg, rt, batch=2, max_len=64, page_size=ps)
+    cache = {k: torch.zeros(s, dtype=d, device=dev)
+             for k, (s, d) in spec.items()}
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    with torch.no_grad():
+        fn(params, cache, torch.zeros((2,), dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    launched = {k: w.launches for k, w in wrappers.items() if w.launches}
+    assert launched == dict(traced)

@@ -27,9 +27,9 @@ print(len(mods), bad)
 
 #: Modules the walk must reach: the trace front-end, the figures, the
 #: examples, the last-ported families' configs, the scenario library,
-#: the static-analysis package (the kernel validator, the contract
-#: checker, the liveness walk and the sharding propagation among them),
-#: the launch plans, and the
+#: the static-analysis package (the kernel validator, the graph lint,
+#: the contract checker, the liveness walk and the sharding propagation
+#: among them), the launch plans, and the
 #: mesh: the sharding recipes and placement, the mesh and its spawner,
 #: the sharded engines, GPipe and the sharded train runs.
 _NEW = ("repro_torch.core.workload.torch_trace",
@@ -58,6 +58,7 @@ _NEW = ("repro_torch.core.workload.torch_trace",
         "repro_torch.analysis.capacity",
         "repro_torch.analysis.capacity_fit",
         "repro_torch.analysis.deploy_lint",
+        "repro_torch.analysis.graph_lint",
         "repro_torch.analysis.findings",
         "repro_torch.analysis.prefill_compiles",
         "repro_torch.analysis.registry",

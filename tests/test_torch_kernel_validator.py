@@ -76,9 +76,12 @@ M32 = meta((32, 8))
 
 
 def planned_impl(launches, results, body=None):
-    """An impl whose launch plan is the seeded one."""
+    """An impl whose launch plan is the seeded one, and whose meta path
+    returns empty outputs of the plan's results."""
     def fn(x, **_):
-        raise AssertionError("the validator never runs the impl")
+        assert x.device.type == "meta", "the validator launches nothing"
+        outs = tuple(meta(s, d) for s, d in results)
+        return outs[0] if len(outs) == 1 else outs
     fn.launch_plan = lambda *a, **k: P.KernelPlan(tuple(launches),
                                                   tuple(results))
     return fn
@@ -412,3 +415,67 @@ def test_validate_impl_partial_kwargs_reach_the_plan():
     assert grids == {32: 8, 64: 4, 128: 2}
     assert validate_impl("ssd_scan", "cuda", fn, args, {"chunk": 64},
                          ref=implementations("ssd_scan")["torch"]) == []
+
+
+# ---------------------------------------------------------------------------
+# The wrappers' meta paths
+# ---------------------------------------------------------------------------
+def _sig(out):
+    outs = out if isinstance(out, tuple) else (out,)
+    return [(tuple(t.shape), t.dtype, t.device.type) for t in outs]
+
+
+def test_every_wrapper_meta_path_matches_its_plain_version():
+    """Each of the nine cuda impls, called on ``meta`` at every ``ci``
+    tune-grid shape and tuning point, runs its wrapper's checks and
+    returns empty ``meta`` outputs of the plain version's shapes and
+    dtypes (the plain version run on ``meta``), and stands in for
+    exactly one launch of its kernel (``dispatch.meta_launch``)."""
+    from repro_torch.kernels.tune import cases_for_cell
+    seen = set()
+    for arch, shape_name in tune.CI.cells:
+        for case in cases_for_cell(tune.CI.arch(arch),
+                                   tune.CI.shape(shape_name),
+                                   bench_batch=tune.CI.bench_batch,
+                                   page_sizes=tune.CI.paged_page_sizes,
+                                   device="meta"):
+            args = case.make_args()
+            impls = implementations(case.op)
+            for params in tune.CI.grid(case.op, "cuda"):
+                kw = {**case.kwargs, **dict(params)}
+                launched = []
+                with torch.no_grad(), D.observe_kernels(None,
+                                                        launched.append):
+                    got = impls["cuda"](*args, **kw)
+                    want = impls["torch"](*args, **kw)
+                assert _sig(got) == _sig(want), (case.op, arch, kw)
+                name = "flash_attention" if case.op == "prefill_attention" \
+                    else case.op
+                assert launched == [name], (case.op, launched)
+                seen.add(case.op)
+    assert seen == set(D.KERNEL_OPS)
+
+
+def test_meta_path_parity_catches_a_wrong_output():
+    """``validate_impl`` holds a wrapper's meta outputs to the reference:
+    one returning the wrong dtype, or failing, is a finding, though its
+    plan is right; the real wrapper is clean. Registration (plan only)
+    does not call it."""
+    real = implementations("rmsnorm")["cuda"]
+    ref = implementations("rmsnorm")["torch"]
+    args = (meta((4, 64), torch.bfloat16), meta((64,)))
+    assert validate_impl("rmsnorm", "cuda", real, args, {}, ref=ref) == []
+
+    def widened(x, scale, **kw):
+        return real(x, scale, **kw).float()
+    widened.launch_plan = real.launch_plan
+    assert rule_ids(validate_impl("rmsnorm", "cuda", widened, args, {},
+                                  ref=ref)) == ["kernel-dtype-parity"]
+
+    def refuses(x, scale, **kw):
+        raise ValueError("rmsnorm: tensors on meta")
+    refuses.launch_plan = real.launch_plan
+    assert rule_ids(validate_impl("rmsnorm", "cuda", refuses, args, {},
+                                  ref=ref)) == ["kernel-trace-error"]
+    assert validate_impl("rmsnorm", "cuda", refuses, args, {}, ref=ref,
+                         plan_only=True) == []

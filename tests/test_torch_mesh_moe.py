@@ -15,6 +15,9 @@ numpy) and to the port's one device.
   JAX package's jitted step. The batch overflows an expert's global
   capacity, so a rank that counted its own rows alone would drop other
   slots (shown here) and report another aux loss;
+* the expert-split layer in bf16: the 6-expert copy's MoE FFN at
+  (1, 4), the same input on every rank, held to one device's bf16
+  output under a bar from bf16's unit roundoff and the partials summed;
 * the placement's departures from the spec division, pinned: the router
   whole on every rank, the expert weights split as the sanitized spec
   says, at smoke size and at full width (qwen2-moe: 15 experts a rank at
@@ -162,6 +165,18 @@ def jax_tokens(models):
     return out
 
 
+def _moe_layer(tp):
+    """Layer 0's MoE weights, whole (f32)."""
+    return {k: v[0] for k, v in tp["blocks"]["moe"].items()}
+
+
+def _layer_x(cfg):
+    """The MoE layer's input, the same on every rank (bf16, B 4 S 8)."""
+    rng = np.random.default_rng(5)
+    return torch.as_tensor(rng.standard_normal(
+        (4, 8, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+
+
 @pytest.fixture(scope="module")
 def meshes(models):
     """{mesh: every rank's job results}: one spawn a mesh; (2, 2) also
@@ -174,6 +189,10 @@ def meshes(models):
             jobs.append(("serve", (tp, cfg, [dict(
                 rt=_rt(), requests=_requests(cfg, paged),
                 engine_kw=_engine_kw(paged), paged=paged)])))
+        if mesh == (1, 4):
+            cfg, _, _, tp = models["qwen2-moe-e6"]
+            jobs.append(("moe_layer", (_moe_layer(tp), cfg,
+                                       _layer_x(cfg), torch.bfloat16)))
         if mesh == (2, 2):
             cfg, _, _, tp = models["qwen2-moe"]
             jobs.append(("train", ([dict(
@@ -245,6 +264,47 @@ def test_sharded_engines_serve_the_jax_tokens(models, jax_tokens, meshes,
     for r in ranks:
         assert r["params_bytes"] == rep.params_bytes < one.params_bytes
         assert r["cache_bytes"] == rep.cache_bytes
+
+
+#: bf16's unit roundoff.
+BF16_U = 2.0 ** -8
+
+
+def test_expert_split_moe_layer_in_bf16_is_held_to_one_device(models,
+                                                              meshes):
+    """The 6-expert copy at (1, 4) splits every expert's columns over
+    ``model`` (8 of 32 a rank); with the same x on every rank the router,
+    whole on each, routes alike, so the layer's output differs from one
+    device's by rounding alone. Each rank's ``wo`` product leaves the
+    grouped GEMM rounded to bf16 (at most u = 2^-8 of it, a product no
+    larger than the output taken at one output's worth), the M partials
+    are summed in f32, and one device rounds its product and its
+    gate-weighted sum once each: the bar is (M + 2) u max|one device|.
+    And the mesh is no further from the f32 layer than one device is,
+    give or take one rounding (u max|one device|)."""
+    cfg, _, _, tp = models["qwen2-moe-e6"]
+    M = 4
+    recs = [r[len(SERVE[(1, 4)])] for r in meshes[(1, 4)]]
+    assert {r["split"] for r in recs} == {"ffn"}
+    got = recs[0]["out"]
+    for r in recs[1:]:
+        assert torch.equal(r["out"], got)
+    layer, x = _moe_layer(tp), _layer_x(cfg)
+
+    def one(dtype):
+        p = {k: v.to(torch.float32 if k in ("router", "shared_gate")
+                      else dtype) for k, v in layer.items()}
+        with torch.no_grad():
+            return tmoe.moe_ffn(p, x.to(dtype), cfg, dropless=True)[0]
+
+    ref, exact = one(torch.bfloat16), one(torch.float32)
+    assert got.dtype == ref.dtype == torch.bfloat16
+    got, ref = got.float(), ref.float()
+    scale = float(ref.abs().max())
+    dev = float((got - ref).abs().max())
+    assert dev <= (M + 2) * BF16_U * scale, (dev, scale)
+    assert float((got - exact).abs().max()) <= \
+        float((ref - exact).abs().max()) + BF16_U * scale
 
 
 @pytest.mark.parametrize("case,dropless", TRAIN, ids=[c[0] for c in TRAIN])

@@ -194,10 +194,20 @@ def test_ssd_wrapper_and_policies_take_the_plain_version_on_cpu(dtype):
 
 
 def test_ssd_wrapper_refuses_a_device_it_cannot_launch_on():
+    """On ``meta`` the wrapper stands in for its launch (the graph lint's
+    trace: the plain version's shapes and dtypes, empty, no launch
+    counted); tensors it could launch on neither way are refused."""
     x, dt, A, B, C = (t.to("meta")
                       for t in map(_t, _scan_inputs(1, 8, 2, 16, 8)))
-    with pytest.raises(ValueError, match="tensors on meta"):
-        ssd_scan(x, dt, A, B, C, chunk=8)
+    before = ssd_scan.launches
+    got = ssd_scan(x, dt, A, B, C, chunk=8)
+    want = ssd_chunked(x, dt, A, B, C, 8)
+    assert [(t.shape, t.dtype, t.device.type) for t in got] == \
+        [(t.shape, t.dtype, "meta") for t in want]
+    assert ssd_scan.launches == before
+    dt_cpu = torch.zeros(dt.shape, dtype=dt.dtype)
+    with pytest.raises(ValueError, match="on cpu, x on meta"):
+        ssd_scan(x, dt_cpu, A, B, C, chunk=8)
 
 
 # ===========================================================================

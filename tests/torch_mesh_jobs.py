@@ -7,9 +7,9 @@ a spawned rank does not import jax.
 rank and returns their results in order: ``serve`` is
 ``serve.sharded.mesh_serve(mesh, *args)``, ``train``
 ``train.sharded.mesh_train(mesh, *args)``, ``forward``
-``serve.sharded.mesh_forward(mesh, *args)`` and ``logits``
-:func:`serve_logits`. One spawn serves, trains and runs forwards of
-several models.
+``serve.sharded.mesh_forward(mesh, *args)``, ``logits``
+:func:`serve_logits` and ``moe_layer`` :func:`moe_layer`. One spawn
+serves, trains and runs forwards of several models.
 """
 import torch
 
@@ -60,8 +60,28 @@ def serve_logits(mesh, params, cfg, runs, recipe=None, broken=None):
     return out
 
 
+def moe_layer(mesh, layer, cfg, x, dtype, policy=None):
+    """One MoE FFN (dropless, as decode runs it) on this rank's block of
+    ``layer`` (one layer's weights, whole) under the decode recipe, in
+    ``dtype`` but the f32 leaves (router, shared gate), on ``x`` whole on
+    every rank: the rank's output, summed over ``model`` by the layer."""
+    from repro_torch.dist.sharding import DECODE_RECIPE, shard_tree
+    from repro_torch.models.model import F32_LEAVES
+    from repro_torch.models.moe import moe_defs, moe_ffn
+
+    axes = {k: d.axes for k, d in moe_defs(cfg).items()}
+    p = shard_tree(layer, axes, DECODE_RECIPE, mesh, cfg,
+                   dtype=lambda path: torch.float32 if any(
+                       f"'{n}'" in path for n in F32_LEAVES) else dtype)
+    pl = mesh.placement(cfg, DECODE_RECIPE)
+    with torch.no_grad():
+        out, _ = moe_ffn(p, x.to(mesh.device), cfg, dropless=True,
+                         policy=policy, pl=pl)
+    return dict(split=pl.moe_split, out=out.cpu())
+
+
 JOBS = {"serve": mesh_serve, "train": mesh_train, "forward": mesh_forward,
-        "logits": serve_logits}
+        "logits": serve_logits, "moe_layer": moe_layer}
 
 
 def run_jobs(mesh, jobs):
