@@ -277,6 +277,32 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    --steps 10`` with a checkpoint
    directory and its resume on ``--mesh 1x2 --recipe WS`` (finite
    losses, every rank's equal to rank 0's, the restore printed);
+
+   ``[dryrun]``: the dry-run of a mesh of H100s
+   (``repro_torch.launch.lowering``: one rank's step traced on ``meta``
+   on a ``DryMesh``, nothing allocated or launched). Started beside
+   ``[graph]`` in its worker processes and read after it: every arch's
+   full-width ``decode_32k`` cell of the ``full`` preset at (16, 16)
+   (recipe, per-rank peak against the card's 80 GB, the three roofline
+   terms priced with ``H100_SXM`` and the dominant one; encoder-only
+   archs SKIP; the cells written under ``chiprun_out/dryrun/full/``),
+   and the dry traces of five ties, each tied in the spawn that already
+   runs its model, the counters and peak stats reset around one step
+   on every rank (``launch.lowering.live_step``): minicpm-2b (6 of 40)
+   at (1, 2), one prefill (B 1 S 300) and one decode step (B 4, 1024)
+   and chatglm3-6b (7 of 28) at (1, 4), one decode step, in
+   ``[sharded]``; qwen2-moe-a2.7b (4) at (1, 4), one decode step, in
+   its ``[sharded]`` spawn; chatglm3-6b (4) in bf16 at (2, 1) under
+   ``decode+zero3``, one decode step, in ``[sharded-zero3]``;
+   minicpm-2b (4) at (2, 2) under IS in bf16, one train step (B 4 S
+   256), in ``[sharded-train]``. Each tie asserts, on every rank, the
+   rank's collective counters (``Mesh.collectives``: kind, group,
+   calls, bytes) equal to the dry trace's records, its argument bytes
+   equal to the trace's and to the capacity model's, and the trace's
+   peak (every argument held through the step) within
+   ``DRYRUN_PEAK_TOL`` of the rank's ``max_memory_allocated`` over the
+   step (both printed beside the capacity model's figure); the ties'
+   launches add to their phase's path;
 5. training (``[train]``), with the card emptied first: full-width
    minicpm-2b (40 layers, f32 master weights), one f32 loss and gradient
    at B 2, S 512 under the ``cuda`` and the ``torch`` policy (TF32 off,
@@ -1583,14 +1609,12 @@ def graph_phase(started):
     """``[graph]``'s results (:func:`graph_start`): per arch its labels,
     its findings by rule and severity and the kernel nodes of one decode
     step; fails on an error or a warning. Returns {arch: {label: kernel
-    nodes}}."""
+    nodes}}. The workers go on with ``[dryrun]``'s traces
+    (:func:`dryrun_phase` shuts them down)."""
     from collections import Counter
     from repro_torch.analysis.registry import PRESETS
     ex, futures, workers, t0 = started
-    try:
-        results = {a: f.result() for a, f in futures.items()}
-    finally:
-        ex.shutdown()
+    results = {a: f.result() for a, f in futures.items()}
     p = PRESETS["h100"]
     nodes = {}
     for arch, r in results.items():
@@ -2897,6 +2921,214 @@ def launch_phase(counters):
 
 
 # ===========================================================================
+# [dryrun]: the dry-run of a mesh of H100s, and its ties to the meshes here
+# ===========================================================================
+#: The bar of a tie's peak: the dry trace's within this share of the
+#: rank's ``max_memory_allocated`` over the same step.
+DRYRUN_PEAK_TOL = 0.25
+
+
+def tie_specs():
+    """[dryrun]'s five ties: per tie, the arch, its depth, the mesh, the
+    recipe and its runs ``(label, shape, rt)``, at the shapes of the
+    spawn each is tied in (``[sharded]``'s 4 slots x 1024, a 300-token
+    prefill; ``[sharded-train]``'s B 4 S 256)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import ModelRuntime
+    serve = ModelRuntime()                        # bf16, cuda policy
+    train = ModelRuntime(dtype="bfloat16", remat="none")
+    decode = ("decode B 4 KV 1024", ShapeConfig("decode", 1024, 4,
+                                                "decode"), serve)
+    return {
+        "minicpm-2b": ("minicpm-2b", SHARDED_LAYERS["minicpm-2b"], (1, 2),
+                       "decode", [("prefill B 1 S 300", ShapeConfig(
+                           "prefill", SHARDED_PREFILL, 1, "prefill"), serve),
+                           decode]),
+        "chatglm3-6b": ("chatglm3-6b", SHARDED_LAYERS["chatglm3-6b"],
+                        (1, 4), "decode", [decode]),
+        "qwen2-moe-a2.7b": ("qwen2-moe-a2.7b",
+                            SHARDED_FAMILY_LAYERS["qwen2-moe-a2.7b"], (1, 4),
+                            "decode", [decode]),
+        "chatglm3-6b zero3": ("chatglm3-6b", ZERO3_LAYERS["chatglm3-6b"],
+                              (2, 1), "decode+zero3", [decode]),
+        "minicpm-2b train": ("minicpm-2b",
+                             SHARDED_TRAIN_LAYERS["minicpm-2b"], (2, 2), "IS",
+                             [(f"train B {SHARDED_TRAIN_B} S "
+                               f"{SHARDED_TRAIN_S}", ShapeConfig(
+                                   "train", SHARDED_TRAIN_S, SHARDED_TRAIN_B,
+                                   "train"), train)]),
+    }
+
+
+def dryrun_start(started):
+    """``[dryrun]``, started in ``[graph]``'s workers (:func:`graph_start`),
+    after its traces: every arch's ``full`` ``decode_32k`` cell at (16,
+    16) and the dry traces of every rank of each tie
+    (``lowering.trace_ranks``), on ``meta``. Returns the futures."""
+    import dataclasses
+    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.dist.sharding import get_recipe
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.lowering import trace_ranks
+    from repro_torch.launch.presets import FULL, MeshSpec
+    ex = started[0]
+    cells = {a: ex.submit(run_cell, FULL, a, "decode_32k", "single")
+             for a in sorted(ARCHS)}
+    ties = {}
+    for name, (arch, layers, mesh, recipe, runs) in tie_specs().items():
+        cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+        spec = MeshSpec(mesh, ("data", "model"))
+        ties[name] = [ex.submit(trace_ranks, cfg, shape, spec,
+                                get_recipe(recipe), rt)
+                      for _, shape, rt in runs]
+    return cells, ties
+
+
+def dryrun_phase(started, futures):
+    """``[dryrun]``'s host part (:func:`dryrun_start`): each full cell's
+    recipe, per-rank peak against the card's memory and roofline terms,
+    written under ``chiprun_out/dryrun/full/``; no FAIL, SKIP exactly
+    where ``shape_skip_reason`` says. Returns the ties' traces by name,
+    for the spawns that tie them."""
+    from repro_torch.configs import get_arch, shape_skip_reason
+    from repro_torch.launch.presets import FULL
+    ex, t0 = started[0], time.perf_counter()
+    cells, ties = futures
+    try:
+        arts = {a: f.result() for a, f in cells.items()}
+        traces = {k: [f.result() for f in fs] for k, fs in ties.items()}
+    finally:
+        ex.shutdown()
+    out = ROOT / "chiprun_out" / "dryrun" / "full"
+    out.mkdir(parents=True, exist_ok=True)
+    hbm = H100_SXM.hbm_bytes
+    for arch, art in arts.items():
+        with open(out / f"{arch}__decode_32k__single.json", "w") as f:
+            json.dump(art, f, indent=1)
+        skip = shape_skip_reason(get_arch(arch), FULL.shape("decode_32k"))
+        check(art["status"] == ("SKIP" if skip else "OK"),
+              f"[dryrun] {arch}/decode_32k: {art['status']} "
+              f"{art.get('error', '')}")
+        if skip:
+            print(f"[dryrun] full {arch}/decode_32k at (16, 16): SKIP "
+                  f"({skip})")
+            continue
+        mem, r = art["memory"], art["roofline"]
+        print(f"[dryrun] full {arch}/decode_32k at (16, 16) under "
+              f"{art['recipe']}: per-rank peak {mem['peak_bytes']} B "
+              f"({mem['peak_bytes'] / hbm:.3f} of {hbm:.0f} B: "
+              f"{'fits' if mem['peak_bytes'] <= hbm else 'does not fit'}), "
+              f"arguments {mem['argument_bytes']} B; predicted from "
+              f"H100_SXM's data-sheet constants: compute "
+              f"{r['compute_s'] * 1e3:.4f} ms, memory "
+              f"{r['memory_s'] * 1e3:.4f} ms, collective "
+              f"{r['collective_s'] * 1e3:.4f} ms (links "
+              f"{art['collectives']['axis_links']}), dominant "
+              f"{r['dominant']}, step bound "
+              f"{r['step_time_bound_s'] * 1e3:.4f} ms; ranks traced "
+              f"{art['ranks_traced']}, {art['trace_s']:.1f} s")
+    print(f"[dryrun] full decode_32k cells and the ties' traces read "
+          f"{time.perf_counter() - t0:.1f} s after [graph]")
+    return traces
+
+
+def tie_item(traces, name, params, cfg):
+    """The [sharded] item of tie ``name`` (:func:`tie_specs`) on
+    ``params`` and ``cfg`` (the spawn's own model), its dry traces
+    ``traces[name]``."""
+    from repro_torch.dist.sharding import get_recipe
+    arch, layers, mesh, recipe, runs = tie_specs()[name]
+    check(cfg.name == arch and cfg.n_layers == layers,
+          f"[dryrun] tie {name}: spawn model {cfg.name} x {cfg.n_layers}")
+    return dict(kind="tie", title=f"[dryrun] tie {name}", cfg=cfg,
+                params=params, mesh=mesh, recipe=get_recipe(recipe),
+                runs=[dict(label=label, shape=shape, rt=rt,
+                           recipe=get_recipe(recipe), dry=dry)
+                      for (label, shape, rt), dry in zip(runs,
+                                                         traces[name])])
+
+
+def tie_rank(mesh, params, cfg, runs):
+    """One rank of a tie: each run's step once
+    (``lowering.live_step``: the collective counters set to 0 just
+    before it, the peak over it), every launch count set to 0 before it
+    and read after."""
+    import torch
+    from repro_torch.launch.lowering import live_step
+    counters = kernel_counters()
+    take_cublas_workspace(mesh.device)
+    out = []
+    for run in runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        for c in counters.values():
+            c.launches = 0
+        rec = live_step(mesh, cfg, run["shape"], run["recipe"], run["rt"],
+                        params)
+        rec.update(label=run["label"],
+                   launches={k: c.launches for k, c in counters.items()})
+        out.append(rec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dry_traces(params, cfg, runs):
+    """A tie's host side: each run's dry traces, made in [dryrun]."""
+    return [run["dry"] for run in runs]
+
+
+def tie_check(item, mesh, ranks, want):
+    """Every rank of a tie: its collective counters equal to its dry
+    trace's records (kind, group size, calls, bytes), its argument bytes
+    equal to the trace's and to the capacity model's (``capacity``
+    under the tie's recipe: the closed form, not the placement code the
+    two share), the trace's peak within ``DRYRUN_PEAK_TOL`` of the rank's
+    ``max_memory_allocated``; each run's line beside the capacity
+    model's figure. Returns the launches summed over ranks and runs."""
+    from repro_torch.analysis.capacity import capacity
+    cfg, sizes = item["cfg"], {"data": mesh[0], "model": mesh[1]}
+    total = {}
+    for i, run in enumerate(item["runs"]):
+        shape = run["shape"]
+        rep = capacity(cfg, shape, mesh=sizes, recipe=run["recipe"])
+        peaks, rels = [], []
+        for rank, (recs, dry) in enumerate(zip(ranks, want[i])):
+            got = recs[i]
+            what = f"{item['title']} {run['label']} rank {rank}"
+            check(got["counts"] and got["counts"] == dry["counts"],
+                  f"{what}: collectives {got['counts']}, dry records "
+                  f"{dry['counts']}")
+            check(got["argument_bytes"] == dry["memory"]["argument_bytes"]
+                  == rep.argument_bytes,
+                  f"{what}: arguments {got['argument_bytes']} B, dry "
+                  f"{dry['memory']['argument_bytes']} B, capacity model "
+                  f"{rep.argument_bytes} B")
+            live, walk = got["peak_bytes"], dry["memory"]["peak_bytes"]
+            rel = abs(walk - live) / live
+            check(rel <= DRYRUN_PEAK_TOL, f"{what}: dry peak {walk} B vs "
+                  f"max_memory_allocated {live} B ({rel:.3f} > "
+                  f"{DRYRUN_PEAK_TOL})")
+            peaks.append((walk, live))
+            rels.append(rel)
+            for k, n in got["launches"].items():
+                total[k] = total.get(k, 0) + n
+        r0 = ranks[0][i]
+        print(f"{item['title']} {run['label']} at {mesh} under "
+              f"{run['recipe'].name}: every rank's collectives == its dry "
+              f"records (rank 0 {r0['counts']}); arguments "
+              f"{r0['argument_bytes']} B == dry == the capacity model's; "
+              f"peak dry vs "
+              f"max_memory_allocated per rank {peaks} B (worst |d|/live "
+              f"{max(rels):.3f}, bar {DRYRUN_PEAK_TOL}); capacity model "
+              f"peak {rep.peak_bytes} B; "
+              f"kernels dry {want[i][0]['kernels']} live rank 0 "
+              f"{ {k: v for k, v in r0['launches'].items() if v} }; "
+              f"{smi_line()}")
+    return total
+
+
+# ===========================================================================
 # [sharded]: serving on a mesh of ranks that share the card
 # ===========================================================================
 #: New tokens of each served [serve] prompt on a mesh (the one-device
@@ -3154,7 +3386,7 @@ def sharded_items_rank(mesh, items):
     serves, ``forward`` as ``forward_rank`` runs, ``moe_layer`` as
     ``moe_layer_rank`` does."""
     ranks = {"serve": sharded_rank, "forward": forward_rank,
-             "moe_layer": moe_layer_rank}
+             "moe_layer": moe_layer_rank, "tie": tie_rank}
     return [ranks[kind](mesh, params, cfg, runs)
             for kind, params, cfg, runs in items]
 
@@ -3328,7 +3560,7 @@ def sharded_spawn(mesh, items, tag="[sharded]"):
     from repro_torch.launch.mesh import pick_backend, run_mesh
     t0 = time.perf_counter()
     ones = {"serve": one_device_runs, "forward": one_device_forward,
-            "moe_layer": one_device_moe_layer}
+            "moe_layer": one_device_moe_layer, "tie": dry_traces}
     wants = [ones[it["kind"]](it["params"], it["cfg"], it["runs"])
              for it in items]
     t_one = time.perf_counter() - t0
@@ -3348,7 +3580,8 @@ def sharded_spawn(mesh, items, tag="[sharded]"):
     total = {}
     for i, (it, want) in enumerate(zip(items, wants)):
         check_fn = {"serve": sharded_check, "forward": forward_check,
-                    "moe_layer": moe_layer_check}[it["kind"]]
+                    "moe_layer": moe_layer_check,
+                    "tie": tie_check}[it["kind"]]
         got = check_fn(dict(it, tag=tag), mesh, [r[i] for r in ranks], want)
         for k, n in got.items():
             total[k] = total.get(k, 0) + n
@@ -3548,7 +3781,7 @@ def forward_check(item, mesh, ranks, want):
     return total
 
 
-def sharded_phase(counters):
+def sharded_phase(counters, ties):
     """``[sharded]``: the sharded engines on meshes whose ranks share the
     card over gloo: full-width minicpm-2b (6 of 40 layers,
     ``SHARDED_LAYERS``) at (1, 2) in bf16 (contiguous
@@ -3558,8 +3791,9 @@ def sharded_phase(counters):
     K/V head of its 8 query heads), smoke minicpm-2b at (2, 4) in f32
     (tokens equal to one device, the prefix cache hit). The (1, 2)
     and (1, 4) models run in one spawn each with ``sharded_family_items``'
-    of the same shape. Returns the launches summed over every rank's
-    runs."""
+    of the same shape, each beside its [dryrun] tie (``ties``: the dry
+    traces, :func:`dryrun_phase`). Returns the launches summed over every
+    rank's runs."""
     import dataclasses
     import numpy as np
     import torch
@@ -3595,6 +3829,7 @@ def sharded_phase(counters):
         by_mesh[mesh].append(dict(
             kind="serve", title=f"{name} full width bf16", cfg=cfg,
             params=params, runs=runs, expect=expect, logit_tol=LOGIT_TOL))
+        by_mesh[mesh].append(tie_item(ties, name, params, cfg))
         del params
     # smoke minicpm-2b in f32 at (2, 4): the reference test's prompts
     gc.collect()
@@ -3618,7 +3853,7 @@ def sharded_phase(counters):
         {"rmsnorm", "flash_attention", "decode_attention",
          "paged_decode_attention"}, equal_tokens=True))
     del params
-    for mesh, items in sharded_family_items().items():
+    for mesh, items in sharded_family_items(ties).items():
         totals.append(sharded_spawn(mesh, by_mesh.get(mesh, []) + items))
     del by_mesh, items
     mixtral_preflight()
@@ -3628,7 +3863,7 @@ def sharded_phase(counters):
     return sharded
 
 
-def sharded_family_items():
+def sharded_family_items(ties):
     """[sharded]'s MoE, SSM, hybrid and audio items (widths uncut,
     depths ``SHARDED_FAMILY_LAYERS``): qwen2-moe-a2.7b at (1, 4), 15
     experts a rank, in f32 (teacher-forced on the contiguous engine: its
@@ -3638,8 +3873,9 @@ def sharded_family_items():
     agreement reported, routing flips in bf16); in one (1, 2) spawn mamba2-1.3b (32 SSD heads a
     rank) and zamba2-2.7b (40 heads and 16 attention heads a rank)
     teacher-forced in bf16 and hubert-xlarge's forward (B 2, S 1024
-    frames, bf16), logits within ``LOGIT_TOL`` of one device. Returns
-    the items of each mesh, for ``sharded_spawn``."""
+    frames, bf16), logits within ``LOGIT_TOL`` of one device; qwen2-moe's
+    [dryrun] tie beside its items. Returns the items of each mesh, for
+    ``sharded_spawn``."""
     import dataclasses
     import numpy as np
     import torch
@@ -3672,7 +3908,8 @@ def sharded_family_items():
                 logit_tol=LOGIT_TOL, equal_tokens=True),
            dict(kind="serve", title=f"qwen2-moe-a2.7b ({cfg.n_layers} of 24 "
                 f"layers) bf16", cfg=cfg, params=params, runs=runs16,
-                expect=expect, logit_tol=None)]
+                expect=expect, logit_tol=None),
+           tie_item(ties, "qwen2-moe-a2.7b", params, cfg)]
     del params
     split = expert_split_items(bf16, expect)
     items = []
@@ -3779,7 +4016,7 @@ ZERO3_SLOTS, ZERO3_FORCED, ZERO3_SERVED, ZERO3_NEW = 2, 2, 2, 2
 ZERO3_MOE_TOL = 1e-4
 
 
-def sharded_zero3_phase(counters):
+def sharded_zero3_phase(counters, ties):
     """``[sharded-zero3]``: the sharded engines under the recipes that
     split the weights over ``data`` too (``default_recipe``'s
     ``decode+zero3`` for the full-width models), on meshes whose ranks
@@ -3793,8 +4030,9 @@ def sharded_zero3_phase(counters):
     own slots' tokens); on every rank its bytes equal to ``capacity``'s
     under its recipe and its peak printed beside them plus the largest
     layer it gathers; then mixtral-8x22b at (2, 8) under
-    ``decode+zero3`` beside (1, 8) under ``decode``, host only. Returns
-    the launches summed over every rank's runs."""
+    ``decode+zero3`` beside (1, 8) under ``decode``, host only. The
+    chatglm3-6b spawn runs its [dryrun] tie too (``ties``). Returns the
+    launches summed over every rank's runs."""
     import dataclasses
     import numpy as np
     import torch
@@ -3835,6 +4073,7 @@ def sharded_zero3_phase(counters):
                   expect=expect, logit_tol=LOGIT_TOL)
              for r in (recipe, "decode")]
     items[1]["same_bits_as"] = 0
+    items.append(tie_item(ties, "chatglm3-6b zero3", params, cfg))
     totals.append(sharded_spawn((2, 1), items, tag))
     del items, params
     gc.collect()
@@ -3931,13 +4170,14 @@ def gpipe_rank(mesh, w, x):
                 grad=g[0].cpu(), ms=(time.perf_counter() - t0) * 1e3)
 
 
-def sharded_train_rank(mesh, runs, gpipe=None):
+def sharded_train_rank(mesh, runs, gpipe=None, tie=None):
     """One rank of a [sharded-train] mesh (``run_mesh`` spawns it; the
     parent built the kernel library, this process loads it): each run
     through ``train.sharded.mesh_train`` on this rank's blocks of the
     parent's tensors (read over CUDA IPC), every launch count set to 0
     before it and read after, the rank's peak since it began; then,
-    with ``gpipe`` (its weights and input), GPipe over the same ranks."""
+    with ``gpipe`` (its weights and input), GPipe over the same ranks;
+    then, with ``tie`` (``(params, cfg, runs)``), a [dryrun] tie."""
     import torch
     from repro_torch.train.sharded import mesh_train
     counters = kernel_counters()
@@ -3959,6 +4199,8 @@ def sharded_train_rank(mesh, runs, gpipe=None):
         torch.cuda.empty_cache()
     if gpipe is not None:
         out.append(gpipe_rank(mesh, *gpipe))
+    if tie is not None:
+        out.append(tie_rank(mesh, *tie))
     return out
 
 
@@ -4038,13 +4280,14 @@ def held_to_one_device(title, recs, ref, grads=True):
     return out
 
 
-def sharded_train_mesh(title, mesh, runs, refs, gpipe=None):
+def sharded_train_mesh(title, mesh, runs, refs, gpipe=None, tie=None):
     """One mesh of [sharded-train]: its runs on every rank (GPipe after
     them with ``gpipe``), each held to its one-device reference
     (``refs[i]``: None for no comparison), every rank's state bytes to
     the sharded capacity model's, ``SHARDED_TRAIN_KERNELS`` launched on
-    every rank and no other kernel. Returns (the launches summed over
-    ranks and runs, every rank's records)."""
+    every rank and no other kernel; then ``tie`` (a [dryrun] tie item)
+    held by :func:`tie_check`. Returns (the launches summed over ranks
+    and runs, the tie's included, every rank's records)."""
     import torch
     from repro_torch.analysis.capacity import capacity
     from repro_torch.configs.base import ShapeConfig
@@ -4052,6 +4295,8 @@ def sharded_train_mesh(title, mesh, runs, refs, gpipe=None):
     t0 = time.perf_counter()
     held = torch.cuda.memory_allocated()
     ranks = run_mesh(sharded_train_rank, mesh, runs, gpipe,
+                     None if tie is None else (tie["params"], tie["cfg"],
+                                               tie["runs"]),
                      timeout=SHARDED_TRAIN_TIMEOUT)
     sizes = {"data": mesh[0], "model": mesh[1]}
     print(f"[sharded-train] {title}: mesh {mesh[0]}x{mesh[1]} (data, model), "
@@ -4121,6 +4366,11 @@ def sharded_train_mesh(title, mesh, runs, refs, gpipe=None):
                  f"{[r['peak'] for r in recs]} B; launches per rank "
                  f"{[{k: v for k, v in r['launches'].items() if v} for r in recs]}")
         print(line)
+    if tie is not None:
+        got = tie_check(tie, mesh, [r[-1] for r in ranks],
+                        dry_traces(None, None, tie["runs"]))
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
     return total, ranks
 
 
@@ -4210,7 +4460,7 @@ def launcher_mesh_runs():
         shutil.rmtree(d, ignore_errors=True)
 
 
-def sharded_train_phase(counters):
+def sharded_train_phase(counters, ties):
     """``[sharded-train]``: the sharded train step on meshes whose ranks
     share the card over gloo. Full-width minicpm-2b (4 layers) under IS
     at (2, 2): two f32 AdamW steps against one device's (losses, gradient
@@ -4266,8 +4516,9 @@ def sharded_train_phase(counters):
                      save=(tmp, 2)),
                 dict(common, label="minicpm-2b bf16", rt=bf16,
                      batches=batches[:1], bf16_step0=True)]
-        got, _ = sharded_train_mesh("full width, (2, 2)", (2, 2), runs,
-                                    [ref32, ref16])
+        got, _ = sharded_train_mesh(
+            "full width, (2, 2)", (2, 2), runs, [ref32, ref16],
+            tie=tie_item(ties, "minicpm-2b train", params, cfg))
         totals.append(got)
         del ref32, runs, common
         gc.collect()
@@ -4884,10 +5135,13 @@ def main() -> int:
     entries = kernel_phase(cfg, moe_cfg, ssm_cfg, hyb_cfg)
     clock("[graph]")
     graph = graph_start()
+    dry = dryrun_start(graph)
     clock("[validator]")
     validator_phase()
     clock("[graph] results")
     graph_phase(graph)
+    clock("[dryrun] host")
+    ties = dryrun_phase(graph, dry)
     clock("[tune]")
     tuned = tuner_phase(counters)
     gc.collect()
@@ -4994,20 +5248,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     clock("[sharded]")
-    sharded = sharded_phase(counters)
+    sharded = sharded_phase(counters, ties)
 
     # --- [sharded-zero3]: serving with the weights split over data --------
     gc.collect()
     torch.cuda.empty_cache()
     clock("[sharded-zero3]")
-    zero3 = sharded_zero3_phase(counters)
+    zero3 = sharded_zero3_phase(counters, ties)
     sharded = {k: sharded[k] + zero3[k] for k in counters}
 
     # --- [sharded-train]: the sharded train step on meshes sharing the card
     gc.collect()
     torch.cuda.empty_cache()
     clock("[sharded-train]")
-    sharded_train = sharded_train_phase(counters)
+    sharded_train = sharded_train_phase(counters, ties)
 
     # --- phase 5 ---------------------------------------------------------
     clock("[train]")

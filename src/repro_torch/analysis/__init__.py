@@ -4,7 +4,7 @@ infeasible deployments and HBM overflows *before* anything runs.
 
     PYTHONPATH=src python -m repro_torch.analysis --preset ci --strict
 
-Seven pass families: the Hopper kernel validator (launch plans over
+Eight pass families: the Hopper kernel validator (launch plans over
 the tune grids), the hot-path graph lint (the serving steps traced on
 ``meta`` under the card's policy, each kernel launch one node: host
 syncs, trace and cache stability, dtypes, whole-pool int8 upcasts,
@@ -13,9 +13,11 @@ closure), the buffer-liveness walk and capacity drift guards, the
 shipped-bug-class AST lint over the port and ``chip_smoke.py``, the
 deployment-
 feasibility lint (scheduler liveness + queueing bounds over the
-traffic-scenario library, priced by the one-card model) and the
-sharding propagation (every recipe over the paper-scale trees on the
-reference's production meshes, read from the port's placement). Findings
+traffic-scenario library, priced by the one-card model), the sharding
+propagation (every recipe over the paper-scale trees on the reference's
+production meshes, read from the port's placement) and the SPMD lint
+(the dry-run cells' collective bytes and peaks, and a rank's collective
+records traced on a ``DryMesh``). Findings
 serialize to the port's ``analysis/report.json``
 (``repro_torch.artifacts``). The closed-form HBM model behind
 ``launch/serve.py --preflight`` lives in

@@ -39,9 +39,9 @@ except for the attention heads, where a rank holds the K/V heads its
 query heads read (``tests/test_torch_sharding.py`` pins the leaves
 where the two differ); :func:`shard_factor` and :func:`sharded_bytes`
 are the reference's spec division, which the batch follows. The
-reference's dry-run artifact parity
-(``capacity_from_artifact``) has no counterpart: the port has no
-dry-run.
+dry-run artifact parity (:func:`capacity_from_artifact`,
+:func:`measured_peak_bytes`) holds this model to the port's dry-run
+cells (``launch.dryrun``), as the ``spmd_lint`` pass reads them.
 """
 from __future__ import annotations
 
@@ -408,6 +408,24 @@ def capacity(cfg: ModelConfig, shape: Optional[ShapeConfig] = None,
         utilization=peak / hbm, features=feats, coefficients=coef,
         notes=tuple(notes), recipe=recipe.name, mesh_sizes=sizes,
         devices=devices)
+
+
+# ===========================================================================
+# Dry-run artifact parity (the spmd-memory-drift entry)
+# ===========================================================================
+def measured_peak_bytes(mem: Dict[str, int]) -> int:
+    """The per-device peak a dry-run cell records: its ``peak_bytes``
+    (the port's storage walk)."""
+    return int(mem["peak_bytes"])
+
+
+def capacity_from_artifact(art: Dict[str, Any], preset) -> CapacityReport:
+    """Re-derive the cell's capacity prediction from its identity fields
+    (arch/shape/mesh_axes; ``preset`` a ``launch.presets.Preset``):
+    baseline-variant cells only."""
+    cfg = preset.arch(art["arch"])
+    shape = preset.shape(art["shape"])
+    return capacity(cfg, shape, mesh=art["mesh_axes"])
 
 
 # ===========================================================================

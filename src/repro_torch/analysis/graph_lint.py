@@ -222,11 +222,12 @@ class _Graph(_Walk):
         return out
 
 
-def trace(fn: Callable, *args: Any, pools=()) -> Tuple[_Graph, Any,
-                                                      Optional[Exception]]:
+def trace(fn: Callable, *args: Any, pools=(), grad: bool = False
+          ) -> Tuple[_Graph, Any, Optional[Exception]]:
     """Run ``fn(*args)`` under :class:`_Graph` with the dispatch seam
-    observed; returns the graph, fn's result (None if it raised) and the
-    exception it raised, if any."""
+    observed, autograd on when ``grad`` (a train step's backward is
+    walked with its forward); returns the graph, fn's result (None if it
+    raised) and the exception it raised, if any."""
     from repro_torch.kernels.dispatch import observe_kernels
     arg_keys = {}
     for t in tree_flatten(args)[0]:
@@ -234,7 +235,7 @@ def trace(fn: Callable, *args: Any, pools=()) -> Tuple[_Graph, Any,
             arg_keys[_key(t)] = t.untyped_storage().nbytes()
     g = _Graph(arg_keys, pools)
     try:
-        with torch.no_grad(), \
+        with torch.set_grad_enabled(grad), \
                 observe_kernels(g.on_kernel, g.on_meta_launch), g:
             return g, fn(*args), None
     except Exception as e:                       # noqa: BLE001

@@ -99,13 +99,17 @@ class _Walk(TorchDispatchMode):
                 weakref.finalize(t.untyped_storage(), self._free, k, nbytes)
         self.op += 1
 
-    def peak(self) -> int:
+    def peak(self, held: bool = False) -> int:
         """Largest live bytes over the ops: each op's outputs beside its
-        inputs, the arguments until their last use, an allocation until
-        the op before which it was freed."""
+        inputs, the arguments until their last use (with ``held``, every
+        argument through the whole call, as a caller that keeps them
+        holds them on the card), an allocation until the op before
+        which it was freed."""
         delta = [0] * (self.op + 2)
         for k, nbytes in self.args.items():
-            if k in self.last_use:
+            if held:
+                delta[0] += nbytes
+            elif k in self.last_use:
                 delta[0] += nbytes
                 delta[self.last_use[k] + 1] -= nbytes
         for i, nbytes in self.allocs:

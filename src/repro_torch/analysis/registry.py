@@ -5,7 +5,7 @@ An :class:`AnalysisPass` is a named callable ``run(ctx) -> [Finding]``
 declaring which rule ids it can emit — the runner uses the declaration
 to skip passes entirely when ``--rules`` filters them out.
 
-The port carries seven passes: the kernel validator (launch plans of
+The port carries eight passes: the kernel validator (launch plans of
 the Hopper kernels over the tune grids), the hot-path graph lint (the
 reference's jaxpr lint: the serving steps traced on ``meta`` under the
 card's policy, each kernel one node; it compiles nothing, as the
@@ -14,15 +14,16 @@ reference's traces nothing but abstract values), the contract checker
 the buffer-liveness walk, the repo AST lint, the deployment-feasibility
 lint and the sharding propagation (every recipe over the paper-scale
 trees on the reference's production meshes, read from the port's own
-placement), and the id of the capacity gate behind ``launch/serve.py
---preflight``. The reference's SPMD/compile lint reads XLA's dry-run,
-which the port does not have.
+placement), the SPMD lint (the port's dry-run cells, and a rank's
+collective records traced on a ``DryMesh``), and the id of the
+capacity gate behind ``launch/serve.py --preflight``.
 
 Presets: ``ci`` lints the reference ``ci`` preset's two smoke archs at
-its ``max_len`` and page size and validates the ``ci`` tune grid;
-``h100`` lints every arch that serves on one card at full width, at a
-serving ``max_len`` against the card's HBM, and validates the ``h100``
-tune grid. Both hold a block to the card's shared memory, 227 KiB.
+its ``max_len`` and page size, validates the ``ci`` tune grid and reads
+the ``ci`` dry-run cells; ``h100`` lints every arch that serves on one
+card at full width, at a serving ``max_len`` against the card's HBM,
+validates the ``h100`` tune grid and reads the ``full`` dry-run
+cells. Both hold a block to the card's shared memory, 227 KiB.
 """
 from __future__ import annotations
 
@@ -85,6 +86,24 @@ RULES: Dict[str, str] = {
                         "outside a __main__ guard",
     "ast-axis-shape-guess": "axis identified by .shape[i] == comparison "
                             "(collides as soon as two dims agree)",
+    # SPMD / collective lint (dry-run artifacts + DryMesh traces)
+    "spmd-collective-oversize": "measured per-chip collective bytes "
+                                "exceed the analytic ring-model "
+                                "expectation by the preset slack factor",
+    "spmd-replicated-gather": "a single all-gather materializes a large "
+                              "fraction of the full parameter tree "
+                              "where the recipe implies sharded/"
+                              "reduce-scattered weights",
+    "spmd-reshard-thrash": "adjacent inverse collectives on one buffer "
+                           "(all-gather of a just-reduce-scattered "
+                           "value, or the reverse)",
+    "spmd-host-transfer": "host transfer (infeed/outfeed/host send-recv) "
+                          "inside a compiled step",
+    "spmd-memory-drift": "compiled memory_analysis() peak diverges from "
+                         "the closed-form capacity model",
+    "spmd-lowering-skipped": "informational: an HLO/artifact check was "
+                             "skipped (no forced host devices, or no "
+                             "dry-run artifacts generated)",
     # capacity
     "capacity-hbm-overflow": "predicted per-device peak HBM exceeds the "
                              "chip budget (the --preflight gate)",
@@ -132,7 +151,8 @@ class AnalysisPreset:
     configs when ``smoke``), and the serving ``max_len`` and page size
     they are linted at; ``replicated_leaf_bytes`` is the floor of
     ``shard-replicated-large`` (the sharding propagation runs at paper
-    scale under every preset)."""
+    scale under every preset); ``spmd_lint`` reads the dry-run cells of
+    ``dryrun_preset``."""
 
     name: str
     archs: Tuple[str, ...]
@@ -142,6 +162,7 @@ class AnalysisPreset:
     tune_preset: str = "ci"              # kernels validated at this grid
     smem_budget_bytes: int = SMEM_BUDGET_BYTES
     replicated_leaf_bytes: int = 2 << 30
+    dryrun_preset: str = "ci"            # dry-run cells spmd_lint reads
     description: str = ""
 
 
@@ -156,7 +177,7 @@ PRESETS: Dict[str, AnalysisPreset] = {
         description="dense/SSM smoke configs (seconds)"),
     "h100": AnalysisPreset(
         name="h100", archs=H100_ARCHS, max_len=4096, page_size=16,
-        smoke=False, tune_preset="h100",
+        smoke=False, tune_preset="h100", dryrun_preset="full",
         description="every arch that serves on one card, full width"),
 }
 

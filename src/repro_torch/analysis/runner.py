@@ -28,6 +28,7 @@ _PASS_MODULES = (
     "repro_torch.analysis.liveness",
     "repro_torch.analysis.deploy_lint",
     "repro_torch.analysis.sharding_prop",
+    "repro_torch.analysis.spmd_lint",
 )
 
 

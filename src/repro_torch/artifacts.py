@@ -3,12 +3,16 @@
     <root>/kernels/calibration.json     the tuner's calibration
     <root>/bench/<name>.json            benchmark outputs
     <root>/analysis/report.json         static-analysis findings
+    <root>/dryrun/<preset>/<arch>__<shape>__<mesh>.json
+                                        a dry-run cell (launch.dryrun)
+    <root>/dryrun/<preset>/_manifest.json   the sweep's geometry
 
 ``<root>`` is ``$REPRO_TORCH_ARTIFACT_DIR`` when set, else
 ``./artifacts/torch`` relative to the working directory. The port never
 writes the reference's ``artifacts/kernels/calibration.json`` (the two
-tuners time different implementations on different devices) nor its
-``artifacts/analysis/``. The helpers are functions, so the variable is
+tuners time different implementations on different devices), its
+``artifacts/analysis/`` nor its ``artifacts/dryrun/`` (XLA's cells for
+TPU meshes, where the port's are traces for meshes of cards). The helpers are functions, so the variable is
 read at call time.
 """
 from __future__ import annotations
@@ -55,3 +59,28 @@ def analysis_baseline_path() -> str:
     """Where ``python -m repro_torch.analysis --write-baseline`` keeps a
     gate-count baseline for ``--baseline`` to diff against."""
     return os.path.join(analysis_dir(), "baseline.json")
+
+
+MANIFEST_NAME = "_manifest.json"
+
+
+def dryrun_dir(preset: str) -> str:
+    """A dry-run preset's cell directory (not created)."""
+    return os.path.join(artifact_root(), "dryrun", preset)
+
+
+def manifest_path(preset: str) -> str:
+    return os.path.join(dryrun_dir(preset), MANIFEST_NAME)
+
+
+def cell_path(preset: str, arch: str, shape: str, mesh: str) -> str:
+    return os.path.join(dryrun_dir(preset), f"{arch}__{shape}__{mesh}.json")
+
+
+def list_cells(preset: str) -> list:
+    """Cell artifact filenames of ``preset`` (the manifest excluded)."""
+    d = dryrun_dir(preset)
+    if not os.path.isdir(d):
+        return []
+    return sorted(n for n in os.listdir(d)
+                  if n.endswith(".json") and not n.startswith("_"))

@@ -10,7 +10,9 @@
 The H100 SXM figures are NVIDIA's data-sheet values (dense, without
 sparsity, at the 700 W power limit). A card set to a lower power limit
 runs below them under load; every measurement states the limit beside
-it.
+it. The links price a mesh of cards (``core.roofline``): NVLink within
+a node of :attr:`GPUSpec.node_size` cards, the network card across
+nodes.
 """
 from __future__ import annotations
 
@@ -69,6 +71,9 @@ class GPUSpec:
     hbm_bw: float                   # bytes/s
     smem_per_block: int             # bytes, opt-in dynamic shared memory
     sms: int
+    nvlink_bw: float = 0.0          # bytes/s each direction, within a node
+    network_bw: float = 0.0         # bytes/s each direction, across nodes
+    node_size: int = 8              # cards one NVLink domain joins
 
     def peak_flops(self, dtype: str = "bfloat16") -> float:
         """Peak operations/s for operands of ``dtype``."""
@@ -88,4 +93,29 @@ H100_SXM = GPUSpec(
     hbm_bw=3.35e12,
     smem_per_block=232_448,
     sms=132,
+    # NVIDIA H100 Tensor Core GPU data sheet: NVLink 900 GB/s per SXM
+    # card, both directions together (18 fourth-generation links)
+    nvlink_bw=450e9,
+    # NVIDIA DGX H100 data sheet: eight ConnectX-7 network cards of
+    # 400 Gb/s each, one a GPU
+    network_bw=50e9,
+    node_size=8,
 )
+
+
+def ring_collective_bytes(payload: int, n: int, kind: str) -> float:
+    """Bytes crossing each participant's links for ring collectives.
+
+    all-reduce = reduce-scatter + all-gather = 2(n-1)/n * payload;
+    all-gather / reduce-scatter = (n-1)/n * payload;
+    all-to-all = (n-1)/n * payload;  collective-permute = payload.
+    """
+    if n <= 1:
+        return 0.0
+    if kind == "all-reduce":
+        return 2.0 * (n - 1) / n * payload
+    if kind in ("all-gather", "reduce-scatter", "all-to-all"):
+        return (n - 1) / n * payload
+    if kind == "collective-permute":
+        return float(payload)
+    raise ValueError(f"unknown collective kind {kind!r}")

@@ -74,6 +74,15 @@ _GATHERS = {aten.index: 1, aten.embedding: 1, aten.index_select: 2}
 # Gathers from a weight table at least this large count as embedding ops.
 _EMBED_MIN_BYTES = 1 << 20
 
+# Elementwise ops that evaluate a transcendental function per output
+# element (XLA's ``transcendentals`` count).
+_TRANSCENDENTAL = {
+    aten.exp, aten.exp2, aten.expm1, aten.log, aten.log1p, aten.log2,
+    aten.tanh, aten.sigmoid, aten.rsqrt, aten.sqrt, aten.sin, aten.cos,
+    aten.erf, aten.pow, aten.silu, aten.gelu, aten.softplus,
+    aten._softmax, aten._log_softmax,
+}
+
 
 def _nbytes(t: torch.Tensor) -> float:
     return float(t.numel() * t.element_size())
@@ -89,6 +98,7 @@ class _TraceState:
     def __init__(self) -> None:
         self.records: List[Dict[str, Any]] = []
         self.eqns = 0
+        self.transcendentals = 0
 
     def add(self, kind: str, K: int, N: int, flops: float,
             weight_bytes: float, act_in: float, act_out: float,
@@ -154,6 +164,8 @@ class _Tracer(TorchDispatchMode):
         else:
             out = func(*args, **kwargs)
         packet = func.overloadpacket
+        if packet in _TRANSCENDENTAL and isinstance(out, torch.Tensor):
+            self.st.transcendentals += out.numel()
         if packet in _DOTS:
             self._dot(*_DOTS[packet], args, out)
         elif packet is aten.convolution:

@@ -17,6 +17,12 @@ Replaces ``src/repro/kernels/moe_gemm.py`` ``grouped_gemm_padded``. The
   sorted layout, so the layer sorts its routed rows once, not once per
   product, and gathers the real rows back once.
 
+A row whose ``expert_of_row`` is ``n_experts`` belongs to no expert here
+(an expert-parallel rank's row routed to another rank's expert): every
+version leaves it out of the products and gives it a zero output row,
+so the layer keeps a fixed number of rows and no shape depends on the
+routing.
+
 Every version multiplies in float32 and casts the result to ``x``'s
 dtype once, as the Pallas body does. See ``csrc/moe_gemm.cu`` for what
 bounds the kernel and its design.
@@ -52,26 +58,30 @@ def sort_by_expert(x: torch.Tensor, expert_of_row: torch.Tensor,
     a host sync (the stable argsort and the counts stay on the device).
 
     Returns ``(x_pad (Tp, d), block_expert (nb,) int32, inv (T,) int64,
-    Tp)``: ``x_pad[inv] == x``, padding rows are zero, and each block's
-    expert is ``block_expert``. ``Tp = ceil(T / block_m) * block_m +
-    (n_experts - 1) * block_m`` is a static bound (every group wastes
-    fewer than ``block_m`` rows); the blocks past the last group get
-    ``block_expert == n_experts``, which names no expert: nothing may
-    read ``w`` for them."""
+    Tp)``: ``x_pad[inv] == x`` for every row of an expert, padding rows
+    are zero, and each block's expert is ``block_expert``. ``Tp =
+    ceil(T / block_m) * block_m + (n_experts - 1) * block_m`` is a
+    static bound (every group wastes fewer than ``block_m`` rows); the
+    blocks past the last group get ``block_expert == n_experts``, which
+    names no expert: nothing may read ``w`` for them. A row of no expert
+    (``expert_of_row == n_experts``) is left out: its ``inv`` is
+    ``Tp``."""
     T = x.shape[0]
     dev = x.device
     eor = expert_of_row.long()
     order = torch.argsort(eor, stable=True)
-    sizes = _counts(eor, n_experts)
+    sizes = _counts(eor, n_experts + 1)[:n_experts]
     padded = (sizes + block_m - 1) // block_m * block_m
     zero = torch.zeros(1, dtype=torch.long, device=dev)
     pad_off = torch.cat([zero, torch.cumsum(padded, 0)])
     csizes = torch.cat([zero, torch.cumsum(sizes, 0)])
     e_sorted = eor[order]
-    dest = pad_off[e_sorted] + torch.arange(T, device=dev) - csizes[e_sorted]
     Tp = -(-T // block_m) * block_m + (n_experts - 1) * block_m
-    x_pad = x.new_zeros((Tp,) + tuple(x.shape[1:]))
-    x_pad[dest] = x[order]
+    dest = torch.where(e_sorted < n_experts, pad_off[e_sorted]
+                       + torch.arange(T, device=dev) - csizes[e_sorted], Tp)
+    x_pad = x.new_zeros((Tp + 1,) + tuple(x.shape[1:]))
+    x_pad[dest] = x[order]                  # rows of no expert: row Tp
+    x_pad = x_pad[:Tp]
     starts = torch.arange(0, Tp, block_m, device=dev)
     block_expert = torch.searchsorted(pad_off[1:], starts, right=True)
     inv = torch.empty_like(dest)
@@ -83,8 +93,9 @@ def block_rows(inv: torch.Tensor, n_blocks: int, block_m: int
                ) -> torch.Tensor:
     """Real rows in each block (int32): a group's rows fill its blocks
     from the top, so a block's real rows are a prefix of it. Trailing
-    blocks, and only they, have 0."""
-    return _counts(inv // block_m, n_blocks).to(torch.int32)
+    blocks, and only they, have 0; a row of no expert (``inv`` past the
+    last block) counts in none."""
+    return _counts(inv // block_m, n_blocks + 1)[:n_blocks].to(torch.int32)
 
 
 def grouped_gemm_padded_plain(x_pad: torch.Tensor, w: torch.Tensor,
@@ -158,16 +169,18 @@ def moe_gemm_plain(x: torch.Tensor, w: torch.Tensor,
                    n_experts: int) -> torch.Tensor:
     """x (T, d); w (E, d, f); expert_of_row (T,) -> (T, f): the rows of
     each expert present times its weights, f32 products cast to x's
-    dtype. On ``meta``, where there is no routing to loop over, the
-    reference's gather ``einsum(x, w[expert_of_row])``: the same shapes,
-    dtype and autograd."""
-    del n_experts
+    dtype, a row of no expert (``n_experts``) zero. On ``meta``, where
+    there is no routing to loop over, the reference's gather
+    ``einsum(x, w[expert_of_row])``: the same shapes, dtype and
+    autograd."""
     eor = expert_of_row.long()
     if x.device.type == "meta":
         return torch.einsum("td,tdf->tf", x.float(),
                             w[eor].float()).to(x.dtype)
-    out = x.new_empty((x.shape[0], w.shape[-1]))
+    out = x.new_zeros((x.shape[0], w.shape[-1]))
     for e in torch.unique(eor).tolist():
+        if e == n_experts:
+            continue
         idx = torch.nonzero(eor == e)[:, 0]
         out[idx] = (x[idx].float() @ w[e].float()).to(out.dtype)
     return out
@@ -187,12 +200,20 @@ def sorted_layout(x: torch.Tensor, expert_of_row: torch.Tensor,
     return x_pad, be, block_rows(inv, Tp // BLOCK_M, BLOCK_M), inv
 
 
+def unsort(y: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """The rows of ``y`` (the grouped GEMM's output) back in the
+    caller's order (``y[inv]``), a row of no expert (``inv`` past
+    ``y``) zero."""
+    Tp = y.shape[0]
+    return y[inv.clamp(max=Tp - 1)].masked_fill((inv == Tp)[:, None], 0)
+
+
 def moe_gemm(x: torch.Tensor, w: torch.Tensor, expert_of_row: torch.Tensor,
              *, n_experts: int) -> torch.Tensor:
     """Sort by expert, the grouped GEMM (the kernel on the card), and the
     gather of the real rows back into ``x``'s row order."""
     x_pad, be, rows, inv = sorted_layout(x, expert_of_row, n_experts)
-    return grouped_gemm_padded(x_pad, w, be, rows)[inv]
+    return unsort(grouped_gemm_padded(x_pad, w, be, rows), inv)
 
 
 def moe_gemm_glu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
@@ -211,7 +232,7 @@ def moe_gemm_glu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     x_pad, be, rows, inv = sorted_layout(x, expert_of_row, n_experts)
     h = act(grouped_gemm_padded(x_pad, w_gate, be, rows),
             grouped_gemm_padded(x_pad, w_up, be, rows))
-    return grouped_gemm_padded(h, w_down, be, rows)[inv]
+    return unsort(grouped_gemm_padded(h, w_down, be, rows), inv)
 
 
 #: Output columns a block of the f32 body and of the bf16 tensor-core

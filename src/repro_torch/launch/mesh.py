@@ -34,11 +34,23 @@ loss's means), :meth:`Mesh.gather` (backward: this rank's
 slice of the gradient, summed over the axis first for a weight
 gathered over ``data``) and :meth:`Mesh.shift` (a ring shift whose
 backward shifts the gradient the other way).
+
+Every collective a process makes is counted, as each kernel wrapper
+counts its launches: :data:`COLLECTIVES` (``Mesh.collectives``) holds,
+per kind (``all-reduce``, ``all-gather``, ``broadcast``) and group size,
+the calls and the payload bytes this rank put in (an all-reduce's f32
+buffer, a gather's own part, a broadcast's tensor), the backward
+collectives of the autograd forms included. :class:`DryMesh` is one
+rank of a mesh that does not exist: the same attributes and methods,
+every collective a ``meta`` tensor of the shape and dtype the real one
+returns and a record of it (``launch.lowering`` traces a rank's step on
+it); its :meth:`DryMesh.counts` has the counters' form.
 """
 from __future__ import annotations
 
 import atexit
 import gc
+import itertools
 import math
 import multiprocessing
 import os
@@ -47,6 +59,7 @@ import shutil
 import tempfile
 import time
 import traceback
+import weakref
 from typing import Any, Callable, List, Optional, Sequence, Union
 
 import torch
@@ -54,8 +67,8 @@ import torch.distributed as dist
 
 from repro_torch.dist.sharding import Placement, Recipe, use_mesh
 
-__all__ = ["Mesh", "make_mesh", "parse_mesh", "pick_backend", "rank_device",
-           "run_mesh", "use_mesh"]
+__all__ = ["COLLECTIVES", "DryMesh", "Mesh", "make_mesh", "parse_mesh",
+           "pick_backend", "rank_device", "run_mesh", "use_mesh"]
 
 Devices = Optional[Union[str, Sequence[str]]]
 
@@ -88,10 +101,36 @@ def pick_backend(world: int, devices: Devices = None) -> str:
     return "nccl" if len({str(d) for d in devs}) == world else "gloo"
 
 
+class CollectiveCounts:
+    """The collectives one process made, by ``(kind, group size)``: the
+    calls and the payload bytes this rank put in."""
+
+    def __init__(self) -> None:
+        self.by: dict = {}
+
+    def add(self, kind: str, n: int, nbytes: int) -> None:
+        calls, total = self.by.get((kind, n), (0, 0))
+        self.by[(kind, n)] = (calls + 1, total + int(nbytes))
+
+    def reset(self) -> None:
+        self.by.clear()
+
+    def as_dict(self) -> dict:
+        """``{"<kind>/<n>": {"calls", "bytes"}}``, sorted."""
+        return {f"{k}/{n}": {"calls": c, "bytes": b}
+                for (k, n), (c, b) in sorted(self.by.items())}
+
+
+#: This process's collectives (one process is one rank).
+COLLECTIVES = CollectiveCounts()
+
+
 def _sum(t: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``t`` over ``group``, in f32 (a bf16 partial sum is
     widened first and the total rounded once), in ``t``'s dtype."""
     buf = t.to(torch.float32, copy=True)
+    COLLECTIVES.add("all-reduce", dist.get_world_size(group),
+                    buf.numel() * buf.element_size())
     dist.all_reduce(buf, group=group)
     return buf.to(t.dtype)
 
@@ -99,46 +138,68 @@ def _sum(t: torch.Tensor, group) -> torch.Tensor:
 def _gather(t: torch.Tensor, group, n: int) -> List[torch.Tensor]:
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(n)]
+    COLLECTIVES.add("all-gather", n, t.numel() * t.element_size())
     dist.all_gather(parts, t, group=group)
     return parts
+
+
+def _broadcast(t: torch.Tensor, group) -> torch.Tensor:
+    t = t.contiguous()
+    COLLECTIVES.add("broadcast", dist.get_world_size(group),
+                    t.numel() * t.element_size())
+    dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+    return t
+
+
+class _Live:
+    """The process group's collectives (counted), as the forms call
+    them: ``reduce`` the f32 sum, ``collect`` every rank's part,
+    ``bcast`` the first rank's tensor."""
+
+    reduce = staticmethod(_sum)
+    collect = staticmethod(_gather)
+    bcast = staticmethod(_broadcast)
+
+
+_LIVE = _Live()
 
 
 class _SumOver(torch.autograd.Function):
     """g: the sum over a group; backward the identity."""
 
     @staticmethod
-    def forward(ctx, t, group):
-        return _sum(t, group)
+    def forward(ctx, t, comm, group):
+        return comm.reduce(t, group)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        return grad, None, None
 
 
 class _Enter(torch.autograd.Function):
     """f: the identity; backward the sum over a group."""
 
     @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
+    def forward(ctx, t, comm, group):
+        ctx.comm, ctx.group = comm, group
         return t.view_as(t)
 
     @staticmethod
     def backward(ctx, grad):
-        return _sum(grad, ctx.group), None
+        return ctx.comm.reduce(grad, ctx.group), None, None
 
 
 class _Total(torch.autograd.Function):
     """The sum over a group whose backward is the sum too."""
 
     @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        return _sum(t, group)
+    def forward(ctx, t, comm, group):
+        ctx.comm, ctx.group = comm, group
+        return comm.reduce(t, group)
 
     @staticmethod
     def backward(ctx, grad):
-        return _sum(grad, ctx.group), None
+        return ctx.comm.reduce(grad, ctx.group), None, None
 
 
 class _Gather(torch.autograd.Function):
@@ -147,17 +208,18 @@ class _Gather(torch.autograd.Function):
     first when ``reduce``."""
 
     @staticmethod
-    def forward(ctx, t, group, n, index, dim, reduce):
-        ctx.group, ctx.index, ctx.dim, ctx.reduce = group, index, dim, reduce
+    def forward(ctx, t, comm, group, n, index, dim, reduce):
+        ctx.comm, ctx.group, ctx.index = comm, group, index
+        ctx.dim, ctx.reduce = dim, reduce
         ctx.size = t.shape[dim]
-        return torch.cat(_gather(t, group, n), dim=dim)
+        return torch.cat(comm.collect(t, group, n), dim=dim)
 
     @staticmethod
     def backward(ctx, grad):
         if ctx.reduce:
-            grad = _sum(grad, ctx.group)
+            grad = ctx.comm.reduce(grad, ctx.group)
         return (grad.narrow(ctx.dim, ctx.index * ctx.size, ctx.size),
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 class _Shift(torch.autograd.Function):
@@ -166,14 +228,14 @@ class _Shift(torch.autograd.Function):
     way."""
 
     @staticmethod
-    def forward(ctx, t, group, n, index):
-        ctx.group, ctx.n, ctx.index = group, n, index
-        return _gather(t, group, n)[(index - 1) % n]
+    def forward(ctx, t, comm, group, n, index):
+        ctx.comm, ctx.group, ctx.n, ctx.index = comm, group, n, index
+        return comm.collect(t, group, n)[(index - 1) % n]
 
     @staticmethod
     def backward(ctx, grad):
-        return (_gather(grad, ctx.group, ctx.n)[(ctx.index + 1) % ctx.n],
-                None, None, None)
+        return (ctx.comm.collect(grad, ctx.group, ctx.n)[
+            (ctx.index + 1) % ctx.n], None, None, None, None)
 
 
 class Mesh:
@@ -192,6 +254,8 @@ class Mesh:
         self.devices = math.prod(self.axis_sizes)
         self.device = device
         self.backend = backend
+        self.collectives = COLLECTIVES
+        self._comm = _LIVE
         self.rank = dist.get_rank()
         self.coords = dict(zip(self.axis_names,
                                device_mesh.get_coordinate()))
@@ -220,7 +284,7 @@ class Mesh:
         widened first and the total rounded once), in ``t``'s dtype."""
         if self.sizes[axis] == 1:
             return t
-        return _sum(t, self._groups[axis])
+        return self._comm.reduce(t, self._groups[axis])
 
     def all_gather(self, t: torch.Tensor, axis: str,
                    dim: int) -> torch.Tensor:
@@ -229,16 +293,14 @@ class Mesh:
         n = self.sizes[axis]
         if n == 1:
             return t
-        return torch.cat(_gather(t, self._groups[axis], n), dim=dim)
+        return torch.cat(self._comm.collect(t, self._groups[axis], n),
+                         dim=dim)
 
     def broadcast(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """``t`` as the rank at coordinate 0 of ``axis`` holds it."""
         if self.sizes[axis] == 1:
             return t
-        group = self._groups[axis]
-        t = t.contiguous()
-        dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
-        return t
+        return self._comm.bcast(t, self._groups[axis])
 
     # ------------------------------------------------------ autograd forms
     def sum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
@@ -246,7 +308,7 @@ class Mesh:
         is the identity."""
         if self.sizes[axis] == 1:
             return t
-        return _SumOver.apply(t, self._groups[axis])
+        return _SumOver.apply(t, self._comm, self._groups[axis])
 
     def enter(self, t: torch.Tensor, axis: Optional[str] = None,
               group=None) -> torch.Tensor:
@@ -256,7 +318,7 @@ class Mesh:
             if self.sizes[axis] == 1:
                 return t
             group = self._groups[axis]
-        return _Enter.apply(t, group)
+        return _Enter.apply(t, self._comm, group)
 
     def total(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """The sum over ``axis`` whose backward sums the gradient over it
@@ -265,7 +327,7 @@ class Mesh:
         batch that each data rank's loss reads."""
         if self.sizes[axis] == 1:
             return t
-        return _Total.apply(t, self._groups[axis])
+        return _Total.apply(t, self._comm, self._groups[axis])
 
     def gather(self, t: torch.Tensor, axis: str, dim: int,
                reduce: bool = False) -> torch.Tensor:
@@ -275,8 +337,8 @@ class Mesh:
         n = self.sizes[axis]
         if n == 1:
             return t
-        return _Gather.apply(t, self._groups[axis], n, self.coords[axis],
-                             dim % t.dim(), reduce)
+        return _Gather.apply(t, self._comm, self._groups[axis], n,
+                             self.coords[axis], dim % t.dim(), reduce)
 
     def shift(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """The ring shift by one along ``axis``: coordinate ``i`` gets
@@ -284,7 +346,8 @@ class Mesh:
         n = self.sizes[axis]
         if n == 1:
             return t
-        return _Shift.apply(t, self._groups[axis], n, self.coords[axis])
+        return _Shift.apply(t, self._comm, self._groups[axis], n,
+                            self.coords[axis])
 
     # ---------------------------------------------------------- subgroups
     def subgroup(self, groups) -> Optional[Any]:
@@ -315,13 +378,146 @@ class Mesh:
         """Every rank's ``t`` (all of one shape), in rank order."""
         if self.devices == 1:
             return [t]
-        return _gather(t, None, self.devices)
+        return self._comm.collect(t, None, self.devices)
 
     def world_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The f32 sum of ``t`` over every rank, in ``t``'s dtype."""
         if self.devices == 1:
             return t
-        return _sum(t, None)
+        return self._comm.reduce(t, None)
+
+
+def _storage_key(t: torch.Tensor) -> int:
+    return t.untyped_storage()._cdata
+
+
+class DryMesh(Mesh):
+    """One rank of a mesh that does not exist: the attributes and
+    methods of :class:`Mesh`, on ``meta``, with no process group. Every
+    collective allocates what the real one allocates (the f32 buffer of
+    a sum, the parts of a gather) and returns a ``meta`` tensor of the
+    shape and dtype the real one returns, and appends a record to
+    :attr:`records`: ``kind``, ``axis`` (a mesh axis, ``world``, or the
+    axis a subgroup is part of), the group size ``n``, the payload
+    ``bytes`` this rank puts in (as :data:`COLLECTIVES` counts them),
+    and ``src``, the index of the collective whose output this one reads
+    (its buffer or a view of it; None for any other buffer).
+    :meth:`subgroup` returns a token and :meth:`barrier` does nothing.
+
+    ``shape`` and ``axes`` give the mesh; ranks are numbered with the
+    last axis fastest, as ``make_mesh`` numbers them."""
+
+    def __init__(self, shape, axes=("data", "model"), rank: int = 0):
+        shape, axes = tuple(int(s) for s in shape), tuple(axes)
+        if len(shape) != len(axes):
+            raise ValueError(f"mesh {shape} over {axes}")
+        self.device_mesh = None
+        self.axis_names, self.axis_sizes = axes, shape
+        self.sizes = dict(zip(axes, shape))
+        self.devices = math.prod(shape)
+        if not 0 <= rank < self.devices:
+            raise ValueError(f"rank {rank} of a mesh of {self.devices}")
+        self.device = torch.device("meta")
+        self.backend = "dry"
+        self.rank = rank
+        self.rank_coords = [dict(zip(axes, c)) for c in itertools.product(
+            *(range(n) for n in shape))]
+        self.coords = dict(self.rank_coords[rank])
+        self._groups = {a: a for a in axes}
+        self._subgroups = {}
+        self._placements = {}
+        self._comm = self
+        self.records: List[dict] = []
+        self._produced: dict = {}
+
+    def __repr__(self) -> str:
+        return f"DryMesh({self.sizes}, rank {self.rank} at {self.coords})"
+
+    # -- the collectives, recorded ------------------------------------------
+    def _n(self, group) -> int:
+        if group is None:
+            return self.devices
+        if isinstance(group, tuple):
+            return len(group[1])
+        return self.sizes[group]
+
+    def _record(self, kind: str, group, read: torch.Tensor,
+                payload: torch.Tensor, outs) -> None:
+        """One record: ``read`` is the tensor the caller passed,
+        ``payload`` what this rank puts in, ``outs`` what it allocates
+        for the result."""
+        axis = "world" if group is None else \
+            group[0] if isinstance(group, tuple) else group
+        i = len(self.records)
+        self.records.append(dict(
+            kind=kind, axis=axis, n=self._n(group),
+            bytes=payload.numel() * payload.element_size(),
+            src=self._produced.get(_storage_key(read))))
+        for out in outs:
+            key = _storage_key(out)
+            self._produced[key] = i
+            weakref.finalize(out.untyped_storage(), self._produced.pop,
+                             key, None)
+
+    def reduce(self, t: torch.Tensor, group) -> torch.Tensor:
+        buf = t.to(torch.float32, copy=True)
+        out = buf.to(t.dtype)
+        self._record("all-reduce", group, t, buf, (out,))
+        return out
+
+    def collect(self, t: torch.Tensor, group, n: int) -> List[torch.Tensor]:
+        read, t = t, t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(n)]
+        self._record("all-gather", group, read, t, parts)
+        return parts
+
+    def bcast(self, t: torch.Tensor, group) -> torch.Tensor:
+        read, t = t, t.contiguous()
+        self._record("broadcast", group, read, t, ())
+        return t
+
+    def _produced_by_last(self, out: torch.Tensor) -> torch.Tensor:
+        """``out`` (a gather's concatenation) as the last record's
+        output."""
+        if self.records:
+            key = _storage_key(out)
+            self._produced[key] = len(self.records) - 1
+            weakref.finalize(out.untyped_storage(), self._produced.pop,
+                             key, None)
+        return out
+
+    def all_gather(self, t: torch.Tensor, axis: str,
+                   dim: int) -> torch.Tensor:
+        if self.sizes[axis] == 1:
+            return t
+        return self._produced_by_last(super().all_gather(t, axis, dim))
+
+    def gather(self, t: torch.Tensor, axis: str, dim: int,
+               reduce: bool = False) -> torch.Tensor:
+        if self.sizes[axis] == 1:
+            return t
+        return self._produced_by_last(super().gather(t, axis, dim, reduce))
+
+    def counts(self) -> dict:
+        """The records in :data:`COLLECTIVES`' form (``as_dict``)."""
+        c = CollectiveCounts()
+        for r in self.records:
+            c.add(r["kind"], r["n"], r["bytes"])
+        return c.as_dict()
+
+    # -- no process group -----------------------------------------------------
+    def subgroup(self, groups) -> Optional[Any]:
+        """A token for this rank's group among ``groups``, of the axis
+        ``model`` (the groups the placement asks for), or None when the
+        group is this rank alone."""
+        for g in groups:
+            g = tuple(sorted(int(r) for r in g))
+            if self.rank in g and len(g) > 1:
+                return ("model", g)
+        return None
+
+    def barrier(self) -> None:
+        return None
 
 
 def parse_mesh(text: str):

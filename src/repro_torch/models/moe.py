@@ -159,8 +159,10 @@ def _routed_grouped(p, xt: torch.Tensor, cfg: ModelConfig,
     expert matmuls follow the policy's ``moe_gemm`` choice and the K
     outputs are gate-combined. Under ``cuda`` the three products share
     one sort by expert (the layout depends on the routing alone).
-    Expert-parallel, only the rows of this rank's experts run; the
-    others' outputs stay zero (their share is another rank's)."""
+    Expert-parallel, every row stays and a row of another rank's expert
+    names no expert here (``n_experts``): the products leave it out and
+    its output is zero (its share is another rank's), and no shape
+    depends on the routing."""
     m = cfg.moe
     T, d = xt.shape
     E, K = m.n_experts, m.experts_per_token
@@ -168,22 +170,16 @@ def _routed_grouped(p, xt: torch.Tensor, cfg: ModelConfig,
     xt, gate_vals = _enter_experts(pl, xt, gate_vals)
     x_rep = xt.repeat_interleave(K, dim=0)                      # (T*K, d)
     eor = idx.reshape(T * K).to(torch.int32)                    # row -> expert
-    rows = None
     if _split(pl) == "experts":
         lo, E = pl.expert_start, pl.n_experts
-        rows = ((eor >= lo) & (eor < lo + E)).nonzero()[:, 0]
-        x_rep, eor = x_rep[rows], eor[rows] - lo
+        eor = torch.where((eor >= lo) & (eor < lo + E), eor - lo, E)
     wg, wi, wo = (p[n].to(xt.dtype) for n in ("wg", "wi", "wo"))
-    if rows is not None and not rows.numel():    # none of this rank's
-        y = x_rep.new_zeros((0, d))
-    elif resolve_policy(policy).impl_for("moe_gemm") == "cuda":
+    if resolve_policy(policy).impl_for("moe_gemm") == "cuda":
         y = fused_call("moe_gemm_glu", moe_gemm_glu, _EXPERT_GLU_TORCH,
                        x_rep, wg, wi, wo, eor, act=swiglu, n_experts=E)
     else:
         y = _expert_glu(x_rep, wg, wi, wo, eor, act=swiglu, n_experts=E,
                         policy=policy)                          # (T*K, d)
-    if rows is not None:
-        y = y.new_zeros((T * K, d)).index_copy(0, rows, y)
     if _split(pl) is not None:          # a partial sum: combined in f32
         return (y.reshape(T, K, d).float()
                 * gate_vals[..., None]).sum(dim=1), aux

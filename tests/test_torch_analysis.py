@@ -511,16 +511,18 @@ def test_ast_lint_covers_the_port_and_is_clean():
     assert rep.findings == [], [f.describe() for f in rep.findings]
 
 
-#: The port's six passes.
+#: The port's eight passes.
 PASSES = {"kernel_validator", "graph_lint", "contracts", "ast_lint",
-          "liveness", "deploy_lint", "sharding_prop"}
+          "liveness", "deploy_lint", "sharding_prop", "spmd_lint"}
 #: The findings on a clean tree, all info: the sharding propagation's
 #: cells whose specs drop an indivisible axis and the paged pools a rank
 #: holds whole at paper scale (tests/test_torch_sharding_prop.py holds
-#: each to the reference's), and the graph lint's f32 state products of
-#: the SSM decode step (tests/test_torch_graph_lint.py).
+#: each to the reference's), the graph lint's f32 state products of
+#: the SSM decode step (tests/test_torch_graph_lint.py), and the SPMD
+#: lint's note that no dry-run cells were generated
+#: (tests/test_torch_spmd_lint.py).
 CLEAN_INFO = {"shard-spec-dropped": 36, "shard-replicated-large": 12,
-              "graph-wide-dot": 1}
+              "graph-wide-dot": 1, "spmd-lowering-skipped": 1}
 
 
 def test_clean_tree_ci_preset():

@@ -31,7 +31,9 @@ print(len(mods), bad)
 #: the contract checker, the liveness walk and the sharding propagation
 #: among them), the launch plans, and the
 #: mesh: the sharding recipes and placement, the mesh and its spawner,
-#: the sharded engines, GPipe and the sharded train runs.
+#: the sharded engines, GPipe and the sharded train runs; the dry-run (its
+#: presets, the per-cell pipeline, the sweep), the roofline of a mesh of
+#: cards and the SPMD lint.
 _NEW = ("repro_torch.core.workload.torch_trace",
         "repro_torch.configs.chatglm3_6b",
         "repro_torch.configs.starcoder2_3b",
@@ -72,7 +74,12 @@ _NEW = ("repro_torch.core.workload.torch_trace",
         "repro_torch.launch.mesh",
         "repro_torch.serve.sharded",
         "repro_torch.dist.pipeline",
-        "repro_torch.train.sharded")
+        "repro_torch.train.sharded",
+        "repro_torch.launch.presets",
+        "repro_torch.launch.lowering",
+        "repro_torch.launch.dryrun",
+        "repro_torch.core.roofline",
+        "repro_torch.analysis.spmd_lint")
 
 
 def test_port_imports_without_jax_or_reference():

@@ -8,12 +8,15 @@ rank and returns their results in order: ``serve`` is
 ``serve.sharded.mesh_serve(mesh, *args)``, ``train``
 ``train.sharded.mesh_train(mesh, *args)``, ``forward``
 ``serve.sharded.mesh_forward(mesh, *args)``, ``logits``
-:func:`serve_logits` and ``moe_layer`` :func:`moe_layer`. One spawn
-serves, trains and runs forwards of several models.
+:func:`serve_logits` and ``moe_layer`` :func:`moe_layer` and ``step``
+``launch.lowering.live_step(mesh, *args)`` (one step of a dry-run cell,
+its collectives counted). One spawn serves, trains and runs forwards of
+several models.
 """
 import torch
 
 from repro_torch.dist.sharding import Placement
+from repro_torch.launch.lowering import live_step
 from repro_torch.serve.sharded import (ShardedServeEngine, mesh_forward,
                                        mesh_serve)
 from repro_torch.train.sharded import mesh_train
@@ -81,7 +84,7 @@ def moe_layer(mesh, layer, cfg, x, dtype, policy=None):
 
 
 JOBS = {"serve": mesh_serve, "train": mesh_train, "forward": mesh_forward,
-        "logits": serve_logits, "moe_layer": moe_layer}
+        "logits": serve_logits, "moe_layer": moe_layer, "step": live_step}
 
 
 def run_jobs(mesh, jobs):
