@@ -258,9 +258,7 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    chatglm3-6b cut to 4 layers under WS at (1, 4) (each K/V head held by
    two ranks, the vocabulary split) against one device as above; the
    minicpm-2b checkpoint restored onto one device (every leaf equal to
-   its file bit for bit) and onto (1, 4) WS (saved again from there:
-   every file equal to the one read, byte for byte), one more step on
-   each, held together; GPipe on
+   its file bit for bit); GPipe on
    a (stage, data) mesh of (4, 1) at the reference test's shapes (8 tanh
    layers of 16, 6 microbatches of 2, f32): outputs within 1e-5 of the
    sequential form's, gradients within ``TRAIN_GRAD_RTOL`` of autograd
@@ -271,37 +269,50 @@ raises and exits non-zero (there is no CPU or plain-version fallback):
    ``sharded_train`` path. Then, in one (2, 2) spawn, full-width
    qwen2-moe-a2.7b (1 layer) under IS on the capacity path (capacity,
    slot order and aux loss global over ``data``) and mamba2-1.3b (2
-   layers) under IS_seq, two f32 steps each held to one device as above
+   layers) under IS_seq, one f32 step each held to one device as above
    (RMSNorm and flash, RMSNorm and the scan, launched). Then the train
    launcher in-process on smoke minicpm-2b, ``--mesh 2x2 --recipe IS
    --steps 10`` with a checkpoint
    directory and its resume on ``--mesh 1x2 --recipe WS`` (finite
-   losses, every rank's equal to rank 0's, the restore printed);
+   losses, every rank's equal to rank 0's, the restore printed: the
+   card's check of a checkpoint read onto another mesh and recipe);
 
    ``[dryrun]``: the dry-run of a mesh of H100s
    (``repro_torch.launch.lowering``: one rank's step traced on ``meta``
    on a ``DryMesh``, nothing allocated or launched). Started beside
    ``[graph]`` in its worker processes and read after it: every arch's
    full-width ``decode_32k`` cell of the ``full`` preset at (16, 16)
-   (recipe, per-rank peak against the card's 80 GB, the three roofline
-   terms priced with ``H100_SXM`` and the dominant one; encoder-only
-   archs SKIP; the cells written under ``chiprun_out/dryrun/full/``),
-   and the dry traces of five ties, each tied in the spawn that already
-   runs its model, the counters and peak stats reset around one step
-   on every rank (``launch.lowering.live_step``): minicpm-2b (6 of 40)
-   at (1, 2), one prefill (B 1 S 300) and one decode step (B 4, 1024)
-   and chatglm3-6b (7 of 28) at (1, 4), one decode step, in
-   ``[sharded]``; qwen2-moe-a2.7b (4) at (1, 4), one decode step, in
-   its ``[sharded]`` spawn; chatglm3-6b (4) in bf16 at (2, 1) under
-   ``decode+zero3``, one decode step, in ``[sharded-zero3]``;
-   minicpm-2b (4) at (2, 2) under IS in bf16, one train step (B 4 S
-   256), in ``[sharded-train]``. Each tie asserts, on every rank, the
-   rank's collective counters (``Mesh.collectives``: kind, group,
-   calls, bytes) equal to the dry trace's records, its argument bytes
-   equal to the trace's and to the capacity model's, and the trace's
-   peak (every argument held through the step) within
+   and at (2, 16, 16) over (pod, data, model) (recipe, per-rank peak
+   against the card's 80 GB, the three roofline terms priced with
+   ``H100_SXM`` and the dominant one; encoder-only archs SKIP; the
+   cells written under ``chiprun_out/dryrun/full/``); read before
+   ``[sharded]``: chatglm3-6b's ``train_4k`` at both meshes (their
+   collective terms side by side: the pod sum crosses the network) and
+   ``launch.dryrun_pp.lower_pp``'s default cell (chatglm3-6b on (stage
+   4, data 8, model 8), 8 microbatches of 32 x 4096, under
+   ``chiprun_out/dryrun/pp/``); and the dry traces of eight ties, each
+   tied in the spawn that already runs its model, the counters and peak
+   stats reset around one step on every rank
+   (``launch.lowering.live_step``, ``launch.dryrun_pp.live_pp_step``):
+   minicpm-2b (6 of 40) at (1, 2), one prefill (B 1 S 300) and one
+   decode step (B 4, 1024) and chatglm3-6b (7 of 28) at (1, 4), one
+   decode step, in ``[sharded]``; qwen2-moe-a2.7b (4) at (1, 4), one
+   decode step, in its ``[sharded]`` spawn, and qwen2-moe-a2.7b (2) at
+   (2, 2, 2) over (pod, data, model), one decode step, in the (1, 8)
+   spawn; chatglm3-6b (4) in bf16 at (2, 1) under ``decode+zero3``, one
+   decode step, in ``[sharded-zero3]``; minicpm-2b (4) under IS in
+   bf16, one train step (B 4 S 256), at (2, 2) and at (2, 2, 1) over
+   (pod, data, model), and chatglm3-6b (4) through the pipeline-parallel
+   step at (stage 2, data 1, model 2), 4 microbatches of 1 x 256, in
+   ``[sharded-train]``. A tie whose mesh is not its spawn's makes it
+   over the spawn's ranks. Each tie asserts, on every rank, the rank's
+   collective counters (``Mesh.collectives``: kind, axis, group, calls,
+   bytes) equal to the dry trace's records, its argument bytes equal to
+   the trace's and (but for the PP step) to the capacity model's, the
+   trace's peak (every argument held through the step) within
    ``DRYRUN_PEAK_TOL`` of the rank's ``max_memory_allocated`` over the
-   step (both printed beside the capacity model's figure); the ties'
+   step (both printed beside the capacity model's figure), and its
+   kernel launches equal to the trace's kernel nodes; the ties'
    launches add to their phase's path;
 5. training (``[train]``), with the card emptied first: full-width
    minicpm-2b (40 layers, f32 master weights), one f32 loss and gradient
@@ -2929,107 +2940,219 @@ DRYRUN_PEAK_TOL = 0.25
 
 
 def tie_specs():
-    """[dryrun]'s five ties: per tie, the arch, its depth, the mesh, the
-    recipe and its runs ``(label, shape, rt)``, at the shapes of the
-    spawn each is tied in (``[sharded]``'s 4 slots x 1024, a 300-token
-    prefill; ``[sharded-train]``'s B 4 S 256)."""
+    """[dryrun]'s eight ties: per tie, the arch, its depth, the mesh and
+    its axes, the recipe (None for the pipeline-parallel step) and its
+    runs ``(label, shape, rt)``, at the shapes of the spawn each is tied
+    in (``[sharded]``'s 4 slots x 1024, a 300-token prefill;
+    ``[sharded-train]``'s B 4 S 256). A tie whose mesh is not its
+    spawn's builds it over the spawn's ranks. The PP tie's shape is
+    ``(n_micro, mb, seq)`` of ``launch.dryrun_pp``'s step."""
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.lowering import cell_runtime
     from repro_torch.models import ModelRuntime
     serve = ModelRuntime()                        # bf16, cuda policy
     train = ModelRuntime(dtype="bfloat16", remat="none")
     decode = ("decode B 4 KV 1024", ShapeConfig("decode", 1024, 4,
                                                 "decode"), serve)
+    step = (f"train B {SHARDED_TRAIN_B} S {SHARDED_TRAIN_S}", ShapeConfig(
+        "train", SHARDED_TRAIN_S, SHARDED_TRAIN_B, "train"), train)
+    pod = ("pod", "data", "model")
+
+    def tie(arch, layers, mesh, recipe, runs, axes=("data", "model")):
+        return dict(arch=arch, layers=layers, mesh=mesh, axes=axes,
+                    recipe=recipe, runs=runs)
+
     return {
-        "minicpm-2b": ("minicpm-2b", SHARDED_LAYERS["minicpm-2b"], (1, 2),
-                       "decode", [("prefill B 1 S 300", ShapeConfig(
-                           "prefill", SHARDED_PREFILL, 1, "prefill"), serve),
-                           decode]),
-        "chatglm3-6b": ("chatglm3-6b", SHARDED_LAYERS["chatglm3-6b"],
-                        (1, 4), "decode", [decode]),
-        "qwen2-moe-a2.7b": ("qwen2-moe-a2.7b",
-                            SHARDED_FAMILY_LAYERS["qwen2-moe-a2.7b"], (1, 4),
-                            "decode", [decode]),
-        "chatglm3-6b zero3": ("chatglm3-6b", ZERO3_LAYERS["chatglm3-6b"],
-                              (2, 1), "decode+zero3", [decode]),
-        "minicpm-2b train": ("minicpm-2b",
-                             SHARDED_TRAIN_LAYERS["minicpm-2b"], (2, 2), "IS",
-                             [(f"train B {SHARDED_TRAIN_B} S "
-                               f"{SHARDED_TRAIN_S}", ShapeConfig(
-                                   "train", SHARDED_TRAIN_S, SHARDED_TRAIN_B,
-                                   "train"), train)]),
+        "minicpm-2b": tie("minicpm-2b", SHARDED_LAYERS["minicpm-2b"], (1, 2),
+                          "decode", [("prefill B 1 S 300", ShapeConfig(
+                              "prefill", SHARDED_PREFILL, 1, "prefill"),
+                              serve), decode]),
+        "chatglm3-6b": tie("chatglm3-6b", SHARDED_LAYERS["chatglm3-6b"],
+                           (1, 4), "decode", [decode]),
+        "qwen2-moe-a2.7b": tie("qwen2-moe-a2.7b",
+                               SHARDED_FAMILY_LAYERS["qwen2-moe-a2.7b"],
+                               (1, 4), "decode", [decode]),
+        "chatglm3-6b zero3": tie("chatglm3-6b", ZERO3_LAYERS["chatglm3-6b"],
+                                 (2, 1), "decode+zero3", [decode]),
+        "minicpm-2b train": tie("minicpm-2b",
+                                SHARDED_TRAIN_LAYERS["minicpm-2b"], (2, 2),
+                                "IS", [step]),
+        # the pod axis: the batch over pod x data, in [sharded]'s (1, 8)
+        # spawn and [sharded-train]'s (2, 2) one
+        "qwen2-moe-a2.7b pod": tie("qwen2-moe-a2.7b", SPLIT_LAYERS,
+                                   (2, 2, 2), "decode", [decode], pod),
+        "minicpm-2b pod train": tie("minicpm-2b",
+                                    SHARDED_TRAIN_LAYERS["minicpm-2b"],
+                                    (2, 2, 1), "IS", [step], pod),
+        # launch.dryrun_pp's step, in [sharded-train]'s (1, 4) spawn
+        "chatglm3-6b pp": tie("chatglm3-6b",
+                              SHARDED_TRAIN_LAYERS["chatglm3-6b"], (2, 1, 2),
+                              None, [("pp train 4 x 1 x 256", PP_TIE_SHAPE,
+                                      cell_runtime())],
+                              ("stage", "data", "model")),
     }
+
+
+#: The PP tie's step: microbatches, rows of one, tokens a row.
+PP_TIE_SHAPE = (4, 1, 256)
+#: [dryrun]'s cells of the full preset beside every arch's decode_32k
+#: on both meshes: (arch, shape, mesh).
+DRYRUN_TRAIN_CELLS = (("chatglm3-6b", "train_4k", "single"),
+                      ("chatglm3-6b", "train_4k", "multi"))
 
 
 def dryrun_start(started):
     """``[dryrun]``, started in ``[graph]``'s workers (:func:`graph_start`),
-    after its traces: every arch's ``full`` ``decode_32k`` cell at (16,
-    16) and the dry traces of every rank of each tie
-    (``lowering.trace_ranks``), on ``meta``. Returns the futures."""
+    after its traces: the dry traces of every rank of each tie
+    (``lowering.trace_ranks``, ``dryrun_pp.trace_pp_ranks``) and every
+    arch's ``full`` ``decode_32k`` cell at (16, 16) and (2, 16, 16), on
+    ``meta``. Returns the futures (:func:`dryrun_phase` adds the
+    train and PP cells')."""
     import dataclasses
     from repro_torch.configs import ARCHS, get_arch
     from repro_torch.dist.sharding import get_recipe
     from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.dryrun_pp import trace_pp_ranks
     from repro_torch.launch.lowering import trace_ranks
     from repro_torch.launch.presets import FULL, MeshSpec
     ex = started[0]
-    cells = {a: ex.submit(run_cell, FULL, a, "decode_32k", "single")
-             for a in sorted(ARCHS)}
     ties = {}
-    for name, (arch, layers, mesh, recipe, runs) in tie_specs().items():
-        cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
-        spec = MeshSpec(mesh, ("data", "model"))
+    for name, t in tie_specs().items():
+        cfg = dataclasses.replace(get_arch(t["arch"]), n_layers=t["layers"])
+        if t["recipe"] is None:
+            ties[name] = [ex.submit(trace_pp_ranks, cfg, t["mesh"],
+                                    t["axes"], *shape, rt)
+                          for _, shape, rt in t["runs"]]
+            continue
+        spec = MeshSpec(t["mesh"], t["axes"])
         ties[name] = [ex.submit(trace_ranks, cfg, shape, spec,
-                                get_recipe(recipe), rt)
-                      for _, shape, rt in runs]
-    return cells, ties
+                                get_recipe(t["recipe"]), rt)
+                      for _, shape, rt in t["runs"]]
+    cells = {(a, "decode_32k", m): ex.submit(run_cell, FULL, a, "decode_32k",
+                                             m)
+             for m in ("single", "multi") for a in sorted(ARCHS)}
+    return dict(cells=cells, ties=ties)
+
+
+def _mesh_text(art) -> str:
+    return str(tuple(art["mesh_axes"].values()))
+
+
+def dryrun_cell_line(art) -> None:
+    """A full cell's line: recipe, per-rank peak against the card's
+    memory, the three roofline terms and the links of each axis."""
+    hbm = H100_SXM.hbm_bytes
+    mem, r = art["memory"], art["roofline"]
+    print(f"[dryrun] full {art['arch']}/{art['shape']} at {_mesh_text(art)}"
+          f" under {art['recipe']}: per-rank peak {mem['peak_bytes']} B "
+          f"({mem['peak_bytes'] / hbm:.3f} of {hbm:.0f} B: "
+          f"{'fits' if mem['peak_bytes'] <= hbm else 'does not fit'}), "
+          f"arguments {mem['argument_bytes']} B; predicted from "
+          f"H100_SXM's data-sheet constants: compute "
+          f"{r['compute_s'] * 1e3:.4f} ms, memory "
+          f"{r['memory_s'] * 1e3:.4f} ms, collective "
+          f"{r['collective_s'] * 1e3:.4f} ms (links "
+          f"{art['collectives']['axis_links']}), dominant "
+          f"{r['dominant']}, step bound "
+          f"{r['step_time_bound_s'] * 1e3:.4f} ms; ranks traced "
+          f"{art['ranks_traced']}, {art['trace_s']:.1f} s")
+
+
+def dryrun_write(art, sub: str, name: str) -> None:
+    out = ROOT / "chiprun_out" / "dryrun" / sub
+    out.mkdir(parents=True, exist_ok=True)
+    with open(out / name, "w") as f:
+        json.dump(art, f, indent=1)
 
 
 def dryrun_phase(started, futures):
-    """``[dryrun]``'s host part (:func:`dryrun_start`): each full cell's
-    recipe, per-rank peak against the card's memory and roofline terms,
-    written under ``chiprun_out/dryrun/full/``; no FAIL, SKIP exactly
-    where ``shape_skip_reason`` says. Returns the ties' traces by name,
-    for the spawns that tie them."""
+    """``[dryrun]``'s host part (:func:`dryrun_start`), read after
+    ``[graph]``: each full ``decode_32k`` cell's recipe, per-rank peak
+    against the card's memory and roofline terms, written under
+    ``chiprun_out/dryrun/full/``; no FAIL, SKIP exactly where
+    ``shape_skip_reason`` says. Returns the ties' traces by name, for
+    the spawns that tie them. Then the train and PP cells start in the
+    workers, freed by now (:func:`dryrun_late` reads them)."""
     from repro_torch.configs import get_arch, shape_skip_reason
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.dryrun_pp import lower_pp
     from repro_torch.launch.presets import FULL
-    ex, t0 = started[0], time.perf_counter()
-    cells, ties = futures
+    t0 = time.perf_counter()
+    cells, ties = futures["cells"], futures["ties"]
     try:
-        arts = {a: f.result() for a, f in cells.items()}
         traces = {k: [f.result() for f in fs] for k, fs in ties.items()}
-    finally:
-        ex.shutdown()
-    out = ROOT / "chiprun_out" / "dryrun" / "full"
-    out.mkdir(parents=True, exist_ok=True)
-    hbm = H100_SXM.hbm_bytes
-    for arch, art in arts.items():
-        with open(out / f"{arch}__decode_32k__single.json", "w") as f:
-            json.dump(art, f, indent=1)
-        skip = shape_skip_reason(get_arch(arch), FULL.shape("decode_32k"))
+        arts = {k: f.result() for k, f in cells.items()}
+    except BaseException:
+        started[0].shutdown(cancel_futures=True)
+        raise
+    for (arch, shape, mesh), art in arts.items():
+        dryrun_write(art, "full", f"{arch}__{shape}__{mesh}.json")
+        skip = shape_skip_reason(get_arch(arch), FULL.shape(shape))
         check(art["status"] == ("SKIP" if skip else "OK"),
-              f"[dryrun] {arch}/decode_32k: {art['status']} "
+              f"[dryrun] {arch}/{shape}/{mesh}: {art['status']} "
               f"{art.get('error', '')}")
         if skip:
-            print(f"[dryrun] full {arch}/decode_32k at (16, 16): SKIP "
-                  f"({skip})")
+            print(f"[dryrun] full {arch}/{shape} at "
+                  f"{FULL.mesh_spec(mesh).shape}: SKIP ({skip})")
             continue
-        mem, r = art["memory"], art["roofline"]
-        print(f"[dryrun] full {arch}/decode_32k at (16, 16) under "
-              f"{art['recipe']}: per-rank peak {mem['peak_bytes']} B "
-              f"({mem['peak_bytes'] / hbm:.3f} of {hbm:.0f} B: "
-              f"{'fits' if mem['peak_bytes'] <= hbm else 'does not fit'}), "
-              f"arguments {mem['argument_bytes']} B; predicted from "
-              f"H100_SXM's data-sheet constants: compute "
-              f"{r['compute_s'] * 1e3:.4f} ms, memory "
-              f"{r['memory_s'] * 1e3:.4f} ms, collective "
-              f"{r['collective_s'] * 1e3:.4f} ms (links "
-              f"{art['collectives']['axis_links']}), dominant "
-              f"{r['dominant']}, step bound "
-              f"{r['step_time_bound_s'] * 1e3:.4f} ms; ranks traced "
-              f"{art['ranks_traced']}, {art['trace_s']:.1f} s")
-    print(f"[dryrun] full decode_32k cells and the ties' traces read "
-          f"{time.perf_counter() - t0:.1f} s after [graph]")
+        dryrun_cell_line(art)
+    print(f"[dryrun] full decode_32k cells (both meshes) and the ties' "
+          f"traces read {time.perf_counter() - t0:.1f} s after [graph]")
+    ex = started[0]
+    futures["late"] = {cell: ex.submit(run_cell, FULL, *cell)
+                       for cell in DRYRUN_TRAIN_CELLS}
+    futures["late"]["pp"] = ex.submit(lower_pp)
     return traces
+
+
+def dryrun_late(started, futures):
+    """``[dryrun]``'s cells read last, before ``[sharded]``:
+    chatglm3-6b's ``train_4k`` at (16, 16) and (2, 16, 16) (their
+    collective terms side by side: the pod sum crosses the network) and
+    ``lower_pp``'s default cell (chatglm3-6b, (4, 8, 8), 8 x 32 x 4096),
+    written under ``chiprun_out/dryrun/``; the workers stop."""
+    ex, t0 = started[0], time.perf_counter()
+    late = futures["late"]
+    try:
+        arts = {k: f.result() for k, f in late.items()}
+    finally:
+        ex.shutdown()
+    pp = arts.pop("pp")
+    for (arch, shape, mesh), art in arts.items():
+        dryrun_write(art, "full", f"{arch}__{shape}__{mesh}.json")
+        check(art["status"] == "OK", f"[dryrun] {arch}/{shape}/{mesh}: "
+              f"{art['status']} {art.get('error', '')}")
+        dryrun_cell_line(art)
+    one, pod = (arts[c] for c in DRYRUN_TRAIN_CELLS)
+    print(f"[dryrun] chatglm3-6b/train_4k collective terms, (16, 16) vs "
+          f"(2, 16, 16): " + "; ".join(
+              f"{k} {one['collectives'][k]:.6g} vs {pod['collectives'][k]:.6g}"
+              f" B" for k in ("all-reduce", "all-gather", "total"))
+          + f"; by link {one['collectives']['by_link']} vs "
+          f"{pod['collectives']['by_link']}; collective "
+          f"{one['roofline']['collective_s'] * 1e3:.4f} vs "
+          f"{pod['roofline']['collective_s'] * 1e3:.4f} ms; calls "
+          f"{one['collective_calls']} vs {pod['collective_calls']}")
+    dryrun_write(pp, "pp", "chatglm3-6b__pp__stage4.json")
+    check(pp["status"] == "OK", f"[dryrun] pp: {pp}")
+    r, mem = pp["roofline"], pp["memory"]
+    hbm = H100_SXM.hbm_bytes
+    print(f"[dryrun] pp {pp['arch']} {pp['mesh']}, {pp['n_micro']} "
+          f"microbatches of {pp['microbatch']} x {pp['seq_len']}: per-rank "
+          f"peak {mem['peak_bytes']} B ({mem['peak_bytes'] / hbm:.3f} of "
+          f"{hbm:.0f} B: "
+          f"{'fits' if mem['peak_bytes'] <= hbm else 'does not fit'}), "
+          f"arguments {mem['argument_bytes']} "
+          f"B ({pp['memory_gb_per_chip']} GiB), flops "
+          f"{pp['flops_per_chip']:.6g}, collective-permute "
+          f"{pp['collectives']['collective-permute']:.6g} B, all "
+          f"collectives {pp['collectives']['total']:.6g} B; bubble "
+          f"{pp['bubble_fraction']:.4f}; compute {r['compute_s'] * 1e3:.4f}"
+          f" ms, memory {r['memory_s'] * 1e3:.4f} ms, collective "
+          f"{r['collective_s'] * 1e3:.4f} ms, dominant {r['dominant']}; "
+          f"{pp['trace_s']:.1f} s")
+    print(f"[dryrun] train and pp cells read "
+          f"{time.perf_counter() - t0:.1f} s before [sharded]")
 
 
 def tie_item(traces, name, params, cfg):
@@ -3037,34 +3160,48 @@ def tie_item(traces, name, params, cfg):
     ``params`` and ``cfg`` (the spawn's own model), its dry traces
     ``traces[name]``."""
     from repro_torch.dist.sharding import get_recipe
-    arch, layers, mesh, recipe, runs = tie_specs()[name]
-    check(cfg.name == arch and cfg.n_layers == layers,
+    t = tie_specs()[name]
+    check(cfg.name == t["arch"] and cfg.n_layers == t["layers"],
           f"[dryrun] tie {name}: spawn model {cfg.name} x {cfg.n_layers}")
+    recipe = None if t["recipe"] is None else get_recipe(t["recipe"])
     return dict(kind="tie", title=f"[dryrun] tie {name}", cfg=cfg,
-                params=params, mesh=mesh, recipe=get_recipe(recipe),
-                runs=[dict(label=label, shape=shape, rt=rt,
-                           recipe=get_recipe(recipe), dry=dry)
-                      for (label, shape, rt), dry in zip(runs,
+                params=params, mesh=t["mesh"], axes=t["axes"],
+                recipe=recipe,
+                runs=[dict(label=label, shape=shape, rt=rt, recipe=recipe,
+                           mesh=(t["mesh"], t["axes"]), dry=dry)
+                      for (label, shape, rt), dry in zip(t["runs"],
                                                          traces[name])])
 
 
 def tie_rank(mesh, params, cfg, runs):
-    """One rank of a tie: each run's step once
-    (``lowering.live_step``: the collective counters set to 0 just
-    before it, the peak over it), every launch count set to 0 before it
-    and read after."""
+    """One rank of a tie: each run's step once on the tie's mesh (the
+    spawn's, or one made over its ranks: every rank makes it), through
+    ``lowering.live_step`` or, with no recipe, ``dryrun_pp.live_pp_step``
+    (the collective counters set to 0 just before it, the peak over it),
+    every launch count set to 0 before it and read after."""
     import torch
+    from repro_torch.launch.dryrun_pp import live_pp_step
     from repro_torch.launch.lowering import live_step
+    from repro_torch.launch.mesh import make_mesh
     counters = kernel_counters()
     take_cublas_workspace(mesh.device)
+    meshes = {(tuple(mesh.axis_sizes), tuple(mesh.axis_names)): mesh}
     out = []
     for run in runs:
         gc.collect()
         torch.cuda.empty_cache()
+        if run["mesh"] not in meshes:
+            meshes[run["mesh"]] = make_mesh(*run["mesh"],
+                                            devices=str(mesh.device))
+        tm = meshes[run["mesh"]]
         for c in counters.values():
             c.launches = 0
-        rec = live_step(mesh, cfg, run["shape"], run["recipe"], run["rt"],
-                        params)
+        if run["recipe"] is None:
+            rec = live_pp_step(tm, cfg, run["rt"], *run["shape"], params,
+                               return_grads=False)
+        else:
+            rec = live_step(tm, cfg, run["shape"], run["recipe"], run["rt"],
+                            params)
         rec.update(label=run["label"],
                    launches={k: c.launches for k, c in counters.items()})
         out.append(rec)
@@ -3079,52 +3216,63 @@ def dry_traces(params, cfg, runs):
 
 
 def tie_check(item, mesh, ranks, want):
-    """Every rank of a tie: its collective counters equal to its dry
-    trace's records (kind, group size, calls, bytes), its argument bytes
-    equal to the trace's and to the capacity model's (``capacity``
-    under the tie's recipe: the closed form, not the placement code the
-    two share), the trace's peak within ``DRYRUN_PEAK_TOL`` of the rank's
-    ``max_memory_allocated``; each run's line beside the capacity
-    model's figure. Returns the launches summed over ranks and runs."""
+    """Every rank of a tie (on the tie's own mesh, ``item["mesh"]``):
+    its collective counters equal to its dry trace's records (kind,
+    group size, calls, bytes; and kind, axis, group size, calls, bytes),
+    its argument bytes equal to the trace's and, but for the PP step, to
+    the capacity model's (``capacity`` under the tie's recipe: the
+    closed form, not the placement code the two share), the trace's
+    peak within ``DRYRUN_PEAK_TOL`` of the rank's
+    ``max_memory_allocated``, its kernel launches equal to the trace's
+    kernel nodes; each run's line beside the capacity model's figure.
+    Returns the launches summed over ranks and runs."""
     from repro_torch.analysis.capacity import capacity
-    cfg, sizes = item["cfg"], {"data": mesh[0], "model": mesh[1]}
+    cfg, shape_ = item["cfg"], item["mesh"]
+    sizes = dict(zip(item["axes"], shape_))
     total = {}
     for i, run in enumerate(item["runs"]):
         shape = run["shape"]
-        rep = capacity(cfg, shape, mesh=sizes, recipe=run["recipe"])
+        rep = None if run["recipe"] is None else capacity(
+            cfg, shape, mesh=sizes, recipe=run["recipe"])
         peaks, rels = [], []
         for rank, (recs, dry) in enumerate(zip(ranks, want[i])):
             got = recs[i]
             what = f"{item['title']} {run['label']} rank {rank}"
-            check(got["counts"] and got["counts"] == dry["counts"],
-                  f"{what}: collectives {got['counts']}, dry records "
-                  f"{dry['counts']}")
-            check(got["argument_bytes"] == dry["memory"]["argument_bytes"]
-                  == rep.argument_bytes,
+            check(got["counts"] and got["counts"] == dry["counts"]
+                  and got["axis_counts"] == dry["axis_counts"],
+                  f"{what}: collectives {got['axis_counts']}, dry records "
+                  f"{dry['axis_counts']}")
+            args = dry["memory"]["argument_bytes"]
+            check(got["argument_bytes"] == args and (
+                rep is None or args == rep.argument_bytes),
                   f"{what}: arguments {got['argument_bytes']} B, dry "
-                  f"{dry['memory']['argument_bytes']} B, capacity model "
-                  f"{rep.argument_bytes} B")
+                  f"{args} B, capacity model "
+                  f"{rep and rep.argument_bytes} B")
             live, walk = got["peak_bytes"], dry["memory"]["peak_bytes"]
             rel = abs(walk - live) / live
             check(rel <= DRYRUN_PEAK_TOL, f"{what}: dry peak {walk} B vs "
                   f"max_memory_allocated {live} B ({rel:.3f} > "
                   f"{DRYRUN_PEAK_TOL})")
+            launched = {k: v for k, v in got["launches"].items() if v}
+            check(launched == dry["kernels"], f"{what}: launches "
+                  f"{launched}, dry kernel nodes {dry['kernels']}")
             peaks.append((walk, live))
             rels.append(rel)
             for k, n in got["launches"].items():
                 total[k] = total.get(k, 0) + n
         r0 = ranks[0][i]
-        print(f"{item['title']} {run['label']} at {mesh} under "
-              f"{run['recipe'].name}: every rank's collectives == its dry "
-              f"records (rank 0 {r0['counts']}); arguments "
-              f"{r0['argument_bytes']} B == dry == the capacity model's; "
-              f"peak dry vs "
+        print(f"{item['title']} {run['label']} at {shape_} over "
+              f"{item['axes']} under "
+              f"{run['recipe'].name if rep else 'dryrun_pp'}: every rank's "
+              f"collectives == its dry records (rank 0 "
+              f"{r0['axis_counts']}); arguments "
+              f"{r0['argument_bytes']} B == dry"
+              f"{' == the capacity model' if rep else ''}'s; peak dry vs "
               f"max_memory_allocated per rank {peaks} B (worst |d|/live "
               f"{max(rels):.3f}, bar {DRYRUN_PEAK_TOL}); capacity model "
-              f"peak {rep.peak_bytes} B; "
-              f"kernels dry {want[i][0]['kernels']} live rank 0 "
-              f"{ {k: v for k, v in r0['launches'].items() if v} }; "
-              f"{smi_line()}")
+              f"peak {rep.peak_bytes if rep else 'n/a'} B; launches == "
+              f"kernel nodes on every rank (rank 0 {want[i][0]['kernels']})"
+              f"; {smi_line()}")
     return total
 
 
@@ -3911,7 +4059,7 @@ def sharded_family_items(ties):
                 expect=expect, logit_tol=None),
            tie_item(ties, "qwen2-moe-a2.7b", params, cfg)]
     del params
-    split = expert_split_items(bf16, expect)
+    split = expert_split_items(bf16, expect, ties)
     items = []
     for name, expect in (
             ("mamba2-1.3b", {"rmsnorm", "ssd_scan"}),
@@ -3947,13 +4095,15 @@ SPLIT_LAYERS = 2
 SPLIT_LAYER_X = (("decode B 4", (4, 1)), ("prefill B 1 S 1024", (1, 1024)))
 
 
-def expert_split_items(bf16, expect):
+def expert_split_items(bf16, expect, ties):
     """[sharded]'s (1, 8) spawn: qwen2-moe-a2.7b's 60 experts do not
     divide over ``model`` 8, so every expert splits its 1,408 columns,
     176 a rank (expert-split). Layer 0's MoE FFN in bf16 with the same x
     on every rank, held to one device (``moe_layer_check``), then the
     model at ``SPLIT_LAYERS`` layers teacher-forced in bf16 (its logits'
-    deviation from one device reported, not held: routing flips)."""
+    deviation from one device reported, not held: routing flips), then
+    its [dryrun] tie on a (pod, data, model) mesh of (2, 2, 2) over the
+    same ranks (30 experts a rank, the slots over pod x data)."""
     import dataclasses
     import numpy as np
     import torch
@@ -3975,7 +4125,8 @@ def expert_split_items(bf16, expect):
                  expect={"moe_gemm"}),
             dict(kind="serve", title=f"qwen2-moe-a2.7b ({cfg.n_layers} of 24"
                  f" layers) expert-split bf16", cfg=cfg, params=params,
-                 runs=teacher, expect=expect, logit_tol=None)]
+                 runs=teacher, expect=expect, logit_tol=None),
+            tie_item(ties, "qwen2-moe-a2.7b pod", params, cfg)]
 
 
 def mixtral_preflight():
@@ -4004,8 +4155,9 @@ def mixtral_preflight():
 #: Depths of the full-width models [sharded-zero3] serves (widths uncut):
 #: every step of a shared-card mesh gathers each layer over gloo, through
 #: host memory; qwen2-moe cut from 4 to 2 to make room for [graph] in the
-#: run's time limit (a 1.1 GB f32 layer gathered a pass).
-ZERO3_LAYERS = {"chatglm3-6b": 4, "qwen2-moe-a2.7b": 2}
+#: run's time limit (a 1.1 GB f32 layer gathered a pass), then to 1 for
+#: the pod axis's ties.
+ZERO3_LAYERS = {"chatglm3-6b": 4, "qwen2-moe-a2.7b": 1}
 #: The slots of a [sharded-zero3] engine (one teacher-forced prompt
 #: each), its teacher-forced decode steps, and the served prompts (the
 #: first of PROMPT_LENS) and new tokens of its paged run: each prefill
@@ -4023,7 +4175,7 @@ def sharded_zero3_phase(counters, ties):
     share the card over gloo, widths uncut: chatglm3-6b (4 of 28 layers,
     bf16) at (2, 1) under ``decode+zero3`` and ``decode`` in one spawn,
     their teacher-forced logits equal bit for bit and each within
-    ``LOGIT_TOL`` of one device; qwen2-moe-a2.7b (2 of 24, f32) at
+    ``LOGIT_TOL`` of one device; qwen2-moe-a2.7b (1 of 24, f32) at
     (2, 2) under ``decode+zero3``, 30 experts a rank, teacher-forced
     within ``ZERO3_MOE_TOL`` of one device and served paged with one
     device's tokens (no routing agreement: each ``data`` rank routes its
@@ -4170,14 +4322,14 @@ def gpipe_rank(mesh, w, x):
                 grad=g[0].cpu(), ms=(time.perf_counter() - t0) * 1e3)
 
 
-def sharded_train_rank(mesh, runs, gpipe=None, tie=None):
+def sharded_train_rank(mesh, runs, gpipe=None, ties=()):
     """One rank of a [sharded-train] mesh (``run_mesh`` spawns it; the
     parent built the kernel library, this process loads it): each run
     through ``train.sharded.mesh_train`` on this rank's blocks of the
     parent's tensors (read over CUDA IPC), every launch count set to 0
     before it and read after, the rank's peak since it began; then,
     with ``gpipe`` (its weights and input), GPipe over the same ranks;
-    then, with ``tie`` (``(params, cfg, runs)``), a [dryrun] tie."""
+    then each of ``ties`` (``(params, cfg, runs)``), a [dryrun] tie."""
     import torch
     from repro_torch.train.sharded import mesh_train
     counters = kernel_counters()
@@ -4199,7 +4351,7 @@ def sharded_train_rank(mesh, runs, gpipe=None, tie=None):
         torch.cuda.empty_cache()
     if gpipe is not None:
         out.append(gpipe_rank(mesh, *gpipe))
-    if tie is not None:
+    for tie in ties:
         out.append(tie_rank(mesh, *tie))
     return out
 
@@ -4220,11 +4372,10 @@ def sharded_train_tc(cfg):
         schedule="wsd" if cfg.lr_schedule == "wsd" else "cosine"))
 
 
-def one_device_train(cfg, params, batches, dtype, grads=False, state=None):
+def one_device_train(cfg, params, batches, dtype, grads=False):
     """The one-device reference of a mesh run: its train step (cuda
-    policy, remat none) on a copy of ``params`` (or on ``state``) over
-    ``batches``; with ``grads`` step 0's gradients first. Its launches
-    count on no path."""
+    policy, remat none) on a copy of ``params`` over ``batches``; with
+    ``grads`` step 0's gradients first. Its launches count on no path."""
     import torch
     from repro_torch.models import ModelRuntime
     from repro_torch.train.loop import init_state, make_train_step
@@ -4236,8 +4387,7 @@ def one_device_train(cfg, params, batches, dtype, grads=False, state=None):
     out = dict(loss=[], grad_norm=[], step_ms=[], grads=None)
     if grads:
         out["grads"] = step.grads(params, dev[0])[2]
-    if state is None:
-        state = init_state(tree_map(torch.clone, params))
+    state = init_state(tree_map(torch.clone, params))
     for b in dev:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4280,14 +4430,15 @@ def held_to_one_device(title, recs, ref, grads=True):
     return out
 
 
-def sharded_train_mesh(title, mesh, runs, refs, gpipe=None, tie=None):
+def sharded_train_mesh(title, mesh, runs, refs, gpipe=None, ties=()):
     """One mesh of [sharded-train]: its runs on every rank (GPipe after
     them with ``gpipe``), each held to its one-device reference
     (``refs[i]``: None for no comparison), every rank's state bytes to
     the sharded capacity model's, ``SHARDED_TRAIN_KERNELS`` launched on
-    every rank and no other kernel; then ``tie`` (a [dryrun] tie item)
-    held by :func:`tie_check`. Returns (the launches summed over ranks
-    and runs, the tie's included, every rank's records)."""
+    every rank and no other kernel; then each of ``ties`` ([dryrun] tie
+    items) held by :func:`tie_check`. Returns (the launches summed over
+    ranks and runs, the ties' included, every rank's records but the
+    ties')."""
     import torch
     from repro_torch.analysis.capacity import capacity
     from repro_torch.configs.base import ShapeConfig
@@ -4295,9 +4446,11 @@ def sharded_train_mesh(title, mesh, runs, refs, gpipe=None, tie=None):
     t0 = time.perf_counter()
     held = torch.cuda.memory_allocated()
     ranks = run_mesh(sharded_train_rank, mesh, runs, gpipe,
-                     None if tie is None else (tie["params"], tie["cfg"],
-                                               tie["runs"]),
+                     [(t["params"], t["cfg"], t["runs"]) for t in ties],
                      timeout=SHARDED_TRAIN_TIMEOUT)
+    cut = len(ranks[0]) - len(ties)
+    tied = [r[cut:] for r in ranks]
+    ranks = [r[:cut] for r in ranks]
     sizes = {"data": mesh[0], "model": mesh[1]}
     print(f"[sharded-train] {title}: mesh {mesh[0]}x{mesh[1]} (data, model), "
           f"{len(ranks)} ranks on {torch.cuda.device_count()} card(s) over "
@@ -4366,8 +4519,8 @@ def sharded_train_mesh(title, mesh, runs, refs, gpipe=None, tie=None):
                  f"{[r['peak'] for r in recs]} B; launches per rank "
                  f"{[{k: v for k, v in r['launches'].items() if v} for r in recs]}")
         print(line)
-    if tie is not None:
-        got = tie_check(tie, mesh, [r[-1] for r in ranks],
+    for j, tie in enumerate(ties):
+        got = tie_check(tie, tie["mesh"], [r[j] for r in tied],
                         dry_traces(None, None, tie["runs"]))
         for k, n in got.items():
             total[k] = total.get(k, 0) + n
@@ -4376,12 +4529,13 @@ def sharded_train_mesh(title, mesh, runs, refs, gpipe=None, tie=None):
 
 def sharded_train_families(f32):
     """[sharded-train]'s MoE and SSM runs, one (2, 2) spawn, f32,
-    two steps each held to one device (losses, norms, step 0's gradient
-    blocks leaf by leaf): full-width qwen2-moe-a2.7b (1 layer) under IS
-    on the capacity path (its capacity, slot order and aux loss global
-    over ``data``; 30 experts of a layer a rank between gathers) and
-    mamba2-1.3b (2 layers) under its launcher recipe IS_seq (32 SSD
-    heads a rank, B/C whole). Returns the launches over ranks and
+    one step each held to one device (loss, norm, step 0's gradient
+    blocks leaf by leaf; minicpm-2b's IS run takes two steps):
+    full-width qwen2-moe-a2.7b (1 layer) under IS on the capacity path
+    (its capacity, slot order and aux loss global over ``data``; 30
+    experts of a layer a rank between gathers) and mamba2-1.3b (2
+    layers) under its launcher recipe IS_seq (32 SSD heads a rank, B/C
+    whole). Returns the launches over ranks and
     runs."""
     import dataclasses
     import torch
@@ -4396,12 +4550,12 @@ def sharded_train_families(f32):
         cfg = dataclasses.replace(get_arch(name),
                                   n_layers=SHARDED_TRAIN_LAYERS[name])
         params = init_params(cfg, seed=0, device="cuda")          # f32
-        batches = sharded_train_batches(cfg, 2)
+        batches = sharded_train_batches(cfg, 1)
         t0 = time.perf_counter()
         refs.append(one_device_train(cfg, params, batches, "float32",
                                      grads=True))
-        print(f"[sharded-train] {name} one device (f32 gradients + 2 "
-              f"steps): {time.perf_counter() - t0:.1f} s")
+        print(f"[sharded-train] {name} one device (f32 gradients + 1 "
+              f"step): {time.perf_counter() - t0:.1f} s")
         runs.append(dict(cfg=cfg, params=params, tc=sharded_train_tc(cfg),
                          recipe=recipe, label=f"{name} f32", rt=f32,
                          batches=batches, ref_grads=refs[-1]["grads"],
@@ -4411,17 +4565,6 @@ def sharded_train_families(f32):
     gc.collect()
     torch.cuda.empty_cache()
     return got
-
-
-def same_bytes(a, b, chunk=1 << 28) -> bool:
-    """Whether files ``a`` and ``b`` hold the same bytes (read in chunks
-    of ``chunk`` bytes)."""
-    import numpy as np
-    x = np.memmap(a, dtype=np.uint8, mode="r")
-    y = np.memmap(b, dtype=np.uint8, mode="r")
-    return x.size == y.size and all(
-        np.array_equal(x[i:i + chunk], y[i:i + chunk])
-        for i in range(0, x.size, chunk))
 
 
 def launcher_mesh_runs():
@@ -4469,13 +4612,11 @@ def sharded_train_phase(counters, ties):
     under WS at (1, 4) (its K/V heads shared by rank pairs, its
     vocabulary split) against one device and GPipe on a (stage, data)
     mesh of (4, 1) against the sequential form in one spawn; the
-    minicpm-2b checkpoint restored onto one device and, in a spawn of its
-    own, onto (1, 4) WS (bits equal to the files; one more step each,
-    held together); the train launcher's
-    ``--mesh`` run and its resume on another mesh. Returns the launches
-    summed over every rank's train runs."""
+    minicpm-2b checkpoint restored onto one device (bits equal to the
+    files); the train launcher's ``--mesh`` run and its resume on
+    another mesh. Returns the launches summed over every rank's train
+    runs."""
     import dataclasses
-    import os
     import shutil
     import tempfile
     import torch
@@ -4502,7 +4643,7 @@ def sharded_train_phase(counters, ties):
         cfg = dataclasses.replace(get_arch("minicpm-2b"),
                                   n_layers=SHARDED_TRAIN_LAYERS["minicpm-2b"])
         params = init_params(cfg, seed=0, device="cuda")          # f32
-        batches = sharded_train_batches(cfg, 3)
+        batches = sharded_train_batches(cfg, 2)
         tc = sharded_train_tc(cfg)
         t0 = time.perf_counter()
         ref32 = one_device_train(cfg, params, batches[:2], "float32",
@@ -4518,11 +4659,12 @@ def sharded_train_phase(counters, ties):
                      batches=batches[:1], bf16_step0=True)]
         got, _ = sharded_train_mesh(
             "full width, (2, 2)", (2, 2), runs, [ref32, ref16],
-            tie=tie_item(ties, "minicpm-2b train", params, cfg))
+            ties=[tie_item(ties, name, params, cfg) for name in (
+                "minicpm-2b train", "minicpm-2b pod train")])
         totals.append(got)
         del ref32, runs, common
         gc.collect()
-        # the checkpoint onto one device: the files' bits, one more step
+        # the checkpoint onto one device: the files' bits
         like = {"params": params, "opt": {"mu": params, "nu": params,
                                           "step": torch.zeros(
                                               (), dtype=torch.int32,
@@ -4536,17 +4678,14 @@ def sharded_train_phase(counters, ties):
                                  f"{name}.npy"), manifest[name]["dtype"])
             check(torch.equal(leaf.cpu(), want), f"one-device restore: "
                   f"{keys} differs from the file")
-        one_restored = one_device_train(cfg, params, batches[2:], "float32",
-                                        state=state)
         del state, like, params
         gc.collect()
         torch.cuda.empty_cache()
         print(f"[sharded-train] minicpm-2b checkpoint (saved from (2, 2) "
               f"IS at step 2) restored onto one device: every leaf == its "
-              f"file, bit for bit; step 2 loss {one_restored['loss'][0]:.6f}"
-              f" grad norm {one_restored['grad_norm'][0]:.6f}")
+              f"file, bit for bit")
 
-        # --- chatglm3-6b at (1, 4) WS, the restore onto (1, 4), GPipe -------
+        # --- chatglm3-6b at (1, 4) WS, GPipe ------------------------------
         gcfg = dataclasses.replace(
             get_arch("chatglm3-6b"),
             n_layers=SHARDED_TRAIN_LAYERS["chatglm3-6b"])
@@ -4564,8 +4703,9 @@ def sharded_train_phase(counters, ties):
         runs = [dict(cfg=gcfg, params=gparams, tc=sharded_train_tc(gcfg),
                      recipe="WS", label="chatglm3-6b f32", rt=f32,
                      batches=gbatches, ref_grads=gref["grads"])]
-        got, ranks = sharded_train_mesh("full width, (1, 4)", (1, 4), runs,
-                                        [gref], gpipe=(w, x))
+        got, ranks = sharded_train_mesh(
+            "full width, (1, 4)", (1, 4), runs, [gref], gpipe=(w, x),
+            ties=[tie_item(ties, "chatglm3-6b pp", gparams, gcfg)])
         totals.append(got)
         del gref, gparams, runs
         # GPipe against the sequential form under autograd
@@ -4597,30 +4737,6 @@ def sharded_train_phase(counters, ties):
         gc.collect()
         torch.cuda.empty_cache()
 
-        # --- the minicpm-2b checkpoint onto (1, 4) WS -------------------
-        # a spawn of its own, once the parent's chatglm3-6b tensors are
-        # freed: each rank holds the whole 122,753-row embedding (its
-        # vocabulary does not divide over 4) with its moments
-        resaved = os.path.join(tmp, "resaved")
-        runs = [dict(cfg=cfg, params=None, tc=tc, recipe="WS", rt=f32,
-                     label="minicpm-2b f32 restored from (2, 2) IS at step "
-                           "2, one step", restore=(tmp, 2),
-                     save_restored=resaved, batches=batches[2:])]
-        got, _ = sharded_train_mesh("full width, (1, 4)", (1, 4), runs,
-                                    [one_restored])
-        totals.append(got)
-        step_dir = "step_00000002"
-        names = sorted(os.listdir(os.path.join(tmp, step_dir)))
-        check(names == sorted(os.listdir(os.path.join(resaved, step_dir))),
-              "elastic: the checkpoints hold other files")
-        differ = [n for n in names if not same_bytes(
-            os.path.join(tmp, step_dir, n), os.path.join(resaved, step_dir,
-                                                          n))]
-        check(not differ, f"elastic: the (1, 4) WS blocks saved again "
-              f"differ from the (2, 2) IS checkpoint in {differ}")
-        print(f"[sharded-train] elastic: the (2, 2) IS checkpoint read onto "
-              f"(1, 4) WS and saved again from there: all {len(names)} "
-              f"files equal, byte for byte")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     totals.append(sharded_train_families(f32))
@@ -5247,6 +5363,8 @@ def main() -> int:
     # --- [sharded]: the sharded engines on meshes sharing the card ---------
     gc.collect()
     torch.cuda.empty_cache()
+    clock("[dryrun] late")
+    dryrun_late(graph, dry)
     clock("[sharded]")
     sharded = sharded_phase(counters, ties)
 

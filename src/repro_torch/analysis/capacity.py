@@ -101,6 +101,31 @@ FIT_FEATURES: Dict[str, Tuple[str, ...]] = {
     "train": ("params", "act", "logits", "scores", "moe", "ssm", "one"),
 }
 
+#: The dry-run's per-kind coefficients: the reference's recipe (nnls,
+#: weighted by relative error) over :data:`DRYRUN_FEATURES`, against the
+#: storage walk's peaks of the 64 OK ``ci`` cells of both meshes
+#: (``python -m repro_torch.analysis.capacity_fit --dryrun``). What
+#: :func:`capacity_from_artifact` predicts a dry-run cell with; the
+#: card's :data:`CALIBRATION`, whose fixed offsets dwarf a smoke-scale
+#: cell, stays the serving preflight's and the card checks'.
+DRYRUN_CALIBRATION: Dict[str, Dict[str, float]] = {
+    "decode": {"params": 1.2929, "cache": 0.8979, "kv_ms": 0.0802,
+               "one": 0.0063},
+    "prefill": {"params": 4.4832, "logits": 1.5302, "moe": 0.0233,
+                "ssm": 0.3938},
+    "train": {"logits": 1.3181, "scores": 2.5082, "ssm": 1.0706,
+              "one": 12.7709},
+}
+
+#: The features each kind's dry-run coefficients are fitted over: the
+#: card's and the reference's together.
+DRYRUN_FEATURES: Dict[str, Tuple[str, ...]] = {
+    "decode": ("params", "cache", "cache_allsh", "kv_ms", "one"),
+    "prefill": ("params", "prefill_cache", "act", "logits", "scores", "moe",
+                "ssm", "one"),
+    "train": ("params", "act", "logits", "scores", "moe", "ssm", "one"),
+}
+
 CALIBRATION_VERSION = 1
 
 #: The acceptance bar of a prediction against a measured peak, per run.
@@ -421,11 +446,12 @@ def measured_peak_bytes(mem: Dict[str, int]) -> int:
 
 def capacity_from_artifact(art: Dict[str, Any], preset) -> CapacityReport:
     """Re-derive the cell's capacity prediction from its identity fields
-    (arch/shape/mesh_axes; ``preset`` a ``launch.presets.Preset``):
-    baseline-variant cells only."""
+    (arch/shape/mesh_axes; ``preset`` a ``launch.presets.Preset``) under
+    :data:`DRYRUN_CALIBRATION`: baseline-variant cells only."""
     cfg = preset.arch(art["arch"])
     shape = preset.shape(art["shape"])
-    return capacity(cfg, shape, mesh=art["mesh_axes"])
+    return capacity(cfg, shape, mesh=art["mesh_axes"],
+                    calibration=DRYRUN_CALIBRATION)
 
 
 # ===========================================================================

@@ -6,6 +6,9 @@
     <root>/dryrun/<preset>/<arch>__<shape>__<mesh>.json
                                         a dry-run cell (launch.dryrun)
     <root>/dryrun/<preset>/_manifest.json   the sweep's geometry
+    <root>/dryrun/pp/<arch>__pp__stage<S>.json
+                                        a pipeline-parallel dry-run
+                                        (launch.dryrun_pp)
 
 ``<root>`` is ``$REPRO_TORCH_ARTIFACT_DIR`` when set, else
 ``./artifacts/torch`` relative to the working directory. The port never
@@ -67,6 +70,12 @@ MANIFEST_NAME = "_manifest.json"
 def dryrun_dir(preset: str) -> str:
     """A dry-run preset's cell directory (not created)."""
     return os.path.join(artifact_root(), "dryrun", preset)
+
+
+def pp_dir() -> str:
+    """The pipeline-parallel dry-run's artifacts (``launch.dryrun_pp``;
+    not created), beside the presets' cell directories."""
+    return os.path.join(artifact_root(), "dryrun", "pp")
 
 
 def manifest_path(preset: str) -> str:

@@ -22,6 +22,9 @@ Which link a collective crosses follows the mesh's numbering: ranks
 count with the last axis fastest, nodes hold ``chip.node_size``
 consecutive ranks, and an axis whose every group stays within one node
 is priced over NVLink, any other over the network (:func:`axis_link`).
+The batch axes joined (``"pod+data"``, the ranks with equal ``model``
+coordinates: :func:`axis_groups`) are priced over the links
+their groups cross: the network at (2, 16, 16), NVLink at (2, 2, 2).
 
 The dominant term is the bottleneck of the cell.
 """
@@ -29,14 +32,15 @@ from __future__ import annotations
 
 import itertools
 import math
-from typing import Dict, Iterable, Mapping
+from typing import Dict, Iterable, List, Mapping, Tuple
 
 from repro_torch.core.hardware import H100_SXM, GPUSpec, ring_collective_bytes
 from repro_torch.core.workload import Workload
 
-#: The kinds a mesh's records carry (the port makes the first three:
-#: a reduce-scatter is an all-reduce and a slice, a ring shift an
-#: all-gather and a pick), in the artifact's order.
+#: The kinds a mesh's records carry (the port makes all-reduce,
+#: all-gather, broadcast and collective-permute, a ring shift: a
+#: reduce-scatter is an all-reduce and a slice), in the artifact's
+#: order.
 KINDS = ("all-reduce", "all-gather", "broadcast", "reduce-scatter",
          "all-to-all", "collective-permute")
 
@@ -44,27 +48,35 @@ KINDS = ("all-reduce", "all-gather", "broadcast", "reduce-scatter",
 LINKS = ("nvlink", "network")
 
 
-def axis_groups(sizes: Mapping[str, int], axis: str):
-    """The global ranks of every group of ``axis`` (``world``: one group
-    of every rank), ranks counted with the last axis fastest."""
-    names = list(sizes)
+def axis_groups(sizes: Mapping[str, int],
+                axis: str) -> List[Tuple[int, ...]]:
+    """The global ranks of every group of ``axis`` on a mesh of ``sizes``
+    (ranks counted with the last axis fastest): a mesh axis, several
+    joined by ``+`` (a group: the ranks with equal coordinates on every
+    other axis, in the order of their joint coordinate, the first axis
+    slowest) or ``world`` (one group of every rank)."""
+    names, shape = list(sizes), [int(sizes[a]) for a in sizes]
     if axis == "world":
-        return [tuple(range(math.prod(sizes.values())))]
-    k = names.index(axis)
-    strides = [math.prod(list(sizes.values())[i + 1:])
-               for i in range(len(names))]
+        return [tuple(range(math.prod(shape)))]
+    parts = axis.split("+")
+    strides = [math.prod(shape[i + 1:]) for i in range(len(names))]
     groups = []
-    others = [range(sizes[a]) if a != axis else range(1) for a in names]
-    for coords in itertools.product(*others):
-        base = sum(c * s for c, s in zip(coords, strides))
-        groups.append(tuple(base + i * strides[k]
-                            for i in range(sizes[axis])))
+    for outer in itertools.product(*(range(1) if a in parts
+                                     else range(n)
+                                     for a, n in zip(names, shape))):
+        base = sum(c * s for c, s in zip(outer, strides))
+        groups.append(tuple(
+            base + sum(c * strides[names.index(a)]
+                       for a, c in zip(parts, inner))
+            for inner in itertools.product(*(range(sizes[a])
+                                             for a in parts))))
     return groups
 
 
 def axis_link(sizes: Mapping[str, int], axis: str,
               chip: GPUSpec = H100_SXM) -> str:
-    """``nvlink`` when every group of ``axis`` lies within one node of
+    """``nvlink`` when every group of ``axis`` (a mesh axis, several
+    joined by ``+``, or ``world``) lies within one node of
     ``chip.node_size`` consecutive ranks, else ``network``."""
     for g in axis_groups(sizes, axis):
         if len({r // chip.node_size for r in g}) > 1:

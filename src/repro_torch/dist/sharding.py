@@ -36,12 +36,21 @@ they divide (expert-parallel), else ``expert_ffn`` (expert-split). The
 specs and the drops stay the reference's; only the bytes of those
 leaves depart from them (``tests/test_torch_sharding.py`` pins which).
 
+The batch splits over the batch axes, ``pod`` outside ``data``
+(:data:`BATCH_AXES`, the recipes' ``batch``/``tokens`` rule): a rank's
+rows are block ``pod * D + data`` of the global batch, and every
+collective of the batch (the engines' slot gathers, the loss means, the
+MoE statistics) runs over the ranks with equal coordinates on the other
+axes, one group named ``"pod+data"`` (``"data"`` on a mesh without a
+``pod`` axis). Every weight is whole over ``pod``.
+
 For training the placement also says where each gradient must be
 summed: over ``model`` where a replicated tensor enters a split region
 (:meth:`Placement.enter_model`), over the ranks that hold one K/V head
 (:meth:`Placement.enter_kv`, a subgroup of ``model``), over ``data``
 where a leaf is split over ``data`` (IS: :meth:`Placement.gather_data`
-gathers it for its layer, and its backward sums) and how many ranks
+gathers it for its layer, and its backward sums; the train step then
+sums the block over ``pod``) and how many ranks
 hold a copy of each block (:meth:`Placement.copies`, the global norm's
 weight). :meth:`Placement.local_to_global` assembles a whole leaf from
 every rank's block, and :class:`TreeLayout` does so for a tree (a
@@ -50,6 +59,7 @@ train state, a checkpoint).
 from __future__ import annotations
 
 import itertools
+import math
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass, field
@@ -57,6 +67,28 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 AxisEntry = Optional[Union[str, Tuple[str, ...]]]
 Spec = Tuple[AxisEntry, ...]
+
+#: The mesh axes a batch splits over, outermost first.
+BATCH_AXES = ("pod", "data")
+
+
+def batch_axis(axis_names) -> str:
+    """The batch axes a mesh with ``axis_names`` has, joined by ``+``:
+    ``"data"`` on a (data, model) mesh, ``"pod+data"`` on (pod, data,
+    model). A collective over it runs over the ranks with equal
+    coordinates on every other axis."""
+    return "+".join(a for a in BATCH_AXES if a in axis_names)
+
+
+def row_split(rows: int, sizes: Dict[str, int]) -> Tuple[str, ...]:
+    """The batch axes a batch of ``rows`` splits over: the recipes'
+    ``batch`` rule sanitized as every leaf's spec is (the reference's
+    ``sanitize_spec``: ``pod``, then ``data`` where the split so far
+    still divides the rows). 16 rows over (pod 2, data 16) split over
+    ``pod`` alone, and the ``data`` ranks of a pod hold the same rows;
+    3 rows over ``data`` 2 are whole on every rank."""
+    spec = _sanitize((BATCH_AXES,), (rows,), sizes, None, record=False)
+    return _parts(spec[0]) if spec else ()
 
 
 # ---------------------------------------------------------------------------
@@ -372,6 +404,13 @@ class Placement:
             coords = getattr(mesh, "coords", None) or {}
         self.coords = {a: int(coords.get(a, 0)) for a in self.sizes}
         self.model = self.sizes.get("model", 1)
+        self.batch_axes = tuple(a for a in BATCH_AXES if a in self.sizes)
+        self.batch_axis = "+".join(self.batch_axes)
+        self.batch_ranks = math.prod(self.sizes[a] for a in self.batch_axes)
+        self.batch_index = 0
+        for a in self.batch_axes:
+            self.batch_index = self.batch_index * self.sizes[a] \
+                + self.coords[a]
         self.heads_split = self._heads_split()
         nq, nkv, M = cfg.n_heads, cfg.n_kv_heads, self.model
         self.q_heads = nq // M if self.heads_split else nq
@@ -675,31 +714,54 @@ class Placement:
         squares over ``d_inner``, each rank normalising its own heads)."""
         return self.mesh.total(t, "model")
 
-    def total_data(self, t):
-        """The sum of ``t`` over ``data`` whose backward sums too: a
-        statistic of the global batch (the MoE aux loss's means) that
-        every data rank computes the same loss from; its gradient is
-        then averaged over ``data`` with the others."""
-        return self.mesh.total(t, "data")
+    def total_batch(self, t):
+        """The sum of ``t`` over the batch axes whose backward sums too:
+        a statistic of the global batch (the MoE aux loss's means) that
+        every batch rank computes the same loss from; its gradient is
+        then averaged over the batch ranks with the others."""
+        return self.mesh.total(t, self.batch_axis)
 
     def gather_data(self, t, dim: int):
         """A weight split over ``data`` on ``dim``, gathered whole for
         its layer; the backward sums the gradient over ``data`` and
-        keeps this rank's block (a reduce-scatter)."""
+        keeps this rank's block (a reduce-scatter). The leaf is whole
+        over ``pod``: the train step sums the block there."""
         return self.mesh.gather(t, "data", dim, reduce=True)
 
     def gather_batch(self, t, dim: int = 0):
-        """``t``'s rows of every rank that holds other slots (the batch
-        axis's ``data`` split)."""
-        return self.mesh.all_gather(t, "data", dim) if self.batch_split \
-            else t
+        """``t``'s rows of every batch rank (the ranks that hold other
+        slots), in ``batch_index`` order."""
+        return self.mesh.all_gather(t, self.batch_axis, dim) \
+            if self.batch_split else t
 
     @property
     def batch_split(self) -> bool:
-        return self.sizes.get("data", 1) > 1
+        return self.batch_ranks > 1
+
+    def row_blocks(self, kept: Sequence[str]) -> Tuple[int, List[int]]:
+        """The distinct blocks of a batch split over the batch axes
+        ``kept`` (:func:`row_split`) and, of the positions of the batch
+        group (``batch_index`` order), those that hold a lower block
+        than this rank's, each block once: the ranks along a batch axis
+        left out of ``kept`` hold the same rows."""
+        def block(c):
+            i = 0
+            for a in kept:
+                i = i * self.sizes[a] + c[a]
+            return i
+
+        mine, lower = block(self.coords), []
+        for j, c in enumerate(itertools.product(
+                *(range(self.sizes[a]) for a in self.batch_axes))):
+            c = dict(zip(self.batch_axes, c))
+            if block(c) < mine and all(c[a] == 0 for a in self.batch_axes
+                                       if a not in kept):
+                lower.append(j)
+        return math.prod(self.sizes[a] for a in kept), lower
 
     def slot_block(self, n_slots: int) -> slice:
-        """The engine's slots this rank holds (its block of ``pos``)."""
+        """The engine's slots this rank holds (its block of ``pos``:
+        block ``batch_index`` of ``batch_ranks``)."""
         return self.slices(("batch",), (n_slots,), "pos")[0]
 
 

@@ -2,13 +2,14 @@
 trace one rank's step of every (architecture x input-shape x mesh) cell
 at a scale preset on ``meta`` and write one JSON artifact per cell.
 
-    # ci scale: the (2, 4) mesh, smoke-scale cells, seconds on a CPU
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --preset ci \\
-        --mesh single
+    # ci scale: the (2, 4) and (2, 2, 2) meshes, smoke-scale cells,
+    # seconds on a CPU
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --preset ci
 
-    # the reference's production scale: (16, 16), paper-scale cells
+    # the reference's production scale: (16, 16) and (2, 16, 16),
+    # paper-scale cells
     PYTHONPATH=src python -m repro_torch.launch.dryrun --preset full \\
-        --mesh single --shape decode_32k
+        --mesh multi --shape decode_32k
 
 The per-cell pipeline lives in :mod:`repro_torch.launch.lowering`, the
 scale knobs in :mod:`repro_torch.launch.presets`. Nothing is allocated
@@ -16,13 +17,16 @@ and nothing runs on a card: each cell is one rank of a mesh of H100s,
 its memory, cost and collectives traced on ``meta`` and priced with
 ``core.hardware.H100_SXM``.
 
+Both of the reference's meshes are traced: ``single`` over ``(data,
+model)`` and ``multi`` over ``(pod, data, model)``, where the batch
+splits over ``pod`` x ``data`` and every collective of the batch runs
+over the joined ``"pod+data"`` groups (``launch.mesh``).
 Artifacts land under ``<root>/dryrun/<preset>/`` (root =
 ``$REPRO_TORCH_ARTIFACT_DIR`` or ``./artifacts/torch``; ``--out``
-overrides), with ``_manifest.json`` recording the preset's geometry.
-Skipped cells (encoder-only decode, 524k full attention) are explicit
-SKIP rows with the reason ``configs.shape_skip_reason`` gives. The
-``multi`` mesh (``pod``, ``data``, ``model``) is not ported yet
-(ROADMAP.md, Queue 1): ``--mesh multi`` raises ``NotImplementedError``.
+overrides), with ``_manifest.json`` recording the geometry of the
+meshes swept. Skipped cells (encoder-only decode, 524k full attention)
+are explicit SKIP rows with the reason ``configs.shape_skip_reason``
+gives. The pipeline-parallel dry-run is ``launch.dryrun_pp``.
 """
 from __future__ import annotations
 
@@ -39,23 +43,12 @@ from repro_torch.configs import ARCHS, SHAPES
 from repro_torch.launch.lowering import lower_cell
 from repro_torch.launch.presets import PRESETS, Preset, get_preset
 
-#: The meshes the port traces (the reference's ``multi`` waits on a
-#: third mesh axis).
-PORTED_MESHES = ("single",)
-
-
-def check_meshes(mesh_names) -> None:
-    """Refuse a mesh the port has not ported."""
-    for name in mesh_names:
-        if name not in PORTED_MESHES:
-            raise NotImplementedError(
-                f"--mesh {name}: the (pod, data, model) mesh is not ported "
-                f"yet; the port's Mesh and recipes have the data and model "
-                f"axes only (ROADMAP.md, Queue 1: the pod axis)")
+#: The meshes a sweep traces by default (the reference's).
+MESHES = ("single", "multi")
 
 
 def write_manifest(preset: Preset, out_dir: str, results,
-                   mesh_names=PORTED_MESHES) -> str:
+                   mesh_names=MESHES) -> str:
     stats = {"OK": 0, "SKIP": 0, "FAIL": 0}
     for r in results:
         stats[r["status"]] = stats.get(r["status"], 0) + 1
@@ -97,9 +90,8 @@ def run_cell(preset: Preset, arch: str, shape_name: str,
                 "trace": traceback.format_exc()[-2000:]}
 
 
-def run_all(preset: Preset, mesh_names=PORTED_MESHES, archs=None,
+def run_all(preset: Preset, mesh_names=MESHES, archs=None,
             shapes=None, out_dir: str = None, verbose: bool = True):
-    check_meshes(mesh_names)
     out_dir = out_dir or dryrun_dir(preset.name)
     os.makedirs(out_dir, exist_ok=True)
     archs = archs or sorted(ARCHS)
@@ -141,7 +133,7 @@ def main(argv=None):
                         for p in PRESETS.values()))
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
-    ap.add_argument("--mesh", default="single",
+    ap.add_argument("--mesh", default="both",
                     choices=("single", "multi", "both"))
     ap.add_argument("--out", default=None,
                     help="artifact directory (default: "

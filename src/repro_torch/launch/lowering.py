@@ -57,6 +57,7 @@ Importing this module has no side effects.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, Callable, Dict, List, Tuple
 
@@ -106,11 +107,10 @@ def cell_runtime():
 # One rank's inputs
 # ---------------------------------------------------------------------------
 def batch_rows(B: int, sizes: Dict[str, int]) -> int:
-    """A rank's rows of a global batch of ``B``: split over (pod, data)
-    where that divides it, else whole (the reference's sanitized
-    spec)."""
-    dp = sizes.get("pod", 1) * sizes.get("data", 1)
-    return B // dp if B % dp == 0 else B
+    """A rank's rows of a global batch of ``B``: split over the batch
+    axes of ``dist.sharding.row_split`` (the reference's sanitized spec:
+    2 rows over (2, 2, ...) are 1 a rank)."""
+    return B // math.prod(sizes[a] for a in S.row_split(B, sizes))
 
 
 def _batch(cfg: ModelConfig, B: int, S_: int, kind: str, dtype, device,
@@ -347,7 +347,10 @@ def cost_of(case: StepCase) -> Dict[str, float]:
 def rank_signature(cfg: ModelConfig, recipe: Recipe, sizes: Dict[str, int],
                    coords: Dict[str, int], shape: ShapeConfig):
     """The local shapes of every parameter and cache leaf on the rank at
-    ``coords``: ranks with one signature trace alike."""
+    ``coords``: ranks with one signature trace alike. The ``pod``
+    coordinate never changes a block (every weight is whole over it, and
+    the batch rows are alike in shape), so a (pod, data, model) mesh
+    traces as many ranks as its (data, model)."""
     from repro_torch.models.model import (CACHE_AXES, axes_tree, cache_spec,
                                           param_defs)
     pl = Placement(cfg, recipe, sizes, coords)
@@ -374,7 +377,7 @@ def trace_rank(cfg: ModelConfig, shape: ShapeConfig, spec: MeshSpec,
                rank: int, recipe: Recipe, rt,
                microbatches: int = 1) -> Dict[str, Any]:
     """One rank's dry step: memory, collective records (and their
-    counts), kernel nodes and host syncs."""
+    counts, as ``live_step``'s), kernel nodes and host syncs."""
     from repro_torch.analysis.graph_lint import trace
     from repro_torch.launch.mesh import DryMesh
     mesh = DryMesh(spec.shape, spec.axes, rank)
@@ -385,7 +388,8 @@ def trace_rank(cfg: ModelConfig, shape: ShapeConfig, spec: MeshSpec,
     mem = memory_of(case, g, out)
     del out
     rec = dict(rank=rank, memory=mem, records=list(mesh.records),
-               counts=mesh.counts(), kernels=dict(g.kernels),
+               counts=mesh.counts(), axis_counts=mesh.axis_counts(),
+               kernels=dict(g.kernels),
                syncs=[dict(what=w, frame=f, n=n)
                       for (w, f), n in sorted(g.syncs.items())])
     return rec
@@ -432,8 +436,9 @@ def live_step(mesh, cfg: ModelConfig, shape: ShapeConfig, recipe: Recipe,
     """The cell's step once on a live rank of ``mesh`` (every rank calls
     it), from ``params`` (the whole tree: f32 masters for training), what
     a dry trace of the same rank is held to: the rank's collective
-    counts (``Mesh.collectives``, set to 0 just before the step), its
-    argument bytes and, on a card, its peak over the step (memory
+    counts (``Mesh.collectives``, set to 0 just before the step: by kind
+    and group size, and by kind, axis and group size), its argument
+    bytes and, on a card, its peak over the step (memory
     allocated before the inputs were built subtracted)."""
     cuda = mesh.device.type == "cuda"
     if cuda:
@@ -450,6 +455,7 @@ def live_step(mesh, cfg: ModelConfig, shape: ShapeConfig, recipe: Recipe,
     if cuda:
         torch.cuda.synchronize(mesh.device)
     rec = dict(rank=mesh.rank, counts=mesh.collectives.as_dict(),
+               axis_counts=mesh.collectives.axes_dict(),
                argument_bytes=int(case.argument_bytes))
     if cuda:
         rec["peak_bytes"] = int(torch.cuda.max_memory_allocated(mesh.device)
@@ -479,11 +485,6 @@ def lower_cell(arch: str, shape_name: str, mesh_spec: MeshSpec,
     skip = shape_skip_reason(cfg, shape)
     if skip:
         return {**ident, "status": "SKIP", "reason": skip}
-    if "pod" in sizes:
-        raise NotImplementedError(
-            "the (pod, data, model) mesh is not ported: the port's Mesh and "
-            "recipes have the data and model axes only (ROADMAP.md, Queue 1, "
-            "the next slice: the pod axis)")
     recipe = S.default_recipe(cfg, shape.kind, sizes["model"])
     m = default_microbatches(cfg, shape)
     rt = cell_runtime()

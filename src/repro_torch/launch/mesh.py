@@ -21,6 +21,14 @@ shift is an ``all_gather`` and a pick, a reduce-scatter an
 ``all_reduce`` and a slice). A failure is raised, never retried on
 another backend.
 
+A collective runs over one named axis, over a subgroup of one, or over
+the batch axes together: on a (pod, data, model) mesh :attr:`Mesh.
+batch_axis` is ``"pod+data"``, the ranks with equal ``model``
+coordinates (XLA's replica group of pod x data), built once when the
+mesh is made, by every rank in the same order
+(``core.roofline.axis_groups``); on a mesh without ``pod`` it is
+``"data"``.
+
 Training differentiates through the collectives, so each has an
 autograd form over one named axis (or a subgroup of it), Megatron's
 two operators among them: :meth:`Mesh.sum` (*g*: the sum forward, the
@@ -37,10 +45,14 @@ backward shifts the gradient the other way).
 
 Every collective a process makes is counted, as each kernel wrapper
 counts its launches: :data:`COLLECTIVES` (``Mesh.collectives``) holds,
-per kind (``all-reduce``, ``all-gather``, ``broadcast``) and group size,
-the calls and the payload bytes this rank put in (an all-reduce's f32
-buffer, a gather's own part, a broadcast's tensor), the backward
-collectives of the autograd forms included. :class:`DryMesh` is one
+per kind (``all-reduce``, ``all-gather``, ``broadcast``,
+``collective-permute``) and group size, and per kind, axis and group
+size, the calls and the payload bytes this rank put in (an all-reduce's
+f32 buffer, a gather's own part, a broadcast's tensor, a shift's
+tensor), the backward collectives of the autograd forms included. A
+ring shift is counted as the ``collective-permute`` XLA makes of the
+reference's ``ppermute``, at the shifted tensor's bytes, though gloo
+runs it as a gather and a pick. :class:`DryMesh` is one
 rank of a mesh that does not exist: the same attributes and methods,
 every collective a ``meta`` tensor of the shape and dtype the real one
 returns and a record of it (``launch.lowering`` traces a rank's step on
@@ -65,7 +77,8 @@ from typing import Any, Callable, List, Optional, Sequence, Union
 import torch
 import torch.distributed as dist
 
-from repro_torch.dist.sharding import Placement, Recipe, use_mesh
+from repro_torch.core.roofline import axis_groups
+from repro_torch.dist.sharding import Placement, Recipe, batch_axis, use_mesh
 
 __all__ = ["COLLECTIVES", "DryMesh", "Mesh", "make_mesh", "parse_mesh",
            "pick_backend", "rank_device", "run_mesh", "use_mesh"]
@@ -102,62 +115,89 @@ def pick_backend(world: int, devices: Devices = None) -> str:
 
 
 class CollectiveCounts:
-    """The collectives one process made, by ``(kind, group size)``: the
-    calls and the payload bytes this rank put in."""
+    """The collectives one process made, by ``(kind, group size)`` and by
+    ``(kind, axis, group size)``: the calls and the payload bytes this
+    rank put in."""
 
     def __init__(self) -> None:
         self.by: dict = {}
+        self.by_axis: dict = {}
 
-    def add(self, kind: str, n: int, nbytes: int) -> None:
-        calls, total = self.by.get((kind, n), (0, 0))
-        self.by[(kind, n)] = (calls + 1, total + int(nbytes))
+    def add(self, kind: str, n: int, nbytes: int, axis: str) -> None:
+        for table, key in ((self.by, (kind, n)),
+                           (self.by_axis, (kind, axis, n))):
+            calls, total = table.get(key, (0, 0))
+            table[key] = (calls + 1, total + int(nbytes))
 
     def reset(self) -> None:
         self.by.clear()
+        self.by_axis.clear()
 
     def as_dict(self) -> dict:
         """``{"<kind>/<n>": {"calls", "bytes"}}``, sorted."""
         return {f"{k}/{n}": {"calls": c, "bytes": b}
                 for (k, n), (c, b) in sorted(self.by.items())}
 
+    def axes_dict(self) -> dict:
+        """``{"<kind>/<axis>/<n>": {"calls", "bytes"}}``, sorted."""
+        return {f"{k}/{a}/{n}": {"calls": c, "bytes": b}
+                for (k, a, n), (c, b) in sorted(self.by_axis.items())}
+
 
 #: This process's collectives (one process is one rank).
 COLLECTIVES = CollectiveCounts()
 
 
+# A live group is ``(axis, process group)``; None is the world.
+def _unpack(group):
+    return ("world", None) if group is None else group
+
+
 def _sum(t: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``t`` over ``group``, in f32 (a bf16 partial sum is
     widened first and the total rounded once), in ``t``'s dtype."""
+    axis, pg = _unpack(group)
     buf = t.to(torch.float32, copy=True)
-    COLLECTIVES.add("all-reduce", dist.get_world_size(group),
-                    buf.numel() * buf.element_size())
-    dist.all_reduce(buf, group=group)
+    COLLECTIVES.add("all-reduce", dist.get_world_size(pg),
+                    buf.numel() * buf.element_size(), axis)
+    dist.all_reduce(buf, group=pg)
     return buf.to(t.dtype)
 
 
-def _gather(t: torch.Tensor, group, n: int) -> List[torch.Tensor]:
+def _gather(t: torch.Tensor, group, n: int,
+            kind: str = "all-gather") -> List[torch.Tensor]:
+    axis, pg = _unpack(group)
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(n)]
-    COLLECTIVES.add("all-gather", n, t.numel() * t.element_size())
-    dist.all_gather(parts, t, group=group)
+    COLLECTIVES.add(kind, n, t.numel() * t.element_size(), axis)
+    dist.all_gather(parts, t, group=pg)
     return parts
 
 
+def _permute(t: torch.Tensor, group, n: int, src: int) -> torch.Tensor:
+    """Index ``src``'s ``t`` of a group of ``n``: a gather and a pick on
+    gloo, counted as the ``collective-permute`` it stands for."""
+    return _gather(t, group, n, "collective-permute")[src]
+
+
 def _broadcast(t: torch.Tensor, group) -> torch.Tensor:
+    axis, pg = _unpack(group)
     t = t.contiguous()
-    COLLECTIVES.add("broadcast", dist.get_world_size(group),
-                    t.numel() * t.element_size())
-    dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+    COLLECTIVES.add("broadcast", dist.get_world_size(pg),
+                    t.numel() * t.element_size(), axis)
+    dist.broadcast(t, src=0 if pg is None else dist.get_global_rank(pg, 0),
+                   group=pg)
     return t
 
 
 class _Live:
     """The process group's collectives (counted), as the forms call
     them: ``reduce`` the f32 sum, ``collect`` every rank's part,
-    ``bcast`` the first rank's tensor."""
+    ``permute`` one rank's part, ``bcast`` the first rank's tensor."""
 
     reduce = staticmethod(_sum)
     collect = staticmethod(_gather)
+    permute = staticmethod(_permute)
     bcast = staticmethod(_broadcast)
 
 
@@ -230,21 +270,23 @@ class _Shift(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, comm, group, n, index):
         ctx.comm, ctx.group, ctx.n, ctx.index = comm, group, n, index
-        return comm.collect(t, group, n)[(index - 1) % n]
+        return comm.permute(t, group, n, (index - 1) % n)
 
     @staticmethod
     def backward(ctx, grad):
-        return (ctx.comm.collect(grad, ctx.group, ctx.n)[
-            (ctx.index + 1) % ctx.n], None, None, None, None)
+        return (ctx.comm.permute(grad, ctx.group, ctx.n,
+                                 (ctx.index + 1) % ctx.n),
+                None, None, None, None)
 
 
 class Mesh:
     """One rank's view of a device mesh: the axes and their sizes, this
     rank's coordinates and device, the backend, and the collectives the
-    port's tensor-parallel forms call, each over one named axis: the
-    three plain ones serving calls and their autograd forms (module
-    docstring), plus subgroups of an axis and the collectives over the
-    whole world that assemble a tree."""
+    port's tensor-parallel forms call, each over one named axis or the
+    batch axes together (:attr:`batch_axis`): the three plain ones
+    serving calls and their autograd forms (module docstring), plus
+    subgroups of an axis and the collectives over the whole world that
+    assemble a tree."""
 
     def __init__(self, device_mesh, device: torch.device, backend: str):
         self.device_mesh = device_mesh
@@ -259,7 +301,8 @@ class Mesh:
         self.rank = dist.get_rank()
         self.coords = dict(zip(self.axis_names,
                                device_mesh.get_coordinate()))
-        self._groups = {a: device_mesh.get_group(a) for a in self.axis_names}
+        self._groups = {a: (a, device_mesh.get_group(a))
+                        for a in self.axis_names}
         self._subgroups = {}
         self._placements = {}
         grid = device_mesh.mesh
@@ -267,6 +310,33 @@ class Mesh:
             dict(zip(self.axis_names,
                      (int(i) for i in (grid == r).nonzero()[0])))
             for r in range(self.devices)]
+        self._join_batch_axes()
+
+    def _join_batch_axes(self) -> None:
+        """:attr:`batch_axis` and, when it joins two axes, its groups
+        (every rank makes every group, in the same order)."""
+        self.batch_axis = batch_axis(self.axis_names)
+        if "+" in self.batch_axis:
+            self._groups[self.batch_axis] = self.subgroup(
+                axis_groups(self.sizes, self.batch_axis))
+
+    def size(self, axis: str) -> int:
+        """The ranks of one group of ``axis`` (a mesh axis, or several
+        joined by ``+``)."""
+        return math.prod(self.sizes[a] for a in axis.split("+"))
+
+    def index(self, axis: str) -> int:
+        """This rank's position in its group of ``axis``: its coordinate,
+        or over joined axes the joint one, the first axis slowest."""
+        i = 0
+        for a in axis.split("+"):
+            i = i * self.sizes[a] + self.coords[a]
+        return i
+
+    def span(self, ranks) -> str:
+        """The axes along which ``ranks`` differ, joined by ``+``."""
+        return "+".join(a for a in self.axis_names
+                        if len({self.rank_coords[r][a] for r in ranks}) > 1)
 
     def __repr__(self) -> str:
         return (f"Mesh({self.sizes}, rank {self.rank} at {self.coords}, "
@@ -282,7 +352,7 @@ class Mesh:
     def all_reduce(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """The sum of ``t`` over ``axis``, in f32 (a bf16 partial sum is
         widened first and the total rounded once), in ``t``'s dtype."""
-        if self.sizes[axis] == 1:
+        if self.size(axis) == 1:
             return t
         return self._comm.reduce(t, self._groups[axis])
 
@@ -290,7 +360,7 @@ class Mesh:
                    dim: int) -> torch.Tensor:
         """Every rank's ``t`` along ``axis``, concatenated on ``dim`` in
         coordinate order."""
-        n = self.sizes[axis]
+        n = self.size(axis)
         if n == 1:
             return t
         return torch.cat(self._comm.collect(t, self._groups[axis], n),
@@ -298,7 +368,7 @@ class Mesh:
 
     def broadcast(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """``t`` as the rank at coordinate 0 of ``axis`` holds it."""
-        if self.sizes[axis] == 1:
+        if self.size(axis) == 1:
             return t
         return self._comm.bcast(t, self._groups[axis])
 
@@ -306,7 +376,7 @@ class Mesh:
     def sum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """g over ``axis``: the sum (as :meth:`all_reduce`); its backward
         is the identity."""
-        if self.sizes[axis] == 1:
+        if self.size(axis) == 1:
             return t
         return _SumOver.apply(t, self._comm, self._groups[axis])
 
@@ -315,7 +385,7 @@ class Mesh:
         """f over ``axis`` (or over ``group``, a subgroup of it): the
         identity; its backward sums the gradient over the ranks."""
         if group is None:
-            if self.sizes[axis] == 1:
+            if self.size(axis) == 1:
                 return t
             group = self._groups[axis]
         return _Enter.apply(t, self._comm, group)
@@ -324,8 +394,8 @@ class Mesh:
         """The sum over ``axis`` whose backward sums the gradient over it
         too: for a total that every rank consumes differently (a norm's
         sum of squares over a split row), or a statistic of the global
-        batch that each data rank's loss reads."""
-        if self.sizes[axis] == 1:
+        batch that each batch rank's loss reads."""
+        if self.size(axis) == 1:
             return t
         return _Total.apply(t, self._comm, self._groups[axis])
 
@@ -334,28 +404,31 @@ class Mesh:
         """Every rank's ``t`` along ``axis``, concatenated on ``dim``;
         the backward takes this rank's slice of the gradient, summed over
         ``axis`` first when ``reduce``."""
-        n = self.sizes[axis]
+        n = self.size(axis)
         if n == 1:
             return t
         return _Gather.apply(t, self._comm, self._groups[axis], n,
-                             self.coords[axis], dim % t.dim(), reduce)
+                             self.index(axis), dim % t.dim(), reduce)
 
     def shift(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """The ring shift by one along ``axis``: coordinate ``i`` gets
-        ``i - 1``'s ``t`` (the last's goes to the first)."""
-        n = self.sizes[axis]
+        ``i - 1``'s ``t`` (the last's goes to the first). Counted as a
+        ``collective-permute`` of ``t``; gloo runs it as a gather and a
+        pick (module docstring)."""
+        n = self.size(axis)
         if n == 1:
             return t
         return _Shift.apply(t, self._comm, self._groups[axis], n,
-                            self.coords[axis])
+                            self.index(axis))
 
     # ---------------------------------------------------------- subgroups
     def subgroup(self, groups) -> Optional[Any]:
-        """This rank's process group among ``groups`` (tuples of global
-        ranks covering some ranks once each), built on first use; every
-        rank must ask for the same ``groups`` at the same point, since
-        each group is made by all of them. None when this rank's group
-        is itself alone (or it is in none)."""
+        """This rank's group among ``groups`` (tuples of global ranks
+        covering some ranks once each), ``(axes, process group)`` with
+        ``axes`` the ones it spans (:meth:`span`), built on first use;
+        every rank must ask for the same ``groups`` at the same point,
+        since each group is made by all of them. None when this rank's
+        group is itself alone (or it is in none)."""
         groups = tuple(tuple(sorted(int(r) for r in g)) for g in groups)
         if groups not in self._subgroups:
             mine = None
@@ -364,7 +437,7 @@ class Mesh:
                     continue
                 pg = dist.new_group(list(g))
                 if self.rank in g:
-                    mine = pg
+                    mine = (self.span(g), pg)
             self._subgroups[groups] = mine
         return self._subgroups[groups]
 
@@ -397,8 +470,9 @@ class DryMesh(Mesh):
     collective allocates what the real one allocates (the f32 buffer of
     a sum, the parts of a gather) and returns a ``meta`` tensor of the
     shape and dtype the real one returns, and appends a record to
-    :attr:`records`: ``kind``, ``axis`` (a mesh axis, ``world``, or the
-    axis a subgroup is part of), the group size ``n``, the payload
+    :attr:`records`: ``kind``, ``axis`` (a mesh axis, the batch axes
+    joined by ``+``, ``world``, or the axes a subgroup spans), the group
+    size ``n``, the payload
     ``bytes`` this rank puts in (as :data:`COLLECTIVES` counts them),
     and ``src``, the index of the collective whose output this one reads
     (its buffer or a view of it; None for any other buffer).
@@ -429,6 +503,8 @@ class DryMesh(Mesh):
         self._comm = self
         self.records: List[dict] = []
         self._produced: dict = {}
+        self.batch_axis = batch_axis(axes)
+        self._groups[self.batch_axis] = self.batch_axis
 
     def __repr__(self) -> str:
         return f"DryMesh({self.sizes}, rank {self.rank} at {self.coords})"
@@ -439,7 +515,7 @@ class DryMesh(Mesh):
             return self.devices
         if isinstance(group, tuple):
             return len(group[1])
-        return self.sizes[group]
+        return self.size(group)
 
     def _record(self, kind: str, group, read: torch.Tensor,
                 payload: torch.Tensor, outs) -> None:
@@ -471,6 +547,13 @@ class DryMesh(Mesh):
         self._record("all-gather", group, read, t, parts)
         return parts
 
+    def permute(self, t: torch.Tensor, group, n: int,
+                src: int) -> torch.Tensor:
+        read, t = t, t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(n)]
+        self._record("collective-permute", group, read, t, parts)
+        return parts[src]
+
     def bcast(self, t: torch.Tensor, group) -> torch.Tensor:
         read, t = t, t.contiguous()
         self._record("broadcast", group, read, t, ())
@@ -488,32 +571,39 @@ class DryMesh(Mesh):
 
     def all_gather(self, t: torch.Tensor, axis: str,
                    dim: int) -> torch.Tensor:
-        if self.sizes[axis] == 1:
+        if self.size(axis) == 1:
             return t
         return self._produced_by_last(super().all_gather(t, axis, dim))
 
     def gather(self, t: torch.Tensor, axis: str, dim: int,
                reduce: bool = False) -> torch.Tensor:
-        if self.sizes[axis] == 1:
+        if self.size(axis) == 1:
             return t
         return self._produced_by_last(super().gather(t, axis, dim, reduce))
 
-    def counts(self) -> dict:
-        """The records in :data:`COLLECTIVES`' form (``as_dict``)."""
+    def _counted(self) -> CollectiveCounts:
         c = CollectiveCounts()
         for r in self.records:
-            c.add(r["kind"], r["n"], r["bytes"])
-        return c.as_dict()
+            c.add(r["kind"], r["n"], r["bytes"], r["axis"])
+        return c
+
+    def counts(self) -> dict:
+        """The records in :data:`COLLECTIVES`' form (``as_dict``)."""
+        return self._counted().as_dict()
+
+    def axis_counts(self) -> dict:
+        """The records by kind, axis and group size (``axes_dict``)."""
+        return self._counted().axes_dict()
 
     # -- no process group -----------------------------------------------------
     def subgroup(self, groups) -> Optional[Any]:
-        """A token for this rank's group among ``groups``, of the axis
-        ``model`` (the groups the placement asks for), or None when the
-        group is this rank alone."""
+        """A token ``(axes, ranks)`` for this rank's group among
+        ``groups``, ``axes`` the ones it spans (:meth:`span`), or None
+        when the group is this rank alone."""
         for g in groups:
             g = tuple(sorted(int(r) for r in g))
             if self.rank in g and len(g) > 1:
-                return ("model", g)
+                return (self.span(g), g)
         return None
 
     def barrier(self) -> None:

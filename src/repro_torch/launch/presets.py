@@ -106,7 +106,8 @@ CI = Preset(
         "long_500k": ShapeConfig("long_500k", 4096, 1, "decode"),
     },
     shrink_archs=True,
-    description="(2, 4) mesh, smoke-scale cells (CPU host, seconds)",
+    description="(2, 4) and (2, 2, 2) meshes, smoke-scale cells (CPU host, "
+                "seconds)",
 )
 
 PRESETS: Dict[str, Preset] = {p.name: p for p in (FULL, CI)}

@@ -368,11 +368,12 @@ def _attn_proj(p, h, cfg: ModelConfig, policy=None,
 
 def _ffn(p, h: torch.Tensor, cfg: ModelConfig, pol, dropless: bool,
          token_chunk: int = 0, pl: Optional[Placement] = None,
-         rows_split: bool = False
+         rows_split: Tuple[str, ...] = ()
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The block's FFN on (B, S, d): the MoE layer (with its aux loss) or
-    the dense MLP (aux None). ``rows_split``: h holds this ``data``
-    rank's rows of the global batch (the MoE's semantics stay global)."""
+    the dense MLP (aux None). ``rows_split``: the batch axes the global
+    batch's rows split over, h holding this rank's (the MoE's semantics
+    stay global); empty: h is the whole batch."""
     if cfg.moe is not None:
         return MOE.moe_ffn(p["moe"], h, cfg, dropless=dropless,
                            token_chunk=token_chunk, policy=pol, pl=pl,
@@ -389,7 +390,8 @@ def _attn_out(o: torch.Tensor, p, x: torch.Tensor,
 
 def attn_block(p: Dict[str, Any], x: torch.Tensor, rope,
                cfg: ModelConfig, rt: ModelRuntime,
-               pl: Optional[Placement] = None, rows_split: bool = False):
+               pl: Optional[Placement] = None,
+               rows_split: Tuple[str, ...] = ()):
     """Pre-norm attention + FFN block. Returns (x, aux or None, (k, v));
     k/v are post-RoPE, exactly what the decode cache stores."""
     pol = rt.kernel_policy()
@@ -580,7 +582,7 @@ def _head_keys(cfg: ModelConfig) -> Tuple[str, ...]:
 
 def _run_blocks(params, cfg: ModelConfig, x, positions, rt: ModelRuntime,
                 on_layer=None, pl: Optional[Placement] = None,
-                rows_split: bool = False):
+                rows_split: Tuple[str, ...] = ()):
     """Every block in :func:`_schedule`'s order, each under ``rt.remat``
     (the reference remats a hybrid group whole; the gradients are the
     same); ``on_layer(i, material)`` receives each block's cache
@@ -588,8 +590,8 @@ def _run_blocks(params, cfg: ModelConfig, x, positions, rt: ModelRuntime,
     states for Mamba-2 layer i. Returns (x, summed aux loss f32). Under
     a recipe that splits weights over ``data`` each block gathers its
     layer's leaves first, inside its remat region (the hybrid's shared
-    block at each of its uses). ``rows_split``: x holds this ``data``
-    rank's rows of the global batch."""
+    block at each of its uses). ``rows_split``: the batch axes the
+    global batch's rows split over, x holding this rank's (:func:`_ffn`)."""
     aux = torch.zeros((), device=x.device)
     rope = None if cfg.family == "ssm" else L.rope_tables(positions, cfg)
     dims = _layer_dims(cfg, pl)
@@ -614,30 +616,40 @@ def _run_blocks(params, cfg: ModelConfig, x, positions, rt: ModelRuntime,
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            rt: ModelRuntime = ModelRuntime()
+            rt: ModelRuntime = ModelRuntime(),
+            rows_split: Optional[Tuple[str, ...]] = None,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``batch``: ``tokens`` (B, S), or ``embeds`` (B, S, d) for a patch
     or frame front-end; ``positions`` (B, S), or (3, B, S) under M-RoPE,
     default 0..S-1. -> (logits (B, S, V) in rt.dtype, aux_loss scalar
-    f32: the MoE layers' summed load-balancing loss, else 0)."""
+    f32: the MoE layers' summed load-balancing loss, else 0). Under a
+    mesh ``batch`` holds this rank's rows of a global batch split over
+    the batch axes ``rows_split`` (``dist.sharding.row_split``; None:
+    every batch axis of the mesh)."""
     _require_ported(cfg)
     pl = active_placement(cfg)
     params = _outer(params, cfg, pl)   # the embedding, final norm and head
     x = _embed_in(params, batch, rt, pl)
     B, S, _ = x.shape
     positions = _positions(cfg, batch, B, S, x.device)
+    if pl is None or not pl.batch_split:
+        rows_split = ()
+    elif rows_split is None:
+        rows_split = pl.batch_axes
     x, aux = _run_blocks(params, cfg, x, positions, rt, pl=pl,
-                         rows_split=pl is not None and pl.batch_split)
+                         rows_split=tuple(rows_split))
     x = norm(x, params["final_norm"], cfg.norm, policy=rt.kernel_policy())
     return _unembed(params, cfg, x, pl), aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            rt: ModelRuntime = ModelRuntime()
+            rt: ModelRuntime = ModelRuntime(),
+            rows_split: Optional[Tuple[str, ...]] = None,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Training loss: token cross-entropy of ``batch['labels']`` plus the
-    MoE aux loss -> (ce + aux, {'ce', 'aux'})."""
-    logits, aux = forward(params, cfg, batch, rt)
+    MoE aux loss -> (ce + aux, {'ce', 'aux'}); ``rows_split`` as
+    :func:`forward` takes it."""
+    logits, aux = forward(params, cfg, batch, rt, rows_split)
     ce = L.cross_entropy(logits, batch["labels"])
     return ce + aux, {"ce": ce, "aux": aux}
 
@@ -1029,9 +1041,10 @@ def decode_step_paged(params, cfg: ModelConfig,
     under int8); the hybrid's Mamba-2 layers update their contiguous
     state as :func:`decode_step` does. Updated in place and returned.
     The ``ssm`` family has no pages: it decodes as :func:`decode_step`
-    does. Under a mesh the pools are whole over ``data`` while the slots
-    split: each step's new K/V rows (and their addresses) are gathered
-    over ``data`` and written into every rank's pool, so the pools stay
+    does. Under a mesh the pools are whole over the batch axes (``pod``
+    x ``data``) while the slots split: each step's new K/V rows (and
+    their addresses) are gathered over them and written into every
+    rank's pool, so the pools stay
     equal and a shared prefix page reads the same rows everywhere."""
     _require_ported(cfg)
     if cfg.family == "ssm":

@@ -24,20 +24,26 @@ its sort and its buffers, never clamped to a local expert) or ``ffn``
 (expert-split: every expert at ``d_expert / M`` columns). Either way a
 rank's output is a partial sum, summed over ``model`` with the shared
 experts' (g); the tokens and the gates enter the experts through f.
-With ``rows_split`` (the forward of a train step: each ``data`` rank
-holds its rows of the global batch) the semantics stay global over
-``data``: the capacity counts the global T, a (token, k) slot's position
-counts the slots of the lower ``data`` ranks first (an exclusive prefix
-of their per-expert counts), and the aux loss is formed from the global
-means (``Placement.total_data``, so its gradient enters once however
-many ranks compute it). A GShard token group lies inside one row, so it
-never straddles ``data`` ranks; only the groups' mean aux is global.
+With ``rows_split`` (the forward of a train step: each batch rank, of
+``pod`` x ``data``, holds its rows of the global batch) the semantics
+stay global over the batch axes: the capacity counts the global T, a
+(token, k) slot's position counts the slots of the lower batch ranks
+first, in ``Placement.batch_index`` order (an exclusive prefix of their
+per-expert counts; where the batch splits over some batch axes alone,
+the ranks along the others holding the same rows, each lower block
+counts once: ``Placement.row_blocks``, the axes being
+``dist.sharding.row_split``'s, the reference's sanitized batch rule),
+and the aux loss is formed from the global
+means (``Placement.total_batch``, so its gradient enters once however
+many ranks compute it; a block held by r ranks is counted r times in
+both the sums and the count). A GShard token group lies inside one row, so it
+never straddles batch ranks; only the groups' mean aux is global.
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -81,15 +87,16 @@ def moe_defs(cfg: ModelConfig, stack: Tuple[int, ...] = ()) -> Dict:
 def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
             dropless: bool = False, token_chunk: int = 0,
             policy: Optional[KernelPolicy] = None, pl=None,
-            rows_split: bool = False,
+            rows_split: Tuple[str, ...] = (),
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux_loss f32 scalar).
 
     ``dropless`` keeps every token (decode; serving prefill). Otherwise
     tokens over an expert's capacity are dropped, per GShard token group
     of ``token_chunk`` tokens when that divides S (0: one group). Under
-    ``pl`` this rank's experts; ``rows_split`` marks x as this ``data``
-    rank's rows of the global batch (module docstring)."""
+    ``pl`` this rank's experts; ``rows_split`` names the batch axes
+    the global batch's rows split over, x holding this rank's
+    (``dist.sharding.row_split``; module docstring)."""
     m = cfg.moe
     B, S, d = x.shape
     dpl = pl if rows_split and pl is not None and pl.batch_split else None
@@ -100,11 +107,13 @@ def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     if token_chunk and S % token_chunk == 0 and token_chunk < S:
         return _moe_ffn_grouped(p, x, cfg, token_chunk, pl, dpl)
     T = B * S
-    Tg = T * (dpl.sizes["data"] if dpl is not None else 1)
+    n_blocks, lower = dpl.row_blocks(rows_split) if dpl is not None \
+        else (1, [])
+    Tg = T * n_blocks
     cap = int(math.ceil(m.experts_per_token * Tg / m.n_experts
                         * m.capacity_factor))
     cap = max(m.experts_per_token, min(cap, Tg))
-    out, aux = _routed_core(p, x.reshape(T, d), cfg, cap, pl, dpl)
+    out, aux = _routed_core(p, x.reshape(T, d), cfg, cap, pl, dpl, lower)
     return _add_shared(p, x, out.reshape(B, S, d), cfg, pl), aux
 
 
@@ -129,7 +138,7 @@ def _route(p: Dict[str, torch.Tensor], xt: torch.Tensor, cfg: ModelConfig,
     Ties go to the lower expert index, as ``jax.lax.top_k`` breaks them
     (``torch.topk`` promises no order): the first K of a stable
     descending sort. With ``dpl`` the aux loss's means are over the
-    global batch (every ``data`` rank's rows)."""
+    global batch (every batch rank's rows)."""
     m = cfg.moe
     E, K = m.n_experts, m.experts_per_token
     logits = xt.float() @ p["router"].float()
@@ -143,10 +152,10 @@ def _route(p: Dict[str, torch.Tensor], xt: torch.Tensor, cfg: ModelConfig,
         me = probs.mean(dim=0)                                  # (E,)
         ce = F.one_hot(idx, E).float().sum(dim=1).mean(dim=0) / K
     else:
-        n = xt.shape[0] * dpl.sizes["data"]
-        me = dpl.total_data(probs.sum(dim=0)) / n
+        n = xt.shape[0] * dpl.batch_ranks
+        me = dpl.total_batch(probs.sum(dim=0)) / n
         ce = dpl.mesh.all_reduce(F.one_hot(idx, E).float().sum(dim=(0, 1)),
-                                 "data") / n / K
+                                 dpl.batch_axis) / n / K
     aux = E * torch.sum(me * ce) * m.router_aux_loss
     return gate_vals, idx, aux
 
@@ -204,7 +213,8 @@ _EXPERT_GLU_TORCH = functools.partial(_expert_glu, policy=TORCH_POLICY)
 
 
 def _routed_core(p, xt: torch.Tensor, cfg: ModelConfig, cap: int, pl=None,
-                 dpl=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                 dpl=None, lower: Sequence[int] = ()
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity-bounded dispatch for one token group. xt: (T, d).
 
     A (token, k) slot's position in its expert's buffer is the count of
@@ -213,7 +223,8 @@ def _routed_core(p, xt: torch.Tensor, cfg: ModelConfig, cap: int, pl=None,
     counts with a strictly lower-triangular matmul for small groups and
     a cumsum for large ones; both give the same exact integers, so one
     cumsum serves here. With ``dpl`` the earlier slots of the lower
-    ``data`` ranks count first; expert-parallel, only this rank's
+    blocks count first (``lower``: their positions in the batch group,
+    ``Placement.row_blocks``); expert-parallel, only this rank's
     experts' buffers are filled and run."""
     m = cfg.moe
     T, d = xt.shape
@@ -223,8 +234,9 @@ def _routed_core(p, xt: torch.Tensor, cfg: ModelConfig, cap: int, pl=None,
     choice = F.one_hot(e_all, E)                                # (T*K, E)
     pos_in_e = ((torch.cumsum(choice, dim=0) - choice) * choice).sum(-1)
     if dpl is not None:
-        every = dpl.mesh.all_gather(choice.sum(dim=0)[None], "data", 0)
-        pos_in_e = pos_in_e + every[:dpl.coords["data"]].sum(dim=0)[e_all]
+        every = dpl.mesh.all_gather(choice.sum(dim=0)[None],
+                                    dpl.batch_axis, 0)
+        pos_in_e = pos_in_e + every[lower].sum(dim=0)[e_all]
     keep = pos_in_e < cap                                       # (T*K,)
     xt, gate_vals = _enter_experts(pl, xt, gate_vals)
     lo = 0
@@ -263,7 +275,7 @@ def _moe_ffn_grouped(p, x: torch.Tensor, cfg: ModelConfig, token_chunk: int,
     out = torch.stack(outs).reshape(B, S, d)
     aux = torch.stack(auxes).mean()
     if dpl is not None:
-        aux = dpl.total_data(aux) / dpl.sizes["data"]
+        aux = dpl.total_batch(aux) / dpl.batch_ranks
     return _add_shared(p, x, out, cfg, pl), aux
 
 

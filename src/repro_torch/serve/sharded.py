@@ -5,16 +5,16 @@
 swapped: the parameters are laid out by a ``dist.sharding`` recipe
 (default :data:`~repro_torch.dist.sharding.DECODE_RECIPE`: weights
 resident and tensor-parallel over ``model``, the cache's batch over
-``data``), each rank copying only its block onto its device; the cache
+the batch axes, ``pod`` x ``data``), each rank copying only its block onto its device; the cache
 is built at its block shapes; and every device call runs under the mesh
 and the recipe, so the model takes its tensor-parallel forms.
 
 It runs SPMD, one process a rank (``launch.mesh.run_mesh``): every rank
 runs the same host engine (scheduler, sampler, admission, stats) and
-only the device work splits. Each rank decodes its own slots; the
-logits of every slot are gathered over ``data`` at the end of each step
-and a prefill's logits are broadcast from the first rank over ``data``,
-so every rank samples the same tokens and keeps the same host state.
+only the device work splits. Each rank decodes its own slots (block
+``pod * D + data``); the logits of every slot are gathered over the
+batch axes at the end of each step and a prefill's logits are broadcast
+from the first batch rank over them, so every rank samples the same tokens and keeps the same host state.
 Rank 0's ``run()`` is the result; the sharded engine serves the same
 tokens as the one-device engine (``tests/test_torch_multidevice.py``,
 ``tests/test_torch_mesh_moe.py``, ``tests/test_torch_mesh_ssm.py``).
@@ -67,13 +67,13 @@ class ShardedServeEngine(ServeEngine):
         params = shard_tree(params, axes_tree(cfg), self.recipe, mesh, cfg,
                             dtype=lambda path: leaf_dtype(path, rt))
         super().__init__(params, cfg, rt, **kw)
-        blk = self.placement.slot_block(self.n_slots)
-        if self.placement.batch_split and blk.stop - blk.start \
-                == self.n_slots:
+        pl = self.placement
+        blk = pl.slot_block(self.n_slots)
+        if (blk.stop - blk.start) * pl.batch_ranks != self.n_slots:
             raise ValueError(
                 f"n_slots={self.n_slots} does not divide over "
-                f"data={mesh.sizes['data']}: each data rank decodes its "
-                f"own block of the slots")
+                f"{' x '.join(f'{a}={pl.sizes[a]}' for a in pl.batch_axes)}"
+                f": each batch rank decodes its own block of the slots")
         self._slot_lo, self._slot_hi = blk.start, blk.stop
 
     # -------------------------------------------------------- placement hooks
@@ -111,9 +111,9 @@ class ShardedServeEngine(ServeEngine):
     def _host_logits(self, logits: torch.Tensor,
                      prefill: bool = False) -> np.ndarray:
         if prefill:
-            # every rank over data computed these rows: sample the first
+            # every batch rank computed these rows: sample the first
             # rank's, so the host states cannot part
-            logits = self.mesh.broadcast(logits, "data")
+            logits = self.mesh.broadcast(logits, self.mesh.batch_axis)
         return logits.float().cpu().numpy()
 
     def _decode(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -180,10 +180,10 @@ def mesh_forward(mesh, params, cfg, runs: Sequence[Dict[str, Any]],
                  ) -> List[Dict[str, Any]]:
     """One rank's forward runs, for ``launch.mesh.run_mesh``: each run (a
     dict of ``rt`` and ``batch``, the global batch as host arrays or
-    tensors: each ``data`` rank takes its rows) calls ``forward`` on this
+    tensors: each batch rank takes its rows) calls ``forward`` on this
     rank's blocks of ``params`` under ``recipe`` (default the reference
     launcher's prefill recipe); per run the logits of every row
-    (gathered over ``data``, on the CPU), the aux loss and this rank's
+    (gathered over the batch axes, on the CPU), the aux loss and this rank's
     parameter bytes."""
     from repro_torch.data.pipeline import make_global_batch
     if isinstance(recipe, str):
@@ -198,7 +198,7 @@ def mesh_forward(mesh, params, cfg, runs: Sequence[Dict[str, Any]],
                                 dtype=lambda path: leaf_dtype(path, rt))
             batch = make_global_batch(run["batch"], mesh)
             logits, aux = forward(blocks, cfg, batch, rt)
-            logits = mesh.all_gather(logits, "data", 0)
+            logits = mesh.all_gather(logits, mesh.batch_axis, 0)
         out.append({"rank": mesh.rank, "coords": dict(mesh.coords),
                     "backend": mesh.backend, "recipe": recipe.name,
                     "logits": logits.float().cpu(), "aux": float(aux),

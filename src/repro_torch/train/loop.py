@@ -10,19 +10,27 @@ under it with the plain versions' autograd as their backward
 Under a mesh (``dist.sharding.use_mesh``, one process a rank:
 ``launch.mesh.run_mesh``) the step runs SPMD under its recipe on this
 rank's blocks of the state (:func:`shard_state`): tensor-parallel over
-``model`` (the model's forms), data-parallel over ``data``, and under
-IS/IS_seq with the weights split over ``data`` too, each layer gathered
-for its run. Every rank is handed the same global batch; microbatch i
-is its global rows ``[i B/m, (i+1) B/m)`` as on one device, and each
-data rank takes its block of it (``data.make_global_batch``). Every
-leaf's gradient is summed over ``data`` once (an all-reduce, or the
-backward of its gather) and divided by the ``data`` size; the clipping
+``model`` (the model's forms), data-parallel over the batch axes
+(``pod`` x ``data``; ``data`` alone on a mesh without ``pod``), and
+under IS/IS_seq with the weights split over ``data`` too, each layer
+gathered for its run. Every rank is handed the same global batch;
+microbatch i is its global rows ``[i B/m, (i+1) B/m)`` as on one device,
+and each batch rank takes its block of it (``data.make_global_batch``,
+block ``pod * D + data``). A microbatch splits over the batch axes as
+the reference's sanitized ``batch`` spec does (``dist.sharding.
+row_split``: ``pod``, then ``data`` where the split still divides the
+rows), and the ranks along an axis left out hold the same rows: every
+sum below is then divided by all the batch ranks, which counts each
+row once. Every leaf's gradient is summed over the batch ranks once
+(an all-reduce over ``pod`` x ``data``; for a leaf split over ``data``
+the backward of its gather over ``data``, then an all-reduce over
+``pod``) and divided by their count; the clipping
 norm counts each element of the logical tree once
 (``optim.global_norm``: a block's squares, or for the Mamba-2 mixer
 each column's, divided by its holders); AdamW updates each block.
-Loss, ce and aux are averaged over ``data``, so every rank reports one
-device's numbers: the MoE aux loss is already the global batch's on
-every rank (``models.moe``), its gradient entering once. A
+Loss, ce and aux are averaged over the batch ranks, so every rank
+reports one device's numbers: the MoE aux loss is already the global
+batch's on every rank (``models.moe``), its gradient entering once. A
 recipe is placement, not semantics: ``tests/test_torch_train_mesh.py``
 holds the mesh to one device and to the JAX package.
 """
@@ -38,15 +46,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import batch_dim, make_global_batch
 from repro_torch.dist.sharding import (RECIPES, Recipe, TreeLayout,
                                        active_mesh, active_placement,
-                                       axis_rules, shard_tree)
+                                       axis_rules, row_split, shard_tree)
 from repro_torch.models.model import (ModelRuntime, axes_tree, check_device,
                                       data_dims, loss_fn, param_defs)
 from repro_torch.train.optim import (AdamWConfig, adamw_init, adamw_update,
                                      global_norm)
 from repro_torch.tree import tree_leaves, tree_map
 
-#: Elements of one all-reduce over ``data`` (2^26: 256 MiB of f32): the
-#: gradients whole over ``data`` are summed in buckets of this size.
+#: Elements of one gradient all-reduce (2^26: 256 MiB of f32): the
+#: gradients are summed in buckets of this size.
 REDUCE_BUCKET = 1 << 26
 
 
@@ -71,11 +79,13 @@ def check_recipe(recipe) -> Optional[Recipe]:
     return RECIPES[recipe]
 
 
-def value_and_grad(cfg: ModelConfig, rt: ModelRuntime, params, batch):
+def value_and_grad(cfg: ModelConfig, rt: ModelRuntime, params, batch,
+                   rows_split=None):
     """(loss, metrics, grads) of :func:`~repro_torch.models.model.loss_fn`
-    at ``params``; ``grads`` has the tree of ``params``."""
+    at ``params`` (``rows_split`` as it takes it); ``grads`` has the tree
+    of ``params``."""
     leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
-    loss, metrics = loss_fn(leaves, cfg, batch, rt)
+    loss, metrics = loss_fn(leaves, cfg, batch, rt, rows_split)
     flat = tree_leaves(leaves)
     grads = iter(torch.autograd.grad(loss, flat, allow_unused=True,
                                      materialize_grads=True))
@@ -137,11 +147,24 @@ def shard_state(params, cfg: ModelConfig, recipe, mesh=None):
     return init_state(blocks)
 
 
-def _sum_over_data(grads, dims, mesh) -> None:
-    """Sum every gradient whole over ``data`` over the ``data`` ranks,
-    in place, in buckets of :data:`REDUCE_BUCKET` elements."""
-    todo = [g for g, d in zip(tree_leaves(grads), tree_leaves(dims))
-            if d is None]
+def _sum_grads(grads, dims, pl) -> None:
+    """Sum every gradient over the ranks that hold copies of its block,
+    in place, in buckets of :data:`REDUCE_BUCKET` elements: a leaf whole
+    over ``data`` over the batch ranks (``pod`` x ``data``), a leaf split
+    over ``data`` (summed there by its gather's backward, a
+    reduce-scatter) over ``pod``."""
+    pairs = list(zip(tree_leaves(grads), tree_leaves(dims)))
+    sum_in_buckets([g for g, d in pairs if d is None], pl.mesh,
+                   pl.batch_axis)
+    if pl.sizes.get("pod", 1) > 1:
+        sum_in_buckets([g for g, d in pairs if d is not None], pl.mesh,
+                       "pod")
+
+
+def sum_in_buckets(todo, mesh, axis: str) -> None:
+    """Sum each tensor of ``todo`` over ``axis`` of ``mesh``, in place, a
+    bucket of :data:`REDUCE_BUCKET` elements (or one larger tensor) an
+    all-reduce."""
     i = 0
     while i < len(todo):
         j, n = i + 1, todo[i].numel()
@@ -149,7 +172,7 @@ def _sum_over_data(grads, dims, mesh) -> None:
             n += todo[j].numel()
             j += 1
         flat = mesh.all_reduce(torch.cat([g.reshape(-1).float()
-                                          for g in todo[i:j]]), "data")
+                                          for g in todo[i:j]]), axis)
         o = 0
         for g in todo[i:j]:
             g.copy_(flat[o:o + g.numel()].view_as(g))
@@ -174,30 +197,36 @@ def make_train_step(cfg: ModelConfig, rt: ModelRuntime, tc: TrainConfig,
     ``batch`` the global batch (module docstring). With no mesh, or a
     mesh of one device, the step is the one-device step. The function's
     ``grads(params, batch)`` returns (loss, metrics, gradients) as the
-    step takes them, reduced over ``data``."""
+    step takes them, reduced over the batch ranks."""
     recipe = check_recipe(recipe)
 
     def compute(pl, params, batch):
         """(loss, metrics, gradients) as the step takes them: on one
-        device (``pl`` None) or this rank's, reduced over ``data``."""
+        device (``pl`` None) or this rank's, reduced over the batch
+        ranks."""
         m = max(1, tc.microbatches)
         acc, lsum = None, 0.0
         for i in range(m):
             mb = microbatch(batch, i, m)
+            split = None
             if pl is not None:
-                mb = make_global_batch(mb, pl.mesh)
-            l, metrics, g = value_and_grad(cfg, rt, params, mb)
+                name, leaf = next(iter(mb.items()))
+                leaf = torch.as_tensor(leaf)
+                split = row_split(leaf.shape[batch_dim(name, leaf.dim())],
+                                  pl.sizes)
+                mb = make_global_batch(mb, pl.mesh, split)
+            l, metrics, g = value_and_grad(cfg, rt, params, mb, split)
             acc = g if acc is None else tree_map(torch.add, acc, g)
             lsum = lsum + l
-        n_data = 1 if pl is None else pl.mesh.sizes.get("data", 1)
-        if n_data > 1:
-            _sum_over_data(acc, data_dims(cfg, pl), pl.mesh)
-        scale = m * n_data
+        n_batch = 1 if pl is None else pl.batch_ranks
+        if n_batch > 1:
+            _sum_grads(acc, data_dims(cfg, pl), pl)
+        scale = m * n_batch
         grads = tree_map(lambda g: g / scale, acc) if scale > 1 else acc
         if pl is None:
             return lsum / m, metrics, grads
         vals = torch.stack([lsum / m, metrics["ce"], metrics["aux"]])
-        vals = pl.mesh.all_reduce(vals, "data") / n_data
+        vals = pl.mesh.all_reduce(vals, pl.batch_axis) / n_batch
         return vals[0], {"ce": vals[1], "aux": vals[2]}, grads
 
     def grads(params, batch):

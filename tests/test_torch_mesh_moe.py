@@ -10,11 +10,16 @@ numpy) and to the port's one device.
   ``mixtral-8x22b`` at (1, 2): every rank's tokens the JAX engine's,
   its bytes the sharded capacity model's;
 * two train steps of qwen2-moe under IS at (2, 2) on the capacity path
-  and on the dropless path: loss, ce, aux, gradient norm, step 0's
-  gradients leaf by leaf and the parameters after the steps against the
-  JAX package's jitted step. The batch overflows an expert's global
-  capacity, so a rank that counted its own rows alone would drop other
-  slots (shown here) and report another aux loss;
+  and on the dropless path, and on the capacity path at (2, 2, 1) over
+  ``(pod, data, model)`` (the capacity's token count, the slot order and
+  the aux loss's means over the four batch ranks, in ``pod * D + data``
+  order; and with 2 microbatches of 2 rows, each split over ``pod``
+  alone, the rows of a pod's two ``data`` ranks counted once): loss,
+  ce, aux, gradient norm, step 0's gradients leaf by leaf and the
+  parameters after the steps against the JAX package's jitted step.
+  The batch overflows an expert's global capacity, so a rank that
+  counted its own rows alone would drop other slots (shown here) and
+  report another aux loss;
 * the expert-split layer in bf16: the 6-expert copy's MoE FFN at
   (1, 4), the same input on every rank, held to one device's bf16
   output under a bar from bf16's unit roundoff and the partials summed;
@@ -144,8 +149,8 @@ def _batches(cfg):
     return [data.batch_at(i) for i in range(STEPS)]
 
 
-def _tc():
-    return TrainConfig(opt=AdamWConfig(**OPT))
+def _tc(m=1):
+    return TrainConfig(opt=AdamWConfig(**OPT), microbatches=m)
 
 
 @pytest.fixture(scope="module")
@@ -204,6 +209,24 @@ def meshes(models):
     return out
 
 
+#: The (pod, data, model) mesh of the capacity path's train steps, and
+#: their microbatches.
+POD_MESH, POD_MICRO = (2, 2, 1), (1, 2)
+
+
+@pytest.fixture(scope="module")
+def pod_mesh(models):
+    """Every rank's train records of the capacity path at
+    :data:`POD_MESH`, one spawn."""
+    cfg, _, _, tp = models["qwen2-moe"]
+    ranks = run_mesh(run_jobs, POD_MESH, [("train", ([dict(
+        cfg=cfg, params=tp, rt=_rt(False), tc=_tc(m), recipe="IS",
+        batches=_batches(cfg), grads=True, gather=True)
+        for m in POD_MICRO],))],
+        axes=("pod", "data", "model"), devices="cpu", timeout=MESH_TIMEOUT)
+    return {m: [r[0][i] for r in ranks] for i, m in enumerate(POD_MICRO)}
+
+
 @pytest.fixture(scope="module")
 def reference(models):
     """{dropless: the JAX package's jitted one-device step on the
@@ -228,6 +251,27 @@ def reference(models):
                              params=jax.tree.map(np.asarray,
                                                  state["params"]))
     return out
+
+
+@pytest.fixture(scope="module")
+def micro_reference(models):
+    """The JAX package's capacity-path step with 2 microbatches, as
+    :func:`reference` gives it with one."""
+    cfg, jcfg, jp, _ = models["qwen2-moe"]
+    batches = [jax.tree.map(jnp.asarray, b) for b in _batches(cfg)]
+    p = jax.tree.map(jnp.asarray, jp)
+    grad = jax.jit(jax.grad(lambda p, b: jloss(p, jcfg, b, _jrt())[0]))
+    halves = [grad(p, {k: v[i * B // 2:(i + 1) * B // 2]
+                       for k, v in batches[0].items()}) for i in range(2)]
+    grads = jax.tree.map(lambda a, b: (a + b) / 2, *halves)
+    step = jax.jit(jmake_step(jcfg, _jrt(),
+                              JTrain(opt=JAdamW(**OPT), microbatches=2)))
+    state, metrics = jinit_state(p), []
+    for b in batches:
+        state, mt = step(state, b)
+        metrics.append({k: float(v) for k, v in mt.items()})
+    return dict(metrics=metrics, grads=jax.tree.map(np.asarray, grads),
+                params=jax.tree.map(np.asarray, state["params"]))
 
 
 def _serve_case(meshes, mesh, name, paged):
@@ -314,7 +358,23 @@ def test_mesh_train_step_matches_jax(meshes, reference, case, dropless):
     step 0's gradients per leaf, the parameters after the steps; every
     rank reports rank 0's scalars and holds its blocks of the state."""
     ranks = [r[-1][TRAIN.index((case, dropless))] for r in meshes[(2, 2)]]
-    ref = reference[dropless]
+    _held_to_jax(ranks, reference[dropless], {"data": 2, "model": 2})
+
+
+@pytest.mark.parametrize("micro", POD_MICRO)
+def test_pod_mesh_train_step_matches_jax(pod_mesh, reference,
+                                         micro_reference, micro):
+    """Two IS steps on the capacity path at (2, 2, 1) over (pod, data,
+    model), held as above: a slot order or an aux mean over ``data``
+    alone would keep other slots than one device and report another aux
+    loss; with 2 microbatches a row held by two ranks counted twice
+    would."""
+    ref = reference[False] if micro == 1 else micro_reference
+    _held_to_jax(pod_mesh[micro], ref,
+                 dict(zip(("pod", "data", "model"), POD_MESH)))
+
+
+def _held_to_jax(ranks, ref, sizes):
     r0 = ranks[0]
     for i, jm in enumerate(ref["metrics"]):
         for k in ("loss", "aux"):
@@ -338,8 +398,8 @@ def test_mesh_train_step_matches_jax(meshes, reference, case, dropless):
             assert r[k] == r0[k], (r["rank"], k)
         assert r["blocks_equal"], r["rank"]
     rep = capacity(smoke_config(ARCHS["qwen2-moe-a2.7b"]),
-                   ShapeConfig("train", S, B, "train"),
-                   mesh={"data": 2, "model": 2}, recipe="IS")
+                   ShapeConfig("train", S, B, "train"), mesh=sizes,
+                   recipe="IS")
     assert {r["state_bytes"] for r in ranks} == {rep.params_bytes * 3 + 4}
 
 

@@ -7,7 +7,8 @@ the same tokens as the JAX ``repro.serve`` engines on the same weights
 ``ShardedPagedServeEngine`` at meshes (2, 4) and (2, 2) serve the same
 tokens as the port's one-device engines: the reference test's prompts
 (``tests/test_multidevice.py``), contiguous, paged with the prefix cache
-on (``prefix_hits > 0``) and with int8 KV. Every rank's tokens equal
+on (``prefix_hits > 0``) and with int8 KV; at (2, 1, 2) over ``(pod,
+data, model)`` contiguous and paged, the slots over pod x data. Every rank's tokens equal
 rank 0's; each rank's cache leaves are the predicted strict blocks of
 the whole cache and its bytes the sharded capacity model's.
 
@@ -54,7 +55,12 @@ MESH_TIMEOUT = 240
 #: (name, paged, kv dtype) of each case, served on both meshes.
 CASES = (("contiguous", False, None), ("paged", True, None),
          ("contiguous-int8", False, "int8"), ("paged-int8", True, "int8"))
-MESH_CASES = {(2, 4): CASES, (2, 2): CASES}
+MESH_CASES = {(2, 4): CASES, (2, 2): CASES, (2, 1, 2): CASES[:2]}
+
+
+def _axes(mesh):
+    """A mesh shape's axes: (pod, data, model) for three."""
+    return ("pod", "data", "model")[-len(mesh):]
 
 
 def _prompts(paged: bool):
@@ -121,8 +127,8 @@ def meshes(weights):
         runs = [dict(rt=_rt(kv), requests=_requests(paged),
                      engine_kw=_engine_kw(paged), paged=paged)
                 for _, paged, kv in cases]
-        ranks = run_mesh(mesh_serve, mesh, tp, CFG, runs, devices="cpu",
-                         timeout=MESH_TIMEOUT)
+        ranks = run_mesh(mesh_serve, mesh, tp, CFG, runs, axes=_axes(mesh),
+                         devices="cpu", timeout=MESH_TIMEOUT)
         for i, (name, _, _) in enumerate(cases):
             out[(mesh, name)] = [r[i] for r in ranks]
     return out
@@ -140,8 +146,8 @@ def test_one_device_engine_matches_jax_engine(weights, one_device, name,
                                    for k, v in want.items()}
 
 
-MESH_IDS = [f"{m[0]}x{m[1]}-{c[0]}" for m, cs in MESH_CASES.items()
-            for c in cs]
+MESH_IDS = [f"{'x'.join(map(str, m))}-{c[0]}"
+            for m, cs in MESH_CASES.items() for c in cs]
 
 
 @pytest.mark.parametrize("mesh,name,paged,kv", [
@@ -165,9 +171,10 @@ def test_sharded_engine_serves_one_device_tokens(meshes, one_device, mesh,
 def test_each_rank_holds_its_predicted_block(meshes, mesh, name, paged, kv):
     """Each rank's cache leaf is its predicted block: a strict slice of
     the K/V leaf (its K/V heads; its slots in the contiguous cache), the
-    rank's slots its data coordinate's; its parameter and cache bytes
-    the sharded capacity model's to the byte."""
-    sizes = {"data": mesh[0], "model": mesh[1]}
+    rank's slots its batch coordinate's (``pod * D + data``); its
+    parameter and cache bytes the sharded capacity model's to the
+    byte."""
+    sizes = dict(zip(_axes(mesh), mesh))
     rep = cap.serve_preflight(CFG, n_slots=N_SLOTS, max_len=MAX_LEN,
                               page_size=PAGE if paged else None, mesh=sizes,
                               dtype="float32", param_dtype="float32",
@@ -181,13 +188,14 @@ def test_each_rank_holds_its_predicted_block(meshes, mesh, name, paged, kv):
     else:
         spec = cache_spec(CFG, N_SLOTS, MAX_LEN, "float32", kv)
         axes, kv_leaf = CACHE_AXES, "k"
-    per_data = N_SLOTS // mesh[0]
+    per_data = N_SLOTS // math.prod(mesh[:-1])
     for r in meshes[(mesh, name)]:
         pl = Placement(CFG, DECODE_RECIPE, sizes, coords=r["coords"])
         want = {k: pl.local_shape(axes[k], s) for k, (s, _) in spec.items()}
         assert r["cache_shapes"] == want
         assert math.prod(want[kv_leaf]) < math.prod(spec[kv_leaf][0])
-        d = r["coords"]["data"]
+        d = pl.batch_index
+        assert d == r["coords"].get("pod", 0) * mesh[-2] + r["coords"]["data"]
         assert r["slots"] == (d * per_data, (d + 1) * per_data)
         assert r["params_bytes"] == rep.params_bytes
         assert r["cache_bytes"] == rep.cache_bytes

@@ -111,9 +111,10 @@ def test_records_are_priced_as_the_reference_prices_the_hlo(case):
 
 def test_the_ports_own_collectives_depart_as_pinned():
     """The port's reduce-scatter is an all-reduce of the whole buffer and
-    a slice (twice the reference's link bytes), its ring shift an
-    all-gather and a pick ((n - 1) times a permute's); a broadcast moves
-    (n - 1)/n of its tensor."""
+    a slice (twice the reference's link bytes); its ring shift is
+    counted as the ``collective-permute`` of the reference's
+    ``ppermute``, at its payload (gloo runs it as a gather and a pick);
+    a broadcast moves (n - 1)/n of its tensor."""
     m = DryMesh((1, 8))
     x = torch.empty(32, 128, device="meta")
     m.all_reduce(x, "model").narrow(0, 0, 4)
@@ -123,11 +124,12 @@ def test_the_ports_own_collectives_depart_as_pinned():
     got = collective_link_bytes(m.records, m.sizes)
     rs = collective_bytes_from_hlo(CASES["reduce_scatter_result_is_shard"][0])
     assert got["all-reduce"] == pytest.approx(2 * rs["reduce-scatter"])
-    assert got["all-gather"] == pytest.approx(7 * 8 * 128 * 2)
+    assert got["collective-permute"] == pytest.approx(8 * 128 * 2)
+    assert got["all-gather"] == 0
     assert got["broadcast"] == pytest.approx(7 / 8 * 40)
-    assert got["op_counts"] == {"all-reduce": 1, "all-gather": 1,
+    assert got["op_counts"] == {"all-reduce": 1, "all-gather": 0,
                                 "broadcast": 1, "reduce-scatter": 0,
-                                "all-to-all": 0, "collective-permute": 0}
+                                "all-to-all": 0, "collective-permute": 1}
 
 
 @pytest.mark.parametrize("payload,n,kind", [

@@ -8,7 +8,10 @@ steps, within ``tests/test_torch_train.py``'s f32 tolerances:
 ``chatglm3-6b`` (the reference test's arch: 2 K/V heads, so at
 ``model`` 4 each K/V head is held by two ranks) under IS at (2, 4), the
 reference test's mesh; WS and WS_seq at (2, 2); IS_seq at (1, 2);
-``minicpm-2b`` under IS at (2, 2) and (4, 1); ``qwen2-vl-7b`` (``embeds``,
+``minicpm-2b`` under IS at (2, 2), (4, 1) and (2, 2, 1) over ``(pod,
+data, model)``, there also with ``microbatches=2`` (2 rows a
+microbatch: split over ``pod`` alone, each row held by both ``data``
+ranks of its pod); ``qwen2-vl-7b`` (``embeds``,
 M-RoPE) under IS at (2, 2); ``microbatches=2`` at (2, 2);
 ``stablelm-12b`` (qk-norm: its scales enter the split heads through an
 f) under WS at (1, 2) and ``starcoder2-3b`` (LayerNorm, whose bias is
@@ -88,6 +91,14 @@ CASES = [
     ("chatglm-IS-2x2-micro2", "chatglm3-6b", "IS", (2, 2), 2),
     ("stablelm-WS-1x2", "stablelm-12b", "WS", (1, 2), 1),
     ("starcoder2-IS-2x2", "starcoder2-3b", "IS", (2, 2), 1),
+    # (pod, data, model): the batch over pod x data, the IS embedding's
+    # gradient summed over pod after its data reduce-scatter; two steps,
+    # so that pods whose masters parted after step 0 would show
+    ("minicpm-IS-2x2x1", "minicpm-2b", "IS", (2, 2, 1), 1),
+    # microbatches of 2 rows over pod 2 x data 2: each splits over pod
+    # alone (the first of two equal splits) and the data ranks of a pod
+    # hold the same rows
+    ("minicpm-IS-2x2x1-micro2", "minicpm-2b", "IS", (2, 2, 1), 2),
 ]
 #: The families the family slice brought to the mesh: each builds its
 #: sharded train state on the (2, 2) spawn (the steps themselves are held
@@ -162,10 +173,15 @@ def _run(case, models, **extra):
     return run
 
 
+def _axes(mesh):
+    """A mesh shape's axes: (pod, data, model) for three."""
+    return ("pod", "data", "model")[-len(mesh):]
+
+
 def _mesh_ranks(mesh, *args, fn=None, **kw):
     from repro_torch.train.sharded import mesh_train
-    return run_mesh(fn or mesh_train, mesh, *args, devices="cpu",
-                    timeout=MESH_TIMEOUT, **kw)
+    return run_mesh(fn or mesh_train, mesh, *args, axes=_axes(mesh),
+                    devices="cpu", timeout=MESH_TIMEOUT, **kw)
 
 
 @pytest.fixture(scope="module")
@@ -179,7 +195,7 @@ def trained(models, ckpt_dir):
     state is saved from the mesh (step 2); the (2, 2) spawn also
     restores it under WS."""
     out = {}
-    for mesh in ((2, 4), (2, 2), (1, 2), (4, 1)):     # (2, 4) saves first
+    for mesh in ((2, 4), (2, 2), (1, 2), (4, 1), (2, 2, 1)):  # (2, 4) first
         cases = [c for c in CASES if c[3] == mesh]
         runs = []
         for c in cases:
@@ -253,7 +269,7 @@ def test_every_rank_reports_rank0_and_holds_its_blocks(trained, case):
         assert r["blocks_equal"], r["rank"]
     cfg = smoke_config(ARCHS[arch])
     rep = capacity(cfg, ShapeConfig("train", S, B, "train"),
-                   mesh={"data": mesh[0], "model": mesh[1]}, recipe=recipe)
+                   mesh=dict(zip(_axes(mesh), mesh)), recipe=recipe)
     assert {r["state_bytes"] for r in ranks} == {rep.params_bytes * 3 + 4}
     if math.prod(mesh) > 1:
         whole = sum(np.asarray(t).nbytes for _, t in
