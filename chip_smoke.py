@@ -426,17 +426,18 @@ MOE_F32_RTOL = 1e-3
 PAGE_SIZE, PAGES_PER_SEQ = 16, 64
 #: Keys of a kernel's check and timing at another shape: the ``d128``
 #: and ``d80`` entries of the attention kernels (qwen2-moe's heads,
-#: zamba2-2.7b's), the ``prefill`` entry of ``moe_gemm`` and
-#: ``quant_matmul``.
+#: zamba2-2.7b's; flash's ``d80_hubert``, hubert-xlarge's non-causal
+#: forward), the ``prefill`` entry of ``moe_gemm`` and ``quant_matmul``.
 SUB_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape", "body")
+            "bound_ms_f32_cuda_core", "library_ms", "library_call", "shape",
+            "body")
 #: The per-rank shapes of the grouped GEMM and the SSD scan on a mesh
 #: (``mesh_kernel_entries``): qwen2-moe's 15 experts a rank (``model``
 #: 4) and 176 columns of its 60 (``model`` 8); the scan at 32 and 16 SSD
 #: heads (mamba2-1.3b, ``model`` 2 and 4) and 40 (zamba2-2.7b, 2).
 MESH_SUB_ENTRIES = ("e15", "f176", "nh32", "nh16", "nh40")
-SUB_ENTRIES = ("d128", "d80", "d160", "g12", "g16", "prefill",
-               *MESH_SUB_ENTRIES)
+SUB_ENTRIES = ("d128", "d80", "d80_hubert", "d160", "g12", "g16",
+               "prefill", *MESH_SUB_ENTRIES)
 #: The attention shapes of the last-ported families, checked and timed
 #: as the ``d128`` and ``d80`` entries are: stablelm-12b's head dim 160
 #: (32 heads over 8 kv heads), starcoder2-3b's group of 12 and
@@ -709,10 +710,14 @@ def kernel_phase(cfg, moe_cfg, ssm_cfg, hyb_cfg):
            **decode_variants(hyb_cfg, gen, rnd, compare, flush, mask)}
     for name, e in d80.items():
         entries[name]["d80"] = {k: e[k] for k in SUB_KEYS if k in e}
+    from repro_torch.configs import get_arch
+    enc = flash_entry(get_arch("hubert-xlarge"), rnd, compare, flush,
+                      ((2, 1024),), body=PLAIN_ORDER, causal=False)
+    entries["flash_attention"]["d80_hubert"] = {k: enc[k] for k in SUB_KEYS
+                                                if k in enc}
     paged_equals_contiguous(hyb_cfg, gen, mask)
     bit_for_bit_at(hyb_cfg, gen, rnd)
     # --- the last-ported families: D 160, G 12 and 16 ----------------------
-    from repro_torch.configs import get_arch
     for key, arch in FAMILY_SHAPES.items():
         fcfg = get_arch(arch)
         new = {"flash_attention": flash_entry(fcfg, rnd, compare, flush,
@@ -737,52 +742,64 @@ def kernel_phase(cfg, moe_cfg, ssm_cfg, hyb_cfg):
             lib = ("none" if t["library_ms"] is None
                    else f"{t['library_ms']:.4f} ms")
             body = f" [{t['body']}]" if "body" in t else ""
+            floor = (f", f32 CUDA-core floor "
+                     f"{t['bound_ms_f32_cuda_core']:.4f} ms"
+                     if "bound_ms_f32_cuda_core" in t else "")
             print(f"[time] {e['name']:<16} {label}{t['shape']}{body}: "
                   f"kernel "
                   f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
-                  f"{lib} ({e['library_call']}), bound {t['bound_ms']:.4f} "
-                  f"ms ({t['bound_by']})")
+                  f"{lib} ({t.get('library_call', e['library_call'])}), "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}){floor}")
     del scratch
     return entries
 
 
-def flash_entry(cfg, rnd, compare, flush, shapes, body=MMA):
+def flash_entry(cfg, rnd, compare, flush, shapes, body=MMA, causal=True):
     """Flash prefill at ``cfg``'s heads against its plain version at each
-    causal (B, S) of ``shapes`` in f32 and bf16, then timed in bf16 at
-    the first; ``body`` names the bf16 body that runs."""
+    (B, S) of ``shapes`` in f32 and bf16, then timed in bf16 at the
+    first; ``body`` names the bf16 body that runs. The D-80 body (the
+    plain order on the f32 CUDA cores) also carries its floor at the f32
+    rate, ``bound_ms_f32_cuda_core``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
 
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    mode = "causal" if causal else "non-causal"
     for dtype in (torch.float32, torch.bfloat16):
         for B, S in shapes:
             q = rnd(B, S, H, D, dtype=dtype)
             k = rnd(B, S, Hkv, D, dtype=dtype)
             v = rnd(B, S, Hkv, D, dtype=dtype)
-            err = compare("flash_attention", flash_attention(q, k, v),
-                          flash_attention_plain(q, k, v), dtype,
-                          f"B{B} S{S} H{H} Hkv{Hkv} D{D} causal "
+            err = compare("flash_attention",
+                          flash_attention(q, k, v, causal=causal),
+                          flash_attention_plain(q, k, v, causal=causal),
+                          dtype, f"B{B} S{S} H{H} Hkv{Hkv} D{D} {mode} "
                           f"{str(dtype)[6:]}")
     B, S = shapes[0]
     q, k, v = (rnd(B, S, h, D, dtype=torch.bfloat16) for h in (H, Hkv, Hkv))
-    pairs = S * (S + 1) // 2                   # causal (q, k) pairs
+    pairs = S * (S + 1) // 2 if causal else S * S   # attended (q, k) pairs
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    b_ms, b_by = bound(nbytes, 4 * D * pairs * B * H, "bf16_tensor")
+    ops = 4 * D * pairs * B * H
+    b_ms, b_by = bound(nbytes, ops, "bf16_tensor")
+    floor = ({"bound_ms_f32_cuda_core": bound(nbytes, ops, "f32_cuda_core")[0]}
+             if body == PLAIN_ORDER else {})
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     return dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:89", max_abs_err=err,
-        ms=time_ms(lambda: flash_attention(q, k, v), flush=flush),
-        plain_ms=time_ms(lambda: flash_attention_plain(q, k, v), iters=10,
-                         flush=flush),
-        bound_ms=b_ms, bound_by=b_by,
+        ms=time_ms(lambda: flash_attention(q, k, v, causal=causal),
+                   flush=flush),
+        plain_ms=time_ms(lambda: flash_attention_plain(q, k, v,
+                                                       causal=causal),
+                         iters=10, flush=flush),
+        bound_ms=b_ms, bound_by=b_by, **floor,
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), flush=flush),
-        library_call="SDPA, causal", mma=MMA, body=body,
-        shape=f"B{B} S{S} Hq{H} Hkv{Hkv} D{D} causal bf16")
+            qt, kt, vt, is_causal=causal, enable_gqa=True), flush=flush),
+        library_call=f"SDPA, {mode}", mma=MMA, body=body,
+        shape=f"B{B} S{S} Hq{H} Hkv{Hkv} D{D} {mode} bf16")
 
 
 def decode_entry(cfg, rnd, compare, flush, mask):
@@ -1097,7 +1114,7 @@ def quant_matmul_kernel(cfg, gen, rnd, compare, flush):
                 library_call="torch.matmul against the weight dequantized "
                              "to bf16 beforehand (not timed), then the "
                              "scale", mma=MMA,
-                prefill={k: pre[k] for k in SUB_KEYS}, **dec)
+                prefill={k: pre[k] for k in SUB_KEYS if k in pre}, **dec)
 
 
 def decode_variants(cfg, gen, rnd, compare, flush, mask):
@@ -1331,12 +1348,16 @@ def bit_for_bit_at(cfg, gen, rnd):
 VALIDATOR_BUDGET_S = 120.0
 #: Served shapes the h100 tune preset does not reach, whose plans are held
 #: to the library's and whose kernels' attributes are read too: flash at
-#: zamba2-2.7b's D 80 (the chunked body), split-KV at G 12 and 16 and D
+#: D 80 (the chunked body; zamba2-2.7b's prefill, hubert-xlarge's
+#: forward), split-KV at G 12 and 16 and D
 #: 160, RMSNorm at zamba2's gated width (the wide body) and at 4 rows.
 VALIDATOR_EXTRA = (
     ("prefill_attention", "zamba2-2.7b flash D 80",
      ((1, 1024, 32, 80), (1, 1024, 32, 80), (1, 1024, 32, 80)),
      {"causal": True, "window": 0}),
+    ("prefill_attention", "hubert-xlarge flash D 80",
+     ((2, 1024, 16, 80), (2, 1024, 16, 80), (2, 1024, 16, 80)),
+     {"causal": False, "window": 0}),
     ("decode_attention", "starcoder2-3b split-KV G 12",
      ((4, 24, 128), (4, 1024, 2, 128), (4, 1024, 2, 128), (4, 1024)), {}),
     ("paged_decode_attention", "chatglm3-6b paged split-KV G 16",

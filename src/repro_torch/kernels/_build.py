@@ -219,7 +219,8 @@ def dtype_code(t) -> int:
 #: split-KV kernels past G 1 (the G-1 ones ``chip_smoke.py`` lists
 #: apart): D 128 in bucket 8 (qwen2-vl-7b's G 7, starcoder2-3b's 12 and
 #: chatglm3-6b's 16, two blocks of 6 or 8 heads), D 160 in bucket 4
-#: (stablelm-12b, bf16 and int8 KV). The host code chooses which one a
+#: (stablelm-12b, bf16 and int8 KV), and flash's D-80 body (bf16 served,
+#: f32 in the parity checks). The host code chooses which one a
 #: shape runs (``dispatch`` in ``csrc/ssd_scan.cu``, ``csrc/rmsnorm.cu``
 #: and ``csrc/splitkv.cuh``; the launch plans of ``kernels/plan.py``
 #: name the same instantiations): a change there must be made here too. ``chip_smoke.py`` prints their registers and spills, and the card
@@ -256,6 +257,10 @@ SERVED_BUILDS = (
      r"quant_split_kernelI13__nv_bfloat16Li160ELi4ELb0E"),
     ("quant_split_kernel<bf16 q, D 160, bucket 4, paged> (G 4)",
      r"quant_split_kernelI13__nv_bfloat16Li160ELi4ELb1E"),
+    ("flash_fwd_chunked<bf16, 80> (zamba2-2.7b, hubert-xlarge)",
+     r"flash_fwd_chunkedI13__nv_bfloat16Li80EE"),
+    ("flash_fwd_chunked<f32, 80> (the f32 parity checks)",
+     r"flash_fwd_chunkedIfLi80EE"),
 )
 
 

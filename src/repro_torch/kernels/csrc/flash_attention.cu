@@ -14,8 +14,11 @@
 // ~S/2 * 4D flops per query row against 4D bytes of q/out, well above
 // the ridge.
 //
-// At D 80 (zamba2-2.7b) a third body runs in both dtypes, equal to the
-// plain version bit for bit (flash_chunked.cuh says why). At D 16, 32,
+// At D 80 (zamba2-2.7b, hubert-xlarge) a third body runs in both dtypes,
+// equal to the plain version bit for bit (flash_chunked.cuh says why):
+// the plain version's chunked loop on the f32 CUDA cores, register
+// micro-tiles of 4 x 4 score and 4 x 5 P.V chains a thread, so its floor
+// is the f32 rate, 4 D operations a pair at 67 TFLOP/s. At D 16, 32,
 // 64, 128 and 160 (stablelm-12b), two bodies, chosen before the launch
 // by dtype and alignment:
 //

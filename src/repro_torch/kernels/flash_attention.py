@@ -6,8 +6,10 @@ q ``(B, S, Hq, D)`` and k/v ``(B, T, Hkv, D)``, and reads the kv head of
 q head ``h`` as ``h // G`` without replicating K/V. At head dim 80 it
 runs the plain version's chunked loop op for op (``csrc/
 flash_chunked.cuh``), so there it equals :func:`flash_attention_plain`
-bit for bit at the same ``chunk``. See the sources for what bounds it
-and the design.
+bit for bit at the same ``chunk``: each score and each P.V output one
+fma chain in the plain order, run side by side in register micro-tiles
+on the f32 CUDA cores, whose rate bounds it. See the sources for what
+bounds the other bodies and their design.
 """
 from __future__ import annotations
 
@@ -112,8 +114,20 @@ flash_attention.launches = 0
 
 #: Query rows a block of the CUDA-core and tensor-core bodies, and of the
 #: D-80 body (csrc/flash_attention.cu BQ / MMA_BQ, csrc/flash_chunked.cuh
-#: QR), and its key tile.
-BQ, CHUNKED_QR, CHUNKED_KT = 64, 32, 32
+#: QR), its key tile and its threads.
+BQ, CHUNKED_QR, CHUNKED_KT, CHUNKED_THREADS = 64, 64, 64, 256
+
+
+def chunked_smem(D: int, chunk: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of the D-80 body at ``chunk`` (already capped
+    at T; ``csrc/flash_chunked.cuh`` ``smem_bytes``): the Q rows and two
+    K/V tiles in f32 rows of D + 4, a chunk's scores in rows of whole key
+    tiles + 16, m, l and alpha, and for bf16 two tiles as they land."""
+    pitch = D + 4
+    score = P.cdiv(chunk, CHUNKED_KT) * CHUNKED_KT + 16
+    raw = 2 * CHUNKED_KT * D * 2 if dtype == torch.bfloat16 else 0
+    return 4 * (CHUNKED_QR * pitch + 2 * CHUNKED_KT * pitch
+                + CHUNKED_QR * score + 3 * CHUNKED_QR) + raw
 
 
 def launch_plan(B: int, S: int, T: int, Hq: int, Hkv: int, D: int,
@@ -121,10 +135,10 @@ def launch_plan(B: int, S: int, T: int, Hq: int, Hkv: int, D: int,
                 aligned: bool = True) -> P.KernelPlan:
     """What :func:`flash_attention` launches for q (B, S, Hq, D) and k/v
     (B, T, Hkv, D) of ``dtype`` (``csrc/flash_attention.cu``
-    ``dispatch``): at D 80 the plain version's chunked order, 32 query
-    rows a block; else, for bf16 whose pointers are 16-byte aligned
-    (``aligned``, as fresh allocations are), the tensor-core body, 64
-    rows a block in reverse order along S; else the CUDA-core body. One
+    ``dispatch``): at D 80 the plain version's chunked order; else, for
+    bf16 whose pointers are 16-byte aligned (``aligned``, as fresh
+    allocations are), the tensor-core body; else the CUDA-core body. 64
+    query rows a block, in reverse order along S for the first two. One
     block column per (b * Hq + h)."""
     tn = P.type_name(dtype)
     if Hkv <= 0 or Hq % Hkv:
@@ -138,12 +152,10 @@ def launch_plan(B: int, S: int, T: int, Hq: int, Hkv: int, D: int,
     if D == 80:
         if chunk <= 0:
             raise ValueError(f"flash_attention: chunk {chunk} < 1")
-        c = min(chunk, T)
         rows, name, threads, reverse = (CHUNKED_QR,
-                                        f"flash_fwd_chunked<{tn},80>", 256,
-                                        False)
-        smem = 4 * (CHUNKED_QR * D + CHUNKED_QR * (c + 1)
-                    + CHUNKED_KT * (D + 1) + 2 * CHUNKED_QR)
+                                        f"flash_fwd_chunked<{tn},80>",
+                                        CHUNKED_THREADS, True)
+        smem = chunked_smem(D, min(chunk, T), dtype)
     elif dtype == torch.bfloat16 and aligned:
         rows, name, threads, reverse = BQ, f"flash_fwd_mma<{D}>", 128, True
         smem = 2 * (D + 8) * (BQ + 4 * 64)

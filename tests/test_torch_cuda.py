@@ -182,6 +182,20 @@ def test_flash_mma_kernel(dev, B, S, Hq, Hkv, D, causal, window):
     (1, 700, 8, 8, True, 100, 512),    # a window across the chunks
     (2, 150, 4, 4, False, 0, 64),      # not causal, three chunks
     (1, 5, 1, 1, True, 0, 512),        # 5 rows of p: not bit for bit
+    # the edges of the register micro-tiles: 64 query rows a block,
+    # 64-key tiles, a chunk's tiles from a tile boundary of the chunk
+    (1, 65, 4, 4, True, 0, 512),       # a query tile and a row
+    (2, 191, 4, 4, False, 0, 512),     # S % 64 != 0, not causal
+    (1, 300, 4, 4, True, 0, 100),      # a chunk not a key-tile multiple
+    (1, 1000, 4, 4, True, 0, 300),     # a ragged last chunk of 100
+    (2, 257, 4, 4, False, 0, 96),      # both, not causal
+    (1, 700, 4, 4, True, 70, 128),     # a window across key tiles
+    (1, 400, 4, 4, False, 90, 160),    # a window, not causal
+    (1, 300, 8, 4, True, 0, 512),      # G 2
+    (1, 300, 16, 2, True, 0, 256),     # G 8
+    (2, 1024, 16, 16, False, 0, 512),  # hubert-xlarge's forward
+    (1, 1024, 16, 16, True, 0, 512),   # zamba2-2.7b on a (1, 2) mesh rank
+    (2, 300, 16, 16, True, 0, 512),    # its parity prefill on a rank
 ])
 def test_flash_d80_equals_the_plain_version_bit_for_bit(dev, dtype, B, S,
                                                         Hq, Hkv, causal,
@@ -204,6 +218,30 @@ def test_flash_d80_equals_the_plain_version_bit_for_bit(dev, dtype, B, S,
                                  chunk=chunk)
     if B * Hq * S >= 16:
         assert torch.equal(got, want)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,causal,chunk", [
+    (1, 257, 16, 2, True, 256),     # G 8, key 256 alone in its chunk
+    (1, 513, 32, 32, True, 512),    # zamba2-2.7b's heads, 513 tokens
+    (2, 129, 4, 4, False, 64),      # not causal: every row attends it
+])
+def test_flash_d80_one_key_last_chunk(dev, dtype, B, S, Hq, Hkv, causal,
+                                      chunk):
+    """Where the last chunk holds one key (T % chunk == 1) the plain
+    version's products with that key round apart from the D-80 body's in
+    f32 in the rows that attend it (the body before this design did the
+    same; ROADMAP Queue 3). Every other row is equal bit for bit, and
+    every row is within the bar."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    g = torch.Generator(device=dev).manual_seed(S + B + chunk)
+    q, k, v = _flash_case(dev, g, B, S, Hq, Hkv, 80, dtype)
+    got = flash_attention(q, k, v, causal=causal, chunk=chunk)
+    want = flash_attention_plain(q, k, v, causal=causal, chunk=chunk)
+    other = slice(0, S - 1) if causal else slice(0, 0)
+    assert torch.equal(got[:, other], want[:, other])
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
@@ -888,8 +926,9 @@ def test_served_scan_and_norm_bodies_have_no_spills(dev, label, pattern):
     """ptxas reports no spill in the instantiations the served shapes run
     in bf16 (``_build.SERVED_BUILDS``): the SSD scan's three kernels at
     mamba2's widths, RMSNorm at the served widths, prefill and decode
-    row counts, and the split-KV kernels at the served groups past 1
-    (D 128 at G 7, 12 and 16; D 160 at G 4)."""
+    row counts, the split-KV kernels at the served groups past 1
+    (D 128 at G 7, 12 and 16; D 160 at G 4), and flash's D-80 body, whose
+    micro-tiles hold 40 chains a thread (f32 too)."""
     import re
     log = (_build.build_library().parent / "build.log").read_text()
     found = [spill for name, _, spill in _build.ptxas_entries(log)

@@ -291,6 +291,40 @@ def test_ssd_plan_covers_states_sums_and_outputs():
         launch_plan(1, 8, 1, 40, 16, torch.float32)
 
 
+#: (B, S, Hq, Hkv, D, chunk, causal) of flash plans: D 80 at chunks 64,
+#: 256 and 512 over ragged S, causal and not (hubert-xlarge's forward
+#: among them), and one D-64 tensor-core case.
+FLASH_PLAN_CASES = [
+    *((*case, dtype) for dtype in (torch.float32, torch.bfloat16)
+      for case in ((1, 1000, 4, 4, 80, 64, True),
+                   (2, 333, 4, 2, 80, 256, False),
+                   (1, 65, 8, 1, 80, 256, True),
+                   (1, 1024, 32, 32, 80, 512, True),
+                   (2, 1024, 16, 16, 80, 512, False),
+                   (3, 191, 4, 4, 80, 512, True))),
+    (2, 1000, 36, 36, 64, 512, True, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,chunk,causal,dtype",
+                         FLASH_PLAN_CASES)
+def test_flash_plan_covers_every_output_tile(B, S, Hq, Hkv, D, chunk, causal,
+                                             dtype):
+    """The prefill op's plan, as the validator reads it from a call's
+    arguments: its blocks write every output row once, and its shared
+    memory fits the card's opt-in limit (the D-80 body keeps a chunk's
+    scores, so its bytes grow with ``chunk``)."""
+    fn = implementations("prefill_attention")["cuda"]
+    q, k, v = (torch.empty(B, S, h, D, dtype=dtype, device="meta")
+               for h in (Hq, Hkv, Hkv))
+    plan = fn.launch_plan(q, k, v, causal=causal, window=0, chunk=chunk)
+    (launch,) = plan.launches
+    assert launch.kernel == (f"flash_fwd_chunked<{P.type_name(dtype)},80>"
+                             if D == 80 else f"flash_fwd_mma<{D}>")
+    assert _cover(plan) == []
+    assert launch.smem_static + launch.smem_dynamic <= P.SMEM_OPTIN_BYTES
+
+
 def test_plan_names_the_body_the_library_chooses():
     """The body choices of csrc/*.cu, as named in _build.SERVED_BUILDS
     and the tune grids: RMSNorm's vectors a thread, flash's three bodies,
